@@ -1,0 +1,48 @@
+"""mosaic_tpu_torch — the PyTorch/CUDA port of mosaic_tpu.
+
+This slice ports the flagship dense H3 point-in-polygon join: workload,
+tessellation, the dense lattice-window index, the device join (its H3
+lattice projection a hand-written CUDA kernel for Hopper), the f64 host
+recheck and the zone histogram.  The package imports torch and numpy,
+never jax and nothing of ``mosaic_tpu``; its module layout and names
+follow ``mosaic_tpu`` so each module's counterpart is easy to find.
+
+Entry points that create device state (``build_pip_index``,
+``build_dense_pip_index``, ``make_streamed_pip_join``) run on CUDA unless
+the caller passes ``device="cpu"``, and raise RuntimeError when no CUDA
+device exists and none was asked for.
+
+    import mosaic_tpu_torch as mt
+    polys, grid, res = mt.build_workload(n_side=16, grid_name="H3",
+                                         zones="taxi")
+    idx = mt.build_pip_index(polys, res, grid)
+    run = mt.make_streamed_pip_join(idx, grid, polys)
+    zone, rechecked = run(mt.nyc_points(1 << 22))
+"""
+
+from __future__ import annotations
+
+from ._device import resolve_device
+from .bench.workloads import build_workload, nyc_points, taxi_zones
+from .core.geometry.array import GeometryArray, GeometryBuilder, GeometryType
+from .core.geometry.wkt import read_wkt, write_wkt
+from .core.index.factory import get_index_system
+from .core.tessellate import point_chips, tessellate
+from .ops.projection import project_lattice, project_lattice_ref
+from .parallel.pip_join import (DensePIPIndex, build_dense_pip_index,
+                                build_pip_index, dense_index_from_arrays,
+                                host_recheck_fn, localize, make_pip_join_fn,
+                                make_streamed_pip_join, pip_host_truth,
+                                zone_histogram)
+from .types import ChipSet
+
+__all__ = [
+    "resolve_device", "build_workload", "nyc_points", "taxi_zones",
+    "GeometryArray", "GeometryBuilder", "GeometryType", "read_wkt",
+    "write_wkt", "get_index_system", "point_chips", "tessellate",
+    "project_lattice", "project_lattice_ref", "DensePIPIndex",
+    "build_dense_pip_index", "build_pip_index", "dense_index_from_arrays",
+    "host_recheck_fn", "localize", "make_pip_join_fn",
+    "make_streamed_pip_join", "pip_host_truth", "zone_histogram",
+    "ChipSet",
+]

@@ -1,0 +1,309 @@
+"""Synthetic benchmark workloads.
+
+The headline workload mirrors the reference Quickstart
+(notebooks/examples/python/Quickstart/QuickstartNotebook.ipynb): a
+point×polygon PIP join over a city-scale zone partition — NYC taxi pickups
+× ~300 taxi zones (BASELINE.md config 1).  With zero egress the real
+parquet/GeoJSON inputs aren't available, so we generate a statistically
+similar stand-in: a jittered-lattice planar partition of the NYC bbox
+(convex quad "zones", same count/size regime as taxi zones) and uniform
+pickup points.  Exactness is still checked against the float64 host path.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from ..core.geometry.array import GeometryArray, GeometryBuilder
+from ..core.index.base import IndexSystem
+from ..core.index.custom import CustomIndexSystem, GridConf
+
+# NYC-ish bbox (lon/lat)
+NYC = (-74.30, 40.45, -73.65, 40.95)
+# CONUS bbox (lon/lat) for the US-county-scale workload
+CONUS = (-124.7, 24.5, -66.9, 49.4)
+
+
+def conus_counties(n_side: int = 56, seed: int = 23) -> "GeometryArray":
+    """~3.1k-polygon partition of the CONUS bbox with fractal boundaries —
+    the US-county stand-in for BASELINE.md config 2 (grid_tessellate on
+    county polygons).  Reuses the taxi-zone generator at continental
+    scale; hole/merge features off (counties are simple polygons)."""
+    return taxi_zones(n_side=n_side, seed=seed, bbox=CONUS,
+                      hole_every=0, merge_every=0)
+
+
+def nyc_zones(n_side: int = 16, seed: int = 7,
+              bbox: Tuple[float, float, float, float] = NYC
+              ) -> GeometryArray:
+    """A planar partition of ``bbox`` into n_side² convex quads (jittered
+    lattice) — the taxi-zone stand-in."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(bbox[0], bbox[2], n_side + 1)
+    ys = np.linspace(bbox[1], bbox[3], n_side + 1)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    jx = (xs[1] - xs[0]) * 0.30
+    jy = (ys[1] - ys[0]) * 0.30
+    nodes = np.stack([gx, gy], axis=-1)
+    jitter = rng.uniform(-1, 1, nodes.shape) * np.array([jx, jy])
+    jitter[0, :, 0] = jitter[-1, :, 0] = 0.0
+    jitter[:, 0, 1] = jitter[:, -1, 1] = 0.0
+    nodes = nodes + jitter
+    b = GeometryBuilder()
+    for i in range(n_side):
+        for j in range(n_side):
+            ring = np.array([nodes[i, j], nodes[i + 1, j],
+                             nodes[i + 1, j + 1], nodes[i, j + 1],
+                             nodes[i, j]])
+            b.add_polygon(ring)
+    return b.finish()
+
+
+def _wiggle(p0: np.ndarray, p1: np.ndarray, rng,
+            levels: int = 2, amp: float = 0.22) -> np.ndarray:
+    """Midpoint-displacement polyline from p0 to p1 (endpoints fixed).
+
+    Each level halves segments and displaces midpoints perpendicular to
+    the local segment by up to ``amp``×len — the fractal boundary that
+    makes zones concave the way real administrative borders are."""
+    pts = np.array([p0, p1], dtype=np.float64)
+    for _ in range(levels):
+        seg = pts[1:] - pts[:-1]
+        mid = (pts[:-1] + pts[1:]) / 2
+        perp = np.stack([-seg[:, 1], seg[:, 0]], axis=-1)
+        mid = mid + perp * rng.uniform(-amp, amp, (len(mid), 1))
+        out = np.empty((len(pts) + len(mid), 2))
+        out[0::2] = pts
+        out[1::2] = mid
+        pts = out
+    return pts
+
+
+def _fit_hole(ring: np.ndarray, corner_nodes: np.ndarray,
+              pitch_x: float, pitch_y: float):
+    """Largest of a few candidate hole squares strictly inside ``ring``.
+
+    The fractal boundary can intrude deep into the cell, so candidate
+    holes are validated (all corners inside, clear of the boundary by a
+    margin) and shrunk until one fits; None if none does — a hole that
+    crossed its cell's boundary would break the partition property."""
+    from ..core.geometry.clip import (_pip_rings, _seg_point_dist,
+                                      proper_crossings)
+    c = corner_nodes.mean(axis=0)
+    closed = np.vstack([ring, ring[:1]])
+    edges = np.stack([closed[:-1], closed[1:]], axis=1)
+
+    margin = 0.02 * min(pitch_x, pitch_y)
+    for scale in (0.16, 0.12, 0.08, 0.05):
+        hw, hh = pitch_x * scale, pitch_y * scale
+        sq = np.array([[c[0] - hw, c[1] - hh], [c[0] + hw, c[1] - hh],
+                       [c[0] + hw, c[1] + hh], [c[0] - hw, c[1] + hh],
+                       [c[0] - hw, c[1] - hh]])
+        hole_edges = np.stack([sq[:-1], sq[1:]], axis=1)
+        if np.all(_pip_rings(sq[:4], [ring])) and \
+                _seg_point_dist(sq[:4], edges).min() > margin and \
+                not np.any(proper_crossings(hole_edges, edges)):
+            return sq
+    return None
+
+
+def taxi_zones(n_side: int = 16, seed: int = 7,
+               bbox: Tuple[float, float, float, float] = NYC,
+               hole_every: int = 7, merge_every: int = 11
+               ) -> GeometryArray:
+    """The honest taxi-zone stand-in: a planar partition of ``bbox`` into
+    concave multipolygon zones with holes.
+
+    Construction keeps the partition property (every interior point in
+    exactly one zone — required for zone-assignment semantics):
+
+    - lattice nodes are jittered, then every interior lattice edge is
+      replaced by a shared fractal polyline (midpoint displacement), so
+      both zones flanking it stay watertight while their rings become
+      concave (many more border chips per zone, like real taxi zones);
+    - every ``hole_every``-th cell gets a hole whose region is emitted as
+      a separate island zone (donut + island — exercises hole handling
+      end-to-end, still a partition);
+    - every ``merge_every``-th pair of far-apart cells is merged into one
+      MULTIPOLYGON zone (two disjoint parts under one zone id).
+    """
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(bbox[0], bbox[2], n_side + 1)
+    ys = np.linspace(bbox[1], bbox[3], n_side + 1)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    jx = (xs[1] - xs[0]) * 0.25
+    jy = (ys[1] - ys[0]) * 0.25
+    nodes = np.stack([gx, gy], axis=-1)
+    jitter = rng.uniform(-1, 1, nodes.shape) * np.array([jx, jy])
+    jitter[0, :, 0] = jitter[-1, :, 0] = 0.0
+    jitter[:, 0, 1] = jitter[:, -1, 1] = 0.0
+    nodes = nodes + jitter
+
+    # Shared fractal polylines per lattice edge, seeded per edge so any
+    # edge can be regenerated with a smaller amplitude independently.
+    # Boundary edges stay straight.
+    amp0 = 0.22
+    level = {}                      # edge key -> amplitude halvings
+
+    def edge_poly(kind, i, j):
+        if kind == "h":
+            a, b = nodes[i, j], nodes[i + 1, j]
+            straight = j == 0 or j == n_side
+        else:
+            a, b = nodes[i, j], nodes[i, j + 1]
+            straight = i == 0 or i == n_side
+        if straight:
+            return np.array([a, b])
+        k = level.get((kind, i, j), 0)
+        erng = np.random.default_rng(
+            np.random.SeedSequence([seed, 1 + (kind == "v"), i, j, k]))
+        return _wiggle(a, b, erng, amp=amp0 * 0.5 ** k)
+
+    # hedge[i][j]: nodes[i,j] -> nodes[i+1,j]; vedge[i][j]: -> nodes[i,j+1]
+    def build_edges():
+        h = [[edge_poly("h", i, j) for j in range(n_side + 1)]
+             for i in range(n_side)]
+        v = [[edge_poly("v", i, j) for j in range(n_side)]
+             for i in range(n_side + 1)]
+        return h, v
+
+    def cell_ring(i, j):
+        bottom = hedge[i][j]
+        right = vedge[i + 1][j]
+        top = hedge[i][j + 1][::-1]
+        left = vedge[i][j][::-1]
+        return np.concatenate([bottom[:-1], right[:-1], top[:-1], left])
+
+    def cell_edge_keys(i, j):
+        return [("h", i, j), ("h", i, j + 1), ("v", i, j), ("v", i + 1, j)]
+
+    from ..core.geometry.clip import proper_crossings
+
+    def ring_edges(r):
+        return np.stack([r, np.roll(r, -1, axis=0)], axis=1)
+
+    def ring_self_crosses(r):
+        return bool(np.any(np.triu(proper_crossings(ring_edges(r),
+                                                    ring_edges(r)), 2)))
+
+    def rings_cross(r1, r2):
+        # proper crossings only: shared (identical) polyline segments are
+        # collinear and never register as proper
+        return bool(np.any(proper_crossings(ring_edges(r1),
+                                            ring_edges(r2))))
+
+    # validation loop: any self-crossing ring or crossing nearby pair
+    # gets its cells' edges regenerated at half amplitude; converges to
+    # straight edges, which always form a simple partition.  Fractal
+    # excursion + node jitter can reach ~0.75 of the pitch, so pairs up
+    # to Chebyshev distance 2 are checked (reach 2×0.75 < 2 pitches).
+    near = [(di, dj) for di in range(0, 3) for dj in range(-2, 3)
+            if (di, dj) > (0, 0)]
+    for _ in range(8):
+        hedge, vedge = build_edges()
+        rings = {(i, j): cell_ring(i, j) for i in range(n_side)
+                 for j in range(n_side)}
+        offenders = set()
+        for (i, j), r in rings.items():
+            if ring_self_crosses(r):
+                offenders.add((i, j))
+        for i in range(n_side):
+            for j in range(n_side):
+                for di, dj in near:
+                    ni, nj = i + di, j + dj
+                    if not (0 <= ni < n_side and 0 <= nj < n_side):
+                        continue
+                    if rings_cross(rings[(i, j)], rings[(ni, nj)]):
+                        offenders.add((i, j))
+                        offenders.add((ni, nj))
+        if not offenders:
+            break
+        for cell in offenders:
+            for key in cell_edge_keys(*cell):
+                level[key] = level.get(key, 0) + 1
+    else:
+        raise RuntimeError("taxi_zones failed to converge to a simple "
+                           "partition")
+
+    cells = {}
+    for i in range(n_side):
+        for j in range(n_side):
+            ring = rings[(i, j)]
+            k = i * n_side + j
+            holes, islands = [], []
+            if hole_every and k % hole_every == 3:
+                sq = _fit_hole(ring, nodes[i:i + 2, j:j + 2].reshape(4, 2),
+                               xs[1] - xs[0], ys[1] - ys[0])
+                if sq is not None:
+                    holes.append(sq[::-1])      # CW hole
+                    islands.append(sq)          # CCW island zone
+            ring = np.vstack([ring, ring[:1]])
+            cells[(i, j)] = (ring, holes, islands)
+
+    b = GeometryBuilder()
+    merged = set()
+    keys = sorted(cells)
+    pending_islands = []
+    for idx, key in enumerate(keys):
+        if key in merged:
+            continue
+        ring, holes, islands = cells[key]
+        parts = [(ring, holes)]
+        if merge_every and idx % merge_every == 5:
+            # merge with the diagonally opposite cell if still free
+            mate = (n_side - 1 - key[0], n_side - 1 - key[1])
+            if mate != key and mate not in merged and mate in cells \
+                    and mate > key:
+                r2, h2, is2 = cells[mate]
+                parts.append((r2, h2))
+                pending_islands.extend(is2)
+                merged.add(mate)
+        pending_islands.extend(islands)
+        if len(parts) == 1:
+            b.add_polygon(parts[0][0], parts[0][1])
+        else:
+            b.add_multipolygon([[s, *hs] for s, hs in parts])
+    for isl in pending_islands:
+        b.add_polygon(isl)
+    return b.finish()
+
+
+def nyc_points(n: int, seed: int = 11,
+               bbox: Tuple[float, float, float, float] = NYC) -> np.ndarray:
+    """[n, 2] float64 uniform points over the bbox (pickups stand-in)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(bbox[0], bbox[2], n),
+                     rng.uniform(bbox[1], bbox[3], n)], axis=-1)
+
+
+def nyc_grid(res_cells: int = 512,
+             bbox: Tuple[float, float, float, float] = NYC
+             ) -> Tuple[IndexSystem, int]:
+    """A rectangular grid over the bbox whose finest listed resolution has
+    ``res_cells`` cells per axis — cell size comparable to H3 res 9 over a
+    city (~175 m)."""
+    splits = 2
+    res = int(np.round(np.log2(res_cells)))
+    return CustomIndexSystem(GridConf(
+        bbox[0], bbox[2], bbox[1], bbox[3], splits,
+        (bbox[2] - bbox[0]), (bbox[3] - bbox[1]), 4326)), res
+
+
+def build_workload(n_side: int = 16, res_cells: int = 512,
+                   grid_name: str = "CUSTOM", h3_res: int = 9,
+                   zones: str = "quad"):
+    """(polys, grid, res) for the PIP-join benchmark.
+
+    grid_name "H3" is the headline config (BASELINE.md config 1: taxi
+    zones at H3 res 9); "CUSTOM" keeps the rectangular grid for
+    grid-agnostic engine benchmarks.  zones="taxi" selects the honest
+    concave-multipolygon-with-holes partition; "quad" the convex lattice
+    (kept for fast unit tests)."""
+    polys = taxi_zones(n_side) if zones == "taxi" else nyc_zones(n_side)
+    if grid_name.upper() == "H3":
+        from ..core.index.factory import get_index_system
+        return polys, get_index_system("H3"), h3_res
+    grid, res = nyc_grid(res_cells)
+    return polys, grid, res

@@ -1,0 +1,137 @@
+"""Padded edge blocks: ragged geometry batches as dense [G, E, 2] edges.
+
+Port copy of the numpy half of ``mosaic_tpu.core.geometry.padded``
+(``build_edges_np``), which the dense PIP index builder calls.  Edge
+capacity is the next power of two >= the max edge count (min 8);
+winding is normalized so shells are CCW and holes CW.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from .array import GeometryArray, GeometryType
+
+
+def _pad_cap(n: int, minimum: int = 8) -> int:
+    cap = minimum
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def build_edges_np(arr: GeometryArray, capacity: Optional[int] = None,
+                   normalize: bool = True):
+    """Numpy-f64 core of build_edges: (A, B, M) padded edge blocks."""
+    return _build_edges_np(arr, capacity, normalize)
+
+
+def _build_edges_np(arr: GeometryArray, capacity: Optional[int],
+                    normalize: bool):
+    """Vectorized over ALL rings at once: per-ring shoelace by
+    reduceat, orientation normalization as an edge-direction swap, and
+    one fancy-index scatter into the padded blocks.  The per-ring
+    Python loop this replaces (np.roll x3 + area per ring) was the
+    bulk of overlay packing — 2.6 s of a 4.8 s overlay on 37k rings."""
+    g = len(arr)
+    ring_part = np.asarray(arr.ring_part_ids())
+    part_geom = np.asarray(arr.part_geom_ids())
+    ptypes = np.asarray(arr.part_types_effective())
+    ro = np.asarray(arr.ring_offsets, np.int64)
+    R = arr.num_rings
+    coords = np.asarray(arr.coords, np.float64)[:, :2]
+    if R == 0:
+        cap = capacity or _pad_cap(1)
+        return (np.zeros((g, cap, 2)), np.zeros((g, cap, 2)),
+                np.zeros((g, cap), bool))
+    lens = ro[1:] - ro[:-1]
+    gi_of = part_geom[ring_part]
+    t = ptypes[ring_part]
+    polyish = ((t == int(GeometryType.POLYGON)) |
+               (t == int(GeometryType.MULTIPOLYGON)) |
+               (t == int(GeometryType.GEOMETRYCOLLECTION)))
+    nz = lens > 0
+    closed = np.zeros(R, bool)
+    has2 = nz & (lens >= 2)
+    closed[has2] = np.all(coords[ro[:-1][has2]] ==
+                          coords[ro[1:][has2] - 1], axis=1)
+    is_poly = polyish & (lens >= 3)
+    body_len = np.where(is_poly, lens - closed, 0)
+    is_poly &= body_len >= 3
+    body_len = np.where(is_poly, body_len, 0)
+    # open (line) rings contribute len-1 segments
+    is_line = ~is_poly & (lens >= 2)
+    n_edges_ring = np.where(is_poly, body_len,
+                            np.where(is_line, lens - 1, 0))
+    counts = np.bincount(gi_of, weights=n_edges_ring,
+                         minlength=g).astype(np.int64)
+    cap = capacity or _pad_cap(int(counts.max()) if g else 1)
+    if int(counts.max(initial=0)) > cap:
+        i = int(np.argmax(counts))
+        raise ValueError(
+            f"geometry {i} has {int(counts[i])} edges > capacity {cap}")
+    A = np.zeros((g, cap, 2), dtype=np.float64)
+    B = np.zeros((g, cap, 2), dtype=np.float64)
+    M = np.zeros((g, cap), dtype=bool)
+
+    def expand(starts, ln):
+        """Concatenated aranges: [starts[i], starts[i]+ln[i]) per i."""
+        tot = int(ln.sum())
+        if tot == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        reps = np.repeat(np.arange(len(ln)), ln)
+        base = np.concatenate([[0], np.cumsum(ln)[:-1]])
+        within = np.arange(tot) - base[reps]
+        return starts[reps] + within, reps
+
+    # destination column base per ring: running edge count within its
+    # geometry (rings are stored in ascending geometry order)
+    ecum = np.concatenate([[0], np.cumsum(n_edges_ring)[:-1]])
+    gbase = np.zeros(R, np.int64)
+    first_ring_of_geom = np.searchsorted(gi_of, np.arange(g))
+    gbase = ecum - ecum[np.minimum(first_ring_of_geom[gi_of], R - 1)]
+
+    # ---- polygon rings: body vertices + wraparound edges
+    pr = np.nonzero(is_poly)[0]
+    if len(pr):
+        vidx, reps = expand(ro[:-1][pr], body_len[pr])
+        ring_of_edge = pr[reps]
+        # next vertex with wraparound at each ring's body end
+        ends = np.concatenate([[0], np.cumsum(body_len[pr])])
+        nxt = vidx + 1
+        nxt[ends[1:] - 1] = ro[:-1][pr]           # wrap to ring start
+        av = coords[vidx]
+        bv = coords[nxt]
+        if normalize:
+            cross = (av[:, 0] * bv[:, 1] - bv[:, 0] * av[:, 1])
+            sa = np.add.reduceat(cross, ends[:-1])
+            # shells (first ring of their part) must be CCW, holes CW
+            parts_pr = ring_part[pr]
+            first_of_part = np.searchsorted(ring_part,
+                                            np.arange(ring_part.max()
+                                                      + 1))
+            is_shell = first_of_part[parts_pr] == pr
+            flip = np.where(is_shell, sa < 0, sa > 0)
+            fe = flip[reps]
+            av, bv = (np.where(fe[:, None], bv, av),
+                      np.where(fe[:, None], av, bv))
+        dest_col = gbase[ring_of_edge] + (np.arange(len(vidx)) -
+                                          ends[:-1][reps])
+        A[gi_of[ring_of_edge], dest_col] = av
+        B[gi_of[ring_of_edge], dest_col] = bv
+        M[gi_of[ring_of_edge], dest_col] = True
+
+    # ---- line rings: open segments
+    lr = np.nonzero(is_line)[0]
+    if len(lr):
+        vidx, reps = expand(ro[:-1][lr], lens[lr] - 1)
+        ring_of_edge = lr[reps]
+        ends = np.concatenate([[0], np.cumsum(lens[lr] - 1)])
+        dest_col = gbase[ring_of_edge] + (np.arange(len(vidx)) -
+                                          ends[:-1][reps])
+        A[gi_of[ring_of_edge], dest_col] = coords[vidx]
+        B[gi_of[ring_of_edge], dest_col] = coords[vidx + 1]
+        M[gi_of[ring_of_edge], dest_col] = True
+    return A, B, M

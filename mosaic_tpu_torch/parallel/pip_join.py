@@ -1,0 +1,598 @@
+"""The index-accelerated point-in-polygon join, dense H3 slice.
+
+Port of the dense lattice-window path of ``mosaic_tpu.parallel.pip_join``
+(the flagship join).  Reference counterpart: the Quickstart workload —
+points get ``grid_pointascellid``, polygons get
+``grid_tessellateexplode``, Spark equi-joins on cell id, then filters
+``is_core OR st_contains(chip, point)``.
+
+The per-point pipeline on the device:
+
+    (face, a, b, margin, facegap) = H3 lattice projection   # CUDA kernel
+    entry  = dense window table[(a, b)]                      # one gather
+    inside = per-zone crossing parity vs the cell's merged chip pool row
+    zone   = core hit ? core zone : first zone the point is inside
+
+Points whose f32 result could differ from the exact f64 one are flagged
+``uncertain`` and rechecked on the host in f64 against the original chip
+edges, so the final zones equal the exact oracle ``pip_host_truth``.
+
+Only the dense index is ported here.  Workloads that need the JAX
+package's grid-agnostic sorted-table index (non-H3 grids, windows across
+icosahedron faces, overlapping polygons) raise NotImplementedError naming
+the reason in ``LAST_DENSE_REJECT``; the sorted path comes in a later
+slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..core.geometry.array import GeometryArray
+from ..core.geometry.padded import build_edges_np
+from ..core.index.h3 import hexmath as hm
+from ..core.index.h3.constants import M_SQRT7, RES0_U_GNOMONIC
+from ..core.index.h3.system import H3IndexSystem
+from ..core.index.h3.torchkernel import (FACEGAP_EPS, MAX_LOCAL_DEG,
+                                         err_lattice_bound)
+from ..core.tessellate import _pip, _poly_edges, tessellate
+from ..ops.projection import project_lattice
+from ..perf.pipeline import chunk_rows, stream
+from ..types import ChipSet
+
+#: f32 hazard band (degrees) around chip edges for the crossing-parity
+#: test: covers the f32 representation of points and chip vertices
+#: (~1.5e-8 deg at city magnitudes) and the f32 edge-intersection
+#: arithmetic (~1e-7 deg), with ~8x safety.
+EPS_EDGE_DEG = 1e-6
+
+#: rows per chunk of the streamed join (the JAX package's
+#: ``mosaic.stream.chunk.rows`` default)
+DEFAULT_CHUNK_ROWS = 1 << 18
+
+CORE_FLAG = np.int32(1) << 30
+
+
+def _workload_origin(polys: GeometryArray) -> np.ndarray:
+    """Shared local-frame origin of a polygon batch: round(mean bbox)."""
+    bb = polys.bboxes()
+    return np.round(np.array(
+        [np.nanmean(bb[:, [0, 2]]), np.nanmean(bb[:, [1, 3]])]), 1)
+
+
+def localize(idx, points64: np.ndarray) -> np.ndarray:
+    """Absolute float64 points -> local-frame float32 device input.
+
+    The origin shift happens in float64 BEFORE the float32 cast, so the
+    device sees full point precision in the frame the chips live in."""
+    return np.asarray(points64 - np.asarray(idx.origin)[None],
+                      np.float32)
+
+
+@dataclasses.dataclass
+class DensePIPIndex:
+    """Dense-window tessellation index (H3, one face), its tensors on
+    one device.
+
+    entry  [W*H] i32   per lattice cell: -1 empty; CORE_FLAG|zone core;
+                       else group index into pool
+    pool   [G, E, 5]   merged chip edges per border cell, local-frame
+                       f32: ax, ay, bx, by, zslot (-1 pad; pad coords
+                       at +1e9 so they never straddle/flag)
+    gzones [G, Z] i32  distinct zone ids per group (-1 pad)
+    gwide  [G] bool    group's edges exceed the pool width: every point
+                       landing there is flagged for the host recheck
+    origin [2] f64     local-frame origin (lon, lat), host numpy
+    face0, a0, b0, W, H, res, err_lattice (margin threshold), n_zones,
+    ext_deg (max |local degree| of the window, + slack)
+    aux    host f64 recheck tables (see host_recheck_fn)
+    """
+
+    entry: torch.Tensor
+    pool: torch.Tensor
+    gzones: torch.Tensor
+    gwide: torch.Tensor
+    origin: np.ndarray
+    face0: int
+    a0: int
+    b0: int
+    W: int
+    H: int
+    res: int
+    err_lattice: float
+    n_zones: int
+    ext_deg: float = 2.0
+    aux: Optional[dict] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.entry.device
+
+    @property
+    def num_chips(self) -> int:
+        return int(self.pool.shape[0])
+
+
+def dense_index_from_arrays(tables: dict, device: DeviceLike = None
+                            ) -> DensePIPIndex:
+    """A DensePIPIndex from host arrays: ``entry``, ``pool``, ``gzones``,
+    ``gwide``, ``origin`` (numpy), the statics ``face0 a0 b0 W H res
+    err_lattice n_zones ext_deg``, and ``aux`` (the recheck tables
+    ``flat_a flat_b edge_zslot gstart gzones64``; other keys ignored).
+    It carries an index built elsewhere — for instance by the JAX
+    package — onto ``device`` unchanged."""
+    dev = resolve_device(device)
+
+    def own(key, dtype):
+        # a private copy: the index must not alias the caller's arrays
+        return torch.from_numpy(np.array(tables[key], dtype)).to(dev)
+
+    aux = tables.get("aux")
+    if aux is not None:
+        aux = {k: np.array(aux[k]) for k in
+               ("flat_a", "flat_b", "edge_zslot", "gstart", "gzones64")}
+    return DensePIPIndex(
+        entry=own("entry", np.int32), pool=own("pool", np.float32),
+        gzones=own("gzones", np.int32), gwide=own("gwide", bool),
+        origin=np.array(tables["origin"], np.float64),
+        face0=int(tables["face0"]), a0=int(tables["a0"]),
+        b0=int(tables["b0"]), W=int(tables["W"]), H=int(tables["H"]),
+        res=int(tables["res"]), err_lattice=float(tables["err_lattice"]),
+        n_zones=int(tables["n_zones"]), ext_deg=float(tables["ext_deg"]),
+        aux=aux)
+
+
+def _host_lattice(pts_deg: np.ndarray, res: int):
+    """f64 (face, a, b) of absolute lon/lat degree points (host truth)."""
+    latlng = np.radians(np.asarray(pts_deg, np.float64)[:, ::-1])
+    face, hex2d = hm.project_lattice(latlng, res)
+    ijk = hm.hex2d_to_ijk(hex2d)
+    return face, ijk[:, 0] - ijk[:, 2], ijk[:, 1] - ijk[:, 2]
+
+
+#: why the last build_dense_pip_index call fell back (None = it
+#: didn't), so a workload losing the dense path is diagnosable
+LAST_DENSE_REJECT: Optional[str] = None
+
+
+def _dense_reject(reason: str) -> None:
+    global LAST_DENSE_REJECT
+    LAST_DENSE_REJECT = reason
+
+
+def build_dense_pip_index(polys: GeometryArray, res: int, grid,
+                          chips: Optional[ChipSet] = None,
+                          device: DeviceLike = None
+                          ) -> Optional[DensePIPIndex]:
+    """Build the dense-window index on ``device`` (CUDA unless the
+    caller passes ``"cpu"``), or None when the workload doesn't fit the
+    dense path (non-H3 grid, cells spanning icosahedron faces, window
+    larger than the df Taylor bound, or overlapping polygons putting one
+    cell in both core and border sets).  The reject reason lands in
+    ``LAST_DENSE_REJECT``."""
+    global LAST_DENSE_REJECT
+    LAST_DENSE_REJECT = None
+    dev = resolve_device(device)
+
+    if not isinstance(grid, H3IndexSystem):
+        _dense_reject("non_h3_grid")
+        return None
+    if chips is None:
+        chips = tessellate(polys, res, grid, keep_core_geom=False)
+    if len(chips) == 0:
+        _dense_reject("no_chips")
+        return None
+
+    cells = np.unique(chips.cell_id)
+    centers = grid.cell_center(cells)                    # [C, 2] deg
+    origin = _workload_origin(polys)
+    _, circ = grid._cell_metrics_deg(res)                # max circumradius
+    # 2x: circumradius is angular degrees; lon extent is circ/cos(lat)
+    ext = float(max(np.max(np.abs(centers[:, 0] - origin[0])),
+                    np.max(np.abs(centers[:, 1] - origin[1])))) + 2 * circ
+    if ext > MAX_LOCAL_DEG - 0.1:
+        _dense_reject("window_extent")
+        return None
+    face_c, a_c, b_c = _host_lattice(centers, res)
+    if len(np.unique(face_c)) != 1:
+        _dense_reject("multi_face")
+        return None
+    # face-edge safety: every window cell must be interior enough that
+    # no point of it can argmax to another face (facegap ≈ angular
+    # distance to the face boundary; 0.02 ≈ 1.1 degrees of arc)
+    xyz = hm.geo_to_xyz(np.radians(centers[:, ::-1]))
+    dots = xyz @ hm.face_center_xyz().T
+    srt = np.sort(dots, axis=1)
+    if np.min(srt[:, -1] - srt[:, -2]) < 0.02:
+        _dense_reject("face_edge_band")
+        return None
+
+    core = chips.is_core
+    core_cells = chips.cell_id[core]
+    if len(np.intersect1d(core_cells, chips.cell_id[~core])):
+        _dense_reject("overlap_regime")
+        return None
+    if len(np.unique(core_cells)) != len(core_cells):
+        _dense_reject("duplicate_core")
+        return None
+
+    face0 = int(face_c[0])
+    a0, b0 = int(a_c.min()) - 1, int(b_c.min()) - 1
+    W = int(a_c.max()) - a0 + 2
+    H = int(b_c.max()) - b0 + 2
+    if W * H > 64_000_000:
+        _dense_reject("window_too_large")
+        return None
+
+    lat_of = {int(c): (int(a), int(b))
+              for c, a, b in zip(cells, a_c, b_c)}
+
+    entry = np.full(W * H, -1, np.int32)
+
+    def lin(cell):
+        a, b = lat_of[int(cell)]
+        return (a - a0) * H + (b - b0)
+
+    for c, z in zip(core_cells, chips.geom_id[core]):
+        entry[lin(c)] = np.int32(z) | CORE_FLAG
+
+    # ---- border groups: all chips of a cell merged into one edge soup
+    b_cells = chips.cell_id[~core]
+    b_zone = chips.geom_id[~core].astype(np.int32)
+    border_idx = np.nonzero(~core)[0]
+    order = np.argsort(b_cells, kind="stable")
+    b_cells, b_zone = b_cells[order], b_zone[order]
+    chip_geoms = chips.geoms.take(border_idx[order])
+    A, B, M = build_edges_np(chip_geoms)                 # [Bc, cap, 2] f64
+    cnt = M.sum(axis=1)
+
+    ucells, ustart = np.unique(b_cells, return_index=True)
+    G = len(ucells)
+    gidx = np.searchsorted(ucells, b_cells)              # chip -> group
+    gedges = np.bincount(gidx, weights=cnt).astype(np.int64)
+    # pool width covers the 98th-percentile group; wider groups are
+    # truncated and their cells flagged always-uncertain (host f64
+    # resolves them exactly) — one pathological cell must not pad the
+    # kernel for every point
+    emax = int(gedges.max()) if G else 0
+    etarget = int(max(np.quantile(gedges, 0.98), 8)) if G else 8
+    E = 8
+    while E < min(emax, etarget):
+        E *= 2
+    E = min(E, 512)
+    gwide_np = gedges > E
+    if G and float(gwide_np.mean()) > 0.2:
+        # most cells would bounce to host: dense is the wrong shape
+        _dense_reject("pathological_cell")
+        return None
+
+    # distinct zones per group, first-appearance order; per-chip zslot
+    gzone_lists: list = [[] for _ in range(G)]
+    zslot_chip = np.zeros(len(b_cells), np.int32)
+    for i in range(len(b_cells)):
+        zl = gzone_lists[gidx[i]]
+        z = int(b_zone[i])
+        if z not in zl:
+            zl.append(z)
+        zslot_chip[i] = zl.index(z)
+    Z = max(1, max(len(zl) for zl in gzone_lists))
+    gzones = np.full((G, Z), -1, np.int32)
+    for g, zl in enumerate(gzone_lists):
+        gzones[g, :len(zl)] = zl
+
+    for g, c in enumerate(ucells):
+        entry[lin(c)] = np.int32(g)
+
+    # flatten valid edges in (group, chip, edge) order — already sorted
+    flat_a = A[M]                                        # [Etot, 2] f64
+    flat_b = B[M]
+    edge_chip = np.repeat(np.arange(len(b_cells)), cnt.astype(np.int64))
+    edge_group = gidx[edge_chip]
+    edge_zslot = zslot_chip[edge_chip]
+    gstart = np.zeros(G + 1, np.int64)
+    np.cumsum(gedges, out=gstart[1:])
+    pos = np.arange(len(flat_a)) - gstart[edge_group]
+
+    pool = np.full((max(G, 1), E, 5), 1e9, np.float32)
+    pool[..., 4] = -1.0
+    loc_a = flat_a - origin[None]
+    loc_b = flat_b - origin[None]
+    fits = pos < E                       # wide-group overflow truncated
+    eg, ep = edge_group[fits], pos[fits]
+    pool[eg, ep, 0] = loc_a[fits, 0].astype(np.float32)
+    pool[eg, ep, 1] = loc_a[fits, 1].astype(np.float32)
+    pool[eg, ep, 2] = loc_b[fits, 0].astype(np.float32)
+    pool[eg, ep, 3] = loc_b[fits, 1].astype(np.float32)
+    pool[eg, ep, 4] = edge_zslot[fits].astype(np.float32)
+
+    ext_deg = float(ext) + 0.1
+    # the margin threshold of the arithmetic the port runs: df
+    err = err_lattice_bound(res, "df", ext_deg, localized=True)
+    # widen by the cell-edge sagitta: points between the true (gnomonic)
+    # cell boundary and the straight lon/lat chord the chips were
+    # clipped against must re-rank on host (negligible at city
+    # resolutions, dominant at coarse ones).  Exact over the window's
+    # own cells; degrees -> lattice units via the gnomonic scale.
+    sag_deg = grid.cells_edge_sagitta_deg(cells)
+    err = max(err, 2.0 * np.radians(sag_deg) * M_SQRT7 ** res /
+              RES0_U_GNOMONIC)
+    return dense_index_from_arrays(dict(
+        entry=entry, pool=pool, gzones=gzones,
+        gwide=np.resize(gwide_np, max(G, 1)), origin=origin,
+        face0=face0, a0=a0, b0=b0, W=W, H=H, res=res, err_lattice=err,
+        n_zones=len(polys), ext_deg=ext_deg,
+        aux={"flat_a": flat_a, "flat_b": flat_b,
+             "edge_zslot": edge_zslot.astype(np.int64),
+             "gstart": gstart, "gzones64": gzones.astype(np.int64)}),
+        dev)
+
+
+def build_pip_index(polys: GeometryArray, res: int, grid,
+                    chips: Optional[ChipSet] = None, dense: str = "auto",
+                    device: DeviceLike = None) -> DensePIPIndex:
+    """Tessellate polygons and lay the chips out for the device join.
+
+    Only the dense lattice-window index is ported: ``dense="never"``,
+    and workloads the dense path rejects, raise NotImplementedError
+    naming the reason (``LAST_DENSE_REJECT``)."""
+    dev = resolve_device(device)
+    if dense == "never":
+        raise NotImplementedError(
+            "the sorted-table PIPIndex is not ported to mosaic_tpu_torch "
+            "yet")
+    idx = build_dense_pip_index(polys, res, grid, chips=chips, device=dev)
+    if idx is None:
+        raise NotImplementedError(
+            "workload does not fit the dense fast path "
+            f"(LAST_DENSE_REJECT={LAST_DENSE_REJECT!r}) and the "
+            "sorted-table join is not ported to mosaic_tpu_torch yet")
+    return idx
+
+
+def make_pip_join_fn(idx, grid=None, eps: Optional[float] = None,
+                     margin_eps: Optional[float] = None):
+    """``local_points -> (zone, uncertain)`` for an index; inputs come
+    from ``localize`` (local-frame float32, on the index's device).
+    Dense indexes dispatch to make_dense_pip_join_fn; ``grid`` is kept
+    for the JAX package's signature (the dense join does not read it).
+
+    Exactness contract: every float32 hazard raises ``uncertain``, and
+    the f64 host recheck resolves those."""
+    if not isinstance(idx, DensePIPIndex):
+        raise NotImplementedError(
+            "only the dense PIP index is ported to mosaic_tpu_torch")
+    return make_dense_pip_join_fn(
+        idx, eps=EPS_EDGE_DEG if eps is None else eps,
+        margin_eps_deg=margin_eps)
+
+
+def make_dense_pip_join_fn(idx: DensePIPIndex, eps: float = EPS_EDGE_DEG,
+                           margin_eps_deg: Optional[float] = None
+                           ) -> Callable[[torch.Tensor],
+                                         Tuple[torch.Tensor, torch.Tensor]]:
+    """``local_points [N, 2] f32 -> (zone [N] i32, uncertain [N] bool)``
+    on the dense index, on the index's device.  On CUDA the projection is
+    the hand-written kernel; the join body is torch ops.
+
+    Exactness contract: every f32 hazard raises ``uncertain`` — (a)
+    hex-boundary margin below the df projection's validated error bound
+    (cell assignment could differ from f64), (b) nearest-face ambiguity,
+    (c) edge-crossing tests within ``eps`` of flipping (horizontal
+    crossing distance or ray-through-vertex), (d) a point in a wide
+    group.  Points beyond the window's local extent are out-of-domain by
+    construction: zone -1, certain.  host_recheck_fn resolves flagged
+    points in f64."""
+    Z = int(idx.gzones.shape[1])
+    # the projection always runs df; the margin threshold must match it
+    err_lat = max(idx.err_lattice, err_lattice_bound(
+        idx.res, "df", idx.ext_deg, localized=True))
+    if margin_eps_deg is not None:
+        # honor a caller-requested degree band: degrees -> lattice units
+        scale = M_SQRT7 ** idx.res / RES0_U_GNOMONIC
+        err_lat = max(err_lat, margin_eps_deg * np.pi / 180.0 * scale)
+    err32 = float(np.float32(err_lat))
+    gap32 = float(np.float32(FACEGAP_EPS))
+    eps32 = float(np.float32(eps))
+    far_lim = float(np.float32(idx.ext_deg + 0.05))
+    origin = (float(idx.origin[0]), float(idx.origin[1]))
+    # TF32 cannot reach the face selection: its dot runs inside the
+    # projection kernel (built with -fmad=false), and the join body is
+    # elementwise and gather ops, no matmul.  Reduced-precision dots
+    # shifted face selection by 13 cells in the JAX package, so a
+    # product moved to torch.matmul must turn TF32 off around its call.
+
+    def fn(points: torch.Tensor):
+        if points.device != idx.device:
+            raise ValueError(f"points on {points.device}, index on "
+                             f"{idx.device}")
+        face, ai, bi, margin, facegap = project_lattice(points, idx.res,
+                                                        origin)
+        far = (points[:, 0].abs() > far_lim) | \
+            (points[:, 1].abs() > far_lim)
+        ia = ai - idx.a0
+        ib = bi - idx.b0
+        inw = ((face == idx.face0) & (ia >= 0) & (ia < idx.W) &
+               (ib >= 0) & (ib < idx.H))
+        lidx = torch.where(inw, ia * idx.H + ib, 0).long()
+        e = torch.where(inw, idx.entry[lidx], -1)
+        is_core = (e >= 0) & ((e & int(CORE_FLAG)) != 0)
+        zone_core = torch.where(is_core, e & ~int(CORE_FLAG), -1)
+        is_border = (e >= 0) & ~is_core
+
+        g = torch.where(is_border, e, 0).long()
+        rec = idx.pool[g]                               # [N, E, 5]
+        ax, ay = rec[..., 0], rec[..., 1]
+        bx, by = rec[..., 2], rec[..., 3]
+        zs = rec[..., 4].to(torch.int32)
+        px = points[:, None, 0]
+        py = points[:, None, 1]
+        straddle = (ay <= py) != (by <= py)
+        t = (py - ay) / torch.where(by == ay, torch.ones_like(by), by - ay)
+        xi = ax + t * (bx - ax)
+        crossed = straddle & (px < xi)
+        near_cross = straddle & ((px - xi).abs() < eps32)
+        near_vertex = ((py - ay).abs() < eps32) & \
+            (px < torch.maximum(ax, bx) + eps32)
+        edge_flag = (near_cross | near_vertex).any(dim=-1) & is_border
+
+        inside = torch.stack(
+            [((crossed & (zs == z)).sum(dim=-1) & 1).bool()
+             for z in range(Z)], dim=-1)                # [N, Z]
+        first = torch.argmax(inside.to(torch.uint8), dim=-1)
+        any_in = inside.any(dim=-1)
+        gz = idx.gzones[g]                              # [N, Z]
+        zone_border = torch.where(any_in & is_border,
+                                  gz.gather(1, first[:, None])[:, 0], -1)
+
+        zone = torch.where(is_core, zone_core, zone_border)
+        wide = idx.gwide[g] & is_border
+        uncertain = (margin < err32) | (facegap < gap32) | edge_flag | wide
+        zone = torch.where(far, -1, zone).to(torch.int32)
+        uncertain = uncertain & ~far
+        return zone, uncertain
+
+    return fn
+
+
+def zone_histogram(zone: torch.Tensor, num_zones: int) -> torch.Tensor:
+    """Per-zone match counts — the canonical aggregation after the join
+    (reference: groupBy(index_id).count()).  Unmatched (-1) rows, and
+    any zone id outside [0, num_zones), are masked to one overflow bin
+    before ``torch.bincount`` (which rejects negatives) and dropped."""
+    valid = (zone >= 0) & (zone < num_zones)
+    z = torch.where(valid, zone, num_zones).long()
+    return torch.bincount(z, minlength=num_zones + 1)[:num_zones].to(
+        torch.int32)
+
+
+def host_recheck_fn(idx: DensePIPIndex, polys: Optional[GeometryArray] = None):
+    """Vectorized f64 host recheck bound to a dense index.
+
+    Returns ``recheck(points64_abs, zone, uncertain) -> zone`` (numpy)
+    that reruns the flagged points through the SAME chip semantics in
+    f64 — exact cell assignment (host lattice), exact crossing parity
+    against the original unquantized chip edges.  ``polys`` is kept for
+    the JAX package's signature (the dense recheck does not read it)."""
+    if not isinstance(idx, DensePIPIndex):
+        raise NotImplementedError(
+            "only the dense PIP index is ported to mosaic_tpu_torch")
+    aux = idx.aux
+    if aux is None:
+        raise ValueError("recheck needs the build-time aux tables")
+    entry = idx.entry.cpu().numpy()
+    Z = int(idx.gzones.shape[1])
+
+    def recheck(points64: np.ndarray, zone: np.ndarray,
+                uncertain: np.ndarray) -> np.ndarray:
+        sel = np.nonzero(uncertain)[0]
+        if len(sel) == 0:
+            return zone
+        zone = np.asarray(zone).copy()
+        pts = np.asarray(points64)[sel]
+        face, a, b = _host_lattice(pts, idx.res)
+        ia = a - idx.a0
+        ib = b - idx.b0
+        inw = ((face == idx.face0) & (ia >= 0) & (ia < idx.W) &
+               (ib >= 0) & (ib < idx.H))
+        e = np.where(inw, entry[np.where(inw, ia * idx.H + ib, 0)], -1)
+        out = np.full(len(sel), -1, np.int32)
+        is_core = (e >= 0) & ((e & int(CORE_FLAG)) != 0)
+        out[is_core] = (e[is_core] & ~int(CORE_FLAG))
+
+        isb = (e >= 0) & ~is_core
+        bsel = np.nonzero(isb)[0]
+        if len(bsel):
+            g = e[bsel].astype(np.int64)
+            gstart = aux["gstart"]
+            cnt = (gstart[g + 1] - gstart[g]).astype(np.int64)
+            total = int(cnt.sum())
+            pidx = np.repeat(np.arange(len(bsel)), cnt)
+            estart = np.repeat(gstart[g], cnt)
+            local = np.arange(total) - np.repeat(
+                np.concatenate([[0], np.cumsum(cnt)[:-1]]), cnt)
+            eidx = estart + local
+            pa = aux["flat_a"][eidx]
+            pb = aux["flat_b"][eidx]
+            zsl = aux["edge_zslot"][eidx]
+            P = pts[bsel][pidx]
+            ay, by = pa[:, 1], pb[:, 1]
+            straddle = (ay <= P[:, 1]) != (by <= P[:, 1])
+            denom = np.where(by == ay, 1.0, by - ay)
+            xi = pa[:, 0] + (P[:, 1] - ay) / denom * (pb[:, 0] - pa[:, 0])
+            crossed = straddle & (P[:, 0] < xi)
+            counts = np.bincount(pidx * Z + zsl, weights=crossed,
+                                 minlength=len(bsel) * Z)
+            odd = (counts.reshape(len(bsel), Z).astype(np.int64) & 1)\
+                .astype(bool)
+            anyin = odd.any(axis=1)
+            first = odd.argmax(axis=1)
+            gz = aux["gzones64"][g, first]
+            out[bsel[anyin]] = gz[anyin].astype(np.int32)
+        zone[sel] = out
+        return zone
+
+    return recheck
+
+
+def pip_host_truth(points64: np.ndarray,
+                   polys: GeometryArray) -> np.ndarray:
+    """The exact float64 host oracle: first polygon containing each point
+    (crossing-number, first-match tie-break) — the single source of truth
+    that the recheck, tests and chip_smoke.py compare against."""
+    truth = np.full(len(points64), -1, np.int32)
+    for gi in range(len(polys)):
+        inside = _pip(points64, _poly_edges(polys, gi))
+        truth = np.where((truth < 0) & inside, gi, truth)
+    return truth
+
+
+def make_streamed_pip_join(idx: DensePIPIndex, grid=None,
+                           polys: Optional[GeometryArray] = None,
+                           chunk: Optional[int] = None,
+                           eps: Optional[float] = None,
+                           margin_eps: Optional[float] = None,
+                           device: DeviceLike = None):
+    """End-to-end chunked join with transfer/compute/recheck overlap.
+
+    Cuts a host batch into ``chunk``-row pieces and runs them through
+    :func:`mosaic_tpu_torch.perf.pipeline.stream` on ``device`` (CUDA
+    unless the caller passes ``"cpu"``; the index must live there): the
+    localize + upload of chunk k+1 rides along with device compute on
+    chunk k, and the f64 host recheck of chunk k-1's flagged points runs
+    while the device works.  Exactness is untouched — same join, same
+    recheck authority.
+
+    Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``."""
+    dev = resolve_device(device)
+    if idx.device != dev:
+        raise ValueError(f"index lives on {idx.device}, join asked for "
+                         f"{dev}")
+    chunk = DEFAULT_CHUNK_ROWS if chunk is None else int(chunk)
+    fn = make_pip_join_fn(idx, grid, eps, margin_eps)
+    recheck = host_recheck_fn(idx, polys)
+    origin = np.asarray(idx.origin, np.float64)
+
+    def run(points64: np.ndarray):
+        points64 = np.asarray(points64, np.float64)[:, :2]
+        n = len(points64)
+        zone_out = np.empty(n, np.int32)
+        state = {"rechecked": 0}
+
+        def stage(sl, out):
+            # f64 origin shift BEFORE the f32 cast (= localize())
+            out[...] = points64[sl] - origin[None]
+
+        def consume(i, sl, host):
+            z, unc = host
+            zone_out[sl] = recheck(points64[sl], z, unc)
+            state["rechecked"] += int(unc.sum())
+
+        stream(chunk_rows(n, chunk), stage, 2, fn, consume, dev)
+        return zone_out, state["rechecked"]
+
+    return run

@@ -1,0 +1,115 @@
+"""The PyTorch port stands alone: no JAX, no mosaic_tpu, the card by
+default.
+
+* In a subprocess where ``jax`` and ``mosaic_tpu`` cannot be imported,
+  the port imports and runs a small dense PIP join on the CPU, exact
+  against its own oracle.
+* No file of the port, nor chip_smoke.py, imports ``jax`` or
+  ``mosaic_tpu`` (an ``ast`` scan; the root module name must match
+  exactly, so ``mosaic_tpu_torch`` itself does not count).
+* Entry points that create device state, called without ``device`` on a
+  host without CUDA, raise RuntimeError instead of running on the CPU.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import mosaic_tpu_torch as mt
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "mosaic_tpu"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch's CPU ops here are small; one intra-op thread keeps this
+    file from crowding the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+SLICE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["mosaic_tpu"] = None
+import numpy as np
+import torch
+import mosaic_tpu_torch as mt
+
+torch.set_num_threads(1)
+polys = mt.read_wkt([
+    "POLYGON ((-74.02 40.70, -73.95 40.70, -73.95 40.76, -74.02 40.76,"
+    " -74.02 40.70), (-74.00 40.72, -73.98 40.72, -73.98 40.74,"
+    " -74.00 40.74, -74.00 40.72))",
+    "POLYGON ((-73.95 40.70, -73.90 40.71, -73.91 40.76, -73.95 40.76,"
+    " -73.95 40.70))"])
+grid = mt.get_index_system("H3")
+idx = mt.build_pip_index(polys, 9, grid, device="cpu")
+rng = np.random.default_rng(0)
+pts = np.stack([rng.uniform(-74.03, -73.89, 4000),
+                rng.uniform(40.69, 40.77, 4000)], -1)
+run = mt.make_streamed_pip_join(idx, grid, polys, chunk=1000, device="cpu")
+zone, rechecked = run(pts)
+assert np.array_equal(zone, mt.pip_host_truth(pts, polys))
+hist = mt.zone_histogram(torch.from_numpy(zone), len(polys))
+assert int(hist.sum()) == int((zone >= 0).sum()) > 0
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print("SLICE_OK", int((zone >= 0).sum()), rechecked)
+"""
+
+
+def test_slice_runs_without_jax_or_mosaic_tpu():
+    out = subprocess.run([sys.executable, "-c", SLICE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "SLICE_OK" in out.stdout
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_file_imports_jax_or_mosaic_tpu():
+    files = sorted((REPO / "mosaic_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) &
+                                            FORBIDDEN)
+           for f in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid")
+    polys = mt.read_wkt(["POLYGON ((-74.02 40.70, -73.95 40.70, "
+                         "-73.95 40.76, -74.02 40.76, -74.02 40.70))"])
+    grid = mt.get_index_system("H3")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.build_pip_index(polys, 9, grid)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.build_dense_pip_index(polys, 9, grid)
+    idx = mt.build_pip_index(polys, 9, grid, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.make_streamed_pip_join(idx, grid, polys)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.dense_index_from_arrays({}, None)
+    with pytest.raises(RuntimeError):
+        mt.resolve_device("cuda")
+    assert np.array_equal(mt.localize(idx, np.zeros((1, 2))),
+                          -idx.origin[None].astype(np.float32))
