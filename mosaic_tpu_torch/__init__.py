@@ -1,9 +1,10 @@
 """mosaic_tpu_torch — the PyTorch/CUDA port of mosaic_tpu.
 
 This slice ports the flagship dense H3 point-in-polygon join: workload,
-tessellation, the dense lattice-window index, the device join (its H3
-lattice projection a hand-written CUDA kernel for Hopper), the f64 host
-recheck and the zone histogram.  The package imports torch and numpy,
+tessellation, the dense lattice-window index, the device join (one
+hand-written CUDA kernel for Hopper that projects each point to the H3
+lattice and joins it, ``ops/dense_join.py``), the f64 host recheck and
+the zone histogram.  The package imports torch and numpy,
 never jax and nothing of ``mosaic_tpu``; its module layout and names
 follow ``mosaic_tpu`` so each module's counterpart is easy to find.
 

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``,
-keyed by a hash of the source and flags, and loaded with ``ctypes``.
-Nothing is built at import: a kernel is built at its first CUDA use, or
-ahead of time by :func:`build`.  ``-fmad=false`` keeps every multiply
+keyed by a hash of the source, the ``csrc/*.cuh`` headers it may include
+and the flags, and loaded with ``ctypes``.  Nothing is built at import: a
+kernel is built at its first CUDA use, or ahead of time by :func:`build`
+(several at once: :func:`build_all`).  ``-fmad=false`` keeps every multiply
 and add separately rounded, which the double-single arithmetic of the
 kernels needs.
 """
@@ -17,8 +18,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -43,9 +45,12 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{h[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    # an edited header must not reuse a library built from the old one
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> float:
@@ -69,6 +74,13 @@ def build(name: str) -> float:
                            f"{proc.stdout.decode(errors='replace')}")
     os.replace(tmp, out)
     return seconds
+
+
+def build_all(names: Sequence[str]) -> Dict[str, float]:
+    """:func:`build` for each name, all ``nvcc`` runs started together;
+    ``{name: seconds}``.  Raises the first failure."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

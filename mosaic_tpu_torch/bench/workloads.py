@@ -307,3 +307,72 @@ def build_workload(n_side: int = 16, res_cells: int = 512,
         return polys, get_index_system("H3"), h3_res
     grid, res = nyc_grid(res_cells)
     return polys, grid, res
+
+
+#: offsets (degrees) of the points placed either side of an edge: inside
+#: the f32 rounding of city-scale local coordinates, inside the join's
+#: 1e-6 degree hazard band, and just outside it
+HAIRS_DEG = (1e-9, 1e-7, 2e-6, 1e-5)
+
+
+def _on_and_beside(a: np.ndarray, b: np.ndarray):
+    """Segment ends and midpoints, and the midpoints moved HAIRS_DEG
+    either way along the segment normals (degenerate segments skipped);
+    with each point's offset from its segment (0 on it)."""
+    mid = 0.5 * (a + b)
+    d = b - a
+    norm = np.hypot(d[:, 0], d[:, 1])
+    keep = norm > 0
+    normal = np.stack([-d[keep, 1], d[keep, 0]], -1) / norm[keep, None]
+    pts = [a, mid]
+    for h in HAIRS_DEG:
+        pts += [mid[keep] + h * normal, mid[keep] - h * normal]
+    off = [np.zeros(len(a)), np.zeros(len(a))]
+    off += [np.full(int(keep.sum()), h) for h in HAIRS_DEG for _ in "+-"]
+    return pts, off
+
+
+def adversarial_points(flat_a: np.ndarray, flat_b: np.ndarray,
+                       grid: IndexSystem, res: int, n_edges: int,
+                       seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Float64 points where the f32 join's tests flip, for a dense index
+    whose chip edges run from ``flat_a`` to ``flat_b`` (absolute degrees,
+    the index's ``aux``): on ``n_edges`` seeded chip edges, the start
+    vertex (its latitude equals the edge's), the midpoint, and the
+    midpoint a hair either side; then the same on the edges of the H3
+    cells those midpoints fall in (cell vertices, edge midpoints, and a
+    hair either side of the cell boundary).  Returns ([M, 2] points,
+    [M] offset of each from its edge in degrees, 0 on the edge)."""
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(flat_a), min(n_edges, len(flat_a)), replace=False)
+    a, b = flat_a[pick], flat_b[pick]
+    pts, off = _on_and_beside(a, b)
+    cells = np.unique(grid.point_to_cell(0.5 * (a + b), res))
+    verts, counts = grid.cell_boundary(cells)             # [C, K, 2]
+    k = np.arange(verts.shape[1])[None, :]
+    valid = k < counts[:, None]
+    nxt = np.where(k + 1 < counts[:, None], k + 1, 0)
+    v1 = np.take_along_axis(verts, nxt[..., None].repeat(2, -1), axis=1)
+    hex_pts, hex_off = _on_and_beside(verts[valid], v1[valid])
+    return np.concatenate(pts + hex_pts), np.concatenate(off + hex_off)
+
+
+def widen_zone_slots(tables: dict, step: int = 15) -> dict:
+    """A dense index (the dict ``dense_index_from_arrays`` takes) whose
+    zone slots reach past 32: group g's slots move up by ``step * (g %
+    3)`` in the pool and in a wider gzones, so every group keeps its
+    zones in the same order and the join's answer does not change.  With
+    step 15 and Z=4 the slots span 0-33, across the join kernel's 32-slot
+    words.  The recheck tables (``aux``) are left out."""
+    pool = np.array(tables["pool"], np.float32)
+    gzones = np.asarray(tables["gzones"], np.int32)
+    G, Z = gzones.shape
+    shift = step * (np.arange(G) % 3)
+    zs = pool[..., 4]
+    pool[..., 4] = np.where(zs >= 0, zs + shift[:, None], zs)
+    wide = np.full((G, Z + 2 * step), -1, np.int32)
+    wide[np.arange(G)[:, None], np.arange(Z)[None, :] + shift[:, None]] = \
+        gzones
+    out = {k: v for k, v in tables.items() if k != "aux"}
+    out.update(pool=pool, gzones=wide)
+    return out

@@ -12,7 +12,9 @@ facegap as f32 [N].
 :func:`project_lattice` is the entry point.  On a CUDA tensor it launches
 ``csrc/h3_projection.cu`` (built at first use) or raises; on a CPU tensor
 it runs :func:`project_lattice_ref`, the plain version, which keeps the
-kernel's order of operations so the two agree bit for bit.
+kernel's order of operations so the two agree bit for bit.  The join's
+main path runs the same projection inside ``ops/dense_join.py``'s kernel;
+the launch helpers below serve both kernels.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import ctypes
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -159,9 +162,6 @@ def project_lattice_ref(xy_local: torch.Tensor, res: int,
 
 # ------------------------------------------------------------- kernel
 
-_faces_set = set()              # device indexes whose face table is set
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signatures."""
@@ -176,15 +176,60 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+def check_rc(lib: ctypes.CDLL, prefix: str, rc: int, what: str) -> None:
+    """Raise on a CUDA error code returned by a kernel library's entry
+    point; ``prefix`` names its ``<prefix>_error_string``."""
     if rc != 0:
-        msg = lib.h3_projection_error_string(rc).decode()
-        raise RuntimeError(f"h3_projection {what}: CUDA error {rc} ({msg})")
+        msg = getattr(lib, f"{prefix}_error_string")(rc).decode()
+        raise RuntimeError(f"{prefix} {what}: CUDA error {rc} ({msg})")
+
+
+_faces_set = set()              # (library, device) pairs whose faces are set
+
+
+def set_faces(lib: ctypes.CDLL, prefix: str, device: torch.device) -> None:
+    """Upload the face centers to ``device``'s constant memory of a
+    kernel library, once per (library, device); a blocking copy, so the
+    first launch's caller pays it, not a stream-ordered loop."""
+    key = (prefix, device)
+    if key not in _faces_set:
+        fc = face_centers_f32()
+        with torch.cuda.device(device):
+            check_rc(lib, prefix, getattr(lib, f"{prefix}_set_faces")(
+                fc.ctypes.data), "set_faces")
+        _faces_set.add(key)
 
 
 @functools.cache
-def _device_table(res: int, device: torch.device) -> torch.Tensor:
+def device_table(res: int, device: torch.device) -> torch.Tensor:
+    """The [2, 20, 9] basis table at ``res`` on ``device``, uploaded once."""
     return torch.as_tensor(basis_tables(res), device=device).contiguous()
+
+
+def host_constants(origin: Tuple[float, float]) -> np.ndarray:
+    """The [13] f32 projection constants of ``origin``, computed once per
+    origin; a kernel copies them into its arguments, so no device copy."""
+    return _host_constants(float(origin[0]), float(origin[1]))
+
+
+@functools.cache
+def _host_constants(lon0: float, lat0: float) -> np.ndarray:
+    return projection_constants((lon0, lat0))
+
+
+def check_points(xy: torch.Tensor, what: str) -> None:
+    """Raise unless ``xy`` is what the kernels read: [N, 2] f32,
+    contiguous, 8-byte aligned (read as float2), N < 2^31."""
+    if xy.dtype != torch.float32:
+        raise ValueError(f"{what}: need float32, got {xy.dtype}")
+    if xy.dim() != 2 or xy.shape[1] != 2:
+        raise ValueError(f"{what}: need [N, 2], got {tuple(xy.shape)}")
+    if not xy.is_contiguous() or xy.data_ptr() % 8:
+        raise ValueError(f"{what}: input must be contiguous and 8-byte "
+                         "aligned (read as float2)")
+    if xy.shape[0] >= 2 ** 31:
+        raise ValueError(f"{what}: {xy.shape[0]} rows exceed int32 "
+                         "indexing")
 
 
 def project_lattice(xy_local: torch.Tensor, res: int,
@@ -194,24 +239,16 @@ def project_lattice(xy_local: torch.Tensor, res: int,
     A CPU tensor runs the plain version.  A CUDA tensor launches the
     kernel on the current stream and raises on anything it does not take
     (dtype, shape, contiguity, alignment) or on a CUDA error; there is no
-    fallback.  ``project_lattice.launches`` counts kernel launches."""
+    fallback.  The basis table and the constants are made once per
+    (res, device) and origin, so a launch copies nothing to the device.
+    ``project_lattice.launches`` counts kernel launches."""
     dev = xy_local.device
     if dev.type == "cpu":
         return project_lattice_ref(xy_local, res, origin)
     if dev.type != "cuda":
         raise ValueError(f"project_lattice: unsupported device {dev}")
-    if xy_local.dtype != torch.float32:
-        raise ValueError(f"project_lattice: need float32, got "
-                         f"{xy_local.dtype}")
-    if xy_local.dim() != 2 or xy_local.shape[1] != 2:
-        raise ValueError(f"project_lattice: need [N, 2], got "
-                         f"{tuple(xy_local.shape)}")
-    if not xy_local.is_contiguous() or xy_local.data_ptr() % 8:
-        raise ValueError("project_lattice: input must be contiguous and "
-                         "8-byte aligned (read as float2)")
+    check_points(xy_local, "project_lattice")
     n = int(xy_local.shape[0])
-    if n >= 2 ** 31:
-        raise ValueError(f"project_lattice: {n} rows exceed int32 indexing")
     face = torch.empty(n, dtype=torch.int32, device=dev)
     a = torch.empty_like(face)
     b = torch.empty_like(face)
@@ -220,20 +257,16 @@ def project_lattice(xy_local: torch.Tensor, res: int,
     if n == 0:
         return face, a, b, margin, gap
     lib = _lib()
+    set_faces(lib, "h3_projection", dev)
+    table = device_table(res, dev)
+    consts = host_constants(origin)
     with torch.cuda.device(dev):
-        if dev.index not in _faces_set:
-            fc = face_centers_f32()
-            _check(lib, lib.h3_projection_set_faces(fc.ctypes.data),
-                   "set_faces")
-            _faces_set.add(dev.index)
-        table = _device_table(res, dev)
-        consts = projection_constants(origin)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.h3_project_lattice(
             xy_local.data_ptr(), n, table.data_ptr(), consts.ctypes.data,
             face.data_ptr(), a.data_ptr(), b.data_ptr(), margin.data_ptr(),
             gap.data_ptr(), stream)
-    _check(lib, rc, "launch")
+    check_rc(lib, "h3_projection", rc, "launch")
     project_lattice.launches += 1
     return face, a, b, margin, gap
 

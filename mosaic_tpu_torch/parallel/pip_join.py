@@ -8,10 +8,12 @@ points get ``grid_pointascellid``, polygons get
 
 The per-point pipeline on the device:
 
-    (face, a, b, margin, facegap) = H3 lattice projection   # CUDA kernel
-    entry  = dense window table[(a, b)]                      # one gather
+    (face, a, b, margin, facegap) = H3 lattice projection
+    entry  = dense window table[(a, b)]
     inside = per-zone crossing parity vs the cell's merged chip pool row
     zone   = core hit ? core zone : first zone the point is inside
+
+one thread per point in one CUDA kernel (``ops/dense_join.py``).
 
 Points whose f32 result could differ from the exact f64 one are flagged
 ``uncertain`` and rechecked on the host in f64 against the original chip
@@ -27,6 +29,7 @@ slice.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -41,7 +44,8 @@ from ..core.index.h3.system import H3IndexSystem
 from ..core.index.h3.torchkernel import (FACEGAP_EPS, MAX_LOCAL_DEG,
                                          err_lattice_bound)
 from ..core.tessellate import _pip, _poly_edges, tessellate
-from ..ops.projection import project_lattice
+from ..ops.dense_join import CORE_FLAG as _CORE_FLAG
+from ..ops.dense_join import JoinConsts, dense_join, join_tables, prepare
 from ..perf.pipeline import chunk_rows, stream
 from ..types import ChipSet
 
@@ -55,7 +59,7 @@ EPS_EDGE_DEG = 1e-6
 #: ``mosaic.stream.chunk.rows`` default)
 DEFAULT_CHUNK_ROWS = 1 << 18
 
-CORE_FLAG = np.int32(1) << 30
+CORE_FLAG = np.int32(_CORE_FLAG)
 
 
 def _workload_origin(polys: GeometryArray) -> np.ndarray:
@@ -376,8 +380,10 @@ def make_dense_pip_join_fn(idx: DensePIPIndex, eps: float = EPS_EDGE_DEG,
                            ) -> Callable[[torch.Tensor],
                                          Tuple[torch.Tensor, torch.Tensor]]:
     """``local_points [N, 2] f32 -> (zone [N] i32, uncertain [N] bool)``
-    on the dense index, on the index's device.  On CUDA the projection is
-    the hand-written kernel; the join body is torch ops.
+    on the dense index, on the index's device.  On CUDA each call is one
+    launch of the fused projection + join kernel (``ops/dense_join.py``);
+    on the CPU it runs that kernel's plain version.  The kernel is built
+    and its tables uploaded here, before any call.
 
     Exactness contract: every f32 hazard raises ``uncertain`` — (a)
     hex-boundary margin below the df projection's validated error bound
@@ -387,7 +393,6 @@ def make_dense_pip_join_fn(idx: DensePIPIndex, eps: float = EPS_EDGE_DEG,
     group.  Points beyond the window's local extent are out-of-domain by
     construction: zone -1, certain.  host_recheck_fn resolves flagged
     points in f64."""
-    Z = int(idx.gzones.shape[1])
     # the projection always runs df; the margin threshold must match it
     err_lat = max(idx.err_lattice, err_lattice_bound(
         idx.res, "df", idx.ext_deg, localized=True))
@@ -395,68 +400,20 @@ def make_dense_pip_join_fn(idx: DensePIPIndex, eps: float = EPS_EDGE_DEG,
         # honor a caller-requested degree band: degrees -> lattice units
         scale = M_SQRT7 ** idx.res / RES0_U_GNOMONIC
         err_lat = max(err_lat, margin_eps_deg * np.pi / 180.0 * scale)
-    err32 = float(np.float32(err_lat))
-    gap32 = float(np.float32(FACEGAP_EPS))
-    eps32 = float(np.float32(eps))
-    far_lim = float(np.float32(idx.ext_deg + 0.05))
-    origin = (float(idx.origin[0]), float(idx.origin[1]))
+    tables = join_tables(idx.entry, idx.pool, idx.gzones, idx.gwide)
+    consts = JoinConsts(
+        res=idx.res, origin=(float(idx.origin[0]), float(idx.origin[1])),
+        face0=idx.face0, a0=idx.a0, b0=idx.b0, W=idx.W, H=idx.H,
+        err32=float(np.float32(err_lat)),
+        gap32=float(np.float32(FACEGAP_EPS)), eps32=float(np.float32(eps)),
+        far_lim=float(np.float32(idx.ext_deg + 0.05)))
     # TF32 cannot reach the face selection: its dot runs inside the
-    # projection kernel (built with -fmad=false), and the join body is
-    # elementwise and gather ops, no matmul.  Reduced-precision dots
+    # kernel (built with -fmad=false), and the plain version's join body
+    # is elementwise and gather ops, no matmul.  Reduced-precision dots
     # shifted face selection by 13 cells in the JAX package, so a
     # product moved to torch.matmul must turn TF32 off around its call.
-
-    def fn(points: torch.Tensor):
-        if points.device != idx.device:
-            raise ValueError(f"points on {points.device}, index on "
-                             f"{idx.device}")
-        face, ai, bi, margin, facegap = project_lattice(points, idx.res,
-                                                        origin)
-        far = (points[:, 0].abs() > far_lim) | \
-            (points[:, 1].abs() > far_lim)
-        ia = ai - idx.a0
-        ib = bi - idx.b0
-        inw = ((face == idx.face0) & (ia >= 0) & (ia < idx.W) &
-               (ib >= 0) & (ib < idx.H))
-        lidx = torch.where(inw, ia * idx.H + ib, 0).long()
-        e = torch.where(inw, idx.entry[lidx], -1)
-        is_core = (e >= 0) & ((e & int(CORE_FLAG)) != 0)
-        zone_core = torch.where(is_core, e & ~int(CORE_FLAG), -1)
-        is_border = (e >= 0) & ~is_core
-
-        g = torch.where(is_border, e, 0).long()
-        rec = idx.pool[g]                               # [N, E, 5]
-        ax, ay = rec[..., 0], rec[..., 1]
-        bx, by = rec[..., 2], rec[..., 3]
-        zs = rec[..., 4].to(torch.int32)
-        px = points[:, None, 0]
-        py = points[:, None, 1]
-        straddle = (ay <= py) != (by <= py)
-        t = (py - ay) / torch.where(by == ay, torch.ones_like(by), by - ay)
-        xi = ax + t * (bx - ax)
-        crossed = straddle & (px < xi)
-        near_cross = straddle & ((px - xi).abs() < eps32)
-        near_vertex = ((py - ay).abs() < eps32) & \
-            (px < torch.maximum(ax, bx) + eps32)
-        edge_flag = (near_cross | near_vertex).any(dim=-1) & is_border
-
-        inside = torch.stack(
-            [((crossed & (zs == z)).sum(dim=-1) & 1).bool()
-             for z in range(Z)], dim=-1)                # [N, Z]
-        first = torch.argmax(inside.to(torch.uint8), dim=-1)
-        any_in = inside.any(dim=-1)
-        gz = idx.gzones[g]                              # [N, Z]
-        zone_border = torch.where(any_in & is_border,
-                                  gz.gather(1, first[:, None])[:, 0], -1)
-
-        zone = torch.where(is_core, zone_core, zone_border)
-        wide = idx.gwide[g] & is_border
-        uncertain = (margin < err32) | (facegap < gap32) | edge_flag | wide
-        zone = torch.where(far, -1, zone).to(torch.int32)
-        uncertain = uncertain & ~far
-        return zone, uncertain
-
-    return fn
+    prepare(tables, consts)
+    return functools.partial(dense_join, tables=tables, consts=consts)
 
 
 def zone_histogram(zone: torch.Tensor, num_zones: int) -> torch.Tensor:

@@ -112,3 +112,29 @@ def test_df_survives_torch_eager():
     s = tf.df_poly_sin(d)
     want = np.sin(vals.astype(np.float64) * np.pi / 180.0)
     assert np.abs(total(s) - want).max() < 1e-10
+
+
+def test_fma_error_term_equals_dekker():
+    """The CUDA kernels take two_prod's error term from one FMA,
+    fma(a, b, -p); the plain version keeps the Veltkamp split.  Both are
+    the exact residual of an f32 product, so they agree bit for bit.
+    The FMA's result is computed here as float32(a*b - p) in f64, exact
+    for f32 inputs (the f64 product is exact and the residual fits f32).
+    Magnitudes span 2^-50..2^50 per operand, the range where no residual
+    underflows, which covers the projection's products."""
+    rng = np.random.default_rng(5)
+    n = 100_000
+    mant = rng.uniform(1.0, 2.0, (2, n))
+    expo = rng.integers(-50, 51, (2, n))
+    sign = rng.choice([-1.0, 1.0], (2, n))
+    a, b = (sign * mant * np.exp2(expo)).astype(np.float32)
+    # the projection's own regime: degrees, radians, unit vectors
+    a[:1000] = rng.uniform(-2.2, 2.2, 1000).astype(np.float32)
+    b[:1000] = np.float32(np.pi / 180.0)
+    b[1000:2000] = rng.uniform(-1.0, 1.0, 1000).astype(np.float32)
+    p, err = tf.two_prod(t(a), t(b))
+    p = p.numpy()
+    fma_err = (a.astype(np.float64) * b.astype(np.float64) -
+               p.astype(np.float64)).astype(np.float32)
+    assert np.array_equal(p, a * b)
+    assert np.array_equal(err.numpy().view(np.int32), fma_err.view(np.int32))
