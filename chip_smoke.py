@@ -6,10 +6,12 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. device — name and power limit (nvidia-smi); exits if CUDA is absent;
-2. build — compiles both kernels from ``csrc/`` with ``nvcc``, one
-   process per source, started together: ``h3_projection`` (K1, the
-   projection alone) and ``h3_dense_join`` (K2, the projection fused
-   with the dense join body);
+2. build — compiles the three kernels from ``csrc/`` with ``nvcc``, one
+   process per source, and the native host library from
+   ``native/geokernels.cpp`` with ``g++``, all started together:
+   ``h3_projection`` (K1, the projection alone), ``h3_dense_join`` (K2,
+   the projection fused with the dense join body) and ``h3_cell`` (K3,
+   H3 cell ids of absolute points, the sorted join's cell step);
 3. K1 vs plain — the projection kernel against its plain PyTorch
    version on the card, 2^22 localized NYC points (seed 100) at res 9
    around the flagship index's origin: all five outputs bit-equal; timed
@@ -18,12 +20,13 @@ Phases (any failure exits non-zero and prints no result):
 4. df contract — K1 against the f64 host lattice (hexmath) on 500,000
    points in ±0.4° × ±0.3° around (-74.0, 40.7): no disagreement with
    margin >= err_lattice_bound(9, "df", 0.4);
-5. flagship join — 281 taxi zones at H3 res 9, the streamed join over 4
-   batches of 2^22 points (seeds 100-103) in 2^18-row chunks, through
-   the public entry points; final zones equal ``pip_host_truth`` on a
-   seeded 65,536-point sample, uncertain share below 5e-3, one K2
-   launch per chunk and no K1 launch, and the zone histogram sums to
-   the matched rows; then a profiled batch;
+5. flagship join (dense) — 281 taxi zones at H3 res 9, the streamed join
+   over 4 batches of 2^22 points (seeds 100-103) in 2^18-row chunks,
+   through the public entry points; final zones equal ``pip_host_truth``
+   on a seeded 65,536-point sample, uncertain share below 5e-3, one K2
+   launch per chunk and no K1 or K3 launch, the f64 recheck through the
+   native ``recheck_zones``, and the zone histogram sums to the matched
+   rows; then a profiled batch;
 6. K2 vs plain — the fused join kernel against ``dense_join_ref`` on the
    card, zone and uncertain bit-equal, on a flagship batch of 2^22
    points, on points placed on chip and hex edges and a hair beside
@@ -31,8 +34,34 @@ Phases (any failure exits non-zero and prints no result):
    (``widen_zone_slots``); timed in turns against the plain version and
    against the torch-ops join it replaced (K1 then torch ops), with its
    bound from this run's data;
-7. the ``kernels`` JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+7. K3 vs plain — the cell kernel against ``latlng_to_cell_margin_ref``
+   on 2^22 uniform global points and the 2^22 flagship points at res 9,
+   and 2^16 global points at each res 0..15: ids and margins bit-equal
+   (or, where the card's sin differs from torch's, ids equal wherever
+   the plain version's margin is at least 1e-6 degrees and margins
+   within 1e-6 degrees); no disagreement with the f64 host
+   ``point_to_cell`` on a seeded 2^20-point sample of each set at plain
+   margin >= 3e-5 degrees; timed in turns at 2^18 and 2^22 rows;
+8. sorted join, CUSTOM — ``build_workload(n_side=16, res_cells=512,
+   grid_name="CUSTOM", zones="taxi")``: 281 zones, 4 batches of 2^22
+   points in 2^18-row chunks through ``make_streamed_pip_join``; final
+   zones equal ``pip_host_truth`` on a seeded 65,536-point sample; the
+   uncertain share, points per second, a profiled batch, the sorted
+   body's device ms and host enqueue per chunk, and the native recheck's
+   host ms per chunk;
+9. sorted join, H3 — the flagship workload with ``dense="never"`` on one
+   2^22 batch: final zones equal phase 5's dense answer and the oracle
+   sample, one K3 launch per chunk, and on the same chunks the sorted
+   body with K3's plain version gives bit-equal device zones and flags
+   and flags as many points as the main path rechecked; then the
+   continental res-2 boxes of tests/test_pip_join.py (20,000 points
+   each) and a polygon spanning icosahedron faces, each at 0 mismatches
+   against the oracle on every point and held against the plain cell
+   step the same way;
+10. sorted join, BNG — the BNG row of tests/test_bng.py's grid matrix
+    (res 3, 100-200 km east and north) on 2^20 points, 0 mismatches;
+11. the ``kernels`` JSON line, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -79,7 +108,25 @@ EXACT_PRODUCT_FLOPS = 3
 #: the divide, bx - ax, the mul, the add, |px - xi|: 7 with the abs)
 EDGE_FLOPS = 4
 STRADDLE_FLOPS = 7
-KERNELS = ("h3_projection", "h3_dense_join")
+KERNELS = ("h3_projection", "h3_dense_join", "h3_cell")
+#: points of each K3 set held against the f64 host ids (numpy, ~9 s per
+#: 2^20 points on one core)
+HOST_SAMPLE = 1 << 20
+#: the sorted join's margin band (planar degrees): the host check holds
+#: K3 to the host ids outside it
+CELL_BAND_DEG = 3e-5
+#: if the card's sin and torch's differ in the last bit, K3's ids must
+#: still equal its plain version's at this margin and above (degrees)
+CELL_ID_MARGIN_DEG = 1e-6
+#: ... and its margins may then differ from the plain version's by at
+#: most this (degrees)
+CELL_MARGIN_TOL_DEG = 1e-6
+#: bytes K3 moves per point: 8 in, an 8-byte id and a 4-byte margin out
+CELL_BYTES = 20
+#: a sin or cos is counted as one operation of the bound (CUDA's sinf
+#: issues some twenty), and K3's integer work is not counted, so its
+#: bound is a lower bound
+SINCOS_OPS = 1
 
 
 class PhaseError(RuntimeError):
@@ -148,21 +195,14 @@ def in_turns(plain, kernel, reps_plain: int, reps_kernel: int):
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
-def flops_per_point(res: int, origin):
-    """(flops the function needs, f32 instructions the kernels issue) per
-    point, counted on a small CPU input from the plain version, which
-    keeps the kernels' operations one for one.
-
-    The needed flops are in the unit of PEAK_F32_FLOPS: each exact
-    product counts EXACT_PRODUCT_FLOPS instead of its DEKKER_OPS, and a
-    negation is not counted, since it folds into the add or subtract
-    that reads it.  The kernels issue KERNEL_PRODUCT_OPS instructions
-    per exact product, and fold negations the same way."""
-    import numpy as np
+def count_ops(fn, x):
+    """(f32 arithmetic ops, exact products, negations, sin/cos calls) per
+    point of ``fn(x)``, x [n, 2], from the plain versions on the CPU,
+    which keep the kernels' operations one for one.  Integer arithmetic
+    is not counted."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from mosaic_tpu_torch.ops import twofloat
-    from mosaic_tpu_torch.ops.projection import project_lattice_ref
 
     class Count(TorchDispatchMode):
         def __init__(self):
@@ -172,7 +212,9 @@ def flops_per_point(res: int, origin):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func.overloadpacket.__name__
-            if name in F32_ARITH and isinstance(out, torch.Tensor):
+            if isinstance(out, torch.Tensor) and \
+                    out.dtype == torch.float32 and \
+                    name in F32_ARITH | {"sin", "cos"}:
                 self.ops[name] += out.numel()
             return out
 
@@ -184,26 +226,67 @@ def flops_per_point(res: int, origin):
         products["n"] += p.numel()
         return p, err
 
-    n = 1024
-    x = torch.from_numpy(np.random.default_rng(0).uniform(
-        -0.3, 0.3, (n, 2)).astype(np.float32))
+    n = int(x.shape[0])
     twofloat.two_prod = counted_two_prod
     try:
         with Count() as c:
-            project_lattice_ref(x, res, origin)
+            fn(x)
     finally:
         twofloat.two_prod = two_prod
-    plain = sum(c.ops.values()) - c.ops["neg"]
-    needed = plain - products["n"] * (DEKKER_OPS - EXACT_PRODUCT_FLOPS)
-    issued = plain - products["n"] * (DEKKER_OPS - KERNEL_PRODUCT_OPS)
-    check(plain % n == 0 and products["n"] % n == 0,
-          f"op counts {plain}, {products['n']} not multiples of {n}")
-    log(f"[kernel] per point: {needed // n} flops needed, {issued // n} f32 "
-        f"instructions issued by the kernels ({products['n'] // n} exact "
+    sincos = c.ops["sin"] + c.ops["cos"]
+    plain = sum(c.ops.values()) - sincos
+    for v in (plain, products["n"], c.ops["neg"], sincos):
+        check(v % n == 0, f"op count {v} not a multiple of {n}")
+    return plain // n, products["n"] // n, c.ops["neg"] // n, sincos // n
+
+
+def flops_per_point(res: int, origin):
+    """(flops the function needs, f32 instructions the kernels issue) per
+    point of the projection, counted on a small CPU input from the plain
+    version.
+
+    The needed flops are in the unit of PEAK_F32_FLOPS: each exact
+    product counts EXACT_PRODUCT_FLOPS instead of its DEKKER_OPS, and a
+    negation is not counted, since it folds into the add or subtract
+    that reads it.  The kernels issue KERNEL_PRODUCT_OPS instructions
+    per exact product, and fold negations the same way."""
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch.ops.projection import project_lattice_ref
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.3, 0.3, (1024, 2)).astype(np.float32))
+    plain, products, neg, _ = count_ops(
+        lambda v: project_lattice_ref(v, res, origin), x)
+    plain -= neg
+    needed = plain - products * (DEKKER_OPS - EXACT_PRODUCT_FLOPS)
+    issued = plain - products * (DEKKER_OPS - KERNEL_PRODUCT_OPS)
+    log(f"[kernel] per point: {needed} flops needed, {issued} f32 "
+        f"instructions issued by the kernels ({products} exact "
         f"products at {KERNEL_PRODUCT_OPS} each, where the plain version's "
-        f"Dekker split takes {DEKKER_OPS}; {c.ops['neg'] // n} negations "
-        f"folded)")
-    return needed // n, issued // n
+        f"Dekker split takes {DEKKER_OPS}; {neg} negations folded)")
+    return needed, issued
+
+
+def cell_ops_per_point(res: int) -> int:
+    """Operations per point of K3's bound: its f32 flops (exact products
+    at EXACT_PRODUCT_FLOPS, negations folded) and SINCOS_OPS per sin or
+    cos, counted from the plain version on global points."""
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin_ref
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(np.stack([r.uniform(-180, 180, 1024),
+                                   r.uniform(-85, 85, 1024)], -1).astype(
+        np.float32))
+    plain, products, neg, sincos = count_ops(
+        lambda v: latlng_to_cell_margin_ref(v, res), x)
+    ops = plain - neg - products * (DEKKER_OPS - EXACT_PRODUCT_FLOPS) + \
+        sincos * SINCOS_OPS
+    log(f"[cell] per point at res {res}: {ops} operations counted "
+        f"({plain - neg} f32 ops with {products} exact products at "
+        f"{EXACT_PRODUCT_FLOPS} flops, {sincos} sin/cos at {SINCOS_OPS}; "
+        "integer work not counted)")
+    return ops
 
 
 def phase_device():
@@ -222,11 +305,15 @@ def phase_device():
 
 
 def phase_build():
-    from mosaic_tpu_torch import _kernels
+    from concurrent.futures import ThreadPoolExecutor
+    from mosaic_tpu_torch import _kernels, native
     t0 = time.perf_counter()
-    seconds = _kernels.build_all(KERNELS)
-    log(f"[build] nvcc {seconds} s, in parallel (phase "
-        f"{time.perf_counter() - t0:.1f} s)")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        gxx = pool.submit(native.build)
+        seconds = _kernels.build_all(KERNELS)
+        gxx_s = gxx.result()
+    log(f"[build] nvcc {seconds} s, g++ {native.SOURCE.name} {gxx_s:.2f} "
+        f"s, in parallel (phase {time.perf_counter() - t0:.1f} s)")
     for name in KERNELS:
         report = _kernels.lib_path(name).with_suffix(".log")
         if report.exists():
@@ -345,8 +432,6 @@ def phase_flagship():
     import numpy as np
     import torch
     import mosaic_tpu_torch as mt
-    from mosaic_tpu_torch.ops.dense_join import dense_join
-    from mosaic_tpu_torch.ops.projection import project_lattice
 
     t0 = time.perf_counter()
     polys, grid, res = mt.build_workload(n_side=16, grid_name="H3",
@@ -370,8 +455,7 @@ def phase_flagship():
     batches = [mt.nyc_points(BATCH, seed=s) for s in SEEDS]
 
     # ---- the main path, counted: counts to 0, drive, read
-    project_lattice.launches = 0
-    dense_join.launches = 0
+    reset_counts()
     zones, hists, rechecked, t_batch = [], [], 0, []
     t0 = time.perf_counter()
     for pts in batches:
@@ -384,8 +468,8 @@ def phase_flagship():
         rechecked += nre
     hists = [h.cpu().numpy() for h in hists]
     t_e2e = time.perf_counter() - t0
-    launches = {"h3_project_lattice": project_lattice.launches,
-                "h3_dense_join": dense_join.launches}
+    launches = launch_counts()
+    native_calls = launches["native_recheck_zones"]
     n_chunks = len(SEEDS) * -(-BATCH // CHUNK)
     total = len(SEEDS) * BATCH
     pps = total / t_e2e
@@ -399,6 +483,12 @@ def phase_flagship():
           f"{launches['h3_dense_join']} times for {n_chunks} chunks")
     check(launches["h3_project_lattice"] == 0, "K1 launched "
           f"{launches['h3_project_lattice']} times on the main path")
+    check(launches["h3_latlng_to_cell"] == 0, "K3 launched "
+          f"{launches['h3_latlng_to_cell']} times on the dense path")
+    log(f"[flagship] the f64 recheck called the native recheck_zones "
+        f"{native_calls} times for {n_chunks} chunks")
+    check(native_calls > 0, "the dense recheck never ran the native "
+          "recheck_zones")
     check(unc < 5e-3, f"uncertain_frac {unc} >= 5e-3")
     for zone, h in zip(zones, hists):
         matched = int(np.sum(zone >= 0))
@@ -424,7 +514,7 @@ def phase_flagship():
     check(bad == 0, f"{bad} zones differ from pip_host_truth")
 
     profile_batch(run, batches[0], min(t_batch[1:]) * 1e3)
-    return launches, idx, grid, batches, rechecked
+    return launches, idx, grid, batches, rechecked, zones[0], polys, chips
 
 
 def index_tables(idx) -> dict:
@@ -577,15 +667,17 @@ def profile_batch(run, pts, plain_wall_ms: float) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
     except RuntimeError as e:         # no CUPTI tracing available
         log(f"[profile] torch.profiler unavailable: {e}")
-        return
+        return {}
     events = prof.key_averages()
     chunks = -(-len(pts) // CHUNK)
+    out = {"host_ms_per_chunk": {}}
     for e in events:
         # the stream/* labels appear twice: as host ranges and as device
         # ranges mirroring the kernels they enclose; only the host side
         # is a phase time.  Device busy counts device-side events only
         # (kernels, copies): a host op's device time repeats its kernels
         if e.key.startswith("stream/") and e.cpu_time_total > 0:
+            out["host_ms_per_chunk"][e.key] = e.cpu_time_total / 1e3 / chunks
             log(f"[profile] host {e.key}: {e.cpu_time_total / 1e3:.3f} ms "
                 f"total, {e.cpu_time_total / 1e3 / chunks:.4f} ms per chunk "
                 f"({e.count} calls)")
@@ -595,7 +687,7 @@ def profile_batch(run, pts, plain_wall_ms: float) -> None:
                   and not e.key.startswith("stream/")), reverse=True)
     if not dev:
         log("[profile] no device-side events recorded")
-        return
+        return out
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA
                    and not e.name.startswith("stream/")
@@ -616,11 +708,357 @@ def profile_batch(run, pts, plain_wall_ms: float) -> None:
         f"{1 - busy_ms / plain_wall_ms:.4f} of the unprofiled one")
     for ms, key, count in dev[:8]:
         log(f"[profile] device {ms:.3f} ms ({count}x): {key[:90]}")
+    out.update(wall_ms=wall_ms, busy_ms=busy_ms,
+               idle_profiled=1 - busy_ms / wall_ms,
+               idle_unprofiled=1 - busy_ms / plain_wall_ms)
+    return out
 
 
-def kernel_line(name, source, replaces, launches, k) -> dict:
+def body_device_ms(fn, reps: int):
+    """Mean device time (ms) per call of ``fn``, all its kernels summed,
+    from torch.profiler; None when it records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:         # no CUPTI tracing available
+        log(f"[sorted] torch.profiler unavailable: {e}")
+        return None
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps if total > 0 else None
+
+
+def global_points(n: int, seed: int):
+    """[n, 2] f64 uniform (lon, lat) in ±180 × ±85 degrees."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    return np.stack([r.uniform(-180, 180, n), r.uniform(-85, 85, n)], -1)
+
+
+def phase_cell_kernel(ops_pt: int):
+    """K3 against its plain version on the card, and against the f64 host
+    ids; timed in turns at the main path's chunk and at 2^22 rows."""
+    import numpy as np
+    import torch
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.ops.cell import (latlng_to_cell_margin,
+                                           latlng_to_cell_margin_ref)
+    grid = mt.get_index_system("H3")
+    sets = [("global", global_points(BATCH, 1), 9),
+            ("flagship NYC", mt.nyc_points(BATCH, seed=SEEDS[0]), 9)]
+    small = global_points(1 << 16, 2)
+    sets += [("global", small, r) for r in range(16)]
+    worst = 0.0
+    rng = np.random.default_rng(4)
+    for label, pts, res in sets:
+        x = torch.from_numpy(pts.astype(np.float32)).to(DEV)
+        ck, mk = latlng_to_cell_margin(x, res)
+        cr, mr = latlng_to_cell_margin_ref(x, res)
+        ids = int((ck != cr).sum())
+        mdiff = mk.view(torch.int32) != mr.view(torch.int32)
+        mbits = int(mdiff.sum())
+        dmax = float((mk - mr)[mdiff].abs().max()) if mbits else 0.0
+        worst = max(worst, dmax)
+        msg = (f"[cell] {label} res {res}, {len(pts)} points: ids differ "
+               f"from plain at {ids}, margin bits at {mbits} (largest "
+               f"margin difference {dmax:.3e} deg)")
+        if ids or mbits:
+            # gated on the plain version's margin: the kernel's own could
+            # hide a wrong id behind a wrong margin
+            high = int(((ck != cr) & (mr >= CELL_ID_MARGIN_DEG)).sum())
+            log(msg + f"; {high} id differences at plain margin >= "
+                f"{CELL_ID_MARGIN_DEG}")
+            check(high == 0, f"K3 ids differ from plain at {high} points "
+                  f"with margin >= {CELL_ID_MARGIN_DEG} ({label}, res {res})")
+            check(dmax <= CELL_MARGIN_TOL_DEG, f"K3 margins differ from "
+                  f"plain by up to {dmax:.3e} deg, more than "
+                  f"{CELL_MARGIN_TOL_DEG} ({label}, res {res})")
+        else:
+            log(msg)
+        pick = np.sort(rng.choice(len(pts), min(HOST_SAMPLE, len(pts)),
+                                  replace=False))
+        host = grid.point_to_cell(pts[pick], res)
+        ck_h, mr_h = ck.cpu().numpy()[pick], mr.cpu().numpy()[pick]
+        off = ck_h != host
+        bad = int(np.sum(off & (mr_h >= CELL_BAND_DEG)))
+        log(f"[cell]   f64 host on {len(pick)} points: {int(off.sum())} ids "
+            f"differ, {bad} with plain margin >= {CELL_BAND_DEG} deg, "
+            f"{int(np.sum(mr_h < CELL_BAND_DEG))} below it")
+        check(bad == 0, f"K3 disagrees with the f64 host at {bad} points "
+              f"outside the {CELL_BAND_DEG} deg band ({label}, res {res})")
+    x = torch.from_numpy(sets[1][1].astype(np.float32)).to(DEV)
+
+    def timed(rows: int):
+        xs = x[:rows]
+        ms, source, events_ms, host_ms, plain_ms = timed_kernel(
+            f"cell {rows} rows", lambda: latlng_to_cell_margin(xs, RES),
+            lambda: latlng_to_cell_margin_ref(xs, RES), "cell_kernel", 5)
+        ops_ms = ops_pt * rows / PEAK_F32_FLOPS * 1e3
+        bytes_ms = CELL_BYTES * rows / PEAK_BYTES * 1e3
+        bound = max(ops_ms, bytes_ms)
+        log(f"[cell] {rows} rows: bound {bound:.4f} ms (operations "
+            f"{ops_ms:.4f}, bytes {bytes_ms:.4f}; {ops_pt} operations and "
+            f"{CELL_BYTES} bytes per point), roofline share "
+            f"{bound / ms:.4f}")
+        return {"plain_ms": plain_ms, "ms": ms, "ms_source": source,
+                "events_ms": events_ms, "host_ms": host_ms, "bound_ms": bound,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "max_abs_err": worst}
+
+    timed(BATCH)
+    return timed(CHUNK)
+
+
+def launch_counts():
+    """The kernels' launch counts and the native library's call counts."""
+    from mosaic_tpu_torch import native
+    from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin
+    from mosaic_tpu_torch.ops.dense_join import dense_join
+    from mosaic_tpu_torch.ops.projection import project_lattice
+    return {"h3_project_lattice": project_lattice.launches,
+            "h3_dense_join": dense_join.launches,
+            "h3_latlng_to_cell": latlng_to_cell_margin.launches,
+            "native_pip_first_match": native.pip_first_match.calls,
+            "native_recheck_zones": native.recheck_zones.calls}
+
+
+def reset_counts() -> None:
+    from mosaic_tpu_torch import native
+    from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin
+    from mosaic_tpu_torch.ops.dense_join import dense_join
+    from mosaic_tpu_torch.ops.projection import project_lattice
+    project_lattice.launches = 0
+    dense_join.launches = 0
+    latlng_to_cell_margin.launches = 0
+    native.pip_first_match.calls = 0
+    native.recheck_zones.calls = 0
+
+
+def sorted_join(label: str, polys, grid, res: int, batches, chips=None,
+                dense: str = "auto", oracle_sample=None):
+    """Build the index on the card (it must be a sorted PIPIndex), drive
+    ``make_streamed_pip_join`` over ``batches`` with the counts set to 0
+    just before and read just after, and hold the final zones against
+    ``pip_host_truth`` on a seeded sample (every point when
+    ``oracle_sample`` is None).  Returns a dict of what it saw."""
+    import numpy as np
+    import mosaic_tpu_torch as mt
+    t0 = time.perf_counter()
+    idx = mt.build_pip_index(polys, res, grid, chips=chips, dense=dense,
+                             device=DEV)
+    t_idx = time.perf_counter() - t0
+    check(isinstance(idx, mt.PIPIndex), f"{label}: got "
+          f"{type(idx).__name__}, not the sorted PIPIndex")
+    check(idx.device.type == DEV, f"{label}: index is not on the card")
+    log(f"[{label}] index in {t_idx:.2f} s on {idx.device}: "
+        f"{idx.core_cells.shape[0]} core cells, {idx.num_chips} border "
+        f"chips, E={idx.chip_a.shape[1]}, max_dup={idx.max_dup}, "
+        f"sagitta {idx.sagitta_deg:.3e} deg")
+    run = mt.make_streamed_pip_join(idx, grid, polys, chunk=CHUNK,
+                                    device=DEV)
+    reset_counts()
+    zones, rechecked, t_batch = [], 0, []
+    t0 = time.perf_counter()
+    for pts in batches:
+        tb = time.perf_counter()
+        zone, nre = run(pts)
+        t_batch.append(time.perf_counter() - tb)
+        zones.append(zone)
+        rechecked += nre
+    t_e2e = time.perf_counter() - t0
+    counts = launch_counts()
+    total = sum(len(b) for b in batches)
+    n_chunks = sum(-(-len(b) // CHUNK) for b in batches)
+    unc = rechecked / total
+    log(f"[{label}] streamed join: {total} points in {t_e2e:.3f} s = "
+        f"{total / t_e2e:.4e} points/s end to end (host clock, first batch "
+        f"included); {rechecked} rechecked on host (uncertain_frac "
+        f"{unc:.4e}); counts {counts} for {n_chunks} chunks; per batch "
+        f"{[round(t, 4) for t in t_batch]} s")
+    all_pts = np.concatenate(batches)
+    all_zone = np.concatenate(zones)
+    check(np.all((all_zone >= -1) & (all_zone < len(polys))),
+          f"{label}: zone ids out of range")
+    if oracle_sample is None:
+        pick = np.arange(total)
+    else:
+        pick = np.sort(np.random.default_rng(0).choice(
+            total, oracle_sample, replace=False))
+    truth = mt.pip_host_truth(all_pts[pick], polys)
+    bad = int(np.sum(truth != all_zone[pick]))
+    log(f"[{label}] oracle: {bad} mismatches of {len(pick)} points "
+        f"({int(np.sum(truth >= 0))} matched)")
+    check(bad == 0, f"{label}: {bad} zones differ from pip_host_truth")
+    return {"idx": idx, "run": run, "zones": zones, "counts": counts,
+            "n_chunks": n_chunks, "uncertain": unc, "rechecked": rechecked,
+            "pps": total / t_e2e, "t_batch": t_batch}
+
+
+def sorted_against_plain(label: str, idx, grid, pts, rechecked: int):
+    """The sorted body with K3 and with K3's plain version on the same
+    chunks as the main path: device zones and flags bit-equal, and the
+    plain version's uncertain count equal to what the main path
+    rechecked."""
+    import copy
+    import torch
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin_ref
+    plain_grid = copy.copy(grid)
+    plain_grid.point_to_cell_torch_margin = latlng_to_cell_margin_ref
+    fn = mt.make_pip_join_fn(idx, grid)
+    plain = mt.make_pip_join_fn(idx, plain_grid)
+    uncertain = differ = 0
+    for s in range(0, len(pts), CHUNK):
+        x = torch.from_numpy(mt.localize(idx, pts[s:s + CHUNK])).to(DEV)
+        zk, uk = fn(x)
+        zr, ur = plain(x)
+        differ += int(((zk != zr) | (uk != ur)).sum())
+        uncertain += int(ur.sum())
+    log(f"[{label}] against the plain cell step: zones or flags differ "
+        f"at {differ} points; plain uncertain {uncertain}, main path "
+        f"rechecked {rechecked}")
+    check(differ == 0, f"{label}: the sorted body with K3 differs from "
+          f"its plain version at {differ} points")
+    check(uncertain == rechecked, f"{label}: the main path rechecked "
+          f"{rechecked} points, the plain version flags {uncertain}")
+
+
+def sorted_chunk_costs(label: str, idx, grid, polys, pts):
+    """The sorted body's device ms and host enqueue per 2^18-row chunk,
+    and the native recheck's host ms per chunk (its flagged points)."""
+    import numpy as np
+    import torch
+    import mosaic_tpu_torch as mt
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            CountOps.n += 1
+            return func(*args, **(kwargs or {}))
+
+    fn = mt.make_pip_join_fn(idx, grid)
+    x = torch.from_numpy(mt.localize(idx, pts[:CHUNK])).to(DEV)
+    call = lambda: fn(x)          # noqa: E731
+    call()
+    with CountOps():
+        call()
+    dev_ms = body_device_ms(call, 10)
+    events_ms = time_ms(call, 10)
+    host_ms = host_ms_per_launch(call, 20)
+    z, u = [t.cpu().numpy() for t in fn(x)]
+    recheck = mt.host_recheck_fn(idx, polys)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        recheck(pts[:CHUNK], z, u)
+    re_ms = (time.perf_counter() - t0) * 1e3 / 5
+    log(f"[{label}] per 2^18-row chunk: sorted body device {dev_ms} ms "
+        f"(profiler, kernels summed), {events_ms:.4f} ms by events over a "
+        f"call loop, host enqueue {host_ms:.4f} ms for its {CountOps.n} "
+        f"aten ops (views included); native recheck of its "
+        f"{int(u.sum())} flagged points {re_ms:.4f} ms on the host")
+    return {"body_device_ms": dev_ms, "body_events_ms": events_ms,
+            "body_host_ms": host_ms, "body_aten_ops": CountOps.n,
+            "recheck_host_ms": re_ms, "flagged_per_chunk": int(np.sum(u))}
+
+
+def phase_sorted_custom():
+    """The sorted join at full width on the CUSTOM taxi workload."""
+    import mosaic_tpu_torch as mt
+    t0 = time.perf_counter()
+    polys, grid, res = mt.build_workload(n_side=16, res_cells=512,
+                                         grid_name="CUSTOM", zones="taxi")
+    log(f"[custom] {len(polys)} zones on {grid.name} res {res} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    batches = [mt.nyc_points(BATCH, seed=s) for s in SEEDS]
+    out = sorted_join("custom", polys, grid, res, batches,
+                      oracle_sample=ORACLE_SAMPLE)
+    c = out["counts"]
+    check(c["h3_latlng_to_cell"] == 0 and c["h3_dense_join"] == 0 and
+          c["h3_project_lattice"] == 0, f"a kernel launched on the CUSTOM "
+          f"path: {c}")
+    check(c["native_pip_first_match"] > 0, "the sorted recheck never ran "
+          "the native pip_first_match")
+    out["profile"] = profile_batch(out["run"], batches[0],
+                                   min(out["t_batch"][1:]) * 1e3)
+    out.update(sorted_chunk_costs("custom", out["idx"], grid, polys,
+                                  batches[0]))
+    return out
+
+
+def phase_sorted_h3(polys, grid, chips, batch, dense_zone):
+    """The H3 sorted join on the flagship with dense="never" (held
+    against the dense answer), then the continental and multi-face
+    workloads the dense path refuses."""
+    import numpy as np
+    import mosaic_tpu_torch as mt
+    out = sorted_join("h3 sorted", polys, grid, RES, [batch], chips=chips,
+                      dense="never", oracle_sample=ORACLE_SAMPLE)
+    c = out["counts"]
+    check(c["h3_latlng_to_cell"] == out["n_chunks"], f"K3 launched "
+          f"{c['h3_latlng_to_cell']} times for {out['n_chunks']} chunks")
+    check(c["h3_dense_join"] == 0 and c["h3_project_lattice"] == 0,
+          f"K1/K2 launched on the sorted path: {c}")
+    diff = int(np.sum(out["zones"][0] != dense_zone))
+    log(f"[h3 sorted] final zones differ from the dense join's at {diff} "
+        f"of {len(batch)} points")
+    check(diff == 0, f"H3 sorted and dense final zones differ at {diff}")
+    sorted_against_plain("h3 sorted", out["idx"], grid, batch,
+                         out["rechecked"])
+    out.update(sorted_chunk_costs("h3 sorted", out["idx"], grid, polys,
+                                  batch))
+    rng = np.random.default_rng(0)
+    cases = [
+        ("continental mid", "POLYGON ((-120 30, -70 30, -70 50, -120 50, "
+         "-120 30))", (-121, -69), (29, 51)),
+        ("continental polar", "POLYGON ((-30 55, 30 55, 30 75, -30 75, "
+         "-30 55))", (-31, 31), (54, 76)),
+        ("multi-face", "POLYGON((-30 20, 20 20, 20 60, -30 60, -30 20))",
+         (-35, 25), (15, 65)),
+    ]
+    for label, wkt, lon, lat in cases:
+        p = mt.read_wkt([wkt])
+        pts = np.stack([rng.uniform(*lon, 20_000),
+                        rng.uniform(*lat, 20_000)], -1)
+        r = sorted_join(label, p, grid, 2, [pts])
+        sorted_against_plain(label, r["idx"], grid, pts, r["rechecked"])
+        check(r["counts"]["h3_latlng_to_cell"] == r["n_chunks"],
+              f"{label}: K3 launched {r['counts']['h3_latlng_to_cell']} "
+              f"times for {r['n_chunks']} chunks")
+        out[label] = r["uncertain"]
+    return out
+
+
+def phase_sorted_bng():
+    """One BNG join at 2^20 points: the BNG row of tests/test_bng.py's grid
+    matrix with its test polygon."""
+    import numpy as np
+    import mosaic_tpu_torch as mt
+    x0, y0, x1, y1 = 100_000, 100_000, 200_000, 200_000
+    w, h = x1 - x0, y1 - y0
+    ring = [(x0 + 0.2 * w, y0 + 0.2 * h), (x0 + 0.8 * w, y0 + 0.25 * h),
+            (x0 + 0.7 * w, y0 + 0.8 * h), (x0 + 0.4 * w, y0 + 0.6 * h),
+            (x0 + 0.2 * w, y0 + 0.75 * h), (x0 + 0.2 * w, y0 + 0.2 * h)]
+    polys = mt.read_wkt(["POLYGON((" + ", ".join(
+        f"{x} {y}" for x, y in ring) + "))"])
+    rng = np.random.default_rng(42)
+    n = 1 << 20
+    pts = np.stack([rng.uniform(x0, x1, n), rng.uniform(y0, y1, n)], -1)
+    return sorted_join("bng", polys, mt.get_index_system("BNG"), 3, [pts])
+
+
+def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "ms_source": k["ms_source"], "host_ms": k["host_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -645,22 +1083,46 @@ def main() -> int:
         flops_pt, issued_pt = flops_per_point(RES, origin)
         kern = phase_kernel(origin, flops_pt, issued_pt)
         phase_df_contract()
-        launches, idx, grid, batches, rechecked = phase_flagship()
+        launches, idx, grid, batches, rechecked, dense_zone, polys, chips = \
+            phase_flagship()
         join = phase_join_kernel(idx, grid, batches, rechecked, flops_pt)
+        cell = phase_cell_kernel(cell_ops_per_point(RES))
+        custom = phase_sorted_custom()
+        h3s = phase_sorted_h3(polys, grid, chips, batches[0], dense_zone)
+        bng = phase_sorted_bng()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    paths = {"dense flagship": launches, "custom sorted": custom["counts"],
+             "h3 sorted": h3s["counts"], "bng sorted": bng["counts"]}
+
+    def by_path(kernel):
+        return {p: c[kernel] for p, c in paths.items()}
+
+    log(json.dumps({"sorted": {
+        p: {k: r[k] for k in ("uncertain", "pps", "body_device_ms",
+                              "body_host_ms", "body_aten_ops",
+                              "recheck_host_ms", "flagged_per_chunk",
+                              "profile") if k in r}
+        for p, r in (("custom", custom), ("h3", h3s), ("bng", bng))}}))
     log(card)
     log(json.dumps({"kernels": [
         kernel_line("h3_project_lattice",
                     "mosaic_tpu_torch/csrc/h3_projection.cu",
                     "mosaic_tpu/ops/pallas_projection.py:228",
-                    launches["h3_project_lattice"], kern),
+                    launches["h3_project_lattice"], kern,
+                    by_path("h3_project_lattice")),
         kernel_line("h3_dense_join",
                     "mosaic_tpu_torch/csrc/h3_dense_join.cu",
                     "mosaic_tpu/ops/pallas_projection.py:228 + "
                     "mosaic_tpu/parallel/pip_join.py:1689",
-                    launches["h3_dense_join"], join)]}))
+                    launches["h3_dense_join"], join,
+                    by_path("h3_dense_join")),
+        kernel_line("h3_latlng_to_cell",
+                    "mosaic_tpu_torch/csrc/h3_cell.cu",
+                    "mosaic_tpu/core/index/h3/jaxkernel.py:383",
+                    h3s["counts"]["h3_latlng_to_cell"], cell,
+                    by_path("h3_latlng_to_cell"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """mosaic_tpu_torch — the PyTorch/CUDA port of mosaic_tpu.
 
-This slice ports the flagship dense H3 point-in-polygon join: workload,
-tessellation, the dense lattice-window index, the device join (one
-hand-written CUDA kernel for Hopper that projects each point to the H3
-lattice and joins it, ``ops/dense_join.py``), the f64 host recheck and
-the zone histogram.  The package imports torch and numpy,
+Ported so far: the point-in-polygon join on H3, BNG and CUSTOM grids —
+workload, tessellation, the dense lattice-window index (its device join
+one hand-written CUDA kernel for Hopper that projects each point to the
+H3 lattice and joins it, ``ops/dense_join.py``), the grid-agnostic
+sorted-table index (torch ops, with H3 cell ids from a second CUDA
+kernel, ``ops/cell.py``), the f64 host recheck through the native C++
+kernels of ``native/`` and the zone histogram.  The package imports torch and numpy,
 never jax and nothing of ``mosaic_tpu``; its module layout and names
 follow ``mosaic_tpu`` so each module's counterpart is easy to find.
 
@@ -30,20 +32,21 @@ from .core.geometry.wkt import read_wkt, write_wkt
 from .core.index.factory import get_index_system
 from .core.tessellate import point_chips, tessellate
 from .ops.projection import project_lattice, project_lattice_ref
-from .parallel.pip_join import (DensePIPIndex, build_dense_pip_index,
-                                build_pip_index, dense_index_from_arrays,
-                                host_recheck_fn, localize, make_pip_join_fn,
+from .parallel.pip_join import (DensePIPIndex, PIPIndex,
+                                build_dense_pip_index, build_pip_index,
+                                dense_index_from_arrays, host_recheck_fn,
+                                localize, make_pip_join_fn,
                                 make_streamed_pip_join, pip_host_truth,
-                                zone_histogram)
+                                sorted_index_from_arrays, zone_histogram)
 from .types import ChipSet
 
 __all__ = [
     "resolve_device", "build_workload", "nyc_points", "taxi_zones",
     "GeometryArray", "GeometryBuilder", "GeometryType", "read_wkt",
     "write_wkt", "get_index_system", "point_chips", "tessellate",
-    "project_lattice", "project_lattice_ref", "DensePIPIndex",
+    "project_lattice", "project_lattice_ref", "DensePIPIndex", "PIPIndex",
     "build_dense_pip_index", "build_pip_index", "dense_index_from_arrays",
-    "host_recheck_fn", "localize", "make_pip_join_fn",
-    "make_streamed_pip_join", "pip_host_truth", "zone_histogram",
-    "ChipSet",
+    "sorted_index_from_arrays", "host_recheck_fn", "localize",
+    "make_pip_join_fn", "make_streamed_pip_join", "pip_host_truth",
+    "zone_histogram", "ChipSet",
 ]

@@ -1,8 +1,11 @@
 """IndexSystem — the grid plugin boundary, vectorized.
 
-Port copy of ``mosaic_tpu.core.index.base`` (host part only: the
-device hooks ``point_to_cell_jax*``/``point_in_bounds_jax`` come with
-the sorted-table join's slice).
+Port copy of ``mosaic_tpu.core.index.base``.  The JAX package's device
+hooks ``point_to_cell_jax``, ``point_to_cell_jax_margin`` and
+``point_in_bounds_jax`` are ``point_to_cell_torch``,
+``point_to_cell_torch_margin`` and ``point_in_bounds_torch`` here: they
+take and return tensors on the caller's device.  ``prepare_torch`` is
+the port's own: a grid whose hooks launch a kernel builds it there.
 
 Reference counterpart: core/index/IndexSystem.scala:15-318 (pointToIndex,
 polyfill, kRing/kLoop, indexToGeometry, getBufferRadius, getBorderChips,
@@ -23,6 +26,16 @@ import abc
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+
+def device_scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-dim tensor of ``like``'s dtype on its device, made by a
+    fill kernel (no host copy, no synchronize).  The device hooks divide
+    by these: CUDA turns division by a python scalar into a multiply by
+    its reciprocal, which is not the rounded quotient the JAX package's
+    f32 division gives."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 class IndexSystem(abc.ABC):
@@ -53,6 +66,41 @@ class IndexSystem(abc.ABC):
     @abc.abstractmethod
     def point_to_cell(self, xy: np.ndarray, res: int) -> np.ndarray:
         """[N, 2] (x, y) -> [N] int64 cell ids (reference: pointToIndex)."""
+
+    def prepare_torch(self, device: torch.device, res: int) -> None:
+        """Build and upload, once, whatever the device hooks need on
+        ``device`` at ``res`` — blocking work a join does before its
+        stream-ordered loop.  Grids whose hooks are plain torch ops need
+        nothing."""
+
+    def point_to_cell_torch(self, xy: torch.Tensor, res: int
+                            ) -> torch.Tensor:
+        """Device point_to_cell: [N, 2] tensor -> [N] int64 cell ids on
+        the same device.  Device-side cell assignment is the first stage
+        of every indexed join; grids implement it as closed-form
+        bit/float math (no tables beyond small constant gathers)."""
+        raise NotImplementedError(f"{self.name} has no device kernel")
+
+    def point_to_cell_torch_margin(self, xy: torch.Tensor, res: int
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cells, margin): margin [N] is a lower-ish bound on each
+        point's distance (in CRS units) to its cell's boundary, computed
+        from the quantization residual.  The join pipeline flags points
+        with small margin for float64 host recheck — this is what makes
+        float32 device cell assignment exact-by-construction: any point
+        close enough to a cell edge for f32 rounding to matter is, by
+        definition, low-margin."""
+        cells = self.point_to_cell_torch(xy, res)
+        return cells, torch.full(xy.shape[:-1], float("inf"),
+                                 dtype=xy.dtype, device=xy.device)
+
+    def point_in_bounds_torch(self, xy: torch.Tensor) -> torch.Tensor:
+        """[N, 2] -> [N] bool on the same device: point lies inside the
+        grid's valid domain.  Global grids (H3) cover the sphere and
+        return all True; bounded grids (CUSTOM/BNG) must override so
+        out-of-domain points are rejected rather than clipped into a
+        boundary cell."""
+        return torch.ones(xy.shape[:-1], dtype=torch.bool, device=xy.device)
 
     @abc.abstractmethod
     def cell_center(self, cells: np.ndarray) -> np.ndarray:

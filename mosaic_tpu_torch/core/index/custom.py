@@ -17,8 +17,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-from .base import IndexSystem
+from .base import IndexSystem, device_scalar
 
 _RES_SHIFT = 56
 _Y_SHIFT = 28
@@ -109,6 +110,38 @@ class CustomIndexSystem(IndexSystem):
         ix = np.clip(ix, 0, self.cells_per_axis_x(res) - 1)
         iy = np.clip(iy, 0, self.cells_per_axis_y(res) - 1)
         return self._pack(res, ix, iy)
+
+    def point_in_bounds_torch(self, xy: torch.Tensor) -> torch.Tensor:
+        c = self.conf
+        return ((xy[..., 0] >= c.bound_x_min) & (xy[..., 0] <= c.bound_x_max)
+                & (xy[..., 1] >= c.bound_y_min)
+                & (xy[..., 1] <= c.bound_y_max))
+
+    def _fractional_cells(self, xy: torch.Tensor, res: int):
+        """(x - xmin) / sx and (y - ymin) / sy in the input's dtype."""
+        c = self.conf
+        sx, sy = self.cell_size(res)
+        return ((xy[..., 0] - c.bound_x_min) / device_scalar(sx, xy),
+                (xy[..., 1] - c.bound_y_min) / device_scalar(sy, xy))
+
+    def point_to_cell_torch(self, xy: torch.Tensor, res: int
+                            ) -> torch.Tensor:
+        self._check_res(res)
+        fx, fy = self._fractional_cells(xy, res)
+        ix = torch.floor(fx).to(torch.int64).clamp_(
+            0, self.cells_per_axis_x(res) - 1)
+        iy = torch.floor(fy).to(torch.int64).clamp_(
+            0, self.cells_per_axis_y(res) - 1)
+        return (res << _RES_SHIFT) | (iy << _Y_SHIFT) | ix
+
+    def point_to_cell_torch_margin(self, xy: torch.Tensor, res: int):
+        cells = self.point_to_cell_torch(xy, res)
+        sx, sy = self.cell_size(res)
+        fx, fy = (torch.remainder(f, 1.0)
+                  for f in self._fractional_cells(xy, res))
+        mx = torch.minimum(fx, 1.0 - fx) * sx
+        my = torch.minimum(fy, 1.0 - fy) * sy
+        return cells, torch.minimum(mx, my)
 
     def cell_center(self, cells: np.ndarray) -> np.ndarray:
         res, ix, iy = self._unpack(cells)

@@ -24,9 +24,8 @@ def get_index_system(name: str) -> IndexSystem:
         from .h3.system import H3IndexSystem
         return H3IndexSystem()
     if up == "BNG":
-        raise NotImplementedError(
-            "BNG is not ported to mosaic_tpu_torch yet; use H3 or "
-            "CUSTOM(...)")
+        from .bng import BNGIndexSystem
+        return BNGIndexSystem()
     m = _CUSTOM_RE.match(name.strip())
     if m:
         xmin, xmax, ymin, ymax = (float(m.group(i)) for i in range(1, 5))

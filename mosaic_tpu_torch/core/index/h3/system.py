@@ -5,8 +5,9 @@ LongType ids, all cell math delegated to Uber's native H3 core through
 JNI).  Here the grid is the from-scratch aperture-7 icosahedral DGGS in
 h3/: same cell-id bit layout, same topology (122 base cells, 12
 pentagons, resolutions 0-15), pure vectorized numpy.  Port copy of
-``mosaic_tpu.core.index.h3.system`` without the device hooks, which
-come with a later slice.
+``mosaic_tpu.core.index.h3.system``; its device hook
+``point_to_cell_torch_margin`` is the cell kernel of ``ops/cell.py``
+(a hand-written CUDA kernel on the card, its plain version on the CPU).
 
 Grid CRS is EPSG:4326; (x, y) = (lon, lat) degrees, like the reference.
 """
@@ -435,3 +436,22 @@ class H3IndexSystem(IndexSystem):
                 "(reference h3Distance also fails across icosahedron "
                 "distortion)")
         return out
+
+    def prepare_torch(self, device, res: int) -> None:
+        """Build the cell kernel and upload its tables on a CUDA
+        ``device``; nothing on the CPU."""
+        if device.type == "cuda":
+            from ....ops.cell import prepare
+            self._check_res(res)
+            prepare(device, res)
+
+    def point_to_cell_torch(self, xy, res: int):
+        return self.point_to_cell_torch_margin(xy, res)[0]
+
+    def point_to_cell_torch_margin(self, xy, res: int):
+        """(cells int64, margin f32 planar degrees) of [N, 2] f32 absolute
+        (lon, lat) degrees: one launch of the cell kernel on CUDA, its
+        plain version on the CPU."""
+        from ....ops.cell import latlng_to_cell_margin
+        self._check_res(res)
+        return latlng_to_cell_margin(xy, res)

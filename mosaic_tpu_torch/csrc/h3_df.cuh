@@ -1,7 +1,8 @@
 // Double-single (df) f32 arithmetic and the per-point H3 lattice
-// projection, shared by the port's two projection kernels:
-// h3_projection.cu (the projection alone) and h3_dense_join.cu (the
-// projection fused with the dense PIP join body).
+// projection, shared by the port's three projection kernels:
+// h3_projection.cu (the projection alone), h3_dense_join.cu (the
+// projection fused with the dense PIP join body) and h3_cell.cu (cell
+// ids of absolute points, which enters at project_xyz).
 //
 // Bits.  The plain PyTorch version (ops/projection.py
 // project_lattice_ref over ops/twofloat.py) rounds every add, multiply
@@ -164,22 +165,12 @@ struct Projection {
   float margin, gap;
 };
 
-// One point's projection: origin-local lon/lat degrees -> (face, axial
-// a, axial b, hex margin, face gap).  `tbl` is the basis table in
-// shared memory.
-__device__ __forceinline__ Projection project_point(float2 p,
-                                                    const float* tbl,
-                                                    const Consts& k) {
-  const DF pi180{k.v[0], k.v[1]};
-  DF sin_lat, cos_lat, sin_lng, cos_lng;
-  trig_local(p.y, pi180, DF{k.v[2], k.v[3]}, DF{k.v[4], k.v[5]},
-             sin_lat, cos_lat);
-  trig_local(p.x, pi180, DF{k.v[6], k.v[7]}, DF{k.v[8], k.v[9]},
-             sin_lng, cos_lng);
-  DF X = df_mul(cos_lat, cos_lng);
-  DF Y = df_mul(cos_lat, sin_lng);
-  DF Z = sin_lat;
-
+// The projection of a unit-sphere point (X, Y, Z) in df -> (face, axial
+// a, axial b, hex margin, face gap).  `tbl` is the basis table in shared
+// memory; only k.v[10..12] (1/sin60 in df, sin60) are read.
+__device__ __forceinline__ Projection project_xyz(DF X, DF Y, DF Z,
+                                                  const float* tbl,
+                                                  const Consts& k) {
   // 20-face running argmax on the hi parts, plain f32 three-term dots
   float best = -2.0f, second = -2.0f;
   int face = 0;
@@ -226,6 +217,22 @@ __device__ __forceinline__ Projection project_point(float2 p,
 
   return {face, (int)add(rq2, rr2), (int)rr2, fmax_(sub(0.5f, proj), 0.0f),
           gap};
+}
+
+// One point's projection: origin-local lon/lat degrees -> (face, axial
+// a, axial b, hex margin, face gap).  `tbl` is the basis table in
+// shared memory.
+__device__ __forceinline__ Projection project_point(float2 p,
+                                                    const float* tbl,
+                                                    const Consts& k) {
+  const DF pi180{k.v[0], k.v[1]};
+  DF sin_lat, cos_lat, sin_lng, cos_lng;
+  trig_local(p.y, pi180, DF{k.v[2], k.v[3]}, DF{k.v[4], k.v[5]},
+             sin_lat, cos_lat);
+  trig_local(p.x, pi180, DF{k.v[6], k.v[7]}, DF{k.v[8], k.v[9]},
+             sin_lng, cos_lng);
+  return project_xyz(df_mul(cos_lat, cos_lng), df_mul(cos_lat, sin_lng),
+                     sin_lat, tbl, k);
 }
 
 }  // namespace h3df

@@ -1,0 +1,267 @@
+// Exact-geometry host kernels (C++): the native layer of the port.
+//
+// Port copy of mosaic_tpu/native/geokernels.cpp, unchanged below this
+// header.  These kernels own the exact float64 host passes the f32
+// device join leans on: the PIP oracle (pip_first_match) and the
+// recheck of flagged points (recheck_zones), as tight loops with bbox
+// pruning in place of per-polygon numpy broadcasting.
+// intersect_area_pairs is carried along for the overlay slice and is
+// not bound yet.
+//
+// Plain C ABI (ctypes), no Python headers: builds with a bare
+// `g++ -O3 -shared -fPIC` at first use (native/__init__.py).  A failed
+// build raises; the numpy versions in parallel/pip_join.py run only
+// when a caller asks for them.
+
+#include <cstdint>
+#include <cstddef>
+#include <vector>
+
+extern "C" {
+
+// Crossing-number point-in-polygon, half-open rule identical to
+// tessellate._pip: straddle = (ay <= py) != (by <= py); hit if px < xi.
+// pts [n_pts, 2]; edges [n_edges, 4] = ax, ay, bx, by;
+// geom_start [n_geoms + 1] CSR over edges; out [n_pts] = first geometry
+// containing the point, or -1.
+void pip_first_match(const double* pts, int64_t n_pts,
+                     const double* edges, const int64_t* geom_start,
+                     int64_t n_geoms, int32_t* out) {
+    // per-geometry bbox prune
+    std::vector<double> bx0(n_geoms), by0(n_geoms), bx1(n_geoms),
+        by1(n_geoms);
+    for (int64_t g = 0; g < n_geoms; ++g) {
+        double x0 = 1e300, y0 = 1e300, x1 = -1e300, y1 = -1e300;
+        for (int64_t e = geom_start[g]; e < geom_start[g + 1]; ++e) {
+            const double* ed = edges + 4 * e;
+            double lo_x = ed[0] < ed[2] ? ed[0] : ed[2];
+            double hi_x = ed[0] < ed[2] ? ed[2] : ed[0];
+            double lo_y = ed[1] < ed[3] ? ed[1] : ed[3];
+            double hi_y = ed[1] < ed[3] ? ed[3] : ed[1];
+            if (lo_x < x0) x0 = lo_x;
+            if (hi_x > x1) x1 = hi_x;
+            if (lo_y < y0) y0 = lo_y;
+            if (hi_y > y1) y1 = hi_y;
+        }
+        bx0[g] = x0; by0[g] = y0; bx1[g] = x1; by1[g] = y1;
+    }
+    for (int64_t i = 0; i < n_pts; ++i) {
+        const double px = pts[2 * i], py = pts[2 * i + 1];
+        int32_t hit = -1;
+        for (int64_t g = 0; g < n_geoms && hit < 0; ++g) {
+            if (px < bx0[g] || px > bx1[g] || py < by0[g] ||
+                py > by1[g]) continue;
+            int64_t crossings = 0;
+            for (int64_t e = geom_start[g]; e < geom_start[g + 1]; ++e) {
+                const double* ed = edges + 4 * e;
+                const double ay = ed[1], by = ed[3];
+                if ((ay <= py) != (by <= py)) {
+                    const double ax = ed[0], bxx = ed[2];
+                    const double t = (py - ay) / (by - ay);
+                    const double xi = ax + t * (bxx - ax);
+                    if (px < xi) ++crossings;
+                }
+            }
+            if (crossings & 1) hit = (int32_t)g;
+        }
+        out[i] = hit;
+    }
+}
+
+// Per-(point, group) chip-parity zone assignment — the native recheck
+// core.  pts [n, 2]; group[n] (CSR row per point, -1 = skip);
+// edges [E, 4]; ezslot [E]; gstart [G+1]; gzones [G, zcap];
+// out [n] zone or -1.
+void recheck_zones(const double* pts, const int64_t* group, int64_t n,
+                   const double* edges, const int32_t* ezslot,
+                   const int64_t* gstart, const int32_t* gzones,
+                   int64_t zcap, int32_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        const int64_t g = group[i];
+        out[i] = -1;
+        if (g < 0) continue;
+        const double px = pts[2 * i], py = pts[2 * i + 1];
+        int64_t counts[16] = {0};
+        for (int64_t e = gstart[g]; e < gstart[g + 1]; ++e) {
+            const double* ed = edges + 4 * e;
+            const double ay = ed[1], by = ed[3];
+            if ((ay <= py) != (by <= py)) {
+                const double t = (py - ay) / (by - ay);
+                const double xi = ed[0] + t * (ed[2] - ed[0]);
+                if (px < xi) {
+                    const int32_t z = ezslot[e];
+                    if (z >= 0 && z < 16) ++counts[z];
+                }
+            }
+        }
+        for (int64_t z = 0; z < zcap && z < 16; ++z) {
+            if (counts[z] & 1) { out[i] = gzones[g * zcap + z]; break; }
+        }
+    }
+}
+
+}  // extern "C"
+
+// Batched exact intersection AREA of polygon-region pairs.
+//
+// Key design point (this is what makes the distributed overlay area
+// scale, VERDICT round-3 missing #4/weak #3): area(A∩B) needs NO ring
+// stitching.  With every ring directed region-left (shells CCW, holes
+// CW — clip.py's normalization), the boundary of A∩B is exactly
+//   { fragments of ∂A strictly inside B }
+// ∪ { fragments of ∂B strictly inside A }
+// ∪ { shared collinear same-direction fragments (counted once) }
+// and the shoelace line integral is additive over fragments, so the
+// area is a running sum — the expensive leftmost-turn junction walk in
+// the Python engine (clip._stitch) never happens.
+//
+// ea/eb: [E, 4] directed edges (ax, ay, bx, by); offa/offb: [P+1] CSR
+// over pairs; out: [P] f64 areas.  O(Ea*Eb) per pair — intended for
+// chip-sized operands (tens of edges), millions of pairs.
+namespace {
+
+inline double orient(double px, double py, double qx, double qy,
+                     double rx, double ry) {
+    return (qx - px) * (ry - py) - (qy - py) * (rx - px);
+}
+
+// crossing parity of point (px, py) vs region edges [e0, e1)
+inline bool region_contains(const double* eb, int64_t e0, int64_t e1,
+                            double px, double py) {
+    int64_t crossings = 0;
+    for (int64_t e = e0; e < e1; ++e) {
+        const double* ed = eb + 4 * e;
+        const double ay = ed[1], by = ed[3];
+        if ((ay <= py) != (by <= py)) {
+            const double t = (py - ay) / (by - ay);
+            const double xi = ed[0] + t * (ed[2] - ed[0]);
+            if (px < xi) ++crossings;
+        }
+    }
+    return crossings & 1;
+}
+
+// -1 = not on boundary; 0 = on, opposite direction; 1 = on, same dir
+inline int on_boundary(const double* eb, int64_t e0, int64_t e1,
+                       double px, double py, double dx, double dy,
+                       double eps) {
+    for (int64_t e = e0; e < e1; ++e) {
+        const double* ed = eb + 4 * e;
+        const double ex = ed[2] - ed[0], ey = ed[3] - ed[1];
+        const double len2 = ex * ex + ey * ey;
+        if (len2 < 1e-300) continue;
+        const double rx = px - ed[0], ry = py - ed[1];
+        const double perp = ex * ry - ey * rx;
+        if (perp * perp > eps * eps * len2) continue;
+        const double t = (rx * ex + ry * ey) / len2;
+        if (t < -eps || t > 1 + eps) continue;
+        return (dx * ex + dy * ey) > 0 ? 1 : 0;
+    }
+    return -1;
+}
+
+// sum of selected-fragment shoelace integrals for one side of a pair;
+// *overflow set when an edge exceeds the split-point buffer (caller
+// must treat the pair's area as unknown, never as a silent answer)
+double side_area(const double* ea, int64_t a0, int64_t a1,
+                 const double* eb, int64_t b0, int64_t b1,
+                 bool count_shared, double eps, bool* overflow) {
+    double acc = 0.0;
+    double ts[512];
+    for (int64_t e = a0; e < a1; ++e) {
+        const double* ed = ea + 4 * e;
+        const double px = ed[0], py = ed[1], qx = ed[2], qy = ed[3];
+        const double dx = qx - px, dy = qy - py;
+        const double len2 = dx * dx + dy * dy;
+        if (len2 < 1e-300) continue;
+        int nt = 0;
+        ts[nt++] = 0.0;
+        ts[nt++] = 1.0;
+        for (int64_t f = b0; f < b1; ++f) {
+            if (nt >= 508) { *overflow = true; break; }
+            const double* fd = eb + 4 * f;
+            const double rx = fd[0], ry = fd[1], sx = fd[2],
+                sy = fd[3];
+            const double d1 = orient(px, py, qx, qy, rx, ry);
+            const double d2 = orient(px, py, qx, qy, sx, sy);
+            const double d3 = orient(rx, ry, sx, sy, px, py);
+            const double d4 = orient(rx, ry, sx, sy, qx, qy);
+            if (((d1 > 0) != (d2 > 0)) && ((d3 > 0) != (d4 > 0)) &&
+                d3 != d4) {
+                ts[nt++] = d3 / (d3 - d4);
+            }
+            // B endpoint on A's line (within eps perpendicular — the
+            // same tolerance as on_boundary; chip vertices produced by
+            // different clip paths are collinear only to ~1e-16, so an
+            // exact ==0 test left shared partial edges unsplit and the
+            // selected boundary unclosed): split there (covers
+            // endpoint touches and collinear overlaps)
+            if (d1 * d1 <= eps * eps * len2) {
+                const double t = ((rx - px) * dx + (ry - py) * dy) /
+                    len2;
+                if (t > 0 && t < 1) ts[nt++] = t;
+            }
+            if (d2 * d2 <= eps * eps * len2) {
+                const double t = ((sx - px) * dx + (sy - py) * dy) /
+                    len2;
+                if (t > 0 && t < 1) ts[nt++] = t;
+            }
+        }
+        // insertion sort (nt is small)
+        for (int i = 1; i < nt; ++i) {
+            double v = ts[i];
+            int j = i - 1;
+            while (j >= 0 && ts[j] > v) { ts[j + 1] = ts[j]; --j; }
+            ts[j + 1] = v;
+        }
+        for (int i = 0; i + 1 < nt; ++i) {
+            const double t0 = ts[i], t1 = ts[i + 1];
+            if (t1 - t0 < 1e-14) continue;
+            const double tm = 0.5 * (t0 + t1);
+            const double mx = px + tm * dx, my = py + tm * dy;
+            const int ob = on_boundary(eb, b0, b1, mx, my, dx, dy, eps);
+            bool take;
+            if (ob >= 0) {
+                take = count_shared && ob == 1;
+            } else {
+                take = region_contains(eb, b0, b1, mx, my);
+            }
+            if (take) {
+                const double x0 = px + t0 * dx, y0 = py + t0 * dy;
+                const double x1 = px + t1 * dx, y1 = py + t1 * dy;
+                acc += 0.5 * (x0 * y1 - x1 * y0);
+            }
+        }
+    }
+    return acc;
+}
+
+}  // namespace
+
+extern "C" {
+
+// ea/eb: edge pools of the DISTINCT geometries; offa/offb CSR over the
+// pools; idxa/idxb [P] pool slots per pair (pair lists repeat
+// geometries heavily, so pools keep memory at O(unique), not O(pairs)).
+void intersect_area_pairs(const double* ea, const int64_t* offa,
+                          const int64_t* idxa,
+                          const double* eb, const int64_t* offb,
+                          const int64_t* idxb,
+                          int64_t n_pairs, double eps, double* out) {
+    for (int64_t p = 0; p < n_pairs; ++p) {
+        const int64_t a0 = offa[idxa[p]], a1 = offa[idxa[p] + 1];
+        const int64_t b0 = offb[idxb[p]], b1 = offb[idxb[p] + 1];
+        if (a0 >= a1 || b0 >= b1) { out[p] = 0.0; continue; }
+        bool overflow = false;
+        out[p] = side_area(ea, a0, a1, eb, b0, b1, true, eps,
+                           &overflow) +
+                 side_area(eb, b0, b1, ea, a0, a1, false, eps,
+                           &overflow);
+        // split-buffer overflow: surface NaN so the caller reruns the
+        // pair through the exact host engine instead of trusting a
+        // truncated fragment sum
+        if (overflow) out[p] = 0.0 / 0.0;
+    }
+}
+
+}  // extern "C"

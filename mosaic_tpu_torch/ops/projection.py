@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,22 +89,46 @@ def _round(v: DF):
     return r + adj, frac - adj
 
 
-def project_lattice_ref(xy_local: torch.Tensor, res: int,
-                        origin: Tuple[float, float]) -> Projection:
-    """Plain PyTorch version of the kernel: [N, 2] f32 origin-local
-    degrees -> (face, a, b, margin, facegap), on the input's device.
+#: f32 degrees -> radians and back, as ``jnp.radians``/``jnp.degrees``
+#: scale an f32 array: one multiply by the constant rounded to f32
+RAD_PER_DEG = float(np.float32(np.pi / 180.0))
+DEG_PER_RAD = float(np.float32(180.0 / np.pi))
+
+
+def _trig_absolute(d: torch.Tensor):
+    """(sin, cos) of f32 degrees: f32 radians, f32 sin and cos, lifted to
+    df with a zero low part (the JAX package's absolute ``_project_df``)."""
+    rad = d * RAD_PER_DEG
+    zero = torch.zeros_like(rad)
+    return DF(torch.sin(rad), zero), DF(torch.cos(rad), zero)
+
+
+def project_lattice_ref(xy: torch.Tensor, res: int,
+                        origin: Optional[Tuple[float, float]]
+                        ) -> Projection:
+    """Plain PyTorch version of the kernel: [N, 2] f32 degrees ->
+    (face, a, b, margin, facegap), on the input's device.  ``xy`` is
+    origin-local around ``origin`` (lon0, lat0), or absolute when
+    ``origin`` is None: then sin and cos are f32 (the front end of the
+    cell kernel, ``ops/cell.py``) where the local path runs df Taylor
+    series around df constants of the origin.
 
     Scalars are python floats holding f32 values, so every step is one
     rounded f32 elementwise op; the face selection is the kernel's plain
     f32 three-term dot with a strict ``>`` running argmax."""
-    x = xy_local[:, 0].to(torch.float32)
-    y = xy_local[:, 1].to(torch.float32)
-    k = [float(v) for v in projection_constants(origin)]
-    pi180 = _const(k[0], k[1], x)
-    sin_lat, cos_lat = _trig_local(y, pi180, _const(k[2], k[3], x),
-                                   _const(k[4], k[5], x))
-    sin_lng, cos_lng = _trig_local(x, pi180, _const(k[6], k[7], x),
-                                   _const(k[8], k[9], x))
+    x = xy[:, 0].to(torch.float32)
+    y = xy[:, 1].to(torch.float32)
+    k = [float(v) for v in projection_constants(
+        (0.0, 0.0) if origin is None else origin)]
+    if origin is None:
+        sin_lat, cos_lat = _trig_absolute(y)
+        sin_lng, cos_lng = _trig_absolute(x)
+    else:
+        pi180 = _const(k[0], k[1], x)
+        sin_lat, cos_lat = _trig_local(y, pi180, _const(k[2], k[3], x),
+                                       _const(k[4], k[5], x))
+        sin_lng, cos_lng = _trig_local(x, pi180, _const(k[6], k[7], x),
+                                       _const(k[8], k[9], x))
     X = df_mul(cos_lat, cos_lng)
     Y = df_mul(cos_lat, sin_lng)
     Z = sin_lat
@@ -247,6 +271,10 @@ def project_lattice(xy_local: torch.Tensor, res: int,
         return project_lattice_ref(xy_local, res, origin)
     if dev.type != "cuda":
         raise ValueError(f"project_lattice: unsupported device {dev}")
+    if origin is None:
+        raise ValueError("project_lattice: the kernel takes origin-local "
+                         "points; absolute points go through the cell "
+                         "kernel (ops/cell.py)")
     check_points(xy_local, "project_lattice")
     n = int(xy_local.shape[0])
     face = torch.empty(n, dtype=torch.int32, device=dev)

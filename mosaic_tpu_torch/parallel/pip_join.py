@@ -1,29 +1,40 @@
-"""The index-accelerated point-in-polygon join, dense H3 slice.
+"""The index-accelerated point-in-polygon join: dense H3 and sorted-table
+indexes.
 
-Port of the dense lattice-window path of ``mosaic_tpu.parallel.pip_join``
-(the flagship join).  Reference counterpart: the Quickstart workload —
-points get ``grid_pointascellid``, polygons get
+Port of ``mosaic_tpu.parallel.pip_join`` (the flagship join and the
+grid-agnostic sorted path).  Reference counterpart: the Quickstart
+workload — points get ``grid_pointascellid``, polygons get
 ``grid_tessellateexplode``, Spark equi-joins on cell id, then filters
 ``is_core OR st_contains(chip, point)``.
 
-The per-point pipeline on the device:
+``build_pip_index`` returns one of two indexes.
 
-    (face, a, b, margin, facegap) = H3 lattice projection
-    entry  = dense window table[(a, b)]
-    inside = per-zone crossing parity vs the cell's merged chip pool row
-    zone   = core hit ? core zone : first zone the point is inside
+* ``DensePIPIndex`` (city-scale H3 on one icosahedron face): per point,
+  on the device,
 
-one thread per point in one CUDA kernel (``ops/dense_join.py``).
+      (face, a, b, margin, facegap) = H3 lattice projection
+      entry  = dense window table[(a, b)]
+      inside = per-zone crossing parity vs the cell's merged chip pool row
+      zone   = core hit ? core zone : first zone the point is inside
+
+  one thread per point in one CUDA kernel (``ops/dense_join.py``).
+* ``PIPIndex``, the sorted-table index, for everything else: CUSTOM and
+  BNG grids, H3 windows across faces or beyond the df Taylor bound,
+  overlapping polygons, or ``dense="never"``.  Per point,
+
+      cell   = grid.point_to_cell_torch_margin(points + origin)
+      slot   = binary search of cell in the core / border tables
+      inside = crossing parity vs the <= max_dup chips of the cell
+      zone   = core hit ? core zone : first chip hit
+
+  as torch ops; on an H3 grid the cell step is one launch of the cell
+  kernel (``ops/cell.py``).
 
 Points whose f32 result could differ from the exact f64 one are flagged
-``uncertain`` and rechecked on the host in f64 against the original chip
-edges, so the final zones equal the exact oracle ``pip_host_truth``.
-
-Only the dense index is ported here.  Workloads that need the JAX
-package's grid-agnostic sorted-table index (non-H3 grids, windows across
-icosahedron faces, overlapping polygons) raise NotImplementedError naming
-the reason in ``LAST_DENSE_REJECT``; the sorted path comes in a later
-slice.
+``uncertain`` and rechecked on the host in f64 — against the original
+chip edges for a dense index, against the polygons for a sorted one — by
+the native C++ kernels of ``native/``, so the final zones equal the
+exact oracle ``pip_host_truth``.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from .._device import DeviceLike, resolve_device
 from ..core.geometry.array import GeometryArray
 from ..core.geometry.padded import build_edges_np
@@ -46,6 +58,7 @@ from ..core.index.h3.torchkernel import (FACEGAP_EPS, MAX_LOCAL_DEG,
 from ..core.tessellate import _pip, _poly_edges, tessellate
 from ..ops.dense_join import CORE_FLAG as _CORE_FLAG
 from ..ops.dense_join import JoinConsts, dense_join, join_tables, prepare
+from ..ops.lookup import lookup
 from ..perf.pipeline import chunk_rows, stream
 from ..types import ChipSet
 
@@ -336,43 +349,247 @@ def build_dense_pip_index(polys: GeometryArray, res: int, grid,
         dev)
 
 
+@dataclasses.dataclass
+class PIPIndex:
+    """Sorted-table tessellation index of a polygon batch, its tensors on
+    one device.
+
+    core_cells   [C] i64       sorted cell ids fully inside some polygon
+    core_zone    [C] i32       polygon id per core cell
+    border_cells [B] i64       sorted cell ids on some polygon's boundary
+                               (duplicates allowed: one entry per chip)
+    border_zone  [B] i32       polygon id per chip
+    chip_a/b     [B, E, 2] f32 chip edges, local frame
+    chip_mask    [B, E] bool
+    origin       [2] f64       local-frame origin (lon, lat), host numpy:
+                               chip coords are stored origin-shifted so f32
+                               edge-crossing arithmetic runs on small
+                               magnitudes
+    max_dup      max chips sharing one cell id (probe width)
+    res          grid resolution
+    sagitta_deg  exact max chord-vs-gnomonic cell-edge deviation (planar
+                 degrees) over this index's cells: the extra
+                 cell-assignment uncertainty band the join must honor
+    """
+
+    core_cells: torch.Tensor
+    core_zone: torch.Tensor
+    border_cells: torch.Tensor
+    border_zone: torch.Tensor
+    chip_a: torch.Tensor
+    chip_b: torch.Tensor
+    chip_mask: torch.Tensor
+    origin: np.ndarray
+    max_dup: int
+    res: int
+    sagitta_deg: float = 0.0
+
+    @property
+    def device(self) -> torch.device:
+        return self.core_cells.device
+
+    @property
+    def num_chips(self) -> int:
+        return int(self.border_cells.shape[0])
+
+
+SORTED_TABLES = ("core_cells", "core_zone", "border_cells", "border_zone",
+                 "chip_a", "chip_b", "chip_mask")
+
+
+def sorted_index_from_arrays(tables: dict, device: DeviceLike = None
+                             ) -> PIPIndex:
+    """A PIPIndex from host arrays: ``core_cells``, ``core_zone``,
+    ``border_cells``, ``border_zone``, ``chip_a``, ``chip_b``,
+    ``chip_mask``, ``origin`` (numpy) and the statics ``max_dup res
+    sagitta_deg``.  It carries an index built elsewhere — for instance by
+    the JAX package — onto ``device`` unchanged, uploaded once."""
+    dev = resolve_device(device)
+    dtypes = (np.int64, np.int32, np.int64, np.int32, np.float32,
+              np.float32, bool)
+    own = {k: torch.from_numpy(np.array(tables[k], dt)).to(dev)
+           for k, dt in zip(SORTED_TABLES, dtypes)}
+    return PIPIndex(**own, origin=np.array(tables["origin"], np.float64),
+                    max_dup=int(tables["max_dup"]), res=int(tables["res"]),
+                    sagitta_deg=float(tables["sagitta_deg"]))
+
+
+def _build_sorted_index(polys: GeometryArray, res: int, grid,
+                        chips: ChipSet, device: torch.device) -> PIPIndex:
+    """The grid-agnostic sorted-table index on ``device``: sorted core and
+    border cell tables and the border chips' edges in the workload's
+    local frame, f32."""
+    origin = _workload_origin(polys)
+    core = chips.is_core
+    core_cells = chips.cell_id[core]
+    core_zone = chips.geom_id[core]
+    order = np.argsort(core_cells, kind="stable")
+    core_cells, core_zone = core_cells[order], core_zone[order]
+
+    b_cells = chips.cell_id[~core]
+    b_zone = chips.geom_id[~core]
+    border_idx = np.nonzero(~core)[0]
+    order = np.argsort(b_cells, kind="stable")
+    b_cells, b_zone = b_cells[order], b_zone[order]
+    max_dup = int(np.unique(b_cells, return_counts=True)[1].max()) \
+        if len(b_cells) else 1
+    if len(b_cells):
+        chip_geoms = chips.geoms.take(border_idx[order])
+        chip_geoms.coords = chip_geoms.coords - origin[None, :2]
+        A, B, M = build_edges_np(chip_geoms)
+    else:
+        A = B = np.zeros((0, 8, 2))
+        M = np.zeros((0, 8), bool)
+    sagitta = grid.cells_edge_sagitta_deg(np.unique(chips.cell_id)) \
+        if hasattr(grid, "cells_edge_sagitta_deg") else 0.0
+    return sorted_index_from_arrays(dict(
+        core_cells=core_cells, core_zone=core_zone, border_cells=b_cells,
+        border_zone=b_zone, chip_a=A, chip_b=B, chip_mask=M, origin=origin,
+        max_dup=max_dup, res=res, sagitta_deg=sagitta), device)
+
+
 def build_pip_index(polys: GeometryArray, res: int, grid,
                     chips: Optional[ChipSet] = None, dense: str = "auto",
-                    device: DeviceLike = None) -> DensePIPIndex:
-    """Tessellate polygons and lay the chips out for the device join.
+                    device: DeviceLike = None):
+    """Tessellate polygons and lay the chips out for the device join, on
+    ``device`` (CUDA unless the caller passes ``"cpu"``).
 
-    Only the dense lattice-window index is ported: ``dense="never"``,
-    and workloads the dense path rejects, raise NotImplementedError
-    naming the reason (``LAST_DENSE_REJECT``)."""
+    Returns a DensePIPIndex (one-gather lattice-window fast path) when
+    the workload allows it, else the grid-agnostic sorted-table PIPIndex
+    (why the dense path refused lands in ``LAST_DENSE_REJECT``).
+    ``dense``: "auto" | "never" | "require" (ValueError when the dense
+    path refuses)."""
+    if dense not in ("auto", "never", "require"):
+        raise ValueError(f"dense must be auto, never or require, not "
+                         f"{dense!r}")
     dev = resolve_device(device)
-    if dense == "never":
-        raise NotImplementedError(
-            "the sorted-table PIPIndex is not ported to mosaic_tpu_torch "
-            "yet")
-    idx = build_dense_pip_index(polys, res, grid, chips=chips, device=dev)
-    if idx is None:
-        raise NotImplementedError(
-            "workload does not fit the dense fast path "
-            f"(LAST_DENSE_REJECT={LAST_DENSE_REJECT!r}) and the "
-            "sorted-table join is not ported to mosaic_tpu_torch yet")
-    return idx
+    if chips is None:
+        chips = tessellate(polys, res, grid, keep_core_geom=False)
+    if dense != "never":
+        d = build_dense_pip_index(polys, res, grid, chips=chips, device=dev)
+        if d is not None:
+            return d
+        if dense == "require":
+            raise ValueError("workload does not fit the dense fast path "
+                             f"(LAST_DENSE_REJECT={LAST_DENSE_REJECT!r})")
+    return _build_sorted_index(polys, res, grid, chips, dev)
+
+
+# ------------------------------------------------------- sorted join body
+
+def _chip_pip(points: torch.Tensor, idx: PIPIndex, slots: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Crossing-parity containment of each point in the chip at its slot.
+
+    points [N, 2], slots [N] -> (inside [N] bool, min boundary distance²
+    [N]).  One gather of that chip's edges per point; the [N, E]
+    broadcast is the hot inner loop of the sorted join.  Its products
+    and sums are elementwise, never ``torch.matmul``, so TF32 cannot
+    reach them."""
+    a = idx.chip_a[slots]                          # [N, E, 2]
+    b = idx.chip_b[slots]
+    mask = idx.chip_mask[slots]
+    px = points[:, None, 0]
+    py = points[:, None, 1]
+    ax, ay = a[..., 0], a[..., 1]
+    bx, by = b[..., 0], b[..., 1]
+    straddle = (ay <= py) != (by <= py)
+    t = (py - ay) / torch.where(by == ay, 1.0, by - ay)
+    xi = ax + t * (bx - ax)
+    hits = straddle & (px < xi) & mask
+    inside = (hits.sum(dim=-1) & 1).bool()
+    # boundary distance² for the exact-fallback band
+    ab = b - a
+    ap = points[:, None, :] - a
+    denom = (ab * ab).sum(dim=-1)
+    tt = ((ap * ab).sum(dim=-1) / torch.where(denom == 0, 1.0, denom)
+          ).clamp(0.0, 1.0)
+    d = points[:, None, :] - (a + tt[..., None] * ab)
+    d2 = torch.where(mask, (d * d).sum(dim=-1), float("inf"))
+    return inside, d2.amin(dim=-1)
+
+
+def pip_assign(points: torch.Tensor, cells: torch.Tensor, idx: PIPIndex,
+               eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Assign each point to a polygon id (or -1).
+
+    points [N, 2] (local frame), cells [N] int64 (the cell of each
+    point).  Returns (zone [N] int32, uncertain [N] bool); ``uncertain``
+    marks points within eps of a chip boundary, the f64 host recheck
+    set.  Zero-size core or border tables are legal (border-only or
+    core-only tessellations) and skip their gathers."""
+    n = points.shape[0]
+    if idx.core_cells.shape[0]:
+        slot, in_core = lookup(idx.core_cells, cells)
+        zone = torch.where(in_core, idx.core_zone[slot], -1)
+    else:
+        zone = torch.full((n,), -1, dtype=torch.int32, device=points.device)
+    b0, in_border = lookup(idx.border_cells, cells)
+    uncertain = torch.zeros(n, dtype=torch.bool, device=points.device)
+    nb = idx.num_chips
+    eps2 = float(np.float32(eps * eps))
+    for d in range(idx.max_dup if nb else 0):
+        s = (b0 + d).clamp(0, nb - 1)
+        valid = in_border & (idx.border_cells[s] == cells) & (b0 + d < nb)
+        inside, d2 = _chip_pip(points, idx, s)
+        zone = torch.where(valid & inside & (zone < 0), idx.border_zone[s],
+                           zone)
+        uncertain |= valid & (d2 < eps2)
+    return zone, uncertain
 
 
 def make_pip_join_fn(idx, grid=None, eps: Optional[float] = None,
                      margin_eps: Optional[float] = None):
     """``local_points -> (zone, uncertain)`` for an index; inputs come
     from ``localize`` (local-frame float32, on the index's device).
-    Dense indexes dispatch to make_dense_pip_join_fn; ``grid`` is kept
-    for the JAX package's signature (the dense join does not read it).
+    Dense indexes dispatch to make_dense_pip_join_fn (which does not read
+    ``grid``); a sorted index needs the grid it was built on.
 
     Exactness contract: every float32 hazard raises ``uncertain``, and
-    the f64 host recheck resolves those."""
-    if not isinstance(idx, DensePIPIndex):
-        raise NotImplementedError(
-            "only the dense PIP index is ported to mosaic_tpu_torch")
-    return make_dense_pip_join_fn(
-        idx, eps=EPS_EDGE_DEG if eps is None else eps,
-        margin_eps_deg=margin_eps)
+    the f64 host recheck resolves those — on the sorted path (a) points
+    within ``eps`` of a chip boundary (crossing-parity rounding), (b)
+    points whose cell-boundary margin is below ``margin_eps`` (cell
+    assignment from f32 absolute coordinates could differ from f64),
+    (c) points within ``eps`` of the grid's domain edge.  Out-of-domain
+    points are forced to zone -1."""
+    if isinstance(idx, DensePIPIndex):
+        return make_dense_pip_join_fn(
+            idx, eps=EPS_EDGE_DEG if eps is None else eps,
+            margin_eps_deg=margin_eps)
+    if not isinstance(idx, PIPIndex):
+        raise TypeError(f"not a PIP index: {type(idx).__name__}")
+    if grid is None:
+        raise ValueError("the sorted join needs the index's grid")
+    # sorted-path defaults, wider than the dense path's: its cell step
+    # runs on f32 absolute coordinates.  The margin (planar degrees)
+    # also covers the cell-edge sagitta over this index's cells, the gap
+    # between the true gnomonic cell boundary and the straight lon/lat
+    # chords the chips were clipped against
+    eps = 1e-5 if eps is None else float(eps)
+    if margin_eps is None:
+        margin_eps = max(3e-5, 2.0 * idx.sagitta_deg)
+    margin32 = float(np.float32(margin_eps))
+    dev = idx.device
+    origin32 = torch.from_numpy(np.asarray(idx.origin, np.float32)).to(dev)
+    # 8-neighborhood offsets: diagonals matter for points just outside a
+    # domain corner on both axes
+    offsets = [torch.tensor([dx, dy], dtype=torch.float32, device=dev)
+               for dx in (-eps, 0.0, eps) for dy in (-eps, 0.0, eps)
+               if (dx, dy) != (0.0, 0.0)]
+    grid.prepare_torch(dev, idx.res)    # build and upload before any loop
+
+    def fn(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        absolute = points + origin32
+        cells, margin = grid.point_to_cell_torch_margin(absolute, idx.res)
+        zone, uncertain = pip_assign(points, cells, idx, eps)
+        uncertain |= margin < margin32
+        inb = grid.point_in_bounds_torch(absolute)
+        near_edge = torch.zeros_like(inb)
+        for off in offsets:
+            near_edge |= grid.point_in_bounds_torch(absolute + off) != inb
+        return torch.where(inb, zone, -1), uncertain | near_edge
+
+    return fn
 
 
 def make_dense_pip_join_fn(idx: DensePIPIndex, eps: float = EPS_EDGE_DEG,
@@ -427,22 +644,79 @@ def zone_histogram(zone: torch.Tensor, num_zones: int) -> torch.Tensor:
         torch.int32)
 
 
-def host_recheck_fn(idx: DensePIPIndex, polys: Optional[GeometryArray] = None):
-    """Vectorized f64 host recheck bound to a dense index.
+def dense_recheck_np(pts: np.ndarray, g: np.ndarray, aux: dict, Z: int
+                     ) -> np.ndarray:
+    """Numpy version of the native ``recheck_zones``: chip-parity zone of
+    each point in its border group ``g`` (the JAX package's numpy
+    branch).  ``host_recheck_fn`` runs it where the index has more than
+    16 zone slots per cell."""
+    gstart = aux["gstart"]
+    cnt = (gstart[g + 1] - gstart[g]).astype(np.int64)
+    total = int(cnt.sum())
+    pidx = np.repeat(np.arange(len(g)), cnt)
+    estart = np.repeat(gstart[g], cnt)
+    local = np.arange(total) - np.repeat(
+        np.concatenate([[0], np.cumsum(cnt)[:-1]]), cnt)
+    eidx = estart + local
+    pa = aux["flat_a"][eidx]
+    pb = aux["flat_b"][eidx]
+    zsl = aux["edge_zslot"][eidx]
+    P = pts[pidx]
+    ay, by = pa[:, 1], pb[:, 1]
+    straddle = (ay <= P[:, 1]) != (by <= P[:, 1])
+    denom = np.where(by == ay, 1.0, by - ay)
+    xi = pa[:, 0] + (P[:, 1] - ay) / denom * (pb[:, 0] - pa[:, 0])
+    crossed = straddle & (P[:, 0] < xi)
+    counts = np.bincount(pidx * Z + zsl, weights=crossed,
+                         minlength=len(g) * Z)
+    odd = (counts.reshape(len(g), Z).astype(np.int64) & 1).astype(bool)
+    anyin = odd.any(axis=1)
+    first = odd.argmax(axis=1)
+    return np.where(anyin, aux["gzones64"][g, first], -1).astype(np.int32)
 
-    Returns ``recheck(points64_abs, zone, uncertain) -> zone`` (numpy)
-    that reruns the flagged points through the SAME chip semantics in
-    f64 — exact cell assignment (host lattice), exact crossing parity
-    against the original unquantized chip edges.  ``polys`` is kept for
-    the JAX package's signature (the dense recheck does not read it)."""
+
+def host_recheck_fn(idx, polys: Optional[GeometryArray] = None):
+    """Vectorized f64 host recheck bound to an index (either kind).
+
+    Returns ``recheck(points64_abs, zone, uncertain) -> zone`` (numpy).
+    For a dense index it reruns the flagged points through the SAME chip
+    semantics in f64 — exact cell assignment (host lattice), exact
+    crossing parity against the original unquantized chip edges —
+    through the native ``recheck_zones`` (``dense_recheck_np`` when the
+    index has more than 16 zone slots per cell, the reference's one
+    dispatch).  For a sorted ``PIPIndex`` the recheck authority is the
+    original polygons, which the caller must pass: it does what
+    :func:`host_recheck` does.  Tables are prepared, and the library
+    built, here, once."""
+    if isinstance(idx, PIPIndex):
+        if polys is None:
+            raise ValueError(
+                "host_recheck_fn on a sorted PIPIndex needs the original "
+                "polygons: host_recheck_fn(idx, polys)")
+        flat, gs = _oracle_edges(polys)
+        native.get_lib()
+
+        def recheck_sorted(points64, zone, uncertain):
+            return _recheck_flagged(
+                points64, zone, uncertain,
+                lambda pts: native.pip_first_match(pts, flat, gs))
+
+        return recheck_sorted
     if not isinstance(idx, DensePIPIndex):
-        raise NotImplementedError(
-            "only the dense PIP index is ported to mosaic_tpu_torch")
+        raise TypeError(f"not a PIP index: {type(idx).__name__}")
     aux = idx.aux
     if aux is None:
         raise ValueError("recheck needs the build-time aux tables")
     entry = idx.entry.cpu().numpy()
     Z = int(idx.gzones.shape[1])
+    use_native = Z <= native.MAX_ZONE_SLOTS
+    if use_native:
+        native.get_lib()
+        flat_native = np.ascontiguousarray(
+            np.concatenate([aux["flat_a"], aux["flat_b"]], axis=1))
+        ezslot_native = aux["edge_zslot"].astype(np.int32)
+        gzones_native = np.ascontiguousarray(
+            aux["gzones64"].astype(np.int32))
 
     def recheck(points64: np.ndarray, zone: np.ndarray,
                 uncertain: np.ndarray) -> np.ndarray:
@@ -461,60 +735,84 @@ def host_recheck_fn(idx: DensePIPIndex, polys: Optional[GeometryArray] = None):
         is_core = (e >= 0) & ((e & int(CORE_FLAG)) != 0)
         out[is_core] = (e[is_core] & ~int(CORE_FLAG))
 
-        isb = (e >= 0) & ~is_core
-        bsel = np.nonzero(isb)[0]
+        bsel = np.nonzero((e >= 0) & ~is_core)[0]
         if len(bsel):
             g = e[bsel].astype(np.int64)
-            gstart = aux["gstart"]
-            cnt = (gstart[g + 1] - gstart[g]).astype(np.int64)
-            total = int(cnt.sum())
-            pidx = np.repeat(np.arange(len(bsel)), cnt)
-            estart = np.repeat(gstart[g], cnt)
-            local = np.arange(total) - np.repeat(
-                np.concatenate([[0], np.cumsum(cnt)[:-1]]), cnt)
-            eidx = estart + local
-            pa = aux["flat_a"][eidx]
-            pb = aux["flat_b"][eidx]
-            zsl = aux["edge_zslot"][eidx]
-            P = pts[bsel][pidx]
-            ay, by = pa[:, 1], pb[:, 1]
-            straddle = (ay <= P[:, 1]) != (by <= P[:, 1])
-            denom = np.where(by == ay, 1.0, by - ay)
-            xi = pa[:, 0] + (P[:, 1] - ay) / denom * (pb[:, 0] - pa[:, 0])
-            crossed = straddle & (P[:, 0] < xi)
-            counts = np.bincount(pidx * Z + zsl, weights=crossed,
-                                 minlength=len(bsel) * Z)
-            odd = (counts.reshape(len(bsel), Z).astype(np.int64) & 1)\
-                .astype(bool)
-            anyin = odd.any(axis=1)
-            first = odd.argmax(axis=1)
-            gz = aux["gzones64"][g, first]
-            out[bsel[anyin]] = gz[anyin].astype(np.int32)
+            if use_native:
+                out[bsel] = native.recheck_zones(
+                    pts[bsel], g, flat_native, ezslot_native,
+                    aux["gstart"], gzones_native)
+            else:
+                out[bsel] = dense_recheck_np(pts[bsel], g, aux, Z)
         zone[sel] = out
         return zone
 
     return recheck
 
 
-def pip_host_truth(points64: np.ndarray,
-                   polys: GeometryArray) -> np.ndarray:
+def _oracle_edges(polys: GeometryArray) -> Tuple[np.ndarray, np.ndarray]:
+    """Every polygon's edges as one [E, 4] f64 table (ax, ay, bx, by) and
+    the [G + 1] CSR offsets of each polygon's edges."""
+    edges = [_poly_edges(polys, gi) for gi in range(len(polys))]
+    gs = np.zeros(len(polys) + 1, np.int64)
+    np.cumsum([len(e) for e in edges], out=gs[1:])
+    flat = np.concatenate(edges).reshape(-1, 4) if edges else \
+        np.zeros((0, 4))
+    return flat, gs
+
+
+def pip_host_truth(points64: np.ndarray, polys: GeometryArray
+                   ) -> np.ndarray:
     """The exact float64 host oracle: first polygon containing each point
     (crossing-number, first-match tie-break) — the single source of truth
-    that the recheck, tests and chip_smoke.py compare against."""
+    that the recheck, tests and chip_smoke.py compare against.  Runs the
+    native ``pip_first_match``; ``pip_host_truth_np`` is its numpy
+    version."""
+    flat, gs = _oracle_edges(polys)
+    return native.pip_first_match(np.asarray(points64)[:, :2], flat, gs)
+
+
+def pip_host_truth_np(points64: np.ndarray, polys: GeometryArray
+                      ) -> np.ndarray:
+    """Numpy version of :func:`pip_host_truth`: the per-polygon
+    crossing-number loop."""
+    points64 = np.asarray(points64)[:, :2]
+    flat, gs = _oracle_edges(polys)
     truth = np.full(len(points64), -1, np.int32)
-    for gi in range(len(polys)):
-        inside = _pip(points64, _poly_edges(polys, gi))
+    for gi in range(len(gs) - 1):
+        inside = _pip(points64, flat[gs[gi]:gs[gi + 1]].reshape(-1, 2, 2))
         truth = np.where((truth < 0) & inside, gi, truth)
     return truth
 
 
-def make_streamed_pip_join(idx: DensePIPIndex, grid=None,
+def _recheck_flagged(points64, zone, uncertain, truth) -> np.ndarray:
+    """``zone`` with its flagged rows replaced by ``truth`` of their
+    points (numpy)."""
+    sel = np.nonzero(uncertain)[0]
+    if len(sel) == 0:
+        return zone
+    zone = np.asarray(zone).copy()
+    zone[sel] = truth(np.asarray(points64)[sel, :2])
+    return zone
+
+
+def host_recheck(points64: np.ndarray, zone: np.ndarray,
+                 uncertain: np.ndarray, polys: GeometryArray
+                 ) -> np.ndarray:
+    """Re-run the uncertain points in float64 against the original
+    polygons (not the chips) on host — the exact tie-break authority."""
+    return _recheck_flagged(points64, zone, uncertain,
+                            lambda pts: pip_host_truth(pts, polys))
+
+
+def make_streamed_pip_join(idx, grid=None,
                            polys: Optional[GeometryArray] = None,
                            chunk: Optional[int] = None,
                            eps: Optional[float] = None,
                            margin_eps: Optional[float] = None,
                            device: DeviceLike = None):
-    """End-to-end chunked join with transfer/compute/recheck overlap.
+    """End-to-end chunked join with transfer/compute/recheck overlap, on
+    either index type.
 
     Cuts a host batch into ``chunk``-row pieces and runs them through
     :func:`mosaic_tpu_torch.perf.pipeline.stream` on ``device`` (CUDA
@@ -522,7 +820,8 @@ def make_streamed_pip_join(idx: DensePIPIndex, grid=None,
     localize + upload of chunk k+1 rides along with device compute on
     chunk k, and the f64 host recheck of chunk k-1's flagged points runs
     while the device works.  Exactness is untouched — same join, same
-    recheck authority.
+    recheck authority (``grid`` and ``polys`` are required for a sorted
+    :class:`PIPIndex`).
 
     Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``."""
     dev = resolve_device(device)

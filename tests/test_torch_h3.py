@@ -104,8 +104,14 @@ def test_candidate_cells_batch_and_sagitta_bit_equal(grids):
 
 
 def test_bng_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="BNG"):
-        tget("BNG")
+    """BNG is ported now (the name predates it): the factory gives the
+    port's grid, with the JAX package's ids."""
+    bng, jbng = tget("BNG"), jget("BNG")
+    assert bng.name == "BNG" and type(bng).__module__.startswith(
+        "mosaic_tpu_torch.")
+    en = np.random.default_rng(1).uniform(0, 700_000, (100, 2))
+    assert np.array_equal(bng.point_to_cell(en, 4),
+                          jbng.point_to_cell(en, 4))
     custom = tget("CUSTOM(0,16,0,16,2,1,1)")
     jcustom = jget("CUSTOM(0,16,0,16,2,1,1)")
     xy = np.random.default_rng(0).uniform(0, 16, (100, 2))

@@ -138,15 +138,26 @@ def test_streamed_equals_one_shot_and_histogram(flagship):
 
 
 def test_non_dense_workloads_raise_with_reason(flagship):
+    """Workloads the dense path refuses name the reason and get the
+    sorted-table index, whose join equals the oracle (the name predates
+    the sorted path, when they raised)."""
     grid = get_index_system("CUSTOM(-75,-73,40,42,2,2,2)")
     assert tpj.build_dense_pip_index(flagship["tp"], 5, grid,
                                      device="cpu") is None
     assert tpj.LAST_DENSE_REJECT == "non_h3_grid"
-    with pytest.raises(NotImplementedError, match="non_h3_grid"):
-        tpj.build_pip_index(flagship["tp"], 5, grid, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tpj.build_pip_index(flagship["tp"], flagship["res"], flagship["tg"],
-                            dense="never", device="cpu")
+    pts64 = nyc_points(5_000, seed=13)
+    truth = tpj.pip_host_truth(pts64, flagship["tp"])
+    for idx, g in ((tpj.build_pip_index(flagship["tp"], 5, grid,
+                                        device="cpu"), grid),
+                   (tpj.build_pip_index(flagship["tp"], flagship["res"],
+                                        flagship["tg"], dense="never",
+                                        device="cpu"), flagship["tg"])):
+        assert isinstance(idx, tpj.PIPIndex)
+        z, u = tpj.make_pip_join_fn(idx, g)(
+            torch.from_numpy(tpj.localize(idx, pts64)))
+        final = tpj.host_recheck_fn(idx, flagship["tp"])(
+            pts64, z.numpy(), u.numpy())
+        assert np.array_equal(final, truth)
 
 
 def test_adversarial_points_both_packages(flagship):
