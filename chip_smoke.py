@@ -6,12 +6,13 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. device — name and power limit (nvidia-smi); exits if CUDA is absent;
-2. build — compiles the three kernels from ``csrc/`` with ``nvcc``, one
+2. build — compiles the four kernels from ``csrc/`` with ``nvcc``, one
    process per source, and the native host library from
    ``native/geokernels.cpp`` with ``g++``, all started together:
    ``h3_projection`` (K1, the projection alone), ``h3_dense_join`` (K2,
-   the projection fused with the dense join body) and ``h3_cell`` (K3,
-   H3 cell ids of absolute points, the sorted join's cell step);
+   the projection fused with the dense join body), ``h3_cell`` (K3,
+   H3 cell ids of absolute points, the sorted join's cell step) and
+   ``overlay_pairs`` (K4, the overlay's chip-pair probe);
 3. K1 vs plain — the projection kernel against its plain PyTorch
    version on the card, 2^22 localized NYC points (seed 100) at res 9
    around the flagship index's origin: all five outputs bit-equal; timed
@@ -60,8 +61,26 @@ Phases (any failure exits non-zero and prints no result):
    step the same way;
 10. sorted join, BNG — the BNG row of tests/test_bng.py's grid matrix
     (res 3, 100-200 km east and north) on 2^20 points, 0 mismatches;
-11. the ``kernels`` JSON line, then the last line
-    ``{"ok": true, "device": {...}}``.
+11. overlay — 2^17 footprint boxes from bench.py's generator (seed 41)
+    x the 281 taxi zones at H3 res 9, each side tessellated once
+    (``keep_core_geom=True``) and reused: ``overlay_intersects`` (one K4
+    launch) and ``overlay_intersection_area`` (one or two K4 launches
+    and the native ``intersect_area_pairs``), counted; the entry point's
+    steps timed apart (pack, upload, device join, copy back, f64
+    resolution of the hazard pairs, row pairs, pair areas); K4 against
+    its plain version on the full workload (dense hits and hazards
+    bit-equal, pair-key sets equal, also after a relaunch); 0 mismatches
+    against ``overlay_host_truth`` on 4,096 sampled footprints; the area
+    pair set equal to the intersecting pairs but for pairs of exact area
+    below 1e-15, and the area of every pair of those footprints within
+    1e-12 + 1e-9 area of its exact area (each footprint is a box, so
+    the exact area is the zone clipped to the box in rational
+    arithmetic); K4 timed beside its bound (the bytes of the rows it
+    probes, the operations of the real edge pairs it tests) and its
+    plain version;
+12. the ``sorted`` and ``overlay`` summary lines, the card, the
+    ``kernels`` JSON line (K1-K4 with launches per path), then the last
+    line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -108,7 +127,7 @@ EXACT_PRODUCT_FLOPS = 3
 #: the divide, bx - ax, the mul, the add, |px - xi|: 7 with the abs)
 EDGE_FLOPS = 4
 STRADDLE_FLOPS = 7
-KERNELS = ("h3_projection", "h3_dense_join", "h3_cell")
+KERNELS = ("h3_projection", "h3_dense_join", "h3_cell", "overlay_pairs")
 #: points of each K3 set held against the f64 host ids (numpy, ~9 s per
 #: 2^20 points on one core)
 HOST_SAMPLE = 1 << 20
@@ -127,6 +146,14 @@ CELL_BYTES = 20
 #: issues some twenty), and K3's integer work is not counted, so its
 #: bound is a lower bound
 SINCOS_OPS = 1
+#: the overlay: bench.py's footprint boxes (seed 41) x the flagship's
+#: taxi zones at H3 res 9; footprints sampled for the f64 oracle and the
+#: exact areas
+OVERLAY_FOOTPRINTS = 1 << 17
+OVERLAY_SAMPLE = 4096
+#: f32 arithmetic of K4's plain version: F32_ARITH with the band's
+#: minimum and the edge length's sqrt
+K4_ARITH = F32_ARITH | {"minimum", "sqrt"}
 
 
 class PhaseError(RuntimeError):
@@ -195,11 +222,11 @@ def in_turns(plain, kernel, reps_plain: int, reps_kernel: int):
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
-def count_ops(fn, x):
+def count_ops(fn, x, arith=F32_ARITH):
     """(f32 arithmetic ops, exact products, negations, sin/cos calls) per
-    point of ``fn(x)``, x [n, 2], from the plain versions on the CPU,
-    which keep the kernels' operations one for one.  Integer arithmetic
-    is not counted."""
+    row of ``fn(x)``, x [n, ...], from the plain versions on the CPU,
+    which keep the kernels' operations one for one; ``arith`` names the
+    ops counted.  Integer arithmetic is not counted."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from mosaic_tpu_torch.ops import twofloat
@@ -214,7 +241,7 @@ def count_ops(fn, x):
             name = func.overloadpacket.__name__
             if isinstance(out, torch.Tensor) and \
                     out.dtype == torch.float32 and \
-                    name in F32_ARITH | {"sin", "cos"}:
+                    name in arith | {"sin", "cos"}:
                 self.ops[name] += out.numel()
             return out
 
@@ -821,24 +848,34 @@ def launch_counts():
     from mosaic_tpu_torch import native
     from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin
     from mosaic_tpu_torch.ops.dense_join import dense_join
+    from mosaic_tpu_torch.ops.overlay_pairs import overlay_dense, overlay_pairs
     from mosaic_tpu_torch.ops.projection import project_lattice
     return {"h3_project_lattice": project_lattice.launches,
             "h3_dense_join": dense_join.launches,
             "h3_latlng_to_cell": latlng_to_cell_margin.launches,
+            "overlay_pairs": overlay_dense.launches + overlay_pairs.launches,
+            "overlay_pairs_dense": overlay_dense.launches,
+            "overlay_pairs_keys": overlay_pairs.launches,
             "native_pip_first_match": native.pip_first_match.calls,
-            "native_recheck_zones": native.recheck_zones.calls}
+            "native_recheck_zones": native.recheck_zones.calls,
+            "native_intersect_area_pairs":
+                native.intersect_area_pairs.calls}
 
 
 def reset_counts() -> None:
     from mosaic_tpu_torch import native
     from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin
     from mosaic_tpu_torch.ops.dense_join import dense_join
+    from mosaic_tpu_torch.ops.overlay_pairs import overlay_dense, overlay_pairs
     from mosaic_tpu_torch.ops.projection import project_lattice
     project_lattice.launches = 0
     dense_join.launches = 0
     latlng_to_cell_margin.launches = 0
+    overlay_dense.launches = 0
+    overlay_pairs.launches = 0
     native.pip_first_match.calls = 0
     native.recheck_zones.calls = 0
+    native.intersect_area_pairs.calls = 0
 
 
 def sorted_join(label: str, polys, grid, res: int, batches, chips=None,
@@ -960,12 +997,21 @@ def sorted_chunk_costs(label: str, idx, grid, polys, pts):
     for _ in range(5):
         recheck(pts[:CHUNK], z, u)
     re_ms = (time.perf_counter() - t0) * 1e3 / 5
+    # the body's bound: its gathers' bytes at max_dup per point (each
+    # probed chip's a and b edges f32, mask, cell id and zone), 8 bytes in
+    # and 5 out, over the card's memory rate
+    E = int(idx.chip_a.shape[1])
+    per_point = idx.max_dup * (E * 17 + 12) + 13
+    bound_ms = per_point * int(x.shape[0]) / PEAK_BYTES * 1e3
+    log(f"[{label}] sorted body bound {bound_ms:.4f} ms per chunk (bytes: "
+        f"{per_point} per point, {idx.max_dup} chip rows of {E} edges)")
     log(f"[{label}] per 2^18-row chunk: sorted body device {dev_ms} ms "
         f"(profiler, kernels summed), {events_ms:.4f} ms by events over a "
         f"call loop, host enqueue {host_ms:.4f} ms for its {CountOps.n} "
         f"aten ops (views included); native recheck of its "
         f"{int(u.sum())} flagged points {re_ms:.4f} ms on the host")
     return {"body_device_ms": dev_ms, "body_events_ms": events_ms,
+            "body_bound_ms": bound_ms,
             "body_host_ms": host_ms, "body_aten_ops": CountOps.n,
             "recheck_host_ms": re_ms, "flagged_per_chunk": int(np.sum(u))}
 
@@ -1055,6 +1101,345 @@ def phase_sorted_bng():
     return sorted_join("bng", polys, mt.get_index_system("BNG"), 3, [pts])
 
 
+class StepClock:
+    """Host seconds spent in named module functions while the block runs,
+    by wrapping them (restored on exit); a function in ``sync`` ends its
+    time at a device synchronize, so a launch is charged where it runs.
+    :meth:`take` returns the seconds since the last take."""
+
+    def __init__(self, targets, sync=()):
+        self.targets, self.sync = list(targets), set(sync)
+        self.seconds = collections.Counter()
+
+    def __enter__(self):
+        import torch
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name in self.targets]
+        for mod, name, fn in self.saved:
+            def timed(*args, _fn=fn, _name=name, **kwargs):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                if _name in self.sync and DEV == "cuda":
+                    torch.cuda.synchronize()
+                self.seconds[_name] += time.perf_counter() - t0
+                return out
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def take(self) -> dict:
+        out = {k: round(v, 4) for k, v in self.seconds.items()}
+        self.seconds.clear()
+        return out
+
+
+def k4_op_costs():
+    """(per real edge pair, per A edge, per B edge, per match, per edge
+    length) f32 operations (K4_ARITH) of K4's plain version.  The plain
+    version's count is bilinear in the two edge caps, so counts at caps 1
+    and 2 on each side give its coefficients (checked at caps 3 x 5);
+    the edge lengths come out of the per-edge terms, to be charged once
+    per row read rather than once per match."""
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch.ops.overlay_pairs import (_lengths,
+                                                    chip_pair_test_ref)
+    r = np.random.default_rng(0)
+
+    def rows(cap):
+        return torch.from_numpy(r.uniform(-0.1, 0.1, (64, cap, 4)).astype(
+            np.float32))
+
+    def ops(ea_cap, eb_cap):
+        eb = rows(eb_cap)
+        return count_ops(lambda x: chip_pair_test_ref(x, eb, 1e-6),
+                         rows(ea_cap), K4_ARITH)[0]
+
+    f11, f21, f12, f22 = ops(1, 1), ops(2, 1), ops(1, 2), ops(2, 2)
+    pair = f22 - f21 - f12 + f11
+    per_a, per_b = f21 - f11 - pair, f12 - f11 - pair
+    per_match = f11 - pair - per_a - per_b
+    check(ops(3, 5) == 15 * pair + 3 * per_a + 5 * per_b + per_match,
+          "K4's plain version's op count is not bilinear in the caps")
+    length = count_ops(_lengths, rows(1), K4_ARITH)[0]
+    log(f"[overlay] K4's plain version: {pair} f32 operations per edge "
+        f"pair, {per_a} and {per_b} per A and B edge of a match ({length} "
+        f"of them the edge's length), {per_match} per match")
+    return pair, per_a - length, per_b - length, per_match, length
+
+
+def k4_work(A, B, order, start, upper, hits, hazards, costs):
+    """(operations, bytes) the chip-pair probe needs on this run's rows.
+    Operations: those of the real edge pairs and edges of every match,
+    the edge lengths once per row read.  Bytes: each A row in some B
+    row's range and each B row with a range read once (edges, id, sort
+    position or range), each 1 of the dense result written once."""
+    import torch
+    from mosaic_tpu_torch.ops.overlay_pairs import PAD_ABOVE
+    pair, per_a, per_b, per_match, length = costs
+    real_a = (A.edges[..., 0].abs() <= PAD_ABOVE).sum(1)[order]
+    real_b = (B.edges[..., 0].abs() <= PAD_ABOVE).sum(1)
+    n = upper - start
+    cum = torch.cat([real_a.new_zeros(1), real_a.cumsum(0)])
+    edges_a = cum[upper] - cum[start]      # A edges over each B row's range
+    cover = torch.zeros(len(order) + 1, dtype=torch.int64,
+                        device=order.device)
+    live = n > 0
+    cover.index_add_(0, start[live], torch.ones_like(start[live]))
+    cover.index_add_(0, upper[live], -torch.ones_like(upper[live]))
+    probed = cover.cumsum(0)[:-1] > 0
+    ops = (pair * int((real_b * edges_a).sum()) +
+           per_a * int(edges_a.sum()) + per_b * int((real_b * n).sum()) +
+           per_match * int(n.sum()) +
+           length * int(real_a[probed].sum() + real_b[live].sum()))
+    nbytes = (int(probed.sum()) * (A.edges.shape[1] * 16 + 16) +
+              int(live.sum()) * (B.edges.shape[1] * 16 + 24) +
+              4 * int(hits.sum() + hazards.sum()))
+    return ops, nbytes, int(probed.sum()), int(live.sum())
+
+
+def exact_box_area(box, rings) -> float:
+    """area(box ∩ region) in exact rational arithmetic, rounded once: the
+    even-odd region of ``rings`` (region-left oriented, holes clockwise)
+    clipped ring by ring to the axis-aligned ``box`` [2, 2] (min corner,
+    max corner; Sutherland-Hodgman, exact for a convex window), signed
+    areas summed."""
+    from fractions import Fraction
+    lo = [Fraction(float(v)) for v in box[0]]
+    hi = [Fraction(float(v)) for v in box[1]]
+    total = Fraction(0)
+    for ring in rings:
+        pts = [(Fraction(float(x)), Fraction(float(y))) for x, y in ring]
+        for axis in (0, 1):
+            for bound, keep in ((lo[axis], lambda v, b: v >= b),
+                                (hi[axis], lambda v, b: v <= b)):
+                clipped = []
+                for p, q in zip(pts[-1:] + pts[:-1], pts):
+                    if keep(p[axis], bound) != keep(q[axis], bound):
+                        t = (bound - p[axis]) / (q[axis] - p[axis])
+                        clipped.append(tuple(
+                            bound if k == axis else p[k] + t * (q[k] - p[k])
+                            for k in (0, 1)))
+                    if keep(q[axis], bound):
+                        clipped.append(q)
+                pts = clipped
+        total += sum(p[0] * q[1] - q[0] * p[1]
+                     for p, q in zip(pts, pts[1:] + pts[:1])) / 2
+    return float(total)
+
+
+def phase_overlay(zones, grid):
+    """The polygon x polygon overlay at borough scale: bench.py's footprint
+    boxes x the flagship's 281 taxi zones at H3 res 9, both entry points
+    counted, K4 against its plain version on the full workload, the f64
+    oracle on a footprint sample and the area contract."""
+    import numpy as np
+    import torch
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.bench.workloads import footprints
+    from mosaic_tpu_torch.core.geometry import clip
+    from mosaic_tpu_torch.ops import overlay_pairs as op
+    from mosaic_tpu_torch.parallel import overlay as ov
+
+    t0 = time.perf_counter()
+    foot = footprints(OVERLAY_FOOTPRINTS)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chips_a = mt.tessellate(foot, RES, grid, keep_core_geom=True)
+    t_tess_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chips_b = mt.tessellate(zones, RES, grid, keep_core_geom=True)
+    t_tess_b = time.perf_counter() - t0
+    GA, GB = len(foot), len(zones)
+    log(f"[overlay] {GA} footprints (made in {t_gen:.2f} s) -> "
+        f"{len(chips_a)} chips ({int(chips_a.is_core.sum())} core), host "
+        f"tessellation {t_tess_a:.2f} s; {GB} zones -> {len(chips_b)} chips "
+        f"({int(chips_b.is_core.sum())} core), host tessellation "
+        f"{t_tess_b:.2f} s")
+
+    # ---- the main path, counted: both entry points, counts to 0 before;
+    # the steps inside them timed by wrapping the module functions
+    clock = StepClock(
+        [(ov, "pack_chip_rows"), (ov, "overlay_rows_from_arrays"),
+         (ov, "overlay_dense"), (ov, "overlay_pairs"),
+         (ov, "resolve_hazards"), (clip, "pairs_intersection_area")],
+        sync={"overlay_dense", "overlay_pairs", "overlay_rows_from_arrays"})
+    with clock:
+        reset_counts()
+        t0 = time.perf_counter()
+        hits = mt.overlay_intersects(foot, zones, RES, grid, device=DEV,
+                                     chips_a=chips_a, chips_b=chips_b)
+        t_inter = time.perf_counter() - t0
+        c_inter = launch_counts()
+        steps_inter = clock.take()
+        reset_counts()
+        t0 = time.perf_counter()
+        ga, gb, area = mt.overlay_intersection_area(
+            foot, zones, RES, grid, device=DEV, chips_a=chips_a,
+            chips_b=chips_b)
+        t_area = time.perf_counter() - t0
+        c_area = launch_counts()
+        steps_area = clock.take()
+    log(f"[overlay] overlay_intersects: {t_inter:.3f} s = "
+        f"{GA / t_inter:.4e} footprints/s end to end (host clock, chips "
+        f"given), {int(hits.sum())} intersecting pairs; counts {c_inter}")
+    log(f"[overlay] overlay_intersects steps (s): {steps_inter}")
+    log(f"[overlay] overlay_intersection_area: {t_area:.3f} s = "
+        f"{GA / t_area:.4e} footprints/s end to end, {len(ga)} pairs with "
+        f"area > 0; counts {c_area}")
+    log(f"[overlay] overlay_intersection_area steps (s): {steps_area}")
+    check(c_inter["overlay_pairs_dense"] == 1 and
+          c_inter["overlay_pairs_keys"] == 0, f"overlay_intersects "
+          f"launched K4 {c_inter['overlay_pairs_dense']} + "
+          f"{c_inter['overlay_pairs_keys']} times, not once")
+    check(c_area["overlay_pairs_keys"] in (1, 2) and
+          c_area["overlay_pairs_dense"] == 0, f"overlay_intersection_area "
+          f"launched K4 {c_area['overlay_pairs_keys']} + "
+          f"{c_area['overlay_pairs_dense']} times, not one or two")
+    check(c_area["native_intersect_area_pairs"] > 0, "the pair areas never "
+          "ran the native intersect_area_pairs")
+    for c in (c_inter, c_area):
+        check(c["h3_dense_join"] == c["h3_project_lattice"] ==
+              c["h3_latlng_to_cell"] == 0, f"a PIP kernel launched on the "
+              f"overlay path: {c}")
+    check(hits.shape == (GA, GB) and hits.dtype == bool, "overlay_intersects "
+          f"returned {hits.shape} {hits.dtype}")
+    check(np.all(np.isfinite(area)) and np.all(area > 0) and
+          np.all((ga >= 0) & (ga < GA) & (gb >= 0) & (gb < GB)),
+          "intersection areas not finite and positive, or ids out of range")
+
+    # the rows once more, for K4 against its plain version
+    ra = ov.pack_chip_rows(foot, RES, grid, chips=chips_a)
+    rb = ov.pack_chip_rows(zones, RES, grid, chips=chips_b, origin=ra[4])
+    A = ov.overlay_rows_from_arrays(ra, DEV)
+    B = ov.overlay_rows_from_arrays(rb, DEV)
+    eps = ov.hazard_eps(ra[2], rb[2])
+    order, start, upper = op.probe(A, B)
+    matches = int((upper - start).sum())
+    dup = int((upper - start).max())
+    hk, zk = op.overlay_dense(A, B, GA, GB, eps)
+    n_hazard = int(zk.sum())
+    log(f"[overlay] rows {tuple(A.edges.shape)} x {tuple(B.edges.shape)}, "
+        f"eps {eps:.3e} deg; {matches} chip-pair matches, up to {dup} "
+        f"footprint chips in a probed cell; {n_hazard} hazard pairs of "
+        f"{int(hk.sum())} raw hits resolved in f64 on the host in "
+        f"{steps_inter['resolve_hazards']:.3f} s "
+        f"({steps_inter['resolve_hazards'] / max(n_hazard, 1) * 1e3:.4f} "
+        "ms per pair)")
+
+    # ---- K4 against its plain version on the card, the full workload
+    hr, zr = op.local_sorted_join_ref(A, B, GA, GB, eps)
+    dh, dz = int((hk != hr).sum()), int((zk != zr).sum())
+    log(f"[overlay] K4 dense vs plain: hits differ at {dh}, hazards at {dz} "
+        f"of {GA * GB}")
+    check(dh == 0 and dz == 0, f"K4 dense differs from its plain version: "
+          f"hits at {dh}, hazards at {dz}")
+    Ar = A._replace(ids=torch.arange(len(ra[0]), device=A.ids.device))
+    Br = B._replace(ids=torch.arange(len(rb[0]), device=B.ids.device))
+    row_mult = len(rb[0]) + 1
+    kk = op.overlay_pairs(Ar, Br, row_mult, eps, max(1024, 4 * len(ra[0])))
+    kr = op.local_pair_join_ref(Ar, Br, row_mult, eps)
+    kk_np, kr_np = kk.cpu().numpy(), kr.cpu().numpy()
+    log(f"[overlay] K4 pairs vs plain: {len(kk_np)} keys from K4, "
+        f"{len(kr_np)} from the plain version")
+    check(len(np.unique(kk_np)) == len(kk_np) and
+          np.array_equal(np.sort(kk_np), np.sort(kr_np)), "K4 pair keys "
+          "differ from its plain version's")
+    rows_a, rows_b = ov.overlay_row_pairs(chips_a, chips_b, foot, zones, RES,
+                                          grid, device=DEV)
+    check(np.array_equal(np.sort(kk_np), rows_a * row_mult + rows_b),
+          "overlay_row_pairs differs from the pair keys")
+    small = op.overlay_pairs(Ar, Br, row_mult, eps, 1024)
+    check(np.array_equal(np.sort(small.cpu().numpy()), np.sort(kk_np)),
+          "a relaunch after a short key buffer changed the pair keys")
+
+    # ---- exact oracle on sampled footprints, and the area contract
+    rng = np.random.default_rng(0)
+    pick = np.sort(rng.choice(GA, OVERLAY_SAMPLE, replace=False))
+    t0 = time.perf_counter()
+    truth = ov.overlay_host_truth(foot.take(pick), zones)
+    bad = int(np.sum(truth != hits[pick]))
+    log(f"[overlay] oracle: {bad} mismatches on {OVERLAY_SAMPLE} sampled "
+        f"footprints x {GB} zones ({int(truth.sum())} intersecting, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    check(bad == 0, f"{bad} overlay pairs differ from overlay_host_truth")
+    check(truth.any() and not truth.all(), "the sample lacks an outcome")
+    # every sampled footprint is a box: its exact area with a zone is
+    # the zone clipped to the box
+    t0 = time.perf_counter()
+    boxes = foot.bboxes().reshape(-1, 2, 2)
+    zone_rings = [clip._normalize_rings(clip.geometry_rings(zones, j))
+                  for j in range(GB)]
+    for i in pick:
+        ring = clip.geometry_rings(foot, int(i))[0]
+        check(len(ring) == 4 and np.all(
+            (ring == boxes[i][0]) | (ring == boxes[i][1])),
+            f"footprint {i} is not an axis-aligned box")
+    sampled = np.nonzero(np.isin(ga, pick))[0]
+    got_pairs = set(zip(ga[sampled].tolist(), gb[sampled].tolist()))
+    ti, tj = np.nonzero(truth)
+    want_pairs = set(zip(pick[ti].tolist(), tj.tolist()))
+    extra = got_pairs - want_pairs
+    missing = want_pairs - got_pairs
+    worst = max([exact_box_area(boxes[i], zone_rings[j])
+                 for i, j in missing], default=0.0)
+    log(f"[overlay] area pairs on the sample: {len(got_pairs)} with area, "
+        f"{len(want_pairs)} intersecting; {len(extra)} extra, "
+        f"{len(missing)} missing (largest exact area among them "
+        f"{worst:.3e})")
+    check(not extra and worst < 1e-15, f"area pair set differs from the "
+          f"intersecting pairs: {len(extra)} extra, missing up to {worst}")
+    exact = np.array([exact_box_area(boxes[ga[k]], zone_rings[gb[k]])
+                      for k in sampled])
+    err = np.abs(area[sampled] - exact)
+    over = np.nonzero(err >= 1e-12 + 1e-9 * exact)[0]
+    log(f"[overlay] the {len(sampled)} pair areas of the sampled "
+        f"footprints against their exact areas: largest error "
+        f"{err.max():.3e}, largest relative {np.max(err / exact):.3e}; "
+        f"{len(over)} beyond 1e-12 + 1e-9 area "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(len(over) == 0, "pair areas beyond 1e-12 + 1e-9 area: " + ", ".join(
+        f"({ga[sampled[k]]}, {gb[sampled[k]]}) {area[sampled[k]]} for "
+        f"{exact[k]}" for k in over[:5]))
+
+    # ---- K4's times beside its bound and the plain version's
+    ops, nbytes, rows_a, rows_b = k4_work(A, B, order, start, upper, hk, zk,
+                                          k4_op_costs())
+    ops_ms = ops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ms, source, events_ms, host_ms, plain_ms = timed_kernel(
+        "overlay K4 dense", lambda: op.overlay_dense(A, B, GA, GB, eps),
+        lambda: op.local_sorted_join_ref(A, B, GA, GB, eps),
+        "overlay_kernel", 2)
+    pairs_ms = time_ms(lambda: op.overlay_pairs(
+        Ar, Br, row_mult, eps, max(1024, 4 * len(ra[0]))), 20)
+    bound = max(ops_ms, bytes_ms)
+    log(f"[overlay] K4: bound {bound:.4f} ms (operations {ops_ms:.4f}: "
+        f"{ops} over the real edges of the {matches} matches; bytes "
+        f"{bytes_ms:.4f}: {nbytes}, {rows_a} A rows and {rows_b} B rows "
+        f"read once, the 1s written once), roofline share "
+        f"{bound / ms:.4f}; the "
+        f"pairs mode call {pairs_ms:.4f} ms by events (probe, one launch, "
+        f"the count read back)")
+    return {"counts_intersects": c_inter, "counts_area": c_area,
+            "chips": [len(chips_a), len(chips_b)],
+            "tessellate_s": [t_tess_a, t_tess_b],
+            "steps_intersects_s": steps_inter, "steps_area_s": steps_area,
+            "matches": matches, "max_dup": dup, "hazard_pairs": n_hazard,
+            "area_pairs_checked": len(sampled),
+            "area_max_err": float(err.max(initial=0.0)),
+            "intersects_s": t_inter, "area_s": t_area,
+            "footprints_per_s": [GA / t_inter, GA / t_area],
+            "kernel": {"plain_ms": plain_ms, "ms": ms, "ms_source": source,
+                       "events_ms": events_ms, "host_ms": host_ms,
+                       "bound_ms": bound, "pairs_events_ms": pairs_ms,
+                       "bound_by": "operations" if ops_ms >= bytes_ms
+                       else "bytes", "max_abs_err": 0.0}}
+
+
 def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1090,21 +1475,28 @@ def main() -> int:
         custom = phase_sorted_custom()
         h3s = phase_sorted_h3(polys, grid, chips, batches[0], dense_zone)
         bng = phase_sorted_bng()
+        over = phase_overlay(polys, grid)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     paths = {"dense flagship": launches, "custom sorted": custom["counts"],
-             "h3 sorted": h3s["counts"], "bng sorted": bng["counts"]}
+             "h3 sorted": h3s["counts"], "bng sorted": bng["counts"],
+             "overlay intersects": over["counts_intersects"],
+             "overlay area": over["counts_area"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
 
     log(json.dumps({"sorted": {
         p: {k: r[k] for k in ("uncertain", "pps", "body_device_ms",
-                              "body_host_ms", "body_aten_ops",
+                              "body_bound_ms", "body_host_ms",
+                              "body_aten_ops",
                               "recheck_host_ms", "flagged_per_chunk",
                               "profile") if k in r}
         for p, r in (("custom", custom), ("h3", h3s), ("bng", bng))}}))
+    log(json.dumps({"overlay": {k: v for k, v in over.items()
+                                if k not in ("kernel", "counts_intersects",
+                                             "counts_area")}}))
     log(card)
     log(json.dumps({"kernels": [
         kernel_line("h3_project_lattice",
@@ -1122,7 +1514,14 @@ def main() -> int:
                     "mosaic_tpu_torch/csrc/h3_cell.cu",
                     "mosaic_tpu/core/index/h3/jaxkernel.py:383",
                     h3s["counts"]["h3_latlng_to_cell"], cell,
-                    by_path("h3_latlng_to_cell"))]}))
+                    by_path("h3_latlng_to_cell")),
+        kernel_line("overlay_pairs",
+                    "mosaic_tpu_torch/csrc/overlay_pairs.cu",
+                    "mosaic_tpu/parallel/overlay.py:182 (under :245 and "
+                    ":367)",
+                    over["counts_intersects"]["overlay_pairs"] +
+                    over["counts_area"]["overlay_pairs"], over["kernel"],
+                    by_path("overlay_pairs"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -6,14 +6,17 @@ one hand-written CUDA kernel for Hopper that projects each point to the
 H3 lattice and joins it, ``ops/dense_join.py``), the grid-agnostic
 sorted-table index (torch ops, with H3 cell ids from a second CUDA
 kernel, ``ops/cell.py``), the f64 host recheck through the native C++
-kernels of ``native/`` and the zone histogram.  The package imports torch and numpy,
-never jax and nothing of ``mosaic_tpu``; its module layout and names
-follow ``mosaic_tpu`` so each module's counterpart is easy to find.
+kernels of ``native/`` and the zone histogram; and the polygon x polygon
+overlay (ST_Intersects and the intersection area), its chip-pair probe
+another hand-written CUDA kernel (``ops/overlay_pairs.py``).  The
+package imports torch and numpy, never jax and nothing of
+``mosaic_tpu``; its module layout and names follow ``mosaic_tpu`` so
+each module's counterpart is easy to find.
 
 Entry points that create device state (``build_pip_index``,
-``build_dense_pip_index``, ``make_streamed_pip_join``) run on CUDA unless
-the caller passes ``device="cpu"``, and raise RuntimeError when no CUDA
-device exists and none was asked for.
+``build_dense_pip_index``, ``make_streamed_pip_join``, the ``overlay_*``
+entry points) run on CUDA unless the caller passes ``device="cpu"``, and
+raise RuntimeError when no CUDA device exists and none was asked for.
 
     import mosaic_tpu_torch as mt
     polys, grid, res = mt.build_workload(n_side=16, grid_name="H3",
@@ -32,6 +35,9 @@ from .core.geometry.wkt import read_wkt, write_wkt
 from .core.index.factory import get_index_system
 from .core.tessellate import point_chips, tessellate
 from .ops.projection import project_lattice, project_lattice_ref
+from .parallel.overlay import (overlay_host_truth, overlay_intersection_area,
+                               overlay_intersects, overlay_row_pairs,
+                               overlay_rows_from_arrays, pack_chip_rows)
 from .parallel.pip_join import (DensePIPIndex, PIPIndex,
                                 build_dense_pip_index, build_pip_index,
                                 dense_index_from_arrays, host_recheck_fn,
@@ -48,5 +54,7 @@ __all__ = [
     "build_dense_pip_index", "build_pip_index", "dense_index_from_arrays",
     "sorted_index_from_arrays", "host_recheck_fn", "localize",
     "make_pip_join_fn", "make_streamed_pip_join", "pip_host_truth",
-    "zone_histogram", "ChipSet",
+    "zone_histogram", "ChipSet", "overlay_host_truth",
+    "overlay_intersection_area", "overlay_intersects", "overlay_row_pairs",
+    "overlay_rows_from_arrays", "pack_chip_rows",
 ]

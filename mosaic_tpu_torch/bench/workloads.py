@@ -278,6 +278,31 @@ def nyc_points(n: int, seed: int = 11,
                      rng.uniform(bbox[1], bbox[3], n)], axis=-1)
 
 
+#: the overlay footprints' box (bench.py's building-footprint stage)
+FOOTPRINT_BOX = (-74.2, 40.55, -73.75, 40.85)
+
+
+def footprints(n: int, seed: int = 41,
+               bbox: Tuple[float, float, float, float] = FOOTPRINT_BOX
+               ) -> GeometryArray:
+    """``n`` axis-aligned building-footprint boxes scattered over the bbox,
+    half-sizes 2e-4..2e-3 degrees — the overlay's A side (BASELINE.md
+    config 3: footprints x flood zones), drawn in bench.py's order (center
+    x, center y, then both half-sizes) so its first boxes are bench.py's."""
+    rng = np.random.default_rng(seed)
+    b = GeometryBuilder()
+    rings = []
+    for _ in range(n):
+        cx = rng.uniform(bbox[0], bbox[2])
+        cy = rng.uniform(bbox[1], bbox[3])
+        w, h = rng.uniform(2e-4, 2e-3, 2)
+        rings.append(np.array([[cx - w, cy - h], [cx + w, cy - h],
+                               [cx + w, cy + h], [cx - w, cy + h],
+                               [cx - w, cy - h]]))
+    b.add_shell_polygons(rings)
+    return b.finish()
+
+
 def nyc_grid(res_cells: int = 512,
              bbox: Tuple[float, float, float, float] = NYC
              ) -> Tuple[IndexSystem, int]:

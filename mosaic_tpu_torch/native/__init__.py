@@ -3,15 +3,17 @@
 Port of ``mosaic_tpu.native``.  ``geokernels.cpp`` (the port's own copy)
 is compiled with ``g++`` at first use into
 ``mosaic_tpu_torch/_build/geokernels-<hash>.so``, keyed by a hash of the
-source, and loaded with ``ctypes``.  Two entry points are bound: the
-whole-polygon PIP oracle :func:`pip_first_match` and the chip-parity
-recheck :func:`recheck_zones`.
+source, and loaded with ``ctypes``.  Three entry points are bound: the
+whole-polygon PIP oracle :func:`pip_first_match`, the chip-parity
+recheck :func:`recheck_zones` and the overlay's exact pair areas
+:func:`intersect_area_pairs`.
 
 Unlike the JAX package's loader there is no silent fallback: a failed
-build raises RuntimeError.  The numpy versions of both functions stay in
+build raises RuntimeError.  The numpy versions of the first two stay in
 ``parallel/pip_join.py`` as the plain versions the tests compare
-against, and run only when a caller asks for them.  Each wrapper counts
-its calls in ``<function>.calls``.
+against, and run only when a caller asks for them; the pair areas'
+exact host engine is ``core.geometry.clip.rings_intersection``.  Each wrapper
+counts its calls in ``<function>.calls``.
 """
 
 from __future__ import annotations
@@ -76,6 +78,9 @@ def get_lib() -> ctypes.CDLL:
     lib.pip_first_match.restype = None
     lib.recheck_zones.argtypes = [vp, vp, i64, vp, vp, vp, vp, i64, vp]
     lib.recheck_zones.restype = None
+    lib.intersect_area_pairs.argtypes = [vp, vp, vp, vp, vp, vp, i64,
+                                         ctypes.c_double, vp]
+    lib.intersect_area_pairs.restype = None
     return lib
 
 
@@ -132,3 +137,48 @@ def recheck_zones(points: np.ndarray, group: np.ndarray, edges: np.ndarray,
 
 
 recheck_zones.calls = 0
+
+
+def _check_pool(off: np.ndarray, idx: np.ndarray, n_edges: int,
+                side: str) -> None:
+    if off.ndim != 1 or len(off) < 1 or off[0] != 0 or \
+            off[-1] != n_edges or np.any(np.diff(off) < 0):
+        raise ValueError(f"off_{side} must be CSR offsets over edges_{side}")
+    if len(idx) and (idx.min() < 0 or idx.max() >= len(off) - 1):
+        raise ValueError(f"idx_{side} names a slot outside the pool")
+
+
+def intersect_area_pairs(edges_a: np.ndarray, off_a: np.ndarray,
+                         idx_a: np.ndarray, edges_b: np.ndarray,
+                         off_b: np.ndarray, idx_b: np.ndarray,
+                         eps: float = 1e-9) -> np.ndarray:
+    """Exact f64 area(A∩B) per pair via boundary-fragment shoelace sums
+    (no ring stitching — see geokernels.cpp).
+
+    edges_* [E, 4] f64 are region-left directed edge POOLS over distinct
+    geometries (shells CCW, holes CW), off_* their CSR offsets, idx_* [P]
+    the pool slot of each pair's side.  Returns [P] f64 areas; a pair
+    where one edge collects more split points than the kernel's buffer
+    holds comes back NaN, and the caller must resolve it exactly
+    (``clip.pairs_intersection_area`` runs ``rings_intersection``)."""
+    ea = np.ascontiguousarray(edges_a, np.float64).reshape(-1, 4)
+    eb = np.ascontiguousarray(edges_b, np.float64).reshape(-1, 4)
+    oa = np.ascontiguousarray(off_a, np.int64)
+    ob = np.ascontiguousarray(off_b, np.int64)
+    xa = np.ascontiguousarray(idx_a, np.int64)
+    xb = np.ascontiguousarray(idx_b, np.int64)
+    if len(xa) != len(xb):
+        raise ValueError(f"pair lists differ in length: {len(xa)} vs "
+                         f"{len(xb)}")
+    _check_pool(oa, xa, len(ea), "a")
+    _check_pool(ob, xb, len(eb), "b")
+    out = np.empty(len(xa), np.float64)
+    get_lib().intersect_area_pairs(ea.ctypes.data, oa.ctypes.data,
+                                   xa.ctypes.data, eb.ctypes.data,
+                                   ob.ctypes.data, xb.ctypes.data, len(xa),
+                                   float(eps), out.ctypes.data)
+    intersect_area_pairs.calls += 1
+    return out
+
+
+intersect_area_pairs.calls = 0

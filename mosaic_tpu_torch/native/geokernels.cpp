@@ -4,9 +4,8 @@
 // header.  These kernels own the exact float64 host passes the f32
 // device join leans on: the PIP oracle (pip_first_match) and the
 // recheck of flagged points (recheck_zones), as tight loops with bbox
-// pruning in place of per-polygon numpy broadcasting.
-// intersect_area_pairs is carried along for the overlay slice and is
-// not bound yet.
+// pruning in place of per-polygon numpy broadcasting, and the overlay's
+// exact pair areas (intersect_area_pairs).
 //
 // Plain C ABI (ctypes), no Python headers: builds with a bare
 // `g++ -O3 -shared -fPIC` at first use (native/__init__.py).  A failed

@@ -156,3 +156,63 @@ def test_wide_zone_slots_take_the_numpy_recheck(taxi):
     assert native.recheck_zones.calls == calls
     np.testing.assert_array_equal(got, tpj.host_recheck_fn(idx)(pts, zone,
                                                                 flags))
+
+
+def _area_pools(pairs):
+    """Region-left edge pools (port's clip helpers) of each pair's two
+    polygons, one pool slot per pair and side."""
+    from mosaic_tpu_torch.core.geometry.clip import (_edges_of,
+                                                     _normalize_rings)
+    pools = ([_edges_of(_normalize_rings(a)) for a, _ in pairs],
+             [_edges_of(_normalize_rings(b)) for _, b in pairs])
+    out = []
+    for pool in pools:
+        off = np.cumsum([0] + [len(e) for e in pool])
+        out += [np.concatenate(pool).reshape(-1, 4), off,
+                np.arange(len(pairs))]
+    return out
+
+
+def _square(x0, y0, x1, y1):
+    return np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]], float)
+
+
+def test_intersect_area_pairs_against_jax_native():
+    """The new binding equals the JAX package's native library on the same
+    flat edge pools, NaN included: the sawtooth's 600 edges split one
+    strip edge past the kernel's buffer."""
+    rng = np.random.default_rng(3)
+    pairs = []
+    for _ in range(40):
+        c = rng.uniform(-1, 1, 2)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, 7))
+        star = c + rng.uniform(0.3, 0.6, (7, 1)) * np.stack(
+            [np.cos(ang), np.sin(ang)], -1)
+        pairs.append(([star], [_square(*(c - 0.2), *(c + 0.3))]))
+    pairs.append(([_square(0, 0, 4, 4), _square(1, 1, 3, 3)[::-1]],
+                  [_square(1.5, 1.5, 2.5, 2.5)]))
+    k = np.arange(601)
+    saw = np.stack([k / 6.0, np.where(k % 2, 0.5, -0.5)], -1)
+    pairs.append(([_square(0, 0, 100, 1)],
+                  [np.vstack([saw, [[100, -2], [0, -2]]])]))
+    args = _area_pools(pairs)
+    calls = native.intersect_area_pairs.calls
+    ours = native.intersect_area_pairs(*args, 1e-9)
+    assert native.intersect_area_pairs.calls == calls + 1
+    theirs = jnative.intersect_area_pairs(*args, 1e-9)
+    np.testing.assert_array_equal(ours, theirs)
+    assert np.isnan(ours[-1]) and not np.isnan(ours[:-1]).any()
+    assert ours[-2] == 0.0 and np.sum(ours[:-2] > 0) > 20
+
+
+def test_intersect_area_pairs_rejects_bad_pools():
+    ea, oa, ia, eb, ob, ib = _area_pools([([_square(0, 0, 1, 1)],
+                                           [_square(0, 0, 2, 2)])])
+    with pytest.raises(ValueError, match="CSR"):
+        native.intersect_area_pairs(ea, oa[:-1], ia, eb, ob, ib)
+    with pytest.raises(ValueError, match="outside the pool"):
+        native.intersect_area_pairs(ea, oa, ia + 1, eb, ob, ib)
+    with pytest.raises(ValueError, match="length"):
+        native.intersect_area_pairs(ea, oa, ia, eb, ob, ib[:0])
+    np.testing.assert_allclose(
+        native.intersect_area_pairs(ea, oa, ia, eb, ob, ib), [1.0])
