@@ -6,13 +6,15 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. device — name and power limit (nvidia-smi); exits if CUDA is absent;
-2. build — compiles the four kernels from ``csrc/`` with ``nvcc``, one
+2. build — compiles the six kernels from ``csrc/`` with ``nvcc``, one
    process per source, and the native host library from
    ``native/geokernels.cpp`` with ``g++``, all started together:
    ``h3_projection`` (K1, the projection alone), ``h3_dense_join`` (K2,
    the projection fused with the dense join body), ``h3_cell`` (K3,
-   H3 cell ids of absolute points, the sorted join's cell step) and
-   ``overlay_pairs`` (K4, the overlay's chip-pair probe);
+   H3 cell ids of absolute points, the sorted join's cell step),
+   ``overlay_pairs`` (K4, the overlay's chip-pair probe),
+   ``knn_brute_topk`` (K5, SpatialKNN's all-pairs top-k) and
+   ``knn_ring_step`` (K6, SpatialKNN's ring step);
 3. K1 vs plain — the projection kernel against its plain PyTorch
    version on the card, 2^22 localized NYC points (seed 100) at res 9
    around the flagship index's origin: all five outputs bit-equal; timed
@@ -78,8 +80,26 @@ Phases (any failure exits non-zero and prints no result):
     arithmetic); K4 timed beside its bound (the bytes of the rows it
     probes, the operations of the real edge pairs it tests) and its
     plain version;
-12. the ``sorted`` and ``overlay`` summary lines, the card, the
-    ``kernels`` JSON line (K1-K4 with launches per path), then the last
+12. SpatialKNN — BASELINE config 4 as bench.py:1510-1538 runs it:
+    ``ais_pings_ports`` (2^20 AIS pings x 3,000 world ports, seed 31),
+    k = 5, H3 res 4, at most 32 rings; the default path (brute: one K5
+    launch per 8,192-row block, 128, and no K6) and the ring path
+    (``brute_right_max=0``: one K6 launch per ring, no K5), each through
+    ``transform``: the brute path with a warm run and 3 counted steady
+    runs, the ring path with one counted run (K6's library loaded first),
+    profiled for the device's busy time and recording K6's states; rows/s,
+    iterations, rechecked and the steps' host seconds; ``right_id`` equal to
+    ``knn_host_truth`` on the first 20,000 pings, brute equal to ring on
+    all rows; K5 against ``brute_topk_ref`` on full-width blocks of the
+    run and a block with duplicated right points (d2 bits and indices
+    equal), timed in turns with its plain version and against the torch
+    distance matrix + ``torch.topk`` yardstick, beside its bound (5 flops
+    a pair; the bytes of lc, rc and the outputs); K6 against
+    ``ring_step_ref`` on the ring run's own states ring by ring (lists
+    bit-equal), timed over the march beside its byte bound (the entries
+    and pool rows each ring reads);
+13. the ``sorted``, ``overlay`` and ``knn`` summary lines, the card, the
+    ``kernels`` JSON line (K1-K6 with launches per path), then the last
     line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
@@ -127,7 +147,8 @@ EXACT_PRODUCT_FLOPS = 3
 #: the divide, bx - ax, the mul, the add, |px - xi|: 7 with the abs)
 EDGE_FLOPS = 4
 STRADDLE_FLOPS = 7
-KERNELS = ("h3_projection", "h3_dense_join", "h3_cell", "overlay_pairs")
+KERNELS = ("h3_projection", "h3_dense_join", "h3_cell", "overlay_pairs",
+           "knn_brute_topk", "knn_ring_step")
 #: points of each K3 set held against the f64 host ids (numpy, ~9 s per
 #: 2^20 points on one core)
 HOST_SAMPLE = 1 << 20
@@ -154,6 +175,18 @@ OVERLAY_SAMPLE = 4096
 #: f32 arithmetic of K4's plain version: F32_ARITH with the band's
 #: minimum and the edge length's sqrt
 K4_ARITH = F32_ARITH | {"minimum", "sqrt"}
+#: SpatialKNN at BASELINE config 4 as bench.py runs it on an accelerator:
+#: 2^20 AIS pings x 3,000 world ports (seed 31), k = 5, H3 res 4, at most
+#: 32 rings; the brute path's warm run and the median of its steady runs,
+#: the ring path's one run (~80 s of host f64 passes each); the f64
+#: oracle on the first pings
+KNN_PINGS = 1 << 20
+KNN_PORTS = 3000
+KNN_K = 5
+KNN_RES = 4
+KNN_MAX_IT = 32
+KNN_STEADY = 3
+KNN_ORACLE = 20_000
 
 
 class PhaseError(RuntimeError):
@@ -184,41 +217,85 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int, kernel_name: str):
-    """Mean device time (ms) of the CUDA kernel named ``kernel_name``
-    per call of ``fn``, from torch.profiler — the kernel alone, without
-    the host's launch gaps.  None when the profiler records no device
-    time for it."""
+def queued_ms(fn, reps: int):
+    """Mean device time (ms) per call of ``fn`` over ``reps`` calls run
+    back to back: the host enqueues the burst between two CUDA events
+    while a spin kernel holds the card, so the events time the calls
+    without the host's launch gaps.  The spin doubles until the card
+    reaches the start event only after the whole burst is queued; None
+    when it never does (``fn`` waits on the card)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    cycles = 1 << 25                  # ~17 ms at the H100's 1.98 GHz
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    return None
+
+
+def kernel_device_ms(fn, reps: int, kernel_name: str):
+    """(ms, source): the mean device time of the CUDA kernel named
+    ``kernel_name`` per call of ``fn``.  The profiler's reading, the
+    kernel alone, when its trace of a burst of ``reps`` calls (after a
+    warm-up burst that starts the tracing) holds every launch; else
+    :func:`queued_ms` over the whole call, with the profiler's count in
+    the source; else the events of a launch loop, host gaps included."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    count, total = 0, 0.0
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and \
+                    kernel_name in evt.key:
+                total += evt.self_device_time_total
+                count += evt.count
     except RuntimeError as e:         # no CUPTI tracing available
         log(f"[kernel] torch.profiler unavailable: {e}")
-        return None
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel_name in evt.key:
-            total += getattr(evt, "device_time_total",
-                             getattr(evt, "cuda_time_total", 0.0))
-            count += evt.count
-    if count == 0 or total <= 0:
-        return None
-    return total / 1e3 / reps
+    if count == reps and total > 0:
+        return total / 1e3 / reps, "profiler"
+    log(f"[kernel] the profiler recorded {count} {kernel_name} launches "
+        f"of {reps}: the queued burst's events stand in")
+    ms = queued_ms(fn, reps)
+    if ms is not None:
+        return ms, f"events, queued burst (profiler kept {count} of {reps})"
+    return time_ms(fn, reps), (f"events over a launch loop (profiler kept "
+                               f"{count} of {reps}; the burst could not be "
+                               "queued)")
 
 
-def in_turns(plain, kernel, reps_plain: int, reps_kernel: int):
+def in_turns(plain, kernel, reps_plain: int, reps_kernel: int,
+             kernel_timer=time_ms):
     """(plain ms, kernel ms): plain, kernel, kernel, plain; each the
-    mean of its two turns."""
+    mean of its two turns, the kernel's by ``kernel_timer``."""
     p1 = time_ms(plain, reps_plain)
-    k1 = time_ms(kernel, reps_kernel)
-    k2 = time_ms(kernel, reps_kernel)
+    k1 = kernel_timer(kernel, reps_kernel)
+    k2 = kernel_timer(kernel, reps_kernel)
     p2 = time_ms(plain, reps_plain)
+    check(k1 is not None and k2 is not None,
+          "the kernel's burst could not be queued")
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
@@ -371,12 +448,10 @@ def timed_kernel(label: str, kernel, plain, kernel_name: str,
     the kernel, else the event time of a launch loop (which includes
     the host's launch gaps)."""
     plain_ms, events_ms = in_turns(plain, kernel, reps_plain, 50)
-    prof_ms = kernel_device_ms(kernel, 50, kernel_name)
+    ms, source = kernel_device_ms(kernel, 50, kernel_name)
     host_ms = host_ms_per_launch(kernel, 200)
-    source = "profiler" if prof_ms is not None else "events"
-    ms = prof_ms if prof_ms is not None else events_ms
-    log(f"[{label}] kernel {ms:.4f} ms ({source}; profiler {prof_ms}, "
-        f"events over a launch loop {events_ms:.4f} ms), host enqueue "
+    log(f"[{label}] kernel {ms:.4f} ms ({source}; events over a launch "
+        f"loop {events_ms:.4f} ms), host enqueue "
         f"{host_ms:.4f} ms per launch, plain {plain_ms:.4f} ms")
     return ms, source, events_ms, host_ms, plain_ms
 
@@ -674,14 +749,16 @@ def phase_join_kernel(idx, grid, batches, rechecked: int, flops_pt: int):
     return timed(CHUNK)
 
 
-def profile_batch(run, pts, plain_wall_ms: float) -> None:
+def profile_batch(run, pts, plain_wall_ms, chunk: int = CHUNK):
     """Where one batch's time goes: torch.profiler over a streamed run
-    (not counted): host time per ``stream/*`` phase, device time by op,
+    (not counted): host time per ``stream/*`` phase (per ``chunk`` rows),
+    device time by op,
     and the device's idle share.  Busy time is the union of the device
     intervals over both streams, so a copy that overlaps a kernel counts
     once.  The idle share is given against the profiled wall time and
     against ``plain_wall_ms``, the fastest unprofiled warm batch: the
-    profiler slows the host, not the device."""
+    profiler slows the host, not the device.  ``plain_wall_ms`` None: the
+    profiled run is the only one, and the profiled wall stands in."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -695,8 +772,10 @@ def profile_batch(run, pts, plain_wall_ms: float) -> None:
     except RuntimeError as e:         # no CUPTI tracing available
         log(f"[profile] torch.profiler unavailable: {e}")
         return {}
+    if plain_wall_ms is None:
+        plain_wall_ms = wall_ms
     events = prof.key_averages()
-    chunks = -(-len(pts) // CHUNK)
+    chunks = -(-len(pts) // chunk)
     out = {"host_ms_per_chunk": {}}
     for e in events:
         # the stream/* labels appear twice: as host ranges and as device
@@ -735,7 +814,8 @@ def profile_batch(run, pts, plain_wall_ms: float) -> None:
         f"{1 - busy_ms / plain_wall_ms:.4f} of the unprofiled one")
     for ms, key, count in dev[:8]:
         log(f"[profile] device {ms:.3f} ms ({count}x): {key[:90]}")
-    out.update(wall_ms=wall_ms, busy_ms=busy_ms,
+    out.update(ops=[(key[:90], ms, count) for ms, key, count in dev[:8]],
+               wall_ms=wall_ms, busy_ms=busy_ms,
                idle_profiled=1 - busy_ms / wall_ms,
                idle_unprofiled=1 - busy_ms / plain_wall_ms)
     return out
@@ -848,6 +928,8 @@ def launch_counts():
     from mosaic_tpu_torch import native
     from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin
     from mosaic_tpu_torch.ops.dense_join import dense_join
+    from mosaic_tpu_torch.ops.knn_brute import brute_topk
+    from mosaic_tpu_torch.ops.knn_ring import ring_step
     from mosaic_tpu_torch.ops.overlay_pairs import overlay_dense, overlay_pairs
     from mosaic_tpu_torch.ops.projection import project_lattice
     return {"h3_project_lattice": project_lattice.launches,
@@ -856,6 +938,8 @@ def launch_counts():
             "overlay_pairs": overlay_dense.launches + overlay_pairs.launches,
             "overlay_pairs_dense": overlay_dense.launches,
             "overlay_pairs_keys": overlay_pairs.launches,
+            "knn_brute_topk": brute_topk.launches,
+            "knn_ring_step": ring_step.launches,
             "native_pip_first_match": native.pip_first_match.calls,
             "native_recheck_zones": native.recheck_zones.calls,
             "native_intersect_area_pairs":
@@ -866,6 +950,8 @@ def reset_counts() -> None:
     from mosaic_tpu_torch import native
     from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin
     from mosaic_tpu_torch.ops.dense_join import dense_join
+    from mosaic_tpu_torch.ops.knn_brute import brute_topk
+    from mosaic_tpu_torch.ops.knn_ring import ring_step
     from mosaic_tpu_torch.ops.overlay_pairs import overlay_dense, overlay_pairs
     from mosaic_tpu_torch.ops.projection import project_lattice
     project_lattice.launches = 0
@@ -873,6 +959,8 @@ def reset_counts() -> None:
     latlng_to_cell_margin.launches = 0
     overlay_dense.launches = 0
     overlay_pairs.launches = 0
+    brute_topk.launches = 0
+    ring_step.launches = 0
     native.pip_first_match.calls = 0
     native.recheck_zones.calls = 0
     native.intersect_area_pairs.calls = 0
@@ -1440,6 +1528,295 @@ def phase_overlay(zones, grid):
                        else "bytes", "max_abs_err": 0.0}}
 
 
+def knn_ring_work(idx, rows, offs, omask, k1: int):
+    """(bytes, f32 operations) one ring step must move and do on this
+    ring's data: each row's point and window scalars (36 bytes) and its
+    list read and written (16 bytes an entry), each window entry the
+    ring's in-window offsets touch read once (4 bytes), each pool row
+    with a point examined read once (cap x 8 bytes) and the offsets (9
+    bytes each); 5 flops (2 sub, 2 mul, 1 add) per pool point examined
+    (empty cells and offsets outside the window examine none)."""
+    import torch
+    pts, al, bl, a0r, b0r, wr, hr, eoffr = rows
+    n, cap = int(pts.shape[0]), idx.cap
+    seen_e = torch.zeros(int(idx.entry.shape[0]), dtype=torch.bool,
+                         device=pts.device)
+    seen_s = torch.zeros(int(idx.pool_xy.shape[0]), dtype=torch.bool,
+                         device=pts.device)
+    points = 0
+    for o in range(int(offs.shape[0])):
+        if not bool(omask[o]):
+            continue
+        ia = al + offs[o, 0] - a0r
+        ib = bl + offs[o, 1] - b0r
+        inw = (ia >= 0) & (ia < wr) & (ib >= 0) & (ib < hr)
+        lidx = (eoffr + ia * hr + ib)[inw].long()
+        seen_e[lidx] = True
+        slot = idx.entry[lidx]
+        slot = slot[slot >= 0].long()
+        seen_s[slot] = True
+        points += int(slot.numel()) * cap
+    nbytes = n * (36 + 16 * k1) + int(seen_e.sum()) * 4 + \
+        int(seen_s.sum()) * cap * 8 + int(offs.shape[0]) * 9
+    return nbytes, 5 * points
+
+
+def phase_knn():
+    """SpatialKNN at BASELINE config 4 (bench.py:1510-1538): AIS pings x
+    world ports at global extent, k = 5, H3 res 4, 32 rings at most; the
+    default (brute) path and the ring path, each counted; K5 and K6 held
+    against their plain versions on the run's own inputs and timed."""
+    import numpy as np
+    import torch
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.models import knn as knn_mod
+    from mosaic_tpu_torch.ops import knn_brute, knn_ring
+
+    pings, ports = mt.ais_pings_ports(KNN_PINGS, KNN_PORTS, seed=31)
+    grid = mt.get_index_system("H3")
+    n, m = len(pings), len(ports)
+    log(f"[knn] {n} pings x {m} ports (seed 31), k={KNN_K}, H3 res "
+        f"{KNN_RES}, at most {KNN_MAX_IT} rings")
+    paths = {}
+    # K6's inputs and outputs, ring by ring, recorded in the ring path's
+    # counted run for the comparison below
+    states = []
+    real_step = knn_mod.ring_step
+
+    def record(*args):
+        outs = real_step(*args)
+        states.append((args, outs))
+        return outs
+
+    clock = StepClock([(knn_mod, "build_knn_indexes"),
+                       (knn_mod, "_host_lattice"),
+                       (knn_mod, "_brute_topk_blocked"),
+                       (knn_mod, "stream"), (knn_mod, "ring_step")],
+                      sync={"ring_step", "stream"})
+
+    def counted(knn):
+        # the main path, counted: counts to 0, drive, read; the steps
+        # timed by wrapping the module functions (a synchronize after
+        # each ring step, which the ring's one scalar read makes anyway,
+        # and after the brute stream, whose consume has read every block)
+        with clock:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = knn.transform(pings, ports)
+            t = time.perf_counter() - t0
+            c = launch_counts()
+            return out, t, c, clock.take()
+
+    # the ring path has no warm run: ~80 s of f64 host work that warms
+    # nothing its one run needs once K6's library is loaded here
+    knn_ring._lib()
+    for path, kw in (("brute", {}), ("ring", {"brute_right_max": 0})):
+        knn = mt.SpatialKNN(grid, k=KNN_K, index_resolution=KNN_RES,
+                            max_iterations=KNN_MAX_IT, device=DEV, **kw)
+        if path == "brute":
+            t0 = time.perf_counter()
+            knn.transform(pings, ports)
+            t_warm = time.perf_counter() - t0
+            runs = [counted(knn) for _ in range(KNN_STEADY)]
+            prof = profile_batch(lambda p: knn.transform(p, ports), pings,
+                                 min(r[1] for r in runs) * 1e3,
+                                 chunk=knn_mod.BRUTE_BLOCK)
+        else:
+            # its one counted run is the profiled one (its host work is
+            # numpy, which the profiler does not trace) and records K6's
+            # states
+            t_warm, runs = None, []
+            knn_mod.ring_step = record
+            try:
+                prof = profile_batch(
+                    lambda p: runs.append(counted(knn)), pings, None,
+                    chunk=len(pings))
+                if not runs:              # the profiler could not start
+                    runs.append(counted(knn))
+            finally:
+                knn_mod.ring_step = real_step
+        out = runs[-1][0]
+        times = [r[1] for r in runs]
+        med = float(np.median(times))
+        under = "; under the profiler" if path == "ring" else ""
+        log(f"[knn {path}] warm run {t_warm} s; counted {times} s, "
+            f"median {med:.3f} s = {n / med:.4e} rows/s end to end (host "
+            f"clock, f64 in and out{under}); iterations "
+            f"{out['iterations']}, rechecked {out['rechecked']}; counts "
+            f"{runs[-1][2]}")
+        log(f"[knn {path}] steps of each counted run (s): "
+            f"{[r[3] for r in runs]}")
+        paths[path] = {"out": out, "s": times, "warm_s": t_warm,
+                       "rows_per_s": n / med, "counts": runs[-1][2],
+                       "all_counts": [r[2] for r in runs],
+                       "steps_s": [r[3] for r in runs],
+                       "iterations": out["iterations"],
+                       "rechecked": out["rechecked"], "profile": prof}
+    brute, ring = paths["brute"], paths["ring"]
+    blocks = -(-n // knn_mod.BRUTE_BLOCK)
+    for c in brute["all_counts"]:
+        check(c["knn_brute_topk"] == blocks and c["knn_ring_step"] == 0,
+              f"knn brute launched K5 {c['knn_brute_topk']} times for "
+              f"{blocks} blocks and K6 {c['knn_ring_step']} times")
+    for c in ring["all_counts"]:
+        check(c["knn_ring_step"] == ring["iterations"] and
+              c["knn_brute_topk"] == 0, f"knn ring launched K6 "
+              f"{c['knn_ring_step']} times for {ring['iterations']} rings "
+              f"and K5 {c['knn_brute_topk']} times")
+    diff = int(np.sum(brute["out"]["right_id"] != ring["out"]["right_id"]))
+    ddiff = int(np.sum(~((brute["out"]["distance"] ==
+                          ring["out"]["distance"]) |
+                         (np.isnan(brute["out"]["distance"]) &
+                          np.isnan(ring["out"]["distance"])))))
+    log(f"[knn] brute and ring: right_id differ at {diff}, distances at "
+        f"{ddiff} of {n * KNN_K}")
+    check(diff == 0 and ddiff == 0, f"brute and ring answers differ at "
+          f"{diff} ids and {ddiff} distances")
+    t0 = time.perf_counter()
+    ids, dist = mt.knn_host_truth(pings[:KNN_ORACLE], ports, KNN_K)
+    mism = {p: int(np.sum(r["out"]["right_id"][:KNN_ORACLE] != ids))
+            for p, r in paths.items()}
+    log(f"[knn] against knn_host_truth on the first {KNN_ORACLE} pings: "
+        f"mismatches {mism} ({time.perf_counter() - t0:.1f} s)")
+    check(all(v == 0 for v in mism.values()), f"knn oracle mismatches "
+          f"{mism}")
+
+    # ---- K5 against its plain version on full-width blocks of the run
+    order = np.lexsort((pings[:, 0], np.round(pings[:, 1] / 4.0)))
+    lx = pings[order]
+    kc = min(KNN_K + 8, m)
+    right = torch.from_numpy(ports).to(DEV)
+    B = knn_mod.BRUTE_BLOCK
+    nb = 0
+    for b in sorted({0, 1, blocks // 2, blocks - 1}):
+        rows = lx[b * B:(b + 1) * B]
+        center = rows.mean(axis=0)
+        lc = torch.from_numpy((rows - center).astype(np.float32)).to(DEV)
+        kd2, kidx = knn_brute.brute_topk(lc, right, center, kc)
+        pd2, pidx = knn_brute.brute_topk_ref(
+            lc, knn_brute.center_right(right, center), kc)
+        bad = int((kd2.view(torch.int32) != pd2.view(torch.int32)).sum()) \
+            + int((kidx != pidx).sum())
+        nb += bad
+        log(f"[knn K5] block {b} ({len(rows)} rows): {bad} of "
+            f"{2 * kd2.numel()} d2 bits and indices differ from the plain "
+            "version")
+    # ties: the right side with a third of it repeated, shuffled
+    r = np.random.default_rng(5)
+    dup = np.concatenate([ports, ports[r.integers(0, m, m // 3)]])
+    r.shuffle(dup)
+    rows = lx[:B]
+    center = rows.mean(axis=0)
+    lc = torch.from_numpy((rows - center).astype(np.float32)).to(DEV)
+    rd = torch.from_numpy(dup).to(DEV)
+    kd2, kidx = knn_brute.brute_topk(lc, rd, center, kc)
+    pd2, pidx = knn_brute.brute_topk_ref(
+        lc, knn_brute.center_right(rd, center), kc)
+    ties = int((pd2[:, 1:] == pd2[:, :-1]).sum())
+    bad = int((kd2.view(torch.int32) != pd2.view(torch.int32)).sum()) + \
+        int((kidx != pidx).sum())
+    nb += bad
+    log(f"[knn K5] duplicated right side ({len(dup)} points, {ties} tied "
+        f"neighbours in the plain lists): {bad} differ")
+    check(nb == 0, f"K5 differs from its plain version at {nb} places")
+    # timed in turns on the middle block of the run; the main path's
+    # mean per launch over its 128 blocks comes from the brute profile
+    mid = blocks // 2
+    rows = lx[mid * B:(mid + 1) * B]
+    center = rows.mean(axis=0)
+    lc = torch.from_numpy((rows - center).astype(np.float32)).to(DEV)
+    rc = knn_brute.center_right(right, center)
+
+    def library():
+        dx = lc[:, None, 0] - rc[None, :, 0]
+        dy = lc[:, None, 1] - rc[None, :, 1]
+        return torch.topk(dx * dx + dy * dy, kc, dim=1, largest=False)
+    block_ms, source, events_ms, host_ms, plain_ms = timed_kernel(
+        f"knn K5 block {mid}",
+        lambda: knn_brute.brute_topk(lc, right, center, kc),
+        lambda: knn_brute.brute_topk_ref(
+            lc, knn_brute.center_right(right, center), kc),
+        "brute_kernel", 10)
+    lib_ms = time_ms(library, 20)
+    # the main path's mean over its blocks when the brute profile holds
+    # every launch, else the middle block's reading
+    main = [(t, c) for key, t, c in brute["profile"].get("ops", [])
+            if "brute_kernel" in key]
+    main_ms = main[0][0] / main[0][1] if main else None
+    log(f"[knn K5] the brute profile recorded "
+        f"{main[0][1] if main else 0} of {blocks} launches")
+    ms, ms_source = (main_ms, "profiler, main path") \
+        if main and main[0][1] == blocks else (block_ms, source)
+    ops_ms = 5 * B * m / PEAK_F32_FLOPS * 1e3
+    k5_bytes = B * 8 + m * 8 + B * kc * 8
+    bytes_ms = k5_bytes / PEAK_BYTES * 1e3
+    bound = max(ops_ms, bytes_ms)
+    log(f"[knn K5] {B} x {m}, kc {kc}: {ms:.4f} ms a launch ({ms_source}; "
+        f"block {mid} alone {block_ms:.4f}); bound {bound:.5f} ms "
+        f"(operations {ops_ms:.5f}: 5 flops a pair; bytes {bytes_ms:.5f}: "
+        f"{k5_bytes}), roofline share {bound / ms:.4f}; on block {mid} the "
+        f"plain version {plain_ms:.4f} ms, the torch distance matrix + "
+        f"torch.topk {lib_ms:.4f} ms")
+    k5 = {"plain_ms": plain_ms, "ms": ms, "ms_source": ms_source,
+          "block_ms": block_ms, "block_ms_source": source,
+          "main_path_profiler_ms": main_ms,
+          "events_ms": events_ms, "host_ms": host_ms,
+          "bound_ms": bound,
+          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+          "max_abs_err": 0.0, "library_ms": lib_ms}
+
+    # ---- K6 against its plain version on the ring run's own states
+    idx = knn._idx
+    rows6 = (knn._pts, knn._al, knn._bl, knn._a0r, knn._b0r, knn._wr,
+             knn._hr, knn._eoffr)
+    bad6, t_k, t_p, t_bound, work = 0, 0.0, 0.0, 0.0, []
+    for d, (args, (kd2, kcode)) in enumerate(states):
+        pd2, pcode = knn_ring.ring_step_ref(*args)
+        bad = int((kd2.view(torch.int32) != pd2.view(torch.int32)).sum()) \
+            + int((kcode != pcode).sum())
+        bad6 += bad
+        offs, omask = args[12], args[13]
+        nbytes, ops = knn_ring_work(idx, rows6, offs, omask, KNN_K + 1)
+        b_ms = max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS) * 1e3
+        p_ms, k_ms = in_turns(lambda: knn_ring.ring_step_ref(*args),
+                              lambda: knn_ring.ring_step(*args), 1, 5,
+                              kernel_timer=queued_ms)
+        t_k += k_ms
+        t_p += p_ms
+        t_bound += b_ms
+        work.append((nbytes, ops))
+        if d in (0, 1, len(states) // 2, len(states) - 1):
+            log(f"[knn K6] ring {d} ({int(omask.sum())} offsets): {bad} "
+                f"differ; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({nbytes} bytes, {ops} flops)")
+    check(bad6 == 0, f"K6 differs from its plain version at {bad6} places "
+          f"over {len(states)} rings")
+    last = states[-1][0]
+    host6 = host_ms_per_launch(lambda: knn_ring.ring_step(*last), 20)
+    prof6 = [t / c for key, t, c in ring["profile"].get("ops", [])
+             if "ring_kernel" in key]
+    nbytes = sum(w[0] for w in work)
+    ops = sum(w[1] for w in work)
+    log(f"[knn K6] {len(states)} rings bit-equal to the plain version; the "
+        f"march: kernel {t_k:.4f} ms (events, queued bursts), plain {t_p:.4f} ms, bound "
+        f"{t_bound:.5f} ms ({nbytes} bytes, {ops} flops), roofline share "
+        f"{t_bound / t_k:.4f}; the main path's mean per ring by the "
+        f"profiler {prof6} ms, host enqueue {host6:.4f} ms per launch")
+    n_r = len(states)
+    k6 = {"plain_ms": t_p / n_r, "ms": t_k / n_r,
+          "ms_source": "events, queued bursts",
+          "events_ms": t_k / n_r, "host_ms": host6, "bound_ms": t_bound / n_r,
+          "bound_by": "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS
+          else "operations", "max_abs_err": 0.0, "library_ms": None,
+          "march_ms": t_k, "march_plain_ms": t_p, "march_bound_ms": t_bound,
+          "main_path_profiler_ms": prof6[0] if prof6 else None}
+    summary = {p: {k: v for k, v in r.items() if k not in ("out",
+                                                           "all_counts")}
+               for p, r in paths.items()}
+    summary["oracle_mismatches"] = mism
+    return {"paths": summary, "k5": k5, "k6": k6}
+
+
 def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1447,7 +1824,7 @@ def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "ms_source": k["ms_source"], "host_ms": k["host_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
             **({"torch_ops_join_ms": k["torch_ops_join_ms"]}
                if "torch_ops_join_ms" in k else {})}
 
@@ -1476,13 +1853,16 @@ def main() -> int:
         h3s = phase_sorted_h3(polys, grid, chips, batches[0], dense_zone)
         bng = phase_sorted_bng()
         over = phase_overlay(polys, grid)
+        knn = phase_knn()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     paths = {"dense flagship": launches, "custom sorted": custom["counts"],
              "h3 sorted": h3s["counts"], "bng sorted": bng["counts"],
              "overlay intersects": over["counts_intersects"],
-             "overlay area": over["counts_area"]}
+             "overlay area": over["counts_area"],
+             "knn brute": knn["paths"]["brute"]["counts"],
+             "knn ring": knn["paths"]["ring"]["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -1497,6 +1877,7 @@ def main() -> int:
     log(json.dumps({"overlay": {k: v for k, v in over.items()
                                 if k not in ("kernel", "counts_intersects",
                                              "counts_area")}}))
+    log(json.dumps({"knn": knn["paths"]}))
     log(card)
     log(json.dumps({"kernels": [
         kernel_line("h3_project_lattice",
@@ -1521,7 +1902,17 @@ def main() -> int:
                     ":367)",
                     over["counts_intersects"]["overlay_pairs"] +
                     over["counts_area"]["overlay_pairs"], over["kernel"],
-                    by_path("overlay_pairs"))]}))
+                    by_path("overlay_pairs")),
+        kernel_line("knn_brute_topk",
+                    "mosaic_tpu_torch/csrc/knn_brute_topk.cu",
+                    "mosaic_tpu/models/knn.py:485",
+                    knn["paths"]["brute"]["counts"]["knn_brute_topk"],
+                    knn["k5"], by_path("knn_brute_topk")),
+        kernel_line("knn_ring_step",
+                    "mosaic_tpu_torch/csrc/knn_ring_step.cu",
+                    "mosaic_tpu/models/knn.py:285",
+                    knn["paths"]["ring"]["counts"]["knn_ring_step"],
+                    knn["k6"], by_path("knn_ring_step"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

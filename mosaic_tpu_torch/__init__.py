@@ -8,14 +8,17 @@ sorted-table index (torch ops, with H3 cell ids from a second CUDA
 kernel, ``ops/cell.py``), the f64 host recheck through the native C++
 kernels of ``native/`` and the zone histogram; and the polygon x polygon
 overlay (ST_Intersects and the intersection area), its chip-pair probe
-another hand-written CUDA kernel (``ops/overlay_pairs.py``).  The
+another hand-written CUDA kernel (``ops/overlay_pairs.py``); and
+SpatialKNN (``models/``), its brute-force top-k and its ring step two
+more (``ops/knn_brute.py``, ``ops/knn_ring.py``).  The
 package imports torch and numpy, never jax and nothing of
 ``mosaic_tpu``; its module layout and names follow ``mosaic_tpu`` so
 each module's counterpart is easy to find.
 
 Entry points that create device state (``build_pip_index``,
 ``build_dense_pip_index``, ``make_streamed_pip_join``, the ``overlay_*``
-entry points) run on CUDA unless the caller passes ``device="cpu"``, and
+entry points, ``SpatialKNN``) run on CUDA unless the caller passes
+``device="cpu"``, and
 raise RuntimeError when no CUDA device exists and none was asked for.
 
     import mosaic_tpu_torch as mt
@@ -29,11 +32,14 @@ raise RuntimeError when no CUDA device exists and none was asked for.
 from __future__ import annotations
 
 from ._device import resolve_device
-from .bench.workloads import build_workload, nyc_points, taxi_zones
+from .bench.workloads import (ais_pings_ports, build_workload, nyc_points,
+                              taxi_zones)
 from .core.geometry.array import GeometryArray, GeometryBuilder, GeometryType
 from .core.geometry.wkt import read_wkt, write_wkt
 from .core.index.factory import get_index_system
 from .core.tessellate import point_chips, tessellate
+from .models import (CheckpointManager, SpatialKNN, build_knn_indexes,
+                     knn_host_truth, knn_index_from_arrays)
 from .ops.projection import project_lattice, project_lattice_ref
 from .parallel.overlay import (overlay_host_truth, overlay_intersection_area,
                                overlay_intersects, overlay_row_pairs,
@@ -56,5 +62,7 @@ __all__ = [
     "make_pip_join_fn", "make_streamed_pip_join", "pip_host_truth",
     "zone_histogram", "ChipSet", "overlay_host_truth",
     "overlay_intersection_area", "overlay_intersects", "overlay_row_pairs",
-    "overlay_rows_from_arrays", "pack_chip_rows",
+    "overlay_rows_from_arrays", "pack_chip_rows", "ais_pings_ports",
+    "CheckpointManager", "SpatialKNN", "build_knn_indexes", "knn_host_truth",
+    "knn_index_from_arrays",
 ]

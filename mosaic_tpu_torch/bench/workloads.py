@@ -303,6 +303,23 @@ def footprints(n: int, seed: int = 41,
     return b.finish()
 
 
+def ais_pings_ports(n_pings: int = 1 << 20, n_ports: int = 3000,
+                    seed: int = 31) -> Tuple[np.ndarray, np.ndarray]:
+    """(pings [n_pings, 2], ports [n_ports, 2]) f64 lon/lat degrees — AIS
+    ship pings x world ports at global extent (BASELINE.md config 4), in
+    bench.py's draw order: ports uniform on the sphere within |lat| <=
+    78.5, each ping a port plus N(0, 1.5 degrees) per axis, latitude
+    clipped to +-88."""
+    rng = np.random.default_rng(seed)
+    ports = np.stack([
+        rng.uniform(-180, 180, n_ports),
+        np.degrees(np.arcsin(rng.uniform(-0.98, 0.98, n_ports)))], -1)
+    ctr = ports[rng.integers(0, len(ports), n_pings)]
+    pings = ctr + rng.normal(0, 1.5, (n_pings, 2))
+    pings[:, 1] = np.clip(pings[:, 1], -88, 88)
+    return pings, ports
+
+
 def nyc_grid(res_cells: int = 512,
              bbox: Tuple[float, float, float, float] = NYC
              ) -> Tuple[IndexSystem, int]:

@@ -1,7 +1,8 @@
 """Padded edge blocks: ragged geometry batches as dense [G, E, 2] edges.
 
 Port copy of the numpy half of ``mosaic_tpu.core.geometry.padded``
-(``build_edges_np``), which the dense PIP index builder calls.  Edge
+(``build_edges_np``), which ``build_dense_pip_index`` calls, and
+``points_block``, which SpatialKNN reads POINT batches through.  Edge
 capacity is the next power of two >= the max edge count (min 8);
 winding is normalized so shells are CCW and holes CW.
 """
@@ -135,3 +136,14 @@ def _build_edges_np(arr: GeometryArray, capacity: Optional[int],
         B[gi_of[ring_of_edge], dest_col] = coords[vidx + 1]
         M[gi_of[ring_of_edge], dest_col] = True
     return A, B, M
+
+
+def points_block(arr: GeometryArray, dtype=np.float32) -> np.ndarray:
+    """[G, 2] first vertex per geometry (for POINT batches); NaN rows for
+    empty geometries."""
+    starts = arr.vertex_starts()[:-1]
+    counts = arr.vertex_counts()
+    safe = np.where(counts > 0, starts, 0)
+    pts = arr.coords[safe, :2]
+    pts = np.where(counts[:, None] > 0, pts, np.nan)
+    return np.asarray(pts, dtype=dtype)

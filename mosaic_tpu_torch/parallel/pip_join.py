@@ -848,7 +848,8 @@ def make_streamed_pip_join(idx, grid=None,
             zone_out[sl] = recheck(points64[sl], z, unc)
             state["rechecked"] += int(unc.sum())
 
-        stream(chunk_rows(n, chunk), stage, 2, fn, consume, dev)
+        stream(chunk_rows(n, chunk), stage, 2, lambda i, x: fn(x), consume,
+               dev)
         return zone_out, state["rechecked"]
 
     return run

@@ -44,7 +44,7 @@ def chunk_rows(n: int, chunk: int) -> List[slice]:
 
 def stream(chunks: Sequence[slice], stage: Callable[[slice, np.ndarray],
                                                     None],
-           width: int, compute: Callable[[torch.Tensor],
+           width: int, compute: Callable[[int, torch.Tensor],
                                          Tuple[torch.Tensor, ...]],
            consume: Callable[[int, slice, Tuple[np.ndarray, ...]], None],
            device: torch.device) -> None:
@@ -52,10 +52,12 @@ def stream(chunks: Sequence[slice], stage: Callable[[slice, np.ndarray],
     -> consume.
 
     ``stage(sl, out)`` fills ``out`` ([rows, width] f32 numpy, pinned
-    when on CUDA) with the chunk's device input; ``compute(x)`` takes
-    the [rows, width] f32 device tensor and returns a tuple of device
-    tensors, enqueued on the current stream; ``consume(i, sl, host)``
-    receives those outputs as numpy arrays, in chunk order."""
+    when on CUDA) with the chunk's device input; ``compute(i, x)`` takes
+    the chunk's index in ``chunks`` and its [rows, width] f32 device
+    tensor (so per-chunk parameters, such as a block's center, can be
+    looked up) and returns a tuple of device tensors, enqueued on the
+    current stream; ``consume(i, sl, host)`` receives those outputs as
+    numpy arrays, in chunk order."""
     if not chunks:
         return
     if device.type != "cuda":
@@ -64,7 +66,7 @@ def stream(chunks: Sequence[slice], stage: Callable[[slice, np.ndarray],
             with record_function("stream/stage"):
                 stage(sl, buf)
             with record_function("stream/compute"):
-                out = compute(torch.from_numpy(buf))
+                out = compute(i, torch.from_numpy(buf))
             with record_function("stream/consume"):
                 consume(i, sl, tuple(o.numpy() for o in out))
         return
@@ -118,7 +120,7 @@ def stream(chunks: Sequence[slice], stage: Callable[[slice, np.ndarray],
     for k in range(len(chunks)):
         main.wait_event(ready)
         with record_function("stream/compute"):
-            out = compute(x)
+            out = compute(k, x)
         # x was allocated on the side stream and read on the main one
         x.record_stream(main)
         host, done = download(k, out)
