@@ -34,9 +34,13 @@ Phases (any failure exits non-zero and prints no result):
    card, zone and uncertain bit-equal, on a flagship batch of 2^22
    points, on points placed on chip and hex edges and a hair beside
    them, and on the flagship index with its zone slots spread past 32
-   (``widen_zone_slots``); timed in turns against the plain version and
-   against the torch-ops join it replaced (K1 then torch ops), with its
-   bound from this run's data;
+   (``widen_zone_slots``); the edge points' final zones after the f64
+   recheck (``host_recheck_fn``, its full-polygon fallback counted)
+   against ``pip_host_truth``: 0 mismatches among the flagged points and
+   beyond the 1e-6 degree band, and a count of the points the device
+   join left unflagged and wrong (ROADMAP C6); timed in turns against the
+   plain version and against the torch-ops join it replaced (K1 then
+   torch ops), with its bound from this run's data;
 7. K3 vs plain — the cell kernel against ``latlng_to_cell_margin_ref``
    on 2^22 uniform global points and the 2^22 flagship points at res 9,
    and 2^16 global points at each res 0..15: ids and margins bit-equal
@@ -92,12 +96,15 @@ Phases (any failure exits non-zero and prints no result):
     ``knn_host_truth`` on the first 20,000 pings, brute equal to ring on
     all rows; K5 against ``brute_topk_ref`` on full-width blocks of the
     run and a block with duplicated right points (d2 bits and indices
-    equal), timed in turns with its plain version and against the torch
-    distance matrix + ``torch.topk`` yardstick, beside its bound (5 flops
-    a pair; the bytes of lc, rc and the outputs); K6 against
-    ``ring_step_ref`` on the ring run's own states ring by ring (lists
-    bit-equal), timed over the march beside its byte bound (the entries
-    and pool rows each ring reads);
+    equal) at kc 13, 108 (k = 100) and 1,100 (two launches), timed in
+    turns with its plain version and against the torch distance matrix +
+    ``torch.topk`` yardstick, beside its bound (5 flops a pair; the bytes
+    of lc, rc and the outputs); K6 against ``ring_step_ref`` on the ring
+    run's own states ring by ring (lists bit-equal), and with lists of
+    101 (shared memory) and 256 (global memory, 2^16 rows) on two of
+    its rings, timed over the march beside its byte bound (the entries
+    and pool rows each ring reads); k = 100 on 2^14 pings through both
+    engines, 0 mismatches against ``knn_host_truth``;
 13. the ``sorted``, ``overlay`` and ``knn`` summary lines, the card, the
     ``kernels`` JSON line (K1-K6 with launches per path), then the last
     line ``{"ok": true, "device": {...}}``.
@@ -109,6 +116,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import subprocess
 import sys
 import time
@@ -187,6 +195,17 @@ KNN_RES = 4
 KNN_MAX_IT = 32
 KNN_STEADY = 3
 KNN_ORACLE = 20_000
+#: the wide-k checks: k = 100 transforms on the first 2^14 pings; K5 at
+#: kc 108 (one launch) and 1,100 (two); K6 lists of 101 (shared memory)
+#: and 256 (global memory) on those pings against the ports repeated 40
+#: times, rings 0-5, and a ring of lists of 101 on every ping timed
+KNN_WIDE_K = 100
+KNN_WIDE_PINGS = 1 << 14
+KNN_WIDE_KC = (108, 1100)
+KNN_WIDE_RING = 8
+KNN_GLOBAL_K1 = 256
+KNN_CROWD = 40
+KNN_CROWD_RINGS = 6
 
 
 class PhaseError(RuntimeError):
@@ -421,9 +440,16 @@ def phase_build():
     for name in KERNELS:
         report = _kernels.lib_path(name).with_suffix(".log")
         if report.exists():
+            entry = ""
             for line in report.read_text(errors="replace").splitlines():
+                # each entry's template arguments as they are mangled,
+                # e.g. brute_kernelILi1ELi16EE: T = 1, WARPS = 16
+                found = re.search(r"Compiling entry function '.*?([a-z]"
+                                  r"[a-z_]*_kernel(?:I\w*?EE)?)", line)
+                if found:
+                    entry = found.group(1)
                 if "registers" in line or "spill" in line:
-                    log(f"[build] {name} ptxas: {line.strip()}")
+                    log(f"[build] {name} {entry} ptxas: {line.strip()}")
 
 
 def host_ms_per_launch(fn, reps: int) -> float:
@@ -588,7 +614,10 @@ def phase_flagship():
     check(launches["h3_latlng_to_cell"] == 0, "K3 launched "
           f"{launches['h3_latlng_to_cell']} times on the dense path")
     log(f"[flagship] the f64 recheck called the native recheck_zones "
-        f"{native_calls} times for {n_chunks} chunks")
+        f"{native_calls} times for {n_chunks} chunks; "
+        f"{run.recheck.fallbacks} of the {rechecked} rechecked points "
+        f"took the full polygon test ({launches['native_pip_first_match']} "
+        "pip_first_match calls)")
     check(native_calls > 0, "the dense recheck never ran the native "
           "recheck_zones")
     check(unc < 5e-3, f"uncertain_frac {unc} >= 5e-3")
@@ -665,9 +694,12 @@ def join_work(x, tables, consts, flops_pt: int):
     return flops, nbytes, int(g.numel())
 
 
-def phase_join_kernel(idx, grid, batches, rechecked: int, flops_pt: int):
+def phase_join_kernel(idx, grid, polys, batches, rechecked: int,
+                      flops_pt: int):
     """K2 against dense_join_ref on the card, bit for bit, and its times
-    against the plain version and the torch-ops join it replaced."""
+    against the plain version and the torch-ops join it replaced; the
+    adversarial set's final zones, after the f64 recheck, against the
+    oracle."""
     import numpy as np
     import torch
     import mosaic_tpu_torch as mt
@@ -676,6 +708,7 @@ def phase_join_kernel(idx, grid, batches, rechecked: int, flops_pt: int):
     from mosaic_tpu_torch.ops.dense_join import (dense_join, dense_join_ref,
                                                  join_body)
     from mosaic_tpu_torch.ops.projection import project_lattice
+    from mosaic_tpu_torch.parallel.pip_join import EPS_EDGE_DEG
 
     def compare(label, x, fn):
         tables, consts = fn.keywords["tables"], fn.keywords["consts"]
@@ -706,8 +739,29 @@ def phase_join_kernel(idx, grid, batches, rechecked: int, flops_pt: int):
     adv, off = adversarial_points(idx.aux["flat_a"], idx.aux["flat_b"], grid,
                                   idx.res, ADV_EDGES, seed=0)
     xa = torch.from_numpy(mt.localize(idx, adv)).to(DEV)
-    compare(f"adversarial set ({int((off == 0).sum())} on edges, the rest "
-            f"{sorted(set(off[off > 0].tolist()))} deg beside them)", xa, fn)
+    za, ua = compare(f"adversarial set ({int((off == 0).sum())} on edges, "
+                     f"the rest {sorted(set(off[off > 0].tolist()))} deg "
+                     "beside them)", xa, fn)
+    t0 = time.perf_counter()
+    recheck = mt.host_recheck_fn(idx)
+    final = recheck(adv, za.cpu().numpy(), ua.cpu().numpy())
+    t_re = time.perf_counter() - t0
+    truth = mt.pip_host_truth(adv, polys)
+    wrong = final != truth
+    flagged = ua.cpu().numpy()
+    beyond = off > EPS_EDGE_DEG
+    bad, unflagged = int(np.sum(wrong & flagged)), int(np.sum(wrong & ~flagged))
+    log(f"[join] adversarial set after the f64 recheck: {bad} oracle "
+        f"mismatches among its {int(flagged.sum())} flagged points "
+        f"({recheck.fallbacks} of them through the full polygon test; "
+        f"recheck {t_re:.2f} s), {int(np.sum(wrong & beyond))} beyond the "
+        f"{EPS_EDGE_DEG} degree band; the device join left {unflagged} "
+        f"of the {len(adv)} unflagged and wrong, all within the band "
+        "(ROADMAP C6: its f32 crossing hazard misses near-horizontal "
+        "chip edges)")
+    check(bad == 0 and not np.any(wrong & beyond),
+          f"{bad} flagged adversarial points differ from pip_host_truth "
+          f"after the recheck, {int(np.sum(wrong & beyond))} beyond the band")
     wide = mt.dense_index_from_arrays(widen_zone_slots(index_tables(idx)),
                                       device=DEV)
     wfn = mt.make_pip_join_fn(wide, grid)
@@ -1681,26 +1735,35 @@ def phase_knn():
     check(all(v == 0 for v in mism.values()), f"knn oracle mismatches "
           f"{mism}")
 
-    # ---- K5 against its plain version on full-width blocks of the run
+    # ---- K5 against its plain version on full-width blocks of the run,
+    # at the main path's kc, at k = 100's and past one launch's KC_PASS
     order = np.lexsort((pings[:, 0], np.round(pings[:, 1] / 4.0)))
     lx = pings[order]
     kc = min(KNN_K + 8, m)
+    kcs = (kc, *(min(w, m) for w in KNN_WIDE_KC))
     right = torch.from_numpy(ports).to(DEV)
     B = knn_mod.BRUTE_BLOCK
+
+    def k5_bad(label, lc, rd, center):
+        # one stable sort; each width is its prefix
+        pd2, pidx = knn_brute.brute_topk_ref(
+            lc, knn_brute.center_right(rd, center), max(kcs))
+        bad = []
+        for w in kcs:
+            kd2, kidx = knn_brute.brute_topk(lc, rd, center, w)
+            bad.append(int((kd2.view(torch.int32) !=
+                            pd2[:, :w].view(torch.int32)).sum()) +
+                       int((kidx != pidx[:, :w]).sum()))
+        log(f"[knn K5] {label}: at kc {kcs} {bad} d2 bits and indices "
+            "differ from the plain version")
+        return sum(bad), pd2
+
     nb = 0
     for b in sorted({0, 1, blocks // 2, blocks - 1}):
         rows = lx[b * B:(b + 1) * B]
         center = rows.mean(axis=0)
         lc = torch.from_numpy((rows - center).astype(np.float32)).to(DEV)
-        kd2, kidx = knn_brute.brute_topk(lc, right, center, kc)
-        pd2, pidx = knn_brute.brute_topk_ref(
-            lc, knn_brute.center_right(right, center), kc)
-        bad = int((kd2.view(torch.int32) != pd2.view(torch.int32)).sum()) \
-            + int((kidx != pidx).sum())
-        nb += bad
-        log(f"[knn K5] block {b} ({len(rows)} rows): {bad} of "
-            f"{2 * kd2.numel()} d2 bits and indices differ from the plain "
-            "version")
+        nb += k5_bad(f"block {b} ({len(rows)} rows)", lc, right, center)[0]
     # ties: the right side with a third of it repeated, shuffled
     r = np.random.default_rng(5)
     dup = np.concatenate([ports, ports[r.integers(0, m, m // 3)]])
@@ -1708,16 +1771,12 @@ def phase_knn():
     rows = lx[:B]
     center = rows.mean(axis=0)
     lc = torch.from_numpy((rows - center).astype(np.float32)).to(DEV)
-    rd = torch.from_numpy(dup).to(DEV)
-    kd2, kidx = knn_brute.brute_topk(lc, rd, center, kc)
-    pd2, pidx = knn_brute.brute_topk_ref(
-        lc, knn_brute.center_right(rd, center), kc)
-    ties = int((pd2[:, 1:] == pd2[:, :-1]).sum())
-    bad = int((kd2.view(torch.int32) != pd2.view(torch.int32)).sum()) + \
-        int((kidx != pidx).sum())
+    bad, pd2 = k5_bad(f"duplicated right side ({len(dup)} points)", lc,
+                      torch.from_numpy(dup).to(DEV), center)
     nb += bad
-    log(f"[knn K5] duplicated right side ({len(dup)} points, {ties} tied "
-        f"neighbours in the plain lists): {bad} differ")
+    log(f"[knn K5] the duplicated side's plain lists hold "
+        f"{int((pd2[:, 1:kc] == pd2[:, :kc - 1]).sum())} tied neighbours "
+        f"at kc {kc}")
     check(nb == 0, f"K5 differs from its plain version at {nb} places")
     # timed in turns on the middle block of the run; the main path's
     # mean per launch over its 128 blocks comes from the brute profile
@@ -1751,6 +1810,11 @@ def phase_knn():
     k5_bytes = B * 8 + m * 8 + B * kc * 8
     bytes_ms = k5_bytes / PEAK_BYTES * 1e3
     bound = max(ops_ms, bytes_ms)
+    wide_ms = {w: time_ms(lambda: knn_brute.brute_topk(lc, right, center, w),
+                          3) for w in kcs[1:]}
+    log(f"[knn K5] block {mid} at kc {list(wide_ms)}: "
+        f"{[round(v, 4) for v in wide_ms.values()]} ms (CUDA events over "
+        f"{[-(-w // knn_brute.KC_PASS) for w in wide_ms]} launches a call)")
     log(f"[knn K5] {B} x {m}, kc {kc}: {ms:.4f} ms a launch ({ms_source}; "
         f"block {mid} alone {block_ms:.4f}); bound {bound:.5f} ms "
         f"(operations {ops_ms:.5f}: 5 flops a pair; bytes {bytes_ms:.5f}: "
@@ -1763,7 +1827,8 @@ def phase_knn():
           "events_ms": events_ms, "host_ms": host_ms,
           "bound_ms": bound,
           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-          "max_abs_err": 0.0, "library_ms": lib_ms}
+          "max_abs_err": 0.0, "library_ms": lib_ms,
+          "wide_kc_ms": {str(w): v for w, v in wide_ms.items()}}
 
     # ---- K6 against its plain version on the ring run's own states
     idx = knn._idx
@@ -1791,8 +1856,56 @@ def phase_knn():
                 f"{b_ms:.5f} ms ({nbytes} bytes, {ops} flops)")
     check(bad6 == 0, f"K6 differs from its plain version at {bad6} places "
           f"over {len(states)} rings")
+    # wider lists, k + 1 = 101 (shared memory) and 256 (global memory),
+    # on a crowded index (each port KNN_CROWD times, so the lists fill,
+    # evict and tie) over rings 0 .. KNN_CROWD_RINGS - 1 of the first
+    # KNN_WIDE_PINGS pings, from empty lists, ring by ring
+    crowd = np.repeat(ports, KNN_CROWD, axis=0)
+    cidx, _, _ = knn_mod.build_knn_indexes(crowd, KNN_RES, grid, device=DEV)
+    crows = knn_mod.ring_rows(cidx, pings[:KNN_WIDE_PINGS], DEV)[0]
+    nw = len(crows[0])
+    for k1 in (KNN_WIDE_K + 1, KNN_GLOBAL_K1):
+        td = torch.full((nw, k1), float("inf"), device=DEV)
+        tc = torch.full((nw, k1), -1, dtype=torch.int32, device=DEV)
+        bad = 0
+        for d in range(KNN_CROWD_RINGS):
+            args = (cidx.entry, cidx.pool_xy, *crows, td, tc,
+                    *states[d][0][12:14], cidx.cap, states[d][0][15])
+            kd2, kcode = knn_ring.ring_step(*args)
+            td, tc = knn_ring.ring_step_ref(*args)
+            bad += int((kd2.view(torch.int32) != td.view(torch.int32)
+                        ).sum()) + int((kcode != tc).sum())
+        full = int((tc[:, -1] >= 0).sum())
+        ties = int(((td[:, 1:] == td[:, :-1]) & (tc[:, 1:] >= 0)).sum())
+        log(f"[knn K6] crowded index ({KNN_CROWD} x {m} points, cap "
+            f"{cidx.cap}), k + 1 = {k1}, {nw} rows, rings 0-"
+            f"{KNN_CROWD_RINGS - 1}: {bad} differ; {full} lists full, "
+            f"{ties} tied neighbours")
+        check(full > 0 and ties > 0, f"the crowded index filled {full} "
+              f"lists of {k1} with {ties} ties")
+        bad6 += bad
+    check(bad6 == 0, f"K6 differs from its plain version at {bad6} places "
+          "on the wide lists")
     last = states[-1][0]
     host6 = host_ms_per_launch(lambda: knn_ring.ring_step(*last), 20)
+    # the last ring with the rows in a seeded random order, as the pings
+    # come (their order is unrelated to their cells), against the march's
+    # lattice order; and one ring of lists of 101
+    shuffle = torch.randperm(n, generator=torch.Generator().manual_seed(7))
+    shuffled = (*last[:2], *(t[shuffle.to(t.device)] for t in last[2:12]),
+                *last[12:])
+    lat_ms = queued_ms(lambda: knn_ring.ring_step(*last), 5)
+    rand_ms = queued_ms(lambda: knn_ring.ring_step(*shuffled), 5)
+    a = states[KNN_WIDE_RING + 1][0]
+    wide_args = (*a[:10], torch.full((n, KNN_WIDE_K + 1), float("inf"),
+                                     device=DEV),
+                 torch.full((n, KNN_WIDE_K + 1), -1, dtype=torch.int32,
+                            device=DEV), *a[12:])
+    wide6_ms = queued_ms(lambda: knn_ring.ring_step(*wide_args), 3)
+    log(f"[knn K6] ring {len(states) - 1}: {lat_ms:.4f} ms with the rows in "
+        f"lattice order, {rand_ms:.4f} ms in a random order (queued "
+        f"bursts); ring {KNN_WIDE_RING + 1} with lists of "
+        f"{KNN_WIDE_K + 1}: {wide6_ms:.4f} ms")
     prof6 = [t / c for key, t, c in ring["profile"].get("ops", [])
              if "ring_kernel" in key]
     nbytes = sum(w[0] for w in work)
@@ -1809,11 +1922,45 @@ def phase_knn():
           "bound_by": "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS
           else "operations", "max_abs_err": 0.0, "library_ms": None,
           "march_ms": t_k, "march_plain_ms": t_p, "march_bound_ms": t_bound,
-          "main_path_profiler_ms": prof6[0] if prof6 else None}
+          "main_path_profiler_ms": prof6[0] if prof6 else None,
+          "last_ring_lattice_ms": lat_ms, "last_ring_random_order_ms": rand_ms,
+          "wide_list_ring_ms": wide6_ms}
+    # ---- k = 100 on both engines, a cut workload, against the oracle
+    sub = pings[:KNN_WIDE_PINGS]
+    t0 = time.perf_counter()
+    ids, dist = mt.knn_host_truth(sub, ports, KNN_WIDE_K)
+    t_truth = time.perf_counter() - t0
+    wide = {}
+    for path, kw, kernel in (("brute", {}, "knn_brute_topk"),
+                             ("ring", {"brute_right_max": 0},
+                              "knn_ring_step")):
+        knn_w = mt.SpatialKNN(grid, k=KNN_WIDE_K, index_resolution=KNN_RES,
+                              max_iterations=KNN_MAX_IT, device=DEV, **kw)
+        before = launch_counts()[kernel]
+        t0 = time.perf_counter()
+        out = knn_w.transform(sub, ports)
+        t = time.perf_counter() - t0
+        launched = launch_counts()[kernel] - before
+        bad = int(np.sum(out["right_id"] != ids))
+        derr = float(np.max(np.abs(np.where(ids >= 0, out["distance"] - dist,
+                                            0.0))))
+        wide[path] = {"s": t, "launches": launched, "mismatches": bad,
+                      "max_distance_err": derr,
+                      "rechecked": out["rechecked"],
+                      "iterations": out["iterations"]}
+        log(f"[knn k={KNN_WIDE_K}] {path}: {len(sub)} pings in {t:.2f} s, "
+            f"{launched} {kernel} launches, iterations "
+            f"{out['iterations']}, rechecked {out['rechecked']}; against "
+            f"knn_host_truth ({t_truth:.1f} s): {bad} id mismatches, "
+            f"distances within {derr:.3e}")
+        check(bad == 0 and derr <= 1e-12 and launched > 0,
+              f"k={KNN_WIDE_K} {path}: {bad} mismatches, distance error "
+              f"{derr}, {launched} launches")
     summary = {p: {k: v for k, v in r.items() if k not in ("out",
                                                            "all_counts")}
                for p, r in paths.items()}
     summary["oracle_mismatches"] = mism
+    summary["wide_k"] = wide
     return {"paths": summary, "k5": k5, "k6": k6}
 
 
@@ -1847,7 +1994,8 @@ def main() -> int:
         phase_df_contract()
         launches, idx, grid, batches, rechecked, dense_zone, polys, chips = \
             phase_flagship()
-        join = phase_join_kernel(idx, grid, batches, rechecked, flops_pt)
+        join = phase_join_kernel(idx, grid, polys, batches, rechecked,
+                                 flops_pt)
         cell = phase_cell_kernel(cell_ops_per_point(RES))
         custom = phase_sorted_custom()
         h3s = phase_sorted_h3(polys, grid, chips, batches[0], dense_zone)

@@ -20,7 +20,8 @@ take one of two exact engines, both on the device:
   padded pool of point coordinates per cell (:class:`FusedKNNIndex`); ring
   d of a row is the 6d axial offsets of its face's window, scanned by one
   launch per ring (``ops/knn_ring.py``, kernel K6) that folds candidates
-  into a running top-(k+1).  Iteration control stays on the host
+  into a running top-(k+1), the march's rows in lattice order.
+  Iteration control stays on the host
   (:class:`IterativeTransformer`), one scalar per ring.  Right points
   near a face corner go to a host residual set; after convergence a row
   whose kth distance reaches another face merges that face's exact top-k
@@ -54,7 +55,7 @@ from ..core.index.h3.hexmath import geo_to_xyz
 from ..core.index.h3.system import H3IndexSystem
 from ..core.tessellate import tessellate
 from ..ops.knn_brute import brute_topk
-from ..ops.knn_ring import ring_step
+from ..ops.knn_ring import lattice_order, ring_step
 from ..parallel.pip_join import _host_lattice
 from ..perf.pipeline import chunk_rows, stream
 from .core import IterationState, IterativeTransformer
@@ -200,6 +201,37 @@ def knn_index_from_arrays(tables: dict, device: DeviceLike = None
         res=int(tables["res"]), cap=int(tables["cap"]),
         inr_deg=float(tables["inr_deg"]), circ_deg=float(tables["circ_deg"]),
         n_right=int(tables["n_right"]))
+
+
+def ring_rows(idx: FusedKNNIndex, left_xy: np.ndarray, device: DeviceLike
+              ) -> Tuple[tuple, torch.Tensor, np.ndarray, np.ndarray]:
+    """The ring step's per-row inputs for the left points: (rows, order,
+    face, no_window).
+
+    ``rows`` are ``(pts, al, bl, a0r, b0r, wr, hr, eoffr)`` on ``device``
+    (face-origin-local f32 points, lattice coordinates and face window)
+    in lattice order (:func:`lattice_order`): row i of them is left row
+    ``order[i]``.  The march holds its rows, and so its lists and
+    checkpoints, in that order, where the ring kernel's neighbouring
+    threads share their ring cells and read and write their rows
+    coalesced.  ``face`` [N] is each left row's face and ``no_window`` [N]
+    marks rows whose face has no window: they scan a degenerate empty
+    window, and the host pass takes them."""
+    dev = resolve_device(device)
+    n = len(left_xy)
+    face, al, bl = _host_lattice(left_xy, idx.res)
+    cols = np.zeros((5, n), np.int32)            # a0, b0, W, H, eoff
+    pts_local = np.zeros((n, 2), np.float32)
+    no_window = np.ones(n, bool)
+    for f, (a0, b0, W, H, eoff, origin) in idx.face_params.items():
+        sel = face == f
+        no_window[sel] = False
+        cols[:, sel] = np.array([a0, b0, W, H, eoff], np.int32)[:, None]
+        pts_local[sel] = (left_xy[sel] - origin[None]).astype(np.float32)
+    rows = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            (pts_local, al.astype(np.int32), bl.astype(np.int32), *cols)]
+    order = lattice_order(rows[1], rows[2], rows[3], rows[4], rows[7])
+    return tuple(r[order] for r in rows), order, face, no_window
 
 
 def _ring_offsets(d: int) -> np.ndarray:
@@ -482,43 +514,17 @@ class SpatialKNN(IterativeTransformer):
             return self._result(left_xy, right_xy, ids, d2,
                                 iterations=0, rechecked=n)
         idx = self._idx
-        # per-row window parameters (face of each left row); rows on
-        # faces with no window scan a degenerate empty window and are
-        # flagged for the host pass below
-        face, al, bl = _host_lattice(left_xy, self.res)
-        a0r = np.zeros(n, np.int32)
-        b0r = np.zeros(n, np.int32)
-        wr = np.zeros(n, np.int32)
-        hr = np.zeros(n, np.int32)
-        eoffr = np.zeros(n, np.int32)
-        pts_local = np.zeros((n, 2), np.float32)
-        no_window = np.ones(n, bool)
-        for f, (a0, b0, W, H, eoff, origin) in \
-                idx.face_params.items():
-            rows = face == f
-            if not rows.any():
-                continue
-            no_window[rows] = False
-            a0r[rows] = a0
-            b0r[rows] = b0
-            wr[rows] = W
-            hr[rows] = H
-            eoffr[rows] = eoff
-            pts_local[rows] = (left_xy[rows] -
-                               origin[None]).astype(np.float32)
-
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
-        self._pts = dev(pts_local)
-        self._al = dev(al.astype(np.int32))
-        self._bl = dev(bl.astype(np.int32))
-        self._a0r, self._b0r, self._wr, self._hr, self._eoffr = (
-            dev(a) for a in (a0r, b0r, wr, hr, eoffr))
+        rows, order, face, no_window = ring_rows(idx, left_xy, self.device)
+        (self._pts, self._al, self._bl, self._a0r, self._b0r, self._wr,
+         self._hr, self._eoffr) = rows
 
         state = self.iterative_transform(left_xy, right_xy)
-        top_d2, top_code = (
-            np.array(v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
-            for v in (state.payload["top_d2"], state.payload["top_code"]))
+        back = order.cpu().numpy()
+        top_d2 = np.empty((n, k + 1), np.float32)
+        top_code = np.empty((n, k + 1), np.int32)
+        for out, v in ((top_d2, state.payload["top_d2"]),
+                       (top_code, state.payload["top_code"])):
+            out[back] = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
         d = state.iteration
         rid = np.where(top_code >= 0,
                        idx.pool_rowid.reshape(-1)[

@@ -24,6 +24,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 
@@ -76,7 +77,8 @@ def get_lib() -> ctypes.CDLL:
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.pip_first_match.argtypes = [vp, i64, vp, vp, i64, vp]
     lib.pip_first_match.restype = None
-    lib.recheck_zones.argtypes = [vp, vp, i64, vp, vp, vp, vp, i64, vp]
+    lib.recheck_zones.argtypes = [vp, vp, i64, vp, vp, vp, vp, i64,
+                                  ctypes.c_double, vp, vp]
     lib.recheck_zones.restype = None
     lib.intersect_area_pairs.argtypes = [vp, vp, vp, vp, vp, vp, i64,
                                          ctypes.c_double, vp]
@@ -109,13 +111,17 @@ pip_first_match.calls = 0
 
 def recheck_zones(points: np.ndarray, group: np.ndarray, edges: np.ndarray,
                   ezslot: np.ndarray, gstart: np.ndarray,
-                  gzones: np.ndarray) -> np.ndarray:
-    """Chip-parity zone per (point, group): the first zone slot of the
-    point's group whose edges it crosses an odd number of times, or -1.
+                  gzones: np.ndarray, near_eps: float
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """(zone, near) per (point, group): the first zone slot of the
+    point's group whose edges it crosses an odd number of times, or -1;
+    and whether the point lies closer than ``near_eps`` to an edge of its
+    group.
 
     points [N, 2] f64; group [N] (row of gstart, -1 skips the point);
     edges [E, 4] f64; ezslot [E] zone slot per edge; gstart [G + 1];
-    gzones [G, Z] zone per slot, Z <= MAX_ZONE_SLOTS."""
+    gzones [G, Z] zone per slot, Z <= MAX_ZONE_SLOTS.  Returns [N] int32
+    and [N] bool."""
     pts = np.ascontiguousarray(points, np.float64)
     grp = np.ascontiguousarray(group, np.int64)
     ed = np.ascontiguousarray(edges, np.float64)
@@ -129,11 +135,14 @@ def recheck_zones(points: np.ndarray, group: np.ndarray, edges: np.ndarray,
             len(gs) != gz.shape[0] + 1 or (len(grp) and grp.max() >= len(gz)):
         raise ValueError("recheck_zones: inconsistent table sizes")
     out = np.empty(len(pts), np.int32)
+    near = np.empty(len(pts), np.uint8)
     get_lib().recheck_zones(pts.ctypes.data, grp.ctypes.data, len(pts),
                             ed.ctypes.data, ez.ctypes.data, gs.ctypes.data,
-                            gz.ctypes.data, gz.shape[1], out.ctypes.data)
+                            gz.ctypes.data, gz.shape[1],
+                            float(near_eps) ** 2, near.ctypes.data,
+                            out.ctypes.data)
     recheck_zones.calls += 1
-    return out
+    return out, near.astype(bool)
 
 
 recheck_zones.calls = 0

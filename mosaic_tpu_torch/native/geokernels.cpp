@@ -70,17 +70,21 @@ void pip_first_match(const double* pts, int64_t n_pts,
 // Per-(point, group) chip-parity zone assignment — the native recheck
 // core.  pts [n, 2]; group[n] (CSR row per point, -1 = skip);
 // edges [E, 4]; ezslot [E]; gstart [G+1]; gzones [G, zcap];
-// out [n] zone or -1.
+// out [n] zone or -1; near[n] = 1 where the point lies within sqrt(eps2)
+// of an edge of its group (its f64 distance to the segment), else 0.
 void recheck_zones(const double* pts, const int64_t* group, int64_t n,
                    const double* edges, const int32_t* ezslot,
                    const int64_t* gstart, const int32_t* gzones,
-                   int64_t zcap, int32_t* out) {
+                   int64_t zcap, double eps2, uint8_t* near,
+                   int32_t* out) {
     for (int64_t i = 0; i < n; ++i) {
         const int64_t g = group[i];
         out[i] = -1;
+        near[i] = 0;
         if (g < 0) continue;
         const double px = pts[2 * i], py = pts[2 * i + 1];
         int64_t counts[16] = {0};
+        bool close = false;
         for (int64_t e = gstart[g]; e < gstart[g + 1]; ++e) {
             const double* ed = edges + 4 * e;
             const double ay = ed[1], by = ed[3];
@@ -92,7 +96,17 @@ void recheck_zones(const double* pts, const int64_t* group, int64_t n,
                     if (z >= 0 && z < 16) ++counts[z];
                 }
             }
+            if (!close) {
+                const double ex = ed[2] - ed[0], ey = by - ay;
+                const double rx = px - ed[0], ry = py - ay;
+                const double len2 = ex * ex + ey * ey;
+                double u = len2 > 0.0 ? (rx * ex + ry * ey) / len2 : 0.0;
+                u = u < 0.0 ? 0.0 : (u > 1.0 ? 1.0 : u);
+                const double dx = rx - u * ex, dy = ry - u * ey;
+                close = dx * dx + dy * dy < eps2;
+            }
         }
+        near[i] = close;
         for (int64_t z = 0; z < zcap && z < 16; ++z) {
             if (counts[z] & 1) { out[i] = gzones[g * zcap + z]; break; }
         }

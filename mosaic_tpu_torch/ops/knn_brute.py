@@ -14,7 +14,9 @@ of numpy's ``(right_xy - center).astype(np.float32)``.  On CUDA tensors
 it launches ``csrc/knn_brute_topk.cu`` (built at first use), which forms
 that copy itself, or raises; on CPU tensors it runs
 :func:`brute_topk_ref` on :func:`center_right`'s copy.  The two agree bit
-for bit.
+for bit at every ``1 <= kc <= m``: the kernel keeps up to ``KC_PASS``
+keys a row in one launch, and a wider kc takes one launch per
+``KC_PASS`` columns, each the next keys after the last one stored.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import torch
 from .. import _kernels
 from .projection import check_rc
 
-#: the largest kc the kernel takes (its per-lane register list)
-KC_MAX = 64
+#: the widest list one launch keeps (32 lanes x 32 register slots)
+KC_PASS = 1024
 
 
 def center_right(right: torch.Tensor, center) -> torch.Tensor:
@@ -56,8 +58,8 @@ def _lib() -> ctypes.CDLL:
     lib = _kernels.load("knn_brute_topk")
     vp, i, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                        ctypes.c_double)
-    lib.knn_brute_topk_launch.argtypes = [vp, i64, vp, i, f64, f64, i, vp, vp,
-                                          vp]
+    lib.knn_brute_topk_launch.argtypes = [vp, i64, vp, i, f64, f64, i, i, i,
+                                          vp, vp, vp]
     lib.knn_brute_topk_launch.restype = i
     lib.knn_brute_topk_error_string.argtypes = [i]
     lib.knn_brute_topk_error_string.restype = ctypes.c_char_p
@@ -72,13 +74,12 @@ def brute_topk(lc: torch.Tensor, right: torch.Tensor, center, kc: int
     f32.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream and raise on anything it does not take or on a
-    CUDA error; there is no fallback.  ``brute_topk.launches`` counts
-    kernel launches."""
+    the current stream, one per ``KC_PASS`` columns of kc, and raise on
+    anything it does not take or on a CUDA error; there is no fallback.
+    ``brute_topk.launches`` counts kernel launches."""
     m = int(right.shape[0]) if right.dim() == 2 else -1
-    if not 1 <= kc <= KC_MAX:
-        raise ValueError(f"brute_topk: kc {kc} outside 1..{KC_MAX} (the "
-                         f"kernel keeps at most {KC_MAX} candidates a row)")
+    if kc < 1:
+        raise ValueError(f"brute_topk: kc {kc} < 1")
     if lc.dtype != torch.float32 or lc.dim() != 2 or lc.shape[1] != 2:
         raise ValueError(f"brute_topk: lc must be [B, 2] float32, got "
                          f"{tuple(lc.shape)} {lc.dtype}")
@@ -105,11 +106,13 @@ def brute_topk(lc: torch.Tensor, right: torch.Tensor, center, kc: int
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.knn_brute_topk_launch(
-            lc.data_ptr(), n, right.data_ptr(), m, float(center[0]),
-            float(center[1]), kc, d2.data_ptr(), idx.data_ptr(), stream)
-    check_rc(lib, "knn_brute_topk", rc, "launch")
-    brute_topk.launches += 1
+        for col0 in range(0, kc, KC_PASS):
+            rc = lib.knn_brute_topk_launch(
+                lc.data_ptr(), n, right.data_ptr(), m, float(center[0]),
+                float(center[1]), kc, col0, min(KC_PASS, kc - col0),
+                d2.data_ptr(), idx.data_ptr(), stream)
+            check_rc(lib, "knn_brute_topk", rc, "launch")
+            brute_topk.launches += 1
     return d2, idx
 
 

@@ -12,7 +12,10 @@ an empty cell or past ``thr2`` is (inf, -1).
 ``csrc/knn_ring_step.cu`` (built at first use) or raises; on CPU tensors
 it runs :func:`ring_step_ref`, the reference's scan with a stable sort in
 place of ``lax.top_k`` (the k+1 smallest, ties to the lower position).
-The two agree bit for bit.
+The two agree bit for bit at every list length k+1: the kernel keeps a
+list in registers up to 64 entries, past that in shared memory, and past
+what shared memory holds in global memory.  Its threads take the rows in
+the order given; :func:`lattice_order` is the order it wants them in.
 """
 
 from __future__ import annotations
@@ -26,8 +29,6 @@ import torch
 from .. import _kernels
 from .projection import check_rc
 
-#: the longest running list (k + 1) the kernel takes in registers
-K1_MAX = 64
 #: candidates per row-group step of the plain version (its [N, G, cap]
 #: temporaries)
 REF_CANDIDATES = 1 << 24
@@ -103,9 +104,8 @@ def _check(entry, pool_xy, pts, rows, top_d2, top_code, offs, omask, cap):
             raise ValueError(f"ring_step: window scalars must be [{n}] "
                              "int32")
     k1 = int(top_d2.shape[1]) if top_d2.dim() == 2 else 0
-    if not 1 <= k1 <= K1_MAX:
-        raise ValueError(f"ring_step: k + 1 = {k1} outside 1..{K1_MAX} "
-                         "(the kernel's register list)")
+    if k1 < 1:
+        raise ValueError(f"ring_step: k + 1 = {k1} < 1")
     if top_d2.dtype != torch.float32 or top_code.dtype != torch.int32 or \
             top_d2.shape != (n, k1) or top_code.shape != (n, k1):
         raise ValueError("ring_step: top_d2/top_code must be [N, k+1] "
@@ -121,6 +121,23 @@ def _check(entry, pool_xy, pts, rows, top_d2, top_code, offs, omask, cap):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"ring_step: unsupported device {dev}")
     return dev
+
+
+def lattice_order(al, bl, a0r, b0r, eoffr) -> torch.Tensor:
+    """[N] i64: the rows sorted by face window, then by the Morton code
+    of their window coordinates (clamped to 0..65535).  Rows handed to
+    :func:`ring_step` in this order put neighbouring kernel threads on
+    neighbouring cells, where they share most of their ring's entries
+    and pool rows."""
+    def spread(v):                 # 16 bits to the even bits of 32
+        v = (v | (v << 8)) & 0x00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F
+        v = (v | (v << 2)) & 0x33333333
+        return (v | (v << 1)) & 0x55555555
+    ia = (al - a0r).long().clamp(0, 0xFFFF)
+    ib = (bl - b0r).long().clamp(0, 0xFFFF)
+    key = (eoffr.long() << 32) | spread(ia) | (spread(ib) << 1)
+    return torch.argsort(key, stable=True)
 
 
 def ring_step(entry, pool_xy, pts, al, bl, a0r, b0r, wr, hr, eoffr, top_d2,
@@ -147,9 +164,10 @@ def ring_step(entry, pool_xy, pts, al, bl, a0r, b0r, wr, hr, eoffr, top_d2,
     args = [t.contiguous() for t in (entry, pool_xy, pts, *rows, top_d2,
                                      top_code, offs, omask)]
     if args[1].data_ptr() % 8 or args[2].data_ptr() % 8 or \
-            args[12].data_ptr() % 8:
-        raise ValueError("ring_step: pool_xy, pts and offs must be 8-byte "
-                         "aligned (read as float2 and int2)")
+            args[12].data_ptr() % 16 or args[13].data_ptr() % 4:
+        raise ValueError("ring_step: pool_xy and pts must be 8-byte, offs "
+                         "16-byte and omask 4-byte aligned (read as float2, "
+                         "int4 and uchar4)")
     out_d2 = torch.empty_like(top_d2)
     out_code = torch.empty_like(top_code)
     lib = _lib()

@@ -107,7 +107,10 @@ class DensePIPIndex:
     origin [2] f64     local-frame origin (lon, lat), host numpy
     face0, a0, b0, W, H, res, err_lattice (margin threshold), n_zones,
     ext_deg (max |local degree| of the window, + slack)
-    aux    host f64 recheck tables (see host_recheck_fn)
+    aux    host f64 recheck tables (see host_recheck_fn); an index
+           that build_dense_pip_index made also holds its polygons'
+           edges there (``oracle_edges``, ``oracle_start``), the
+           recheck's fallback
     """
 
     entry: torch.Tensor
@@ -140,9 +143,11 @@ def dense_index_from_arrays(tables: dict, device: DeviceLike = None
     """A DensePIPIndex from host arrays: ``entry``, ``pool``, ``gzones``,
     ``gwide``, ``origin`` (numpy), the statics ``face0 a0 b0 W H res
     err_lattice n_zones ext_deg``, and ``aux`` (the recheck tables
-    ``flat_a flat_b edge_zslot gstart gzones64``; other keys ignored).
-    It carries an index built elsewhere — for instance by the JAX
-    package — onto ``device`` unchanged."""
+    ``flat_a flat_b edge_zslot gstart gzones64``, and the polygons' edges
+    ``oracle_edges oracle_start`` of :func:`_oracle_edges` where the
+    caller has them; other keys ignored).  It carries an index built
+    elsewhere — for instance by the JAX package — onto ``device``
+    unchanged."""
     dev = resolve_device(device)
 
     def own(key, dtype):
@@ -152,7 +157,8 @@ def dense_index_from_arrays(tables: dict, device: DeviceLike = None
     aux = tables.get("aux")
     if aux is not None:
         aux = {k: np.array(aux[k]) for k in
-               ("flat_a", "flat_b", "edge_zslot", "gstart", "gzones64")}
+               ("flat_a", "flat_b", "edge_zslot", "gstart", "gzones64",
+                "oracle_edges", "oracle_start") if k in aux}
     return DensePIPIndex(
         entry=own("entry", np.int32), pool=own("pool", np.float32),
         gzones=own("gzones", np.int32), gwide=own("gwide", bool),
@@ -345,7 +351,9 @@ def build_dense_pip_index(polys: GeometryArray, res: int, grid,
         n_zones=len(polys), ext_deg=ext_deg,
         aux={"flat_a": flat_a, "flat_b": flat_b,
              "edge_zslot": edge_zslot.astype(np.int64),
-             "gstart": gstart, "gzones64": gzones.astype(np.int64)}),
+             "gstart": gstart, "gzones64": gzones.astype(np.int64),
+             **dict(zip(("oracle_edges", "oracle_start"),
+                        _oracle_edges(polys)))}),
         dev)
 
 
@@ -644,12 +652,13 @@ def zone_histogram(zone: torch.Tensor, num_zones: int) -> torch.Tensor:
         torch.int32)
 
 
-def dense_recheck_np(pts: np.ndarray, g: np.ndarray, aux: dict, Z: int
-                     ) -> np.ndarray:
-    """Numpy version of the native ``recheck_zones``: chip-parity zone of
-    each point in its border group ``g`` (the JAX package's numpy
-    branch).  ``host_recheck_fn`` runs it where the index has more than
-    16 zone slots per cell."""
+def dense_recheck_np(pts: np.ndarray, g: np.ndarray, aux: dict, Z: int,
+                     near_eps: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Numpy version of the native ``recheck_zones``: the chip-parity
+    zone of each point in its border group ``g`` (the JAX package's numpy
+    branch), and whether the point lies closer than ``near_eps`` to an
+    edge of its group.  ``host_recheck_fn`` runs it where the index has
+    more than 16 zone slots per cell."""
     gstart = aux["gstart"]
     cnt = (gstart[g + 1] - gstart[g]).astype(np.int64)
     total = int(cnt.sum())
@@ -672,22 +681,38 @@ def dense_recheck_np(pts: np.ndarray, g: np.ndarray, aux: dict, Z: int
     odd = (counts.reshape(len(g), Z).astype(np.int64) & 1).astype(bool)
     anyin = odd.any(axis=1)
     first = odd.argmax(axis=1)
-    return np.where(anyin, aux["gzones64"][g, first], -1).astype(np.int32)
+    zone = np.where(anyin, aux["gzones64"][g, first], -1).astype(np.int32)
+    e = pb - pa
+    r = P - pa
+    len2 = np.sum(e * e, axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        u = np.where(len2 > 0, np.sum(r * e, axis=1) / len2, 0.0)
+    d = r - np.clip(u, 0.0, 1.0)[:, None] * e
+    close = np.sum(d * d, axis=1) < float(near_eps) ** 2
+    return zone, np.bincount(pidx, weights=close, minlength=len(g)) > 0
 
 
 def host_recheck_fn(idx, polys: Optional[GeometryArray] = None):
     """Vectorized f64 host recheck bound to an index (either kind).
 
-    Returns ``recheck(points64_abs, zone, uncertain) -> zone`` (numpy).
-    For a dense index it reruns the flagged points through the SAME chip
-    semantics in f64 — exact cell assignment (host lattice), exact
-    crossing parity against the original unquantized chip edges —
-    through the native ``recheck_zones`` (``dense_recheck_np`` when the
-    index has more than 16 zone slots per cell, the reference's one
-    dispatch).  For a sorted ``PIPIndex`` the recheck authority is the
-    original polygons, which the caller must pass: it does what
-    :func:`host_recheck` does.  Tables are prepared, and the library
-    built, here, once."""
+    Returns ``recheck(points64_abs, zone, uncertain) -> zone`` (numpy),
+    whose flagged rows equal :func:`pip_host_truth`.  For a dense index
+    it reruns the flagged points through the SAME chip semantics in f64
+    — exact cell assignment (host lattice), exact crossing parity against
+    the original unquantized chip edges — through the native
+    ``recheck_zones`` (``dense_recheck_np`` when the index has more than
+    16 zone slots per cell, the reference's one dispatch).  The chips
+    are clipped to the straight lon/lat hexagon while the cell comes from
+    the true H3 lattice, so a point in the cell-edge sagitta, or on a
+    chip edge under the half-open rule, can find no chip or the wrong
+    one; every flagged point that ends -1, or lies within
+    ``EPS_EDGE_DEG`` of an edge of its cell's chips, takes the full
+    polygon test ``pip_first_match`` instead.  Those polygons are the
+    index's own (``aux["oracle_edges"]``, which ``build_pip_index``
+    keeps) or ``polys``; an index with neither raises ValueError.  For a
+    sorted ``PIPIndex`` the recheck authority is the original polygons,
+    which the caller must pass: it does what :func:`host_recheck` does.
+    Tables are prepared, and the library built, here, once."""
     if isinstance(idx, PIPIndex):
         if polys is None:
             raise ValueError(
@@ -707,11 +732,20 @@ def host_recheck_fn(idx, polys: Optional[GeometryArray] = None):
     aux = idx.aux
     if aux is None:
         raise ValueError("recheck needs the build-time aux tables")
+    if polys is not None:
+        oracle = _oracle_edges(polys)
+    elif "oracle_edges" in aux:
+        oracle = (aux["oracle_edges"], aux["oracle_start"])
+    else:
+        raise ValueError(
+            "host_recheck_fn on a dense index made from arrays needs the "
+            "original polygons for its fallback: host_recheck_fn(idx, "
+            "polys)")
     entry = idx.entry.cpu().numpy()
     Z = int(idx.gzones.shape[1])
     use_native = Z <= native.MAX_ZONE_SLOTS
+    native.get_lib()
     if use_native:
-        native.get_lib()
         flat_native = np.ascontiguousarray(
             np.concatenate([aux["flat_a"], aux["flat_b"]], axis=1))
         ezslot_native = aux["edge_zslot"].astype(np.int32)
@@ -732,6 +766,7 @@ def host_recheck_fn(idx, polys: Optional[GeometryArray] = None):
                (ib >= 0) & (ib < idx.H))
         e = np.where(inw, entry[np.where(inw, ia * idx.H + ib, 0)], -1)
         out = np.full(len(sel), -1, np.int32)
+        near = np.zeros(len(sel), bool)
         is_core = (e >= 0) & ((e & int(CORE_FLAG)) != 0)
         out[is_core] = (e[is_core] & ~int(CORE_FLAG))
 
@@ -739,14 +774,21 @@ def host_recheck_fn(idx, polys: Optional[GeometryArray] = None):
         if len(bsel):
             g = e[bsel].astype(np.int64)
             if use_native:
-                out[bsel] = native.recheck_zones(
+                out[bsel], near[bsel] = native.recheck_zones(
                     pts[bsel], g, flat_native, ezslot_native,
-                    aux["gstart"], gzones_native)
+                    aux["gstart"], gzones_native, EPS_EDGE_DEG)
             else:
-                out[bsel] = dense_recheck_np(pts[bsel], g, aux, Z)
+                out[bsel], near[bsel] = dense_recheck_np(
+                    pts[bsel], g, aux, Z, EPS_EDGE_DEG)
+        fall = np.nonzero((out < 0) | near)[0]
+        if len(fall):
+            out[fall] = native.pip_first_match(pts[fall], *oracle)
+            recheck.fallbacks += len(fall)
         zone[sel] = out
         return zone
 
+    #: flagged points that took the full polygon test
+    recheck.fallbacks = 0
     return recheck
 
 
@@ -823,7 +865,8 @@ def make_streamed_pip_join(idx, grid=None,
     recheck authority (``grid`` and ``polys`` are required for a sorted
     :class:`PIPIndex`).
 
-    Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``."""
+    Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``;
+    ``run.recheck`` is its :func:`host_recheck_fn`."""
     dev = resolve_device(device)
     if idx.device != dev:
         raise ValueError(f"index lives on {idx.device}, join asked for "
@@ -852,4 +895,6 @@ def make_streamed_pip_join(idx, grid=None,
                dev)
         return zone_out, state["rechecked"]
 
+    #: the bound host recheck (a dense index's counts its fallbacks)
+    run.recheck = recheck
     return run

@@ -25,9 +25,14 @@ runs on ``device="cpu"``, where the brute top-k (K5) and the ring step
   wherever the neighbouring d2 differ by more than 4 ulp.  On inputs
   whose distances are exact in f32 (small integers) no rounding happens,
   and there the two are held bit for bit, ties included.
+* Any k: brute at k = 57, 64 and 100 (kc = k + 8 past 64) and the
+  rings at k = 64 and 100 (lists of k + 1 past 64), with and without a
+  threshold, equal to the JAX package's and to ``knn_host_truth``; the
+  plain versions at those widths (kc 65 and m, lists of 65 and 130)
+  against the JAX device bodies on integer inputs with ties, bit for bit.
 * ``ais_pings_ports`` byte-identical to bench.py's inline config-4
-  generator; the kc limit's ValueError; the CUDA default; the chunk
-  index ``stream`` hands to ``compute``.
+  generator; the wrappers' refusals (kc < 1, wrong dtypes); the CUDA
+  default; the chunk index ``stream`` hands to ``compute``.
 """
 
 import contextlib
@@ -400,27 +405,48 @@ def test_brute_topk_ref_against_lax_top_k():
     assert amb.mean() < 1e-3
 
 
-def test_brute_topk_ref_ties_bit_equal():
-    """Integer coordinates: every distance exact in f32, so no rounding
-    separates the packages; duplicated right points tie exactly and both
-    keep the lower index first."""
+def _tie_block():
+    """Integer coordinates, duplicated right points: (lc, rc)."""
     rng = np.random.default_rng(3)
     lc = rng.integers(-40, 40, (512, 2)).astype(np.float32)
     base = rng.integers(-40, 40, (300, 2)).astype(np.float32)
     rc = np.concatenate([base, base[::3], base[:50]])
     rng.shuffle(rc)
+    return lc, rc
+
+
+def _brute_ties_bit_equal(kc):
+    lc, rc = _tie_block()
+    jd2, jidx = _jax_brute(lc, rc, kc)
+    td2, tidx = (t.numpy() for t in knn_brute.brute_topk_ref(
+        torch.from_numpy(lc), torch.from_numpy(rc), kc))
+    assert td2.tobytes() == jd2.tobytes()
+    assert np.array_equal(tidx, jidx)
+    return td2
+
+
+def test_brute_topk_ref_ties_bit_equal():
+    """Integer coordinates: every distance exact in f32, so no rounding
+    separates the packages; duplicated right points tie exactly and both
+    keep the lower index first."""
     for kc in (1, 13, 64):
-        jd2, jidx = _jax_brute(lc, rc, kc)
-        td2, tidx = (t.numpy() for t in knn_brute.brute_topk_ref(
-            torch.from_numpy(lc), torch.from_numpy(rc), kc))
-        assert td2.tobytes() == jd2.tobytes()
-        assert np.array_equal(tidx, jidx)
+        td2 = _brute_ties_bit_equal(kc)
     assert np.any(td2[:, 1:] == td2[:, :-1])         # ties were there
+
+
+@pytest.mark.parametrize("kc", [65, 450], ids=["kc65", "kc_m"])
+def test_brute_topk_ref_wide_ties_bit_equal(kc):
+    """The same block past the old 64-candidate limit, up to every right
+    point (m = 450)."""
+    assert len(_tie_block()[1]) == 450
+    td2 = _brute_ties_bit_equal(kc)
+    assert np.any(td2[:, 1:] == td2[:, :-1])
 
 
 def test_brute_topk_wrapper_on_cpu():
     """The wrapper's CPU path: the right side centered in f64 and rounded
-    (numpy's bits), then the plain version; kc outside 1..64 raises."""
+    (numpy's bits), then the plain version, at any kc up to the right
+    side's length; kc < 1, kc past it and a wrong dtype raise."""
     pings, ports = mt.ais_pings_ports(1000, 500, seed=9)
     center = pings[:300].mean(axis=0)
     rc = knn_brute.center_right(torch.from_numpy(ports), center)
@@ -432,19 +458,54 @@ def test_brute_topk_wrapper_on_cpu():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert knn_brute.brute_topk.launches == 0
     right = torch.from_numpy(ports)
-    with pytest.raises(ValueError, match="1..64"):
-        knn_brute.brute_topk(lc, right, center, 65)
-    with pytest.raises(ValueError, match="1..64"):
+    for kc in (65, len(ports)):
+        got = knn_brute.brute_topk(lc, right, center, kc)
+        want = knn_brute.brute_topk_ref(lc, rc, kc)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert knn_brute.brute_topk.launches == 0
+    with pytest.raises(ValueError, match="kc 0 < 1"):
         knn_brute.brute_topk(lc, right, center, 0)
+    with pytest.raises(ValueError, match="501 > 500 right rows"):
+        knn_brute.brute_topk(lc, right, center, 501)
     with pytest.raises(ValueError, match="float64"):
         knn_brute.brute_topk(lc, right.float(), center, 13)
-    # k + 8 > 64 on the brute path: the limit, not a fallback
-    with pytest.raises(ValueError, match="1..64"):
-        mt.SpatialKNN(mt.get_index_system("H3"), k=57,
-                      device="cpu").transform(pings[:50], ports)
-    with pytest.raises(ValueError, match="1..64"):
-        mt.SpatialKNN(mt.get_index_system("H3"), k=64, brute_right_max=0,
-                      device="cpu").transform(pings[:50], ports)
+
+
+#: k past the 64-entry register lists of the port's first kernels: the
+#: brute pass keeps kc = k + 8 candidates a row, the rings k + 1
+WIDE_K = [
+    pytest.param(("brute", {}), 57, None, id="brute-k57"),
+    pytest.param(("brute", {}), 64, None, id="brute-k64"),
+    pytest.param(("brute", {}), 100, None, id="brute-k100"),
+    pytest.param(("brute", {}), 100, 0.02, id="brute-k100-threshold"),
+    pytest.param(("ring", {"brute_right_max": 0}), 64, None,
+                 id="rings-k64"),
+    pytest.param(("ring", {"brute_right_max": 0}), 100, None,
+                 id="rings-k100"),
+    pytest.param(("ring", {"brute_right_max": 0}), 100, 0.02,
+                 id="rings-k100-threshold"),
+]
+
+
+@pytest.mark.parametrize("eng, k, thr", WIDE_K)
+def test_knn_any_k_equals_jax_and_oracle(grids, eng, k, thr):
+    """300 NYC pings x 400 points at H3 res 7: ids, f64 distances,
+    iterations and rechecked equal to the JAX package's; ids equal to
+    ``knn_host_truth``'s."""
+    jg, tg = grids
+    strategy, kw = eng
+    left, right = _pts(300, 21), _pts(400, 22)
+    params = dict(k=k, index_resolution=7, max_iterations=32,
+                  distance_threshold=thr)
+    with jax_engine(strategy):
+        ref = JKNN(jg, **params, **kw).transform(left, right)
+    out = mt.SpatialKNN(tg, **params, **kw, device="cpu").transform(left,
+                                                                    right)
+    _same_as_jax(out, ref)
+    _check_oracle(out, left, right, k, thr)
+    assert out["right_id"].shape == (300, k)
+    if thr is not None:
+        assert np.any(out["right_id"] < 0) and np.any(out["right_id"] >= 0)
 
 
 def _row_params(idx, left, res, lattice):
@@ -531,14 +592,17 @@ def test_ring_step_ref_against_jax_step(grids, thr):
         assert np.all(td2[finite] <= np.float32(thr) ** 2)
 
 
-def test_ring_step_ref_ties_bit_equal():
+@pytest.mark.parametrize("k", [5, 64, 129], ids=["k1_6", "k1_65",
+                                                 "k1_130"])
+def test_ring_step_ref_ties_bit_equal(k):
     """A synthetic one-face window with integer pool coordinates and
     duplicated points in several cells (so equal distances arrive in one
     offset and across offsets), 1e9-padded slots, a threshold and
     masked offsets: the port's lists equal the JAX step's bit for bit,
-    and the padded slots come through live, as in the reference."""
+    and the padded slots come through live, as in the reference; also
+    with lists of 65 and 130 entries, past the old 64."""
     rng = np.random.default_rng(4)
-    W, H, cap, k = 12, 10, 3, 5
+    W, H, cap = 12, 10, 3
     C = 60
     cells = rng.choice(W * H, C, replace=False)
     entry = np.full(W * H, -1, np.int32)
@@ -564,7 +628,8 @@ def test_ring_step_ref_ties_bit_equal():
             assert td2.tobytes() == jd2.tobytes()
             assert np.array_equal(tcode, jcode)
             padded |= bool(np.any((tcode >= 0) & (td2 > 1e17)))
-        assert np.any(td2[:, 1:] == td2[:, :-1])      # ties were there
+        # ties between numbers were there
+        assert np.any((td2[:, 1:] == td2[:, :-1]) & np.isfinite(td2[:, 1:]))
         assert padded == (thr is None)
 
 

@@ -93,17 +93,51 @@ def test_recheck_zones_three_ways(taxi):
     ez = aux["edge_zslot"].astype(np.int32)
     gz = aux["gzones64"].astype(np.int32)
     grp = np.where(rng.random(len(g)) < 0.1, -1, g)
-    ours = native.recheck_zones(pts, grp, flat, ez, aux["gstart"], gz)
+    ours = native.recheck_zones(pts, grp, flat, ez, aux["gstart"], gz,
+                                tpj.EPS_EDGE_DEG)[0]
     theirs = jnative.recheck_zones(pts, grp, flat, ez, aux["gstart"], gz)
     np.testing.assert_array_equal(ours, theirs)
     keep = grp >= 0
     assert np.all(ours[~keep] == -1)
     np.testing.assert_array_equal(
-        ours[keep], tpj.dense_recheck_np(pts[keep], grp[keep], aux, Z))
+        ours[keep], tpj.dense_recheck_np(pts[keep], grp[keep], aux, Z,
+                                         tpj.EPS_EDGE_DEG)[0])
     assert np.mean(ours[keep] >= 0) > 0.3
     with pytest.raises(ValueError, match="16 zone slots"):
         native.recheck_zones(pts, grp, flat, ez, aux["gstart"],
-                             np.zeros((G, 17), np.int32))
+                             np.zeros((G, 17), np.int32), tpj.EPS_EDGE_DEG)
+
+
+def test_recheck_zones_near_flag_equals_numpy(taxi):
+    """The near-edge flag the dense recheck's fallback reads: points on
+    and a hair beside their group's edges, against the numpy version's
+    point-to-segment distance; the zones equal the JAX package's native
+    recheck's."""
+    idx = taxi[3]
+    aux = idx.aux
+    Z = int(idx.gzones.shape[1])
+    G = len(aux["gstart"]) - 1
+    rng = np.random.default_rng(6)
+    g = rng.integers(0, G, 3000)
+    e = aux["gstart"][g] + rng.integers(0, 2, len(g))
+    t = rng.random(len(g))[:, None]
+    on = aux["flat_a"][e] + t * (aux["flat_b"][e] - aux["flat_a"][e])
+    step = rng.choice([0.0, 3e-7, 9e-7, 1.1e-6, 5e-6], len(g))
+    pts = on + step[:, None] * rng.choice([-1.0, 1.0], (len(g), 2))
+    flat = np.concatenate([aux["flat_a"], aux["flat_b"]], axis=1)
+    ez = aux["edge_zslot"].astype(np.int32)
+    gz = aux["gzones64"].astype(np.int32)
+    zone, near = native.recheck_zones(pts, g, flat, ez, aux["gstart"], gz,
+                                      tpj.EPS_EDGE_DEG)
+    assert near.dtype == bool
+    np.testing.assert_array_equal(
+        zone, jnative.recheck_zones(pts, g, flat, ez, aux["gstart"], gz))
+    np_zone, np_near = tpj.dense_recheck_np(pts, g, aux, Z,
+                                            tpj.EPS_EDGE_DEG)
+    np.testing.assert_array_equal(zone, np_zone)
+    np.testing.assert_array_equal(near, np_near)
+    assert near[step == 0].all() and near.mean() < 0.95
+    assert not near[step == 5e-6].all()
 
 
 def test_native_dense_recheck_equals_numpy_and_polygons(taxi):

@@ -10,7 +10,10 @@
 * The streamed join equals the one-shot join; the zone histogram equals
   ``np.bincount`` of the matched zones.
 * Points placed on chip vertices, edge midpoints and a hair either side
-  of chip and hex edges go through both packages' joins and rechecks.
+  of chip and hex edges go through both packages' joins and rechecks:
+  the same flags, and the port's final zones equal the oracle on every
+  point, where the JAX package's recheck still misses some; a dense
+  index carried across from arrays rechecks only with its polygons.
 * ``dense_join_ref`` (the plain version of the fused CUDA join kernel)
   gives the join body it was moved from bit for bit, also on an index
   with more than 32 zone slots; ``dense_join`` rejects what the kernel
@@ -106,7 +109,7 @@ def test_join_parity_on_carried_index(flagship):
     tz, tu = tfn(torch.from_numpy(tpj.localize(pidx, pts64)))
     assert tz.dtype == torch.int32 and tu.dtype == torch.bool
     tz, tu = tz.numpy(), tu.numpy()
-    t_final = tpj.host_recheck_fn(pidx)(pts64, tz, tu)
+    t_final = tpj.host_recheck_fn(pidx, flagship["tp"])(pts64, tz, tu)
 
     truth = tpj.pip_host_truth(pts64, flagship["tp"])
     assert np.array_equal(truth, jpj.pip_host_truth(pts64, jp))
@@ -162,15 +165,18 @@ def test_non_dense_workloads_raise_with_reason(flagship):
 
 def test_adversarial_points_both_packages(flagship):
     """Points on chip vertices (py == ay in f32), edge midpoints and a hair
-    either side of chip and hex edges.  Both packages' joins flag every
-    point whose f32 answer could be wrong, and after the f64 recheck the
-    two give the same zones everywhere.  A hair beyond the 1e-6 degree
-    hazard band (HAIRS_DEG[2:]) the final zones equal the exact oracle.
-    Nearer than that, the shared recheck (chip edges clipped against the
-    straight lon/lat hexagon, cells from the true H3 lattice) can miss
-    the oracle on points exactly on chip edges or inside the cell-edge
-    sagitta; that fault of the reference's recheck is recorded in
-    ROADMAP.md section C, and the port reproduces it bit for bit."""
+    either side of chip and hex edges.  Both packages' joins raise the
+    same flags, and flag every point whose chip-only answer could be
+    wrong.  The chips are clipped to the straight lon/lat hexagon while
+    the recheck takes the cell from the true H3 lattice, so a point in
+    the cell-edge sagitta, or exactly on a chip edge under the half-open
+    rule, can find no chip or the wrong one: the JAX package's recheck
+    keeps that answer and misses the oracle on some of these points (all
+    within the 1e-6 degree hazard band; beyond it both equal the oracle).
+    The port's recheck sends every flagged point that ends -1, or lies
+    within EPS_EDGE_DEG of an edge of its cell's chips, to the full
+    polygon test, so its final zones equal ``pip_host_truth`` on every
+    point."""
     jidx, jp, tp = flagship["jidx"], flagship["jp"], flagship["tp"]
     pidx = tpj.dense_index_from_arrays(tables_of(jidx), device="cpu")
     n_edges = 300
@@ -189,16 +195,41 @@ def test_adversarial_points_both_packages(flagship):
     tz, tu = tpj.make_pip_join_fn(pidx, flagship["tg"])(
         torch.from_numpy(loc))
     tz, tu = tz.numpy(), tu.numpy()
-    t_final = tpj.host_recheck_fn(pidx)(pts64, tz, tu)
+    recheck = tpj.host_recheck_fn(pidx, tp)
+    t_final = recheck(pts64, tz, tu)
 
     truth = tpj.pip_host_truth(pts64, tp)
     assert np.array_equal(truth, jpj.pip_host_truth(pts64, jp))
-    assert np.array_equal(t_final, j_final)
-    wrong = t_final != truth
-    assert not (wrong & ~tu).any() and not (wrong & ~ju).any()
+    assert np.array_equal(tu, ju)
+    sure = ~tu
+    assert np.array_equal(tz[sure], jz[sure])
+    assert np.array_equal(t_final, truth)
+    j_wrong = j_final != truth
+    assert j_wrong.sum() > 100 and not (j_wrong & ~ju).any()
     beyond = offset > tpj.EPS_EDGE_DEG
-    assert beyond.sum() > 1000
-    assert np.array_equal(t_final[beyond], truth[beyond])
+    assert beyond.sum() > 1000 and not (j_wrong & beyond).any()
+    # the fallback took the points the chips could not settle, not all
+    assert j_wrong.sum() <= recheck.fallbacks < tu.sum()
+
+
+def test_recheck_of_an_index_from_arrays_needs_its_polygons(flagship):
+    """``dense_index_from_arrays`` without the polygons' edges: the
+    recheck raises unless the caller passes the polygons; the index that
+    ``build_pip_index`` made carries them and rechecks alone, to the same
+    zones."""
+    tidx, tp = flagship["tidx"], flagship["tp"]
+    bare = tpj.dense_index_from_arrays(tables_of(tidx), device="cpu")
+    assert "oracle_edges" not in bare.aux and "oracle_edges" in tidx.aux
+    with pytest.raises(ValueError, match="original polygons"):
+        tpj.host_recheck_fn(bare)
+    pts64 = nyc_points(5_000, seed=21)
+    z, u = tpj.make_pip_join_fn(tidx)(torch.from_numpy(
+        tpj.localize(tidx, pts64)))
+    z, u = z.numpy(), u.numpy()
+    u[::7] = True
+    got = tpj.host_recheck_fn(bare, tp)(pts64, z, u)
+    assert np.array_equal(got, tpj.host_recheck_fn(tidx)(pts64, z, u))
+    assert np.array_equal(got, tpj.pip_host_truth(pts64, tp))
 
 
 def _pre_move_body(idx, points, eps=tpj.EPS_EDGE_DEG):
