@@ -37,10 +37,12 @@ Phases (any failure exits non-zero and prints no result):
    (``widen_zone_slots``); the edge points' final zones after the f64
    recheck (``host_recheck_fn``, its full-polygon fallback counted)
    against ``pip_host_truth``: 0 mismatches among the flagged points and
-   beyond the 1e-6 degree band, and a count of the points the device
-   join left unflagged and wrong (ROADMAP C6); timed in turns against the
-   plain version and against the torch-ops join it replaced (K1 then
-   torch ops), with its bound from this run's data;
+   beyond the 1e-6 degree band, and 0 points the device join left
+   unflagged and wrong (ROADMAP C6: the port also flags points within
+   1e-6 degrees of a straddling edge's line, which the JAX body misses
+   beside nearly horizontal edges); timed in turns against the plain
+   version and against the torch-ops join it replaced (K1 then torch
+   ops), with its bound from this run's data;
 7. K3 vs plain — the cell kernel against ``latlng_to_cell_margin_ref``
    on 2^22 uniform global points and the 2^22 flagship points at res 9,
    and 2^16 global points at each res 0..15: ids and margins bit-equal
@@ -48,7 +50,11 @@ Phases (any failure exits non-zero and prints no result):
    the plain version's margin is at least 1e-6 degrees and margins
    within 1e-6 degrees); no disagreement with the f64 host
    ``point_to_cell`` on a seeded 2^20-point sample of each set at plain
-   margin >= 3e-5 degrees; timed in turns at 2^18 and 2^22 rows;
+   margin >= 3e-5 degrees; the card's sincosf, which the kernel calls,
+   equal to its sinf and cosf on all 2^32 f32 inputs; the persistent
+   launch timed in turns at 2^18 and 2^22 rows, beside a bound that
+   counts the f32 operations and the integer operations (from the plain
+   version, at the card's integer rate);
 8. sorted join, CUSTOM — ``build_workload(n_side=16, res_cells=512,
    grid_name="CUSTOM", zones="taxi")``: 281 zones, 4 batches of 2^22
    points in 2^18-row chunks through ``make_streamed_pip_join``; final
@@ -81,9 +87,12 @@ Phases (any failure exits non-zero and prints no result):
     below 1e-15, and the area of every pair of those footprints within
     1e-12 + 1e-9 area of its exact area (each footprint is a box, so
     the exact area is the zone clipped to the box in rational
-    arithmetic); K4 timed beside its bound (the bytes of the rows it
-    probes, the operations of the real edge pairs it tests) and its
-    plain version;
+    arithmetic); the rows' edge caps, histograms of real edges per row
+    on each side and of the range lengths; K4's B-row pre-pass against
+    its plain version; K4 timed beside its bound (the bytes of the rows
+    it probes, the operations of the real edge pairs it tests), its
+    plain version, the wrapper with its match list and zeroing, and the
+    host's enqueue;
 12. SpatialKNN — BASELINE config 4 as bench.py:1510-1538 runs it:
     ``ais_pings_ports`` (2^20 AIS pings x 3,000 world ports, seed 31),
     k = 5, H3 res 4, at most 32 rings; the default path (brute: one K5
@@ -152,9 +161,11 @@ KERNEL_PRODUCT_OPS = 2
 EXACT_PRODUCT_FLOPS = 3
 #: K2's flops per edge of a border point's group (|py - ay|, max(ax, bx)
 #: + eps: sub, abs, max, add) and per straddling edge on top (by - ay,
-#: the divide, bx - ax, the mul, the add, |px - xi|: 7 with the abs)
+#: the divide, bx - ax, the mul, the add, |px - xi|: 7 with the abs;
+#: then the line band: px - ax, two muls and a sub for cr, cr * cr, dx *
+#: dx, dy * dy, their add and the mul by eps^2: 9)
 EDGE_FLOPS = 4
-STRADDLE_FLOPS = 7
+STRADDLE_FLOPS = 16
 KERNELS = ("h3_projection", "h3_dense_join", "h3_cell", "overlay_pairs",
            "knn_brute_topk", "knn_ring_step")
 #: points of each K3 set held against the f64 host ids (numpy, ~9 s per
@@ -172,14 +183,46 @@ CELL_MARGIN_TOL_DEG = 1e-6
 #: bytes K3 moves per point: 8 in, an 8-byte id and a 4-byte margin out
 CELL_BYTES = 20
 #: a sin or cos is counted as one operation of the bound (CUDA's sinf
-#: issues some twenty), and K3's integer work is not counted, so its
-#: bound is a lower bound
+#: issues some twenty), so its bound is a lower bound
 SINCOS_OPS = 1
+#: 32-bit integer operations K3 needs per point, from the kernel's own
+#: steps (csrc/h3_cell.cu cell_of); an operation on a 64-bit word counts
+#: as two.  Per resolution level of the aggregation: the two axial
+#: combinations (2), two floor divisions (2p + 7) / 14 as a multiply-add,
+#: a multiply-high, a shift and a sign fix each (8), the child's axial
+#: point (2), the axial difference's index (3), its digit from the
+#: register word by a multiply, shift and mask (3), and the digit put in
+#: the raw word (2)
+CELL_INT_PER_LEVEL = 20
+#: per digit of the id: the raw digit taken out (2), its rotation by the
+#: packed word (multiply, shift, mask: 3) and put in the id (2)
+CELL_INT_PER_DIGIT = 7
+#: once per point: the res-0 ijk entry index (two mins, two subtracts,
+#: three multiply-adds: 7), the entry word's base, rotation and pentagon
+#: fields (5), the lead digit (the rotation word's index 1, the
+#: live-digit mask over the 64-bit raw word 8, its __clzll and bit
+#: position 4, the digit taken out 3 and rotated 3, the select when no
+#: digit is live 1: 20), the pentagon seam digit and its test (5), the
+#: extra rotation (3), the relabel test on the rotated lead digit (8),
+#: the rotation word's index (2), and the id's base and fill (3); the
+#: defensive clamps of table indexes are not counted
+CELL_INT_ONCE = 53
+#: the H100's integer issue rate: one warp instruction a clock on each
+#: of an SM's four schedulers, 128 lanes an SM, the rate at which FP32
+#: adds and multiplies issue (IMAD goes to the FMA pipe beside the
+#: 64-lane ALU pipe, so their sum reaches it), at the clock that gives
+#: PEAK_F32_FLOPS with an FMA as two flops: half of PEAK_F32_FLOPS in
+#: operations a second
+PEAK_INT32_OPS = PEAK_F32_FLOPS / 2
 #: the overlay: bench.py's footprint boxes (seed 41) x the flagship's
 #: taxi zones at H3 res 9; footprints sampled for the f64 oracle and the
 #: exact areas
 OVERLAY_FOOTPRINTS = 1 << 17
 OVERLAY_SAMPLE = 4096
+#: K4 on rows re-padded to these edge caps (one staged, one too wide for
+#: shared memory), the first B rows with a range against every A row
+OVERLAY_WIDE = (200, 300)
+OVERLAY_WIDE_B = 512
 #: f32 arithmetic of K4's plain version: F32_ARITH with the band's
 #: minimum and the edge length's sqrt
 K4_ARITH = F32_ARITH | {"minimum", "sqrt"}
@@ -390,10 +433,11 @@ def flops_per_point(res: int, origin):
     return needed, issued
 
 
-def cell_ops_per_point(res: int) -> int:
-    """Operations per point of K3's bound: its f32 flops (exact products
-    at EXACT_PRODUCT_FLOPS, negations folded) and SINCOS_OPS per sin or
-    cos, counted from the plain version on global points."""
+def cell_ops_per_point(res: int):
+    """(f32 operations, integer operations) per point of K3's bound: its
+    f32 flops (exact products at EXACT_PRODUCT_FLOPS, negations folded)
+    and SINCOS_OPS per sin or cos, counted from the plain version on
+    global points, and the integer operations of the kernel's steps."""
     import numpy as np
     import torch
     from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin_ref
@@ -405,11 +449,14 @@ def cell_ops_per_point(res: int) -> int:
         lambda v: latlng_to_cell_margin_ref(v, res), x)
     ops = plain - neg - products * (DEKKER_OPS - EXACT_PRODUCT_FLOPS) + \
         sincos * SINCOS_OPS
-    log(f"[cell] per point at res {res}: {ops} operations counted "
+    int_ops = (CELL_INT_PER_LEVEL + CELL_INT_PER_DIGIT) * res + \
+        CELL_INT_ONCE
+    log(f"[cell] per point at res {res}: {ops} f32 operations counted "
         f"({plain - neg} f32 ops with {products} exact products at "
-        f"{EXACT_PRODUCT_FLOPS} flops, {sincos} sin/cos at {SINCOS_OPS}; "
-        "integer work not counted)")
-    return ops
+        f"{EXACT_PRODUCT_FLOPS} flops, {sincos} sin/cos at {SINCOS_OPS}) "
+        f"and {int_ops} integer operations ({CELL_INT_PER_LEVEL} a level, "
+        f"{CELL_INT_PER_DIGIT} a digit, {CELL_INT_ONCE} once)")
+    return ops, int_ops
 
 
 def phase_device():
@@ -756,12 +803,13 @@ def phase_join_kernel(idx, grid, polys, batches, rechecked: int,
         f"({recheck.fallbacks} of them through the full polygon test; "
         f"recheck {t_re:.2f} s), {int(np.sum(wrong & beyond))} beyond the "
         f"{EPS_EDGE_DEG} degree band; the device join left {unflagged} "
-        f"of the {len(adv)} unflagged and wrong, all within the band "
-        "(ROADMAP C6: its f32 crossing hazard misses near-horizontal "
-        "chip edges)")
+        f"of the {len(adv)} unflagged and wrong (ROADMAP C6: 11 before "
+        "the band on a straddling edge's line)")
     check(bad == 0 and not np.any(wrong & beyond),
           f"{bad} flagged adversarial points differ from pip_host_truth "
           f"after the recheck, {int(np.sum(wrong & beyond))} beyond the band")
+    check(unflagged == 0, f"the device join left {unflagged} adversarial "
+          "points unflagged and wrong (ROADMAP C6)")
     wide = mt.dense_index_from_arrays(widen_zone_slots(index_tables(idx)),
                                       device=DEV)
     wfn = mt.make_pip_join_fn(wide, grid)
@@ -903,14 +951,24 @@ def global_points(n: int, seed: int):
     return np.stack([r.uniform(-180, 180, n), r.uniform(-85, 85, n)], -1)
 
 
-def phase_cell_kernel(ops_pt: int):
+def phase_cell_kernel(ops_pt):
     """K3 against its plain version on the card, and against the f64 host
-    ids; timed in turns at the main path's chunk and at 2^22 rows."""
+    ids; the card's sincosf against its sinf and cosf; timed in turns at
+    the main path's chunk and at 2^22 rows.  ``ops_pt``: (f32, integer)
+    operations per point of the bound."""
     import numpy as np
     import torch
     import mosaic_tpu_torch as mt
     from mosaic_tpu_torch.ops.cell import (latlng_to_cell_margin,
-                                           latlng_to_cell_margin_ref)
+                                           latlng_to_cell_margin_ref,
+                                           sincos_mismatches)
+    t0 = time.perf_counter()
+    odd = sincos_mismatches(torch.device(DEV))
+    log(f"[cell] sincosf differs from sinf or cosf on {odd} of the 2^32 "
+        f"f32 inputs ({time.perf_counter() - t0:.2f} s)")
+    check(odd == 0, f"the card's sincosf differs from sinf/cosf on {odd} "
+          "inputs: K3 would not give its plain version's bits")
+    f32_pt, int_pt = ops_pt
     grid = mt.get_index_system("H3")
     sets = [("global", global_points(BATCH, 1), 9),
             ("flagship NYC", mt.nyc_points(BATCH, seed=SEEDS[0]), 9)]
@@ -961,15 +1019,20 @@ def phase_cell_kernel(ops_pt: int):
         ms, source, events_ms, host_ms, plain_ms = timed_kernel(
             f"cell {rows} rows", lambda: latlng_to_cell_margin(xs, RES),
             lambda: latlng_to_cell_margin_ref(xs, RES), "cell_kernel", 5)
-        ops_ms = ops_pt * rows / PEAK_F32_FLOPS * 1e3
+        f32_ms = f32_pt * rows / PEAK_F32_FLOPS * 1e3
+        int_ms = int_pt * rows / PEAK_INT32_OPS * 1e3
+        ops_ms = max(f32_ms, int_ms)
         bytes_ms = CELL_BYTES * rows / PEAK_BYTES * 1e3
         bound = max(ops_ms, bytes_ms)
         log(f"[cell] {rows} rows: bound {bound:.4f} ms (operations "
-            f"{ops_ms:.4f}, bytes {bytes_ms:.4f}; {ops_pt} operations and "
-            f"{CELL_BYTES} bytes per point), roofline share "
-            f"{bound / ms:.4f}")
+            f"{ops_ms:.4f}: f32 {f32_ms:.4f} for {f32_pt} a point at "
+            f"{PEAK_F32_FLOPS:.3g}/s, integer {int_ms:.4f} for {int_pt} a "
+            f"point at {PEAK_INT32_OPS:.4g}/s; bytes {bytes_ms:.4f} for "
+            f"{CELL_BYTES} a point), roofline share {bound / ms:.4f}; "
+            f"without the integer part {max(f32_ms, bytes_ms):.4f} ms")
         return {"plain_ms": plain_ms, "ms": ms, "ms_source": source,
                 "events_ms": events_ms, "host_ms": host_ms, "bound_ms": bound,
+                "bound_f32_ms": f32_ms, "bound_int_ms": int_ms,
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "max_abs_err": worst}
 
@@ -984,7 +1047,8 @@ def launch_counts():
     from mosaic_tpu_torch.ops.dense_join import dense_join
     from mosaic_tpu_torch.ops.knn_brute import brute_topk
     from mosaic_tpu_torch.ops.knn_ring import ring_step
-    from mosaic_tpu_torch.ops.overlay_pairs import overlay_dense, overlay_pairs
+    from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
+                                                    overlay_pairs, prep_b)
     from mosaic_tpu_torch.ops.projection import project_lattice
     return {"h3_project_lattice": project_lattice.launches,
             "h3_dense_join": dense_join.launches,
@@ -992,6 +1056,7 @@ def launch_counts():
             "overlay_pairs": overlay_dense.launches + overlay_pairs.launches,
             "overlay_pairs_dense": overlay_dense.launches,
             "overlay_pairs_keys": overlay_pairs.launches,
+            "overlay_prep_b": prep_b.launches,
             "knn_brute_topk": brute_topk.launches,
             "knn_ring_step": ring_step.launches,
             "native_pip_first_match": native.pip_first_match.calls,
@@ -1006,13 +1071,15 @@ def reset_counts() -> None:
     from mosaic_tpu_torch.ops.dense_join import dense_join
     from mosaic_tpu_torch.ops.knn_brute import brute_topk
     from mosaic_tpu_torch.ops.knn_ring import ring_step
-    from mosaic_tpu_torch.ops.overlay_pairs import overlay_dense, overlay_pairs
+    from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
+                                                    overlay_pairs, prep_b)
     from mosaic_tpu_torch.ops.projection import project_lattice
     project_lattice.launches = 0
     dense_join.launches = 0
     latlng_to_cell_margin.launches = 0
     overlay_dense.launches = 0
     overlay_pairs.launches = 0
+    prep_b.launches = 0
     brute_topk.launches = 0
     ring_step.launches = 0
     native.pip_first_match.calls = 0
@@ -1373,6 +1440,64 @@ def exact_box_area(box, rings) -> float:
     return float(total)
 
 
+def widen_rows(r, width: int):
+    """Chip rows re-padded to ``width`` edge slots: a row's first real
+    edge stays in slot 0, the rest move to its last slots, 1e9 between."""
+    import torch
+    from mosaic_tpu_torch.ops import overlay_pairs as op
+    count, moved = op.staged_rows_ref(r.edges)[:2]
+    n, cap = r.edges.shape[:2]
+    k = torch.arange(cap, device=r.edges.device)[None, :]
+    slot = torch.where(k == 0, 0, width - count[:, None] + k)
+    wide = torch.full((n, width, 4), 1e9, dtype=torch.float32,
+                      device=r.edges.device)
+    real = k < count[:, None]
+    rows = torch.arange(n, device=r.edges.device)[:, None].expand(-1, cap)
+    wide[rows[real], slot[real]] = moved[real]
+    return r._replace(edges=wide)
+
+
+def overlay_wide_rows(A, B, ga: int, gb: int, eps: float):
+    """K4 on chip rows wider than the flagship's: the A rows and the first
+    OVERLAY_WIDE_B B rows with a range re-padded to each width of
+    OVERLAY_WIDE (staged in shared memory below 228 edges, read from
+    global memory above), in both modes against the plain version."""
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch.ops import overlay_pairs as op
+    order, start, upper = op.probe(A, B)
+    pick = torch.nonzero(upper > start).squeeze(1)[:OVERLAY_WIDE_B]
+    Bs = type(B)(*(t[pick] for t in B))
+    out = {}
+    for width in OVERLAY_WIDE:
+        Aw, Bw = widen_rows(A, width), widen_rows(Bs, width)
+        hk, zk = op.overlay_dense(Aw, Bw, ga, gb, eps)
+        hr, zr = op.local_sorted_join_ref(Aw, Bw, ga, gb, eps)
+        dh, dz = int((hk != hr).sum()), int((zk != zr).sum())
+        Ar = Aw._replace(ids=torch.arange(len(Aw.ids), device=DEV))
+        Br = Bw._replace(ids=torch.arange(len(Bw.ids), device=DEV))
+        row_mult = len(Br.ids) + 1
+        kk = np.sort(op.overlay_pairs(Ar, Br, row_mult, eps, 64).cpu()
+                     .numpy())
+        kr = np.sort(op.local_pair_join_ref(Ar, Br, row_mult, eps).cpu()
+                     .numpy())
+        ms = time_ms(lambda: op.overlay_dense(Aw, Bw, ga, gb, eps), 5)
+        log(f"[overlay] K4 at {width} edge slots a row ({len(pick)} B rows, "
+            f"{int((upper - start)[pick].sum())} matches; A rows "
+            f"{'staged' if width < 228 else 'read from global memory'}): "
+            f"dense hits differ from plain at {dh}, hazards at {dz} "
+            f"({int(hr.sum())} hits, {int(zr.sum())} hazards); pair keys "
+            f"{len(kk)} from K4, {len(kr)} plain; the wrapper {ms:.4f} ms "
+            "by events")
+        check(dh == 0 and dz == 0 and np.array_equal(kk, kr) and
+              int(hr.sum()) > 0, f"K4 at {width} edge slots differs from "
+              f"its plain version: hits at {dh}, hazards at {dz}, "
+              f"{len(kk)} keys against {len(kr)}")
+        out[width] = ms
+        del Aw, Bw, Ar, Br
+    return out
+
+
 def phase_overlay(zones, grid):
     """The polygon x polygon overlay at borough scale: bench.py's footprint
     boxes x the flagship's 281 taxi zones at H3 res 9, both entry points
@@ -1444,6 +1569,10 @@ def phase_overlay(zones, grid):
     check(c_area["native_intersect_area_pairs"] > 0, "the pair areas never "
           "ran the native intersect_area_pairs")
     for c in (c_inter, c_area):
+        check(c["overlay_prep_b"] == c["overlay_pairs"], f"the B-row "
+              f"pre-pass launched {c['overlay_prep_b']} times for "
+              f"{c['overlay_pairs']} K4 launches")
+    for c in (c_inter, c_area):
         check(c["h3_dense_join"] == c["h3_project_lattice"] ==
               c["h3_latlng_to_cell"] == 0, f"a PIP kernel launched on the "
               f"overlay path: {c}")
@@ -1462,6 +1591,16 @@ def phase_overlay(zones, grid):
     order, start, upper = op.probe(A, B)
     matches = int((upper - start).sum())
     dup = int((upper - start).max())
+    real_a = op.staged_rows_ref(A.edges)[0]
+    real_b = op.staged_rows_ref(B.edges)[0]
+    ranges = upper - start
+    log(f"[overlay] K4 workload: edge caps {A.edges.shape[1]} (A) and "
+        f"{B.edges.shape[1]} (B); real edges per row, count of rows with "
+        f"0, 1, ...: A {torch.bincount(real_a).tolist()}, B "
+        f"{torch.bincount(real_b).tolist()}; range lengths of the B rows, "
+        f"count with 0, 1, ...: {torch.bincount(ranges).tolist()}; "
+        f"{int((ranges > 0).sum())} B rows with a range; real B edges per "
+        f"match {float((real_b * ranges).sum()) / max(matches, 1):.2f}")
     hk, zk = op.overlay_dense(A, B, GA, GB, eps)
     n_hazard = int(zk.sum())
     log(f"[overlay] rows {tuple(A.edges.shape)} x {tuple(B.edges.shape)}, "
@@ -1497,6 +1636,27 @@ def phase_overlay(zones, grid):
     small = op.overlay_pairs(Ar, Br, row_mult, eps, 1024)
     check(np.array_equal(np.sort(small.cpu().numpy()), np.sort(kk_np)),
           "a relaunch after a short key buffer changed the pair keys")
+    # the B-row pre-pass against its plain version: counts, the real
+    # edges, their directions, lengths and reciprocals, bit for bit
+    pb = op.prep_b(B)
+    count, moved, lengths, rcp = op.staged_rows_ref(B.edges)
+    keep = torch.arange(B.edges.shape[1], device=DEV)[None, :] < \
+        count[:, None]
+    want_w = torch.stack([moved[..., 2] - moved[..., 0],
+                          moved[..., 3] - moved[..., 1], lengths, rcp], -1)
+    bad_e = int((pb.ew[:, :, 0].view(torch.int32) !=
+                 moved.view(torch.int32))[keep].any(-1).sum())
+    bad_w = int((pb.ew[:, :, 1].view(torch.int32) !=
+                 want_w.view(torch.int32))[keep].any(-1).sum())
+    same = torch.equal(pb.count.long(), count)
+    check(same and bad_e == 0 and bad_w == 0, f"K4's B-row pre-pass "
+          f"differs from staged_rows_ref: counts "
+          f"{'equal' if same else 'differ'}, {bad_e} edges and {bad_w} "
+          "lengths differ")
+    log(f"[overlay] K4 pre-pass on the {len(B.cell)} B rows: counts, "
+        f"edges, directions, lengths and reciprocals bit-equal to "
+        f"staged_rows_ref ({int(keep.sum())} real edges)")
+    wide = overlay_wide_rows(A, B, GA, GB, eps)
 
     # ---- exact oracle on sampled footprints, and the area contract
     rng = np.random.default_rng(0)
@@ -1558,14 +1718,44 @@ def phase_overlay(zones, grid):
         "overlay_kernel", 2)
     pairs_ms = time_ms(lambda: op.overlay_pairs(
         Ar, Br, row_mult, eps, max(1024, 4 * len(ra[0]))), 20)
+    # the match list's A sort waits on the card, so events over a loop
+    ml_ms = time_ms(lambda: op.match_list(A, B), 20)
+    # the B rows sorted by cell (those with a range first): what such a
+    # sort in the wrapper would save in the kernel and cost around it
+    key_b = torch.where(upper > start, B.cell, op._INT64_MAX)
+    sort_b = lambda: B.ids[torch.sort(key_b, stable=True)[1]]  # noqa: E731
+    Bs = type(B)(*(t[torch.sort(key_b, stable=True)[1]] for t in B))
+    hs, zs = op.overlay_dense(A, Bs, GA, GB, eps)
+    check(torch.equal(hs, hk) and torch.equal(zs, zk), "K4 on the B rows "
+          "sorted by cell differs from K4 on them in their own order")
+    sorted_ms, sorted_source = kernel_device_ms(
+        lambda: op.overlay_dense(A, Bs, GA, GB, eps), 50, "overlay_kernel")
+    sort_ms = time_ms(sort_b, 20)
+    sort_host_ms = host_ms_per_launch(sort_b, 200)
+    log(f"[overlay] K4 on the B rows sorted by cell: {sorted_ms:.4f} ms "
+        f"({sorted_source}) against {ms:.4f} in their own order; the sort "
+        f"and a gather {sort_ms:.4f} ms by events, {sort_host_ms:.4f} ms "
+        "host enqueue")
+    prep = timed_kernel("overlay pre-pass", lambda: op.prep_b(B),
+                        lambda: op.staged_rows_ref(B.edges),
+                        "prep_b_kernel", 5)
+    # bytes: each B row read once; its count and each real edge's 32
+    # bytes written once
+    prep_bytes = B.edges.numel() * 4 + 4 * len(B.cell) + \
+        32 * int(op.staged_rows_ref(B.edges)[0].sum())
+    prep_bound = prep_bytes / PEAK_BYTES * 1e3
+    log(f"[overlay] K4 pre-pass: bound {prep_bound:.4f} ms (bytes: "
+        f"{prep_bytes}), roofline share {prep_bound / prep[0]:.4f}")
     bound = max(ops_ms, bytes_ms)
     log(f"[overlay] K4: bound {bound:.4f} ms (operations {ops_ms:.4f}: "
         f"{ops} over the real edges of the {matches} matches; bytes "
         f"{bytes_ms:.4f}: {nbytes}, {rows_a} A rows and {rows_b} B rows "
         f"read once, the 1s written once), roofline share "
-        f"{bound / ms:.4f}; the "
-        f"pairs mode call {pairs_ms:.4f} ms by events (probe, one launch, "
-        f"the count read back)")
+        f"{bound / ms:.4f}; the wrapper call {events_ms:.4f} ms by events "
+        f"(the match list, {ml_ms:.4f} ms by events, the zeroing, the B-row "
+        f"pre-pass, {prep[0]:.4f} ms by {prep[1]}, and the kernel); "
+        f"the pairs mode call {pairs_ms:.4f} ms by events (match "
+        "list, one launch, the count read back)")
     return {"counts_intersects": c_inter, "counts_area": c_area,
             "chips": [len(chips_a), len(chips_b)],
             "tessellate_s": [t_tess_a, t_tess_b],
@@ -1578,8 +1768,15 @@ def phase_overlay(zones, grid):
             "kernel": {"plain_ms": plain_ms, "ms": ms, "ms_source": source,
                        "events_ms": events_ms, "host_ms": host_ms,
                        "bound_ms": bound, "pairs_events_ms": pairs_ms,
+                       "match_list_ms": ml_ms, "sorted_b_ms": sorted_ms,
+                       "sort_b_ms": sort_ms, "sort_b_host_ms": sort_host_ms,
+                       "wide_rows_ms": wide,
                        "bound_by": "operations" if ops_ms >= bytes_ms
-                       else "bytes", "max_abs_err": 0.0}}
+                       else "bytes", "max_abs_err": 0.0},
+            "prep": {"ms": prep[0], "ms_source": prep[1],
+                     "events_ms": prep[2], "host_ms": prep[3],
+                     "plain_ms": prep[4], "bound_ms": prep_bound,
+                     "bound_by": "bytes", "max_abs_err": 0.0}}
 
 
 def knn_ring_work(idx, rows, offs, omask, k1: int):
@@ -2023,7 +2220,7 @@ def main() -> int:
                               "profile") if k in r}
         for p, r in (("custom", custom), ("h3", h3s), ("bng", bng))}}))
     log(json.dumps({"overlay": {k: v for k, v in over.items()
-                                if k not in ("kernel", "counts_intersects",
+                                if k not in ("kernel", "prep", "counts_intersects",
                                              "counts_area")}}))
     log(json.dumps({"knn": knn["paths"]}))
     log(card)
@@ -2051,6 +2248,13 @@ def main() -> int:
                     over["counts_intersects"]["overlay_pairs"] +
                     over["counts_area"]["overlay_pairs"], over["kernel"],
                     by_path("overlay_pairs")),
+        kernel_line("overlay_prep_b",
+                    "mosaic_tpu_torch/csrc/overlay_pairs.cu",
+                    "mosaic_tpu/parallel/overlay.py:182 (the edge lengths "
+                    "of _chip_pair_test)",
+                    over["counts_intersects"]["overlay_prep_b"] +
+                    over["counts_area"]["overlay_prep_b"], over["prep"],
+                    by_path("overlay_prep_b")),
         kernel_line("knn_brute_topk",
                     "mosaic_tpu_torch/csrc/knn_brute_topk.cu",
                     "mosaic_tpu/models/knn.py:485",

@@ -114,8 +114,8 @@ def projection_constants(origin: Tuple[float, float]) -> np.ndarray:
 #: axial diff (da+1)*3 + (db+1) -> digit (7 = impossible)
 DIGIT_OF_DIFF = np.array([1, 3, 7, 5, 0, 2, 7, 4, 6], dtype=np.int32)
 
-#: the int32 tables of the cell-id step, in the order the cell kernel
-#: (csrc/h3_cell.cu) lays them out in shared memory, with their sizes
+#: the int32 tables of the cell-id step, with their sizes (the cell
+#: kernel reads them packed: ops/cell.py cell_words)
 CELL_TABLES = (("fijk_base", 540), ("fijk_rot", 540), ("fijk_extra", 540),
                ("rot_digit", 42), ("is_pent", 122), ("pent_seam", 122),
                ("digit_of_diff", 9))

@@ -27,17 +27,25 @@
 //     latitude the crossing abscissa xi (the only place it matters, so
 //     non-straddling edges divide nothing), the near-crossing test and
 //     the crossing parity, kept as 32-bit masks over the zone slots.
+//     Near the crossing means |px - xi| < eps (the JAX body's band) or
+//     a distance below eps from the edge's line, tested as cr^2 < eps^2
+//     * (dx^2 + dy^2) with cr = dx * (py - ay) - dy * (px - ax).  The
+//     first band alone misses points beside a nearly horizontal edge:
+//     there the f32 rounding of py and ay moves xi by |dx / dy| times
+//     as much (~1e-5 degrees for a rise of 3e-6 over 2e-3), and the
+//     point is certain and wrong.  The second band has no such factor,
+//     so the port flags every point the JAX body flags and those too.
 //     Slots go 32 to a pass, a pass ends the walk once a slot is odd,
 //     and Z has no cap.  The first odd slot picks the zone in gzones;
 //   * uncertain = margin < err | facegap < gap | an edge flag | a wide
 //     group, cleared for far points.
 //
 // Bits: the projection as h3_df.cuh says; xi is ax + t * (bx - ax) with
-// t = (py - ay) / (by - ay), each op rounded on its own as torch's
-// separate ops round them.
+// t = (py - ay) / (by - ay), and cr as above, each op rounded on its own
+// as torch's separate ops round them.
 //
 // What bounds it: the projection's arithmetic, 821 flops per point (an
-// FMA counted as two), plus about 4 per pool edge and 7 per straddling
+// FMA counted as two), plus about 4 per pool edge and 16 per straddling
 // edge for border points.  Bytes: 8 in and 5 out per point, and the
 // entry and pool rows the points reach, each read once from device
 // memory and then from L2.  A warp runs as long as its slowest thread:
@@ -82,9 +90,18 @@ __device__ __forceinline__ int border_slot(float px, float py,
           px < add(fmax_(ax, bx), q.eps32))
         flag = true;
       if ((ay <= py) == (by <= py)) continue;          // no straddle
-      const float t = __fdiv_rn(sub(py, ay), sub(by, ay));
-      const float xi = add(ax, mul(t, sub(bx, ax)));
-      if (w == 0 && fabsf(sub(px, xi)) < q.eps32) flag = true;
+      const float dx = sub(bx, ax), dy = sub(by, ay);
+      const float t = __fdiv_rn(sub(py, ay), dy);
+      const float xi = add(ax, mul(t, dx));
+      if (w == 0) {
+        // near the crossing: within eps of it along x, or within eps of
+        // the edge's line (cross^2 < eps^2 * length^2, no divide by dy)
+        const float cr = sub(mul(dx, sub(py, ay)), mul(dy, sub(px, ax)));
+        if (fabsf(sub(px, xi)) < q.eps32 ||
+            mul(cr, cr) < mul(mul(q.eps32, q.eps32),
+                              add(mul(dx, dx), mul(dy, dy))))
+          flag = true;
+      }
       if (px < xi) {
         const int zs = __ldg(slots + j);
         const unsigned s = (unsigned)(zs - 32 * w);

@@ -15,7 +15,9 @@ hex margin to degrees, zero where the nearest face is ambiguous.
 :func:`latlng_to_cell_margin` is the entry point.  On a CUDA tensor it
 launches ``csrc/h3_cell.cu`` (built at first use) or raises; on a CPU
 tensor it runs :func:`latlng_to_cell_margin_ref`, which keeps the
-kernel's order of operations.
+kernel's order of operations.  The kernel reads the cell tables packed
+(:func:`cell_words`): the three digit rotations composed into one word
+per (rotation, extra rotation, relabel).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from .. import _kernels
 from ..core.index.h3.constants import M_SQRT7, RES0_U_GNOMONIC
-from ..core.index.h3.torchkernel import (CELL_TABLES, FACEGAP_EPS,
+from ..core.index.h3.torchkernel import (DIGIT_OF_DIFF, FACEGAP_EPS,
                                          cell_from_lattice_ref, cell_tables,
                                          digit_fill)
 from .projection import (DEG_PER_RAD, RAD_PER_DEG, check_points, check_rc,
@@ -37,6 +39,10 @@ from .projection import (DEG_PER_RAD, RAD_PER_DEG, check_points, check_rc,
                          set_faces)
 
 MAX_RES = 15
+#: rotations of the digit rotation table (rot_digit is [ROTATIONS, 7])
+ROTATIONS = 6
+#: res-0 ijk entries of the base-cell tables (fijk_*, [20, 3, 3, 3])
+N_ENTRIES = 540
 
 
 def margin_scale(res: int) -> float:
@@ -70,6 +76,59 @@ def latlng_to_cell_margin_ref(xy: torch.Tensor, res: int
     return cells, margin * DEG_PER_RAD
 
 
+# ------------------------------------------- the kernel's packed tables
+
+def rotate_digit(r: int, d: int) -> int:
+    """The digit rotation table's entry for rotation ``r`` of digit ``d``,
+    its index clamped into the table as the plain version clamps it."""
+    rot = cell_tables()["rot_digit"]
+    return int(rot[min(max(r * 7 + d, 0), rot.size - 1)])
+
+
+def rotation_word(r0: int, extra: int, relabel: int) -> int:
+    """The three digit rotations of the cell step composed, for digits 0-7
+    (7 never comes from a lattice point, but the clamped tables give it a
+    value): bits 3d..3d+2 hold relabel(extra(r0(d)))."""
+    word = 0
+    for d in range(8):
+        out = rotate_digit(relabel, rotate_digit(extra, rotate_digit(r0, d)))
+        word |= out << (3 * d)
+    return word
+
+
+def entry_word(entry: int) -> int:
+    """One res-0 ijk entry's base cell (bits 0-6), its rotation (7-9), its
+    pentagon extra rotation (10-12), the base cell's pentagon flag (13)
+    and seam digit (14-16)."""
+    t = cell_tables()
+    base = int(t["fijk_base"][entry])
+    return (base | int(t["fijk_rot"][entry]) << 7 |
+            int(t["fijk_extra"][entry]) << 10 |
+            int(t["is_pent"][base]) << 13 | int(t["pent_seam"][base]) << 14)
+
+
+@functools.cache
+def cell_words() -> np.ndarray:
+    """The kernel's int32 cell tables: N_ENTRIES entry words
+    (:func:`entry_word`), then the rotation words (:func:`rotation_word`)
+    at ((r0 * 6) + extra) * 2 + relabel."""
+    t = cell_tables()
+    for name, hi in (("fijk_base", 127), ("fijk_rot", ROTATIONS - 1),
+                     ("fijk_extra", ROTATIONS - 1), ("pent_seam", 7)):
+        assert 0 <= t[name].min() and t[name].max() <= hi, name
+    assert t["fijk_base"].size == N_ENTRIES
+    words = [entry_word(e) for e in range(N_ENTRIES)]
+    words += [rotation_word(r0, extra, relabel)
+              for r0 in range(ROTATIONS) for extra in range(ROTATIONS)
+              for relabel in range(2)]
+    return np.array(words, np.int64).astype(np.int32)
+
+
+def digit_of_diff_word() -> int:
+    """DIGIT_OF_DIFF as one word, 3 bits an entry."""
+    return sum(int(d) << (3 * i) for i, d in enumerate(DIGIT_OF_DIFF))
+
+
 # ------------------------------------------------------------- kernel
 
 @functools.cache
@@ -79,10 +138,12 @@ def _lib() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.h3_cell_set_faces.argtypes = [vp]
     lib.h3_cell_set_faces.restype = i
-    lib.h3_latlng_to_cell.argtypes = [vp, i, vp, vp, vp, i,
+    lib.h3_latlng_to_cell.argtypes = [vp, i, vp, vp, vp, i, ctypes.c_uint,
                                       ctypes.c_int64, ctypes.c_float,
                                       ctypes.c_float, vp, vp, vp]
     lib.h3_latlng_to_cell.restype = i
+    lib.h3_cell_sincos_mismatches.argtypes = [vp, vp]
+    lib.h3_cell_sincos_mismatches.restype = i
     lib.h3_cell_error_string.argtypes = [i]
     lib.h3_cell_error_string.restype = ctypes.c_char_p
     return lib
@@ -90,11 +151,9 @@ def _lib() -> ctypes.CDLL:
 
 @functools.cache
 def device_cell_tables(device: torch.device) -> torch.Tensor:
-    """The int32 cell-id tables, concatenated in ``CELL_TABLES`` order, on
-    ``device``; uploaded once."""
-    t = cell_tables()
-    flat = np.concatenate([t[name] for name, _ in CELL_TABLES])
-    return torch.from_numpy(flat).to(device).contiguous()
+    """The kernel's packed cell tables (:func:`cell_words`) on ``device``;
+    uploaded once."""
+    return torch.from_numpy(cell_words()).to(device).contiguous()
 
 
 def prepare(device: torch.device, res: int) -> None:
@@ -137,12 +196,26 @@ def latlng_to_cell_margin(xy: torch.Tensor, res: int
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.h3_latlng_to_cell(
             xy.data_ptr(), n, table.data_ptr(), ctab.data_ptr(),
-            consts.ctypes.data, res, digit_fill(res), margin_scale(res),
-            float(np.float32(FACEGAP_EPS)), cells.data_ptr(),
-            margin.data_ptr(), stream)
+            consts.ctypes.data, res, digit_of_diff_word(), digit_fill(res),
+            margin_scale(res), float(np.float32(FACEGAP_EPS)),
+            cells.data_ptr(), margin.data_ptr(), stream)
     check_rc(lib, "h3_cell", rc, "launch")
     latlng_to_cell_margin.launches += 1
     return cells, margin
 
 
 latlng_to_cell_margin.launches = 0
+
+
+def sincos_mismatches(device: torch.device) -> int:
+    """The f32 inputs, of all 2^32 bit patterns, where the card's sincosf
+    (which the kernel calls) gives other bits than its sinf or cosf; the
+    kernel's bits equal the plain version's only where this is 0.
+    Synchronizes."""
+    lib = _lib()
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        rc = lib.h3_cell_sincos_mismatches(
+            count.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    check_rc(lib, "h3_cell", rc, "sincos check launch")
+    return int(count.item())

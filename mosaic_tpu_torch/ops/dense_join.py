@@ -112,10 +112,19 @@ def join_body(points: torch.Tensor, projection: Projection,
     px = points[:, None, 0]
     py = points[:, None, 1]
     straddle = (ay <= py) != (by <= py)
-    t = (py - ay) / torch.where(by == ay, torch.ones_like(by), by - ay)
-    xi = ax + t * (bx - ax)
+    dx, dy = bx - ax, by - ay
+    t = (py - ay) / torch.where(by == ay, torch.ones_like(by), dy)
+    xi = ax + t * dx
     crossed = straddle & (px < xi)
-    near_cross = straddle & ((px - xi).abs() < consts.eps32)
+    # within eps of the crossing along x (the JAX body's band), or within
+    # eps of the edge's line: the first alone misses points beside a
+    # nearly horizontal edge, whose xi moves |dx / dy| times the f32
+    # rounding of py and ay
+    eps = torch.tensor(consts.eps32, dtype=torch.float32,
+                       device=points.device)
+    cr = dx * (py - ay) - dy * (px - ax)
+    near_cross = straddle & (((px - xi).abs() < consts.eps32) |
+                             (cr * cr < (eps * eps) * (dx * dx + dy * dy)))
     near_vertex = ((py - ay).abs() < consts.eps32) & \
         (px < torch.maximum(ax, bx) + consts.eps32)
     edge_flag = (near_cross | near_vertex).any(dim=-1) & is_border

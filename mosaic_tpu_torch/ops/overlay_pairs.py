@@ -12,7 +12,11 @@ device, each B row finds its range of A rows of the same cell
 and every (B row, A row) match runs the f32 chip-pair test: hit = a
 proper edge crossing or either chip's first vertex inside the other;
 hazard = an endpoint within ``eps`` of the other edge's line, or a
-vertex within ``eps`` of the other chip's boundary.
+vertex within ``eps`` of the other chip's boundary.  The kernel walks a
+flat list of the matches (:func:`match_list`: the prefix sum of the B
+rows' range lengths), split evenly over the warps, a lane a match, after
+a pre-pass (:func:`prep_b`) that compacts the B rows and computes their
+edge lengths once.
 
 :func:`overlay_dense` and :func:`overlay_pairs` are the entry points.  On
 CUDA tensors they launch ``csrc/overlay_pairs.cu`` (built at first use)
@@ -36,10 +40,6 @@ from .projection import check_rc
 
 #: an edge whose |ax| exceeds this is padding (the 1e9 sentinel)
 PAD_ABOVE = 1e8
-#: B rows per warp-per-row block of the kernel, at most
-WARPS_PER_BLOCK = 8
-#: the kernel's shared memory per block: (E_a + E_b) * 20 bytes per warp
-SMEM_LIMIT = 48 * 1024
 #: matches per step of the plain version ([M, E_a, E_b] temporaries)
 REF_CHUNK = 1 << 14
 
@@ -60,13 +60,31 @@ def probe(a: ChipRows, b: ChipRows
     """(order, start, upper): the A rows sorted by cell (invalid rows keyed
     INT64_MAX, last), and per B row the range [start, upper) of sorted
     positions with its cell; empty for an invalid B row."""
-    key_a = torch.where(a.valid, a.cell, torch.full_like(a.cell,
-                                                         _INT64_MAX))
-    key_a, order = torch.sort(key_a, stable=True)
-    q = torch.where(b.valid, b.cell, torch.full_like(b.cell, -_INT64_MAX))
+    key_a, order = torch.sort(torch.where(a.valid, a.cell, _INT64_MAX),
+                              stable=True)
+    q = torch.where(b.valid, b.cell, -_INT64_MAX)
     start = torch.searchsorted(key_a, q)
     upper = torch.searchsorted(key_a, q, right=True)
     return order, start, torch.where(b.valid, upper, start)
+
+
+class MatchList(NamedTuple):
+    """The kernel's flat list of matches: match m belongs to the B row j
+    with offs[j] <= m < offs[j + 1] and tests A row ``order[start[j] + m -
+    offs[j]]``."""
+
+    order: torch.Tensor     # [NA] A rows sorted by cell (probe's)
+    start: torch.Tensor     # [NB] range start of each B row
+    offs: torch.Tensor      # [NB + 1] exclusive prefix sum of range lengths
+
+
+def match_list(a: ChipRows, b: ChipRows) -> MatchList:
+    """The flat list of every (B row, A row of the same cell) match, built
+    from :func:`probe`'s ranges: the B rows in their own order, each row's
+    matches together, and the prefix sum of their range lengths."""
+    order, start, upper = probe(a, b)
+    offs = torch.nn.functional.pad(torch.cumsum(upper - start, 0), (1, 0))
+    return MatchList(order, start, offs)
 
 
 # ------------------------------------------------------- plain version
@@ -80,6 +98,23 @@ def _lengths(e: torch.Tensor) -> torch.Tensor:
     dx = e[..., 2] - e[..., 0]
     dy = e[..., 3] - e[..., 1]
     return torch.sqrt(dx * dx + dy * dy).clamp_min(1e-30)
+
+
+def staged_rows_ref(edges: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the kernel's B-row pre-pass (:func:`prep_b`):
+    (count [N] of real edges, the real edges moved to the front in order
+    [N, E, 4], their lengths [N, E] as :func:`_lengths` computes them and
+    the f32 reciprocals of those), zero past the count."""
+    real = ~(edges[..., 0].abs() > PAD_ABOVE)
+    count = real.sum(dim=1)
+    # a stable sort of the pad flags moves the real edges to the front
+    pos = torch.sort((~real).to(torch.uint8), dim=1, stable=True)[1]
+    moved = edges.gather(1, pos[..., None].expand(-1, -1, 4))
+    keep = torch.arange(edges.shape[1], device=edges.device)[None, :] < \
+        count[:, None]
+    moved = torch.where(keep[..., None], moved, 0.0)
+    lengths = torch.where(keep, _lengths(moved), 0.0)
+    return count, moved, lengths, torch.where(keep, 1.0 / lengths, 0.0)
 
 
 def _contains_ref(px: torch.Tensor, py: torch.Tensor, e: torch.Tensor,
@@ -180,9 +215,11 @@ def _lib() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signatures."""
     lib = _kernels.load("overlay_pairs")
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.overlay_prep_b.argtypes = [vp, i, i64, vp, vp, vp]
+    lib.overlay_prep_b.restype = i
     lib.overlay_pairs_launch.argtypes = [
-        vp, vp, vp, i, vp, vp, i, vp, vp, i64, ctypes.c_float, i, i, vp, vp,
-        i64, i64, vp, i64, vp, i64, vp]
+        vp, vp, vp, i, vp, vp, i64, vp, vp, vp, vp, i, ctypes.c_float, i, vp,
+        vp, i64, i64, vp, i64, vp, i64, vp]
     lib.overlay_pairs_launch.restype = i
     lib.overlay_pairs_error_string.argtypes = [i]
     lib.overlay_pairs_error_string.restype = ctypes.c_char_p
@@ -219,28 +256,58 @@ def _check_rows(a: ChipRows, b: ChipRows, what: str) -> torch.device:
     return dev
 
 
+class Prepped(NamedTuple):
+    """The kernel's pre-pass over the B rows: each row's real edges first,
+    each (ax, ay, bx, by) then (bx - ax, by - ay, length, 1/length), and
+    the count of real edges."""
+
+    ew: torch.Tensor        # [NB, E_b, 2, 4] f32
+    count: torch.Tensor     # [NB] i32
+
+
+def prep_b(b: ChipRows) -> Prepped:
+    """The pre-pass kernel over the CUDA rows ``b``, on the current
+    stream.  Entries past a row's count are left unwritten;
+    :func:`staged_rows_ref` is the plain version.  ``prep_b.launches``
+    counts its launches."""
+    dev = b.edges.device
+    nb, eb = int(b.edges.shape[0]), int(b.edges.shape[1])
+    out = Prepped(torch.empty((nb, eb, 2, 4), dtype=torch.float32,
+                               device=dev),
+                  torch.empty(nb, dtype=torch.int32, device=dev))
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.overlay_prep_b(
+            b.edges.data_ptr(), eb, nb, *(t.data_ptr() for t in out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_rc(lib, "overlay_pairs", rc, "pre-pass launch")
+    prep_b.launches += 1
+    return out
+
+
+prep_b.launches = 0
+
+
 def _launch(a: ChipRows, b: ChipRows, eps: float, mode: int, *,
             hits=None, hazards=None, ga: int = 0, gb: int = 0, keys=None,
             cap: int = 0, count=None, row_mult: int = 0) -> None:
-    """One launch of the kernel on the current stream."""
-    ea, eb = int(a.edges.shape[1]), int(b.edges.shape[1])
-    wpb = min(WARPS_PER_BLOCK, SMEM_LIMIT // ((ea + eb) * 20))
-    if wpb < 1:
-        raise ValueError(f"overlay_pairs: edge caps {ea} + {eb} exceed the "
-                         "kernel's shared memory")
-    order, start, upper = probe(a, b)
-    ids_a, ids_b = a.ids.contiguous(), b.ids.contiguous()
+    """One launch of the pre-pass and one of the kernel on the current
+    stream."""
+    ml = match_list(a, b)
+    pb = prep_b(b)
     dev = a.edges.device
     lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.overlay_pairs_launch(
-            a.edges.data_ptr(), order.data_ptr(), ids_a.data_ptr(), ea,
-            b.edges.data_ptr(), ids_b.data_ptr(), eb,
-            start.data_ptr(), upper.data_ptr(), int(b.cell.shape[0]),
-            float(eps), wpb, mode, ptr(hits), ptr(hazards), ga, gb,
-            ptr(keys), cap, ptr(count), row_mult, stream)
+            a.edges.data_ptr(), ml.order.data_ptr(),
+            a.ids.contiguous().data_ptr(), int(a.edges.shape[1]),
+            ml.start.data_ptr(), ml.offs.data_ptr(), int(b.cell.shape[0]),
+            b.edges.data_ptr(), b.ids.contiguous().data_ptr(),
+            *(t.data_ptr() for t in pb), int(b.edges.shape[1]), float(eps),
+            mode, ptr(hits), ptr(hazards), ga, gb, ptr(keys), cap,
+            ptr(count), row_mult, stream)
     check_rc(lib, "overlay_pairs", rc, "launch")
 
 

@@ -614,8 +614,10 @@ def make_dense_pip_join_fn(idx: DensePIPIndex, eps: float = EPS_EDGE_DEG,
     hex-boundary margin below the df projection's validated error bound
     (cell assignment could differ from f64), (b) nearest-face ambiguity,
     (c) edge-crossing tests within ``eps`` of flipping (horizontal
-    crossing distance or ray-through-vertex), (d) a point in a wide
-    group.  Points beyond the window's local extent are out-of-domain by
+    crossing distance, distance to a straddling edge's line, or
+    ray-through-vertex; the line distance is the port's, where the JAX
+    body misses points beside nearly horizontal edges), (d) a point in
+    a wide group.  Points beyond the window's local extent are out-of-domain by
     construction: zone -1, certain.  host_recheck_fn resolves flagged
     points in f64."""
     # the projection always runs df; the margin threshold must match it

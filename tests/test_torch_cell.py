@@ -18,7 +18,14 @@ On the CPU the wrapper runs the plain version of the CUDA cell kernel
   test's bound).
 
 The kernel itself runs only on the card; chip_smoke.py holds it against
-the plain version there, bit for bit.
+the plain version there, bit for bit.  Its packed tables are held here
+against the tables they pack: every rotation word against the three
+clamped table lookups it composes, digit 0 fixed by every rotation, the
+entry words against the base-cell tables, the lead-digit shortcut
+against the plain version's loop, the kernel's round_div7 against floor
+division over the whole int32 range, and a numpy model of the kernel's
+integer cell step on the packed tables against ``cell_from_lattice_ref``
+at every resolution.
 """
 
 import jax.numpy as jnp
@@ -35,6 +42,9 @@ from mosaic_tpu_torch.core.index.h3 import index as ix
 from mosaic_tpu_torch.core.index.h3.tables import tables
 from mosaic_tpu_torch.core.index.h3.torchkernel import (cell_from_lattice_ref,
                                                         round_div7)
+from mosaic_tpu_torch.core.index.h3.torchkernel import (cell_tables,
+                                                        digit_fill)
+from mosaic_tpu_torch.ops import cell as oc
 from mosaic_tpu_torch.ops.cell import (latlng_to_cell_margin,
                                        latlng_to_cell_margin_ref)
 
@@ -145,6 +155,173 @@ def test_matches_host_on_h3_fixture():
     assert agree > 0.98
     assert np.array_equal(cells[margin >= BAND_DEG],
                           host[margin >= BAND_DEG])
+
+
+def _rot(r, d):
+    """rot_digit[r * 7 + d], the index clamped as the plain version does."""
+    rot = cell_tables()["rot_digit"]
+    return int(rot[min(max(r * 7 + d, 0), rot.size - 1)])
+
+
+def test_rotation_words_compose_the_three_tables():
+    words = oc.cell_words()[oc.N_ENTRIES:].view(np.uint32)
+    assert words.shape == (oc.ROTATIONS * oc.ROTATIONS * 2,)
+    for r0 in range(oc.ROTATIONS):
+        for extra in range(oc.ROTATIONS):
+            for relabel in range(2):
+                w = int(words[(r0 * oc.ROTATIONS + extra) * 2 + relabel])
+                assert w < 1 << 24
+                for d in range(8):
+                    want = _rot(relabel, _rot(extra, _rot(r0, d)))
+                    assert (w >> (3 * d)) & 7 == want, (r0, extra, relabel,
+                                                        d)
+
+
+def test_every_rotation_keeps_digit_zero():
+    rot = cell_tables()["rot_digit"].reshape(oc.ROTATIONS, 7)
+    assert (rot[:, 0] == 0).all()
+    # and each is a permutation of the digits 1-6
+    assert all(sorted(row[1:]) == list(range(1, 7)) for row in rot)
+    words = oc.cell_words()[oc.N_ENTRIES:].view(np.uint32)
+    assert not (words & 7).any()
+
+
+def test_entry_words_unpack_to_the_tables():
+    t = cell_tables()
+    w = oc.cell_words()[:oc.N_ENTRIES].astype(np.int64)
+    base = w & 127
+    np.testing.assert_array_equal(base, t["fijk_base"])
+    np.testing.assert_array_equal((w >> 7) & 7, t["fijk_rot"])
+    np.testing.assert_array_equal((w >> 10) & 7, t["fijk_extra"])
+    np.testing.assert_array_equal((w >> 13) & 1, t["is_pent"][base])
+    np.testing.assert_array_equal((w >> 14) & 7, t["pent_seam"][base])
+    assert not (w >> 17).any()
+    dod = oc.digit_of_diff_word()
+    assert [(dod >> (3 * i)) & 7 for i in range(9)] == \
+        list(cell_tables()["digit_of_diff"])
+
+
+def _lead_shortcut(r0, raw):
+    """csrc/h3_cell.cu's lead digit: ``raw`` holds the raw digits of
+    levels 1..15 at bits 3 * (15 - level), the rotation word of ``r0``
+    sends each to its rotated digit, and the lead is the rotation of the
+    first (lowest level) raw digit not sent to 0, or 0."""
+    rot0 = oc.rotation_word(r0, 0, 0)
+    low = sum(1 << (3 * (15 - r)) for r in range(1, 16))
+    live = (raw | raw >> 1 | raw >> 2) & low
+    if (rot0 >> 21) & 7 == 0:
+        live &= ~(raw & raw >> 1 & raw >> 2)
+    if not live:
+        return 0
+    at = live.bit_length() - 1
+    return (rot0 >> (3 * ((raw >> at) & 7))) & 7
+
+
+def _lead_loop(r0, digits):
+    """The plain version's lead digit: the first non-zero rotated digit."""
+    for d in digits:
+        rd = _rot(r0, d)
+        if rd != 0:
+            return rd
+    return 0
+
+
+def _packed(digits):
+    return sum(d << (3 * (15 - r)) for r, d in enumerate(digits, 1))
+
+
+def test_lead_digit_shortcut_equals_the_loop():
+    import itertools
+    rng = np.random.default_rng(0)
+    cases = [list(c) for k in range(5)
+             for c in itertools.product(range(7), repeat=k)]
+    cases += [list(rng.integers(0, 7, rng.integers(5, 16)))
+              for _ in range(3000)]
+    # long runs of zeros before the lead, and the digit 7 no lattice
+    # point makes but the clamped tables map
+    cases += [[0] * k + [d] + list(rng.integers(0, 8, 14 - k))
+              for k in range(15) for d in range(8)]
+    cases += [list(rng.integers(0, 8, rng.integers(1, 16)))
+              for _ in range(3000)]
+    for r0 in range(oc.ROTATIONS):
+        for digits in cases:
+            digits = [int(d) for d in digits]
+            assert _lead_shortcut(r0, _packed(digits)) == \
+                _lead_loop(r0, digits), (r0, digits)
+
+
+def _round_div7_kernel(p):
+    """csrc/h3_cell.cu round_div7 in numpy: int32 wrap, arithmetic shift,
+    the biased unsigned division by 7."""
+    x = (2 * p.astype(np.int64) + 7).astype(np.uint32).view(np.int32)
+    y = (x >> 1).astype(np.int32)
+    u = (y.view(np.uint32).astype(np.uint64) + 0x70000000) % (1 << 32)
+    return ((u // 7).astype(np.int64) - 0x10000000).astype(np.int32)
+
+
+def test_kernel_round_div7_is_floor_on_all_int32():
+    rng = np.random.default_rng(1)
+    p = np.concatenate([
+        np.arange(-5000, 5001), rng.integers(-2 ** 31, 2 ** 31, 200_000),
+        [-2 ** 31, -2 ** 31 + 1, 2 ** 31 - 1, 2 ** 30, -2 ** 30,
+         2 ** 30 - 4, -2 ** 30 - 4]]).astype(np.int32)
+    want = round_div7(torch.from_numpy(p)).numpy()
+    np.testing.assert_array_equal(_round_div7_kernel(p), want)
+
+
+def _cell_from_lattice_kernel(face, a, b, res):
+    """csrc/h3_cell.cu's integer cell step in numpy on the packed tables
+    (cell_words): aggregation with the kernel's round_div7, the raw
+    digits packed, the entry word, the lead-digit shortcut, one composed
+    rotation word per point."""
+    words = oc.cell_words()
+    ent = words[:oc.N_ENTRIES].astype(np.int64)
+    rotw = words[oc.N_ENTRIES:].view(np.uint32).astype(np.int64)
+    dod = oc.digit_of_diff_word()
+    ai, bi = a.astype(np.int32), b.astype(np.int32)
+    raw = np.zeros(len(a), np.int64)
+    for rv in range(res, 0, -1):
+        if rv % 2 == 0:
+            ua = _round_div7_kernel(2 * ai + bi)
+            ub = _round_div7_kernel(3 * bi - ai)
+            ca, cb = 3 * ua - ub, ua + 2 * ub
+        else:
+            ua = _round_div7_kernel(3 * ai - bi)
+            ub = _round_div7_kernel(ai + 2 * bi)
+            ca, cb = 2 * ua + ub, -ua + 3 * ub
+        at = np.clip((ai - ca + 1) * 3 + (bi - cb + 1), 0, 8)
+        raw |= ((dod >> (3 * at)) & 7).astype(np.int64) << (3 * (15 - rv))
+        ai, bi = ua, ub
+    mn = np.minimum(np.minimum(ai, bi), 0)
+    entry = ((face * 3 + (ai - mn)) * 3 + (bi - mn)) * 3 - mn
+    w = ent[np.clip(entry, 0, oc.N_ENTRIES - 1)]
+    base, r0, pent = w & 127, (w >> 7) & 7, (w >> 13) & 1 == 1
+    lead = np.array([_lead_shortcut(int(r), int(v)) for r, v in zip(r0, raw)])
+    seam_hit = pent & (lead != 0) & (lead == ((w >> 14) & 7))
+    extra = np.where(seam_hit, (w >> 10) & 7, 0)
+    lead_f = (rotw[extra * 2] >> (3 * lead)) & 7
+    relabel = (pent & ((lead_f == 1) | (lead_f == 5))).astype(np.int64)
+    rot = rotw[(r0 * 6 + extra) * 2 + relabel]
+    h = (1 << 59) | (res << 52) | digit_fill(res) | (base << 45)
+    for rv in range(1, res + 1):
+        d = (raw >> (3 * (15 - rv))) & 7
+        h = h | (((rot >> (3 * d)) & 7) << (3 * (15 - rv)))
+    return h
+
+
+@pytest.mark.parametrize("res", range(16))
+def test_kernel_cell_step_on_packed_tables_equals_plain(res):
+    pts = global_points(2000, seed=50 + res)
+    face, hex2d = hm.project_lattice(np.radians(pts[:, ::-1]), res)
+    ijk = hm.hex2d_to_ijk(hex2d)
+    a, b = ijk[:, 0] - ijk[:, 2], ijk[:, 1] - ijk[:, 2]
+    want = cell_from_lattice_ref(torch.from_numpy(face.astype(np.int32)),
+                                 torch.from_numpy(a.astype(np.int32)),
+                                 torch.from_numpy(b.astype(np.int32)), res)
+    got = _cell_from_lattice_kernel(face.astype(np.int64), a, b, res)
+    np.testing.assert_array_equal(got, want.numpy())
+    base = (got >> 45) & 0x7F
+    assert np.any(tables().is_pentagon[base])
 
 
 def test_wrapper_runs_plain_on_cpu_and_rejects():

@@ -26,6 +26,14 @@ chip-pair probe is its plain version.
   JAX package's global-frame shoelace by that one's rounding (~1e-12 at
   |lon| ~74), not bit for bit.
 * The pairs probe's relaunch when its key buffer is short.
+* The chip-pair kernel's host-side pieces, which run here: its flat
+  match list (the prefix sum of the B rows' range lengths) gives the
+  pairs of ``probe``'s ranges, and so
+  does a model of the kernel's walk of it (the even split over warps,
+  the 32-ary search of the prefix sum, a lane's row from the next 32
+  range ends); the plain version of its B-row pre-pass gives lengths
+  bit-equal to ``_lengths``; its hazard band's reciprocal shortcut
+  decides as the rounded quotient does.
 """
 
 import numpy as np
@@ -384,3 +392,155 @@ def test_footprints_follow_bench_py():
     for f in ("ring_offsets", "part_offsets", "geom_offsets", "types"):
         assert np.array_equal(np.asarray(getattr(got, f)),
                               np.asarray(getattr(want, f))), f
+
+
+def _port_rows(packed):
+    tra, trb = packed[2:]
+    return (overlay_rows_from_arrays(tra, "cpu"),
+            overlay_rows_from_arrays(trb, "cpu"))
+
+
+def _probe_pairs(a, b):
+    """(A row, B row) of every match, from probe's ranges."""
+    order, start, upper = tops.probe(a, b)
+    return sorted((int(order[s]), rb) for rb in range(len(start))
+                  for s in range(int(start[rb]), int(upper[rb])))
+
+
+def _sparse_rows(a, b):
+    """The fixture's B rows with some invalid, some moved to cells no A
+    row has, and the A rows' valid flags thinned: empty ranges between
+    live ones, and invalid rows on both sides."""
+    bv = b.valid.clone()
+    bv[::5] = False
+    cell = b.cell.clone()
+    cell[1::7] = -12345
+    av = a.valid.clone()
+    av[::11] = False
+    return a._replace(valid=av), b._replace(cell=cell, valid=bv)
+
+
+@pytest.mark.parametrize("rows", ["fixture", "sparse"])
+def test_match_list_gives_probe_pairs(packed, rows):
+    a, b = _port_rows(packed)
+    if rows == "sparse":
+        a, b = _sparse_rows(a, b)
+    ml = tops.match_list(a, b)
+    order, start, upper = tops.probe(a, b)
+    n = upper - start
+    # empty ranges lie between live ones, as the kernel's walk meets them
+    live = torch.nonzero(n > 0).squeeze(1)
+    assert bool((n[live[0]:live[-1]] == 0).any())
+    assert torch.equal(ml.order, order) and torch.equal(ml.start, start)
+    assert ml.offs[0] == 0 and torch.equal(ml.offs[1:], n.cumsum(0))
+    # expanded: match m -> (order[start[j] + m - offs[j]], j)
+    total = int(ml.offs[-1])
+    assert total > 100
+    j = torch.repeat_interleave(torch.arange(len(n)), n)
+    m = torch.arange(total)
+    ra = ml.order[ml.start[j] + m - ml.offs[j]]
+    got = sorted(zip(ra.tolist(), j.tolist()))
+    assert got == _probe_pairs(a, b)
+
+
+def _find_row(offs, m, lanes=32):
+    """csrc/overlay_pairs.cu find_row: the 32-ary search, lane by lane."""
+    lo, hi = 0, len(offs) - 1
+    while hi - lo > 1:
+        span = hi - lo
+        q = [lo + span * (lane + 1) // (lanes + 1) for lane in range(lanes)]
+        c = sum(int(offs[x] <= m) for x in q)
+        assert all(offs[x] <= m for x in q[:c])     # a prefix of lanes
+        lo, hi = (lo + span * c // (lanes + 1) if c else lo,
+                  lo + span * (c + 1) // (lanes + 1) if c < lanes else hi)
+    return lo
+
+
+@pytest.mark.parametrize("rows", ["fixture", "sparse"])
+def test_kernel_walk_of_the_match_list(packed, rows):
+    """The kernel's walk of the flat list: warp w takes matches [M w /
+    warps, M (w + 1) / warps), 32 a step, a lane each; it finds its first
+    B row by the 32-ary search, and each step a lane's row is the step's
+    first row j0 plus the rows from j0 whose ranges end at or before its
+    match (the next 32 ends; past them, a search alone); every match
+    once, the pairs of probe."""
+    a, b = _port_rows(packed)
+    if rows == "sparse":
+        a, b = _sparse_rows(a, b)
+    ml = tops.match_list(a, b)
+    offs = ml.offs.tolist()
+    nb, total = len(offs) - 1, offs[-1]
+    want = _probe_pairs(a, b)
+    for warps in (1, 3, total // 40, total + 5):
+        got = []
+        for w in range(warps):
+            w0, w1 = total * w // warps, total * (w + 1) // warps
+            if w0 >= w1:
+                continue
+            j0 = _find_row(offs, w0)
+            for m0 in range(w0, w1, 32):
+                ends = [offs[j0 + 1 + t] if j0 + t < nb else 2 ** 63
+                        for t in range(32)]
+                rows_ = []
+                for lane in range(32):
+                    mq = min(m0 + lane, w1 - 1)
+                    c = sum(e <= mq for e in ends)
+                    j = j0 + c if c < 32 else _find_row(offs, mq)
+                    assert offs[j] <= mq < offs[j + 1]
+                    rows_.append(j)
+                    if m0 + lane < w1:
+                        ra = int(ml.order[int(ml.start[j]) + mq - offs[j]])
+                        got.append((ra, j))
+                j0 = rows_[31]
+        assert sorted(got) == want, warps
+
+
+def test_row_staging_lengths_bit_equal(packed):
+    a, b = _port_rows(packed)
+    edges = torch.cat([a.edges, b.edges])
+    # a row with its padding between real edges, and one all padding
+    odd = edges[:2].clone()
+    odd[0, 1] = 1e9
+    odd[1] = 1e9
+    edges = torch.cat([edges, odd])
+    count, moved, lengths, rcp = tops.staged_rows_ref(edges)
+    real = ~(edges[..., 0].abs() > tops.PAD_ABOVE)
+    assert torch.equal(count, real.sum(1))
+    assert count[-1] == 0 and count[-2] == real[-2].sum()
+    want = tops._lengths(edges)
+    for r in range(len(edges)):
+        k = int(count[r])
+        assert torch.equal(moved[r, :k].view(torch.int32),
+                           edges[r][real[r]].view(torch.int32))
+        assert torch.equal(lengths[r, :k].view(torch.int32),
+                           want[r][real[r]].view(torch.int32))
+        assert torch.equal(rcp[r, :k], 1.0 / lengths[r, :k])
+        assert not lengths[r, k:].any()
+
+
+def test_band_reciprocal_shortcut_is_the_quotient():
+    """csrc/overlay_pairs.cu in_band: q = x * fl(1/len); below eps (1 -
+    2^-20) the point is in the band, at or above eps (1 + 2^-20) it is
+    not, and only between does the kernel divide.  Its answer equals
+    fl(x / len) < eps, in f32, on values straddling the band's edge."""
+    f32 = np.float32
+    rng = np.random.default_rng(3)
+    for eps in (1e-6, 3.5e-6, 7.62939453125e-6):
+        e = f32(eps)
+        lo = f32(float(e) * (1 - 2 ** -20))
+        hi = f32(float(e) * (1 + 2 ** -20))
+        lens = np.concatenate([
+            f32(10.0) ** rng.uniform(-30, 3, 4000).astype(f32),
+            np.array([1e-30, 1.0, 3.0, 1e-3], f32)]).astype(f32)
+        lens = np.maximum(lens, f32(1e-30))
+        steps = rng.integers(-40, 41, len(lens)).astype(np.float64)
+        x = (e.astype(np.float64) * lens * (1 + steps * 2.0 ** -24)
+             ).astype(f32)
+        x = np.concatenate([x, rng.uniform(0, 1e-3, 500).astype(f32),
+                            np.zeros(4, f32)])
+        lens = np.concatenate([lens, lens[:500], lens[:4]])
+        q = x * (f32(1) / lens)
+        kernel = np.where(q < lo, True,
+                          np.where(q >= hi, False, x / lens < e))
+        assert np.array_equal(kernel, x / lens < e)
+        assert ((q >= lo) & (q < hi)).any() and (q < lo).any()
