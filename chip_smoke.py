@@ -6,15 +6,17 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. device — name and power limit (nvidia-smi); exits if CUDA is absent;
-2. build — compiles the six kernels from ``csrc/`` with ``nvcc``, one
+2. build — compiles the eight kernels from ``csrc/`` with ``nvcc``, one
    process per source, and the native host library from
    ``native/geokernels.cpp`` with ``g++``, all started together:
    ``h3_projection`` (K1, the projection alone), ``h3_dense_join`` (K2,
    the projection fused with the dense join body), ``h3_cell`` (K3,
    H3 cell ids of absolute points, the sorted join's cell step),
    ``overlay_pairs`` (K4, the overlay's chip-pair probe),
-   ``knn_brute_topk`` (K5, SpatialKNN's all-pairs top-k) and
-   ``knn_ring_step`` (K6, SpatialKNN's ring step);
+   ``knn_brute_topk`` (K5, SpatialKNN's all-pairs top-k),
+   ``knn_ring_step`` (K6, SpatialKNN's ring step), ``tess_classify`` (K7,
+   tessellation's cell classification) and ``tess_clip`` (K8, its
+   border-chip clip);
 3. K1 vs plain — the projection kernel against its plain PyTorch
    version on the card, 2^22 localized NYC points (seed 100) at res 9
    around the flagship index's origin: all five outputs bit-equal; timed
@@ -74,8 +76,10 @@ Phases (any failure exits non-zero and prints no result):
 10. sorted join, BNG — the BNG row of tests/test_bng.py's grid matrix
     (res 3, 100-200 km east and north) on 2^20 points, 0 mismatches;
 11. overlay — 2^17 footprint boxes from bench.py's generator (seed 41)
-    x the 281 taxi zones at H3 res 9, each side tessellated once
-    (``keep_core_geom=True``) and reused: ``overlay_intersects`` (one K4
+    x the 281 taxi zones at H3 res 9, each side tessellated once on the
+    card (``keep_core_geom=True``; the footprints timed by stage, and the
+    ChipSet of the first 2^14 held bit-equal to the plain path) and
+    reused: ``overlay_intersects`` (one K4
     launch) and ``overlay_intersection_area`` (one or two K4 launches
     and the native ``intersect_area_pairs``), counted; the entry point's
     steps timed apart (pack, upload, device join, copy back, f64
@@ -114,9 +118,24 @@ Phases (any failure exits non-zero and prints no result):
     its rings, timed over the march beside its byte bound (the entries
     and pool rows each ring reads); k = 100 on 2^14 pings through both
     engines, 0 mismatches against ``knn_host_truth``;
-13. the ``sorted``, ``overlay`` and ``knn`` summary lines, the card, the
-    ``kernels`` JSON line (K1-K6 with launches per path), then the last
-    line ``{"ok": true, "device": {...}}``.
+13. chip generation (BASELINE config 2) — ``conus_counties()`` (3,136
+    polygons) at H3 res 5, ``keep_core_geom=False``, as bench.py:1384-1397
+    runs it: warmed on the first 256 counties, then one call timed on the
+    card, by stage (candidates with the sampling's cell kernel, the cell
+    tables, classify, clip, and the host assembly), counted (K7 and K8
+    launches, K8 relaunches, K3 launches, sampling points and those sent
+    to the host path) with no plain version running; 93,595 chips,
+    bit-equal to ``tessellate(..., device="cpu")`` (the plain versions);
+    the candidate sets equal to the host's exact sets; K7 and K8 against
+    their plain versions on the run's own inputs and on
+    ``tess_adversarial``'s degenerate set (edges along cell sides and
+    through vertices, horizontal edges, a pentagon, cells of up to 10
+    vertices, concave rings past K8's convex capacity, relaunched), timed
+    beside their bounds (f64 instructions counted from the run's data at
+    the FP64 rate, and bytes);
+14. the ``sorted``, ``overlay``, ``knn`` and ``chips`` summary lines, the
+    card, the ``kernels`` JSON line (K1-K8 with launches per path), then
+    the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -167,7 +186,7 @@ EXACT_PRODUCT_FLOPS = 3
 EDGE_FLOPS = 4
 STRADDLE_FLOPS = 16
 KERNELS = ("h3_projection", "h3_dense_join", "h3_cell", "overlay_pairs",
-           "knn_brute_topk", "knn_ring_step")
+           "knn_brute_topk", "knn_ring_step", "tess_classify", "tess_clip")
 #: points of each K3 set held against the f64 host ids (numpy, ~9 s per
 #: 2^20 points on one core)
 HOST_SAMPLE = 1 << 20
@@ -249,6 +268,57 @@ KNN_WIDE_RING = 8
 KNN_GLOBAL_K1 = 256
 KNN_CROWD = 40
 KNN_CROWD_RINGS = 6
+#: BASELINE config 2 as bench.py:1384-1397 runs it: conus_counties()
+#: (3,136 polygons) at H3 res 5, keep_core_geom=False, warmed on the first
+#: COUNTY_WARM counties; its ChipSet has COUNTY_CHIPS chips
+COUNTY_RES = 5
+COUNTY_WARM = 256
+COUNTY_CHIPS = 93_595
+#: the overlay's first footprints whose ChipSet is held against the plain
+#: path (tessellate on the CPU)
+OVERLAY_TESS_CHECK = 1 << 14
+#: NVIDIA H100 SXM data sheet: 34 TFLOP/s in f64 outside the tensor cores,
+#: an FMA as two flops, so 17e12 f64 instructions a second (an add,
+#: multiply, compare or min/max each one)
+PEAK_F64_OPS = 34e12 / 2
+#: f64 instructions of one IEEE divide as nvcc compiles the kernels'
+#: __ddiv_rn for sm_90a (cuobjdump -sass of the built libraries): seven
+#: DFMA and one DMUL refine a MUFU.RCP64H seed; the seed and three f32
+#: range tests in front of the slow-path call issue on other pipes and
+#: are not counted
+F64_DIV_OPS = 8
+#: K7's f64 instructions, the least that csrc/tess_classify.cu's
+#: function needs: per (pair, edge) the two subtracts and the compare of
+#: den and dx, and the bbox test's four min/max and four compares; per
+#: (pair, query, edge) two compares; per straddling one a subtract, the
+#: divide, a multiply, an add and a compare.  Per overlapping (pair, edge)
+#: and cell vertex v_k: v_k - a (2), d_k = orient(a, b, v_k) on those and
+#: the edge's vector (3) and its sign and zero tests (2), which side k's
+#: d1 and side k-1's d2 share; per such pair and cell side (u, w): d3 =
+#: orient(u, w, a) from the side's vector and -(u - a) (3, negation
+#: exact), d4 = orient(u, w, b) (5) and their sign and zero tests (4),
+#: d3 >= 0 being their OR.  An orientation that is exactly 0 adds its
+#: on-segment range test: four compares against the edge's min/max,
+#: which the bbox test took, for d_k; the side's four min/max and four
+#: compares for d3 and d4.  Per cell of the table and vertex: its bbox's
+#: four min/max and its side vector's two subtracts
+K7_PER_EDGE = 3 + 8
+K7_PER_QUERY_EDGE = 2
+K7_PER_STRADDLE = 4 + F64_DIV_OPS
+K7_PER_VERTEX = 2 + 3 + 2
+K7_PER_SIDE = 3 + 5 + 4
+K7_PER_ZERO_VERTEX = 4
+K7_PER_ZERO_SIDE = 4 + 4
+K7_PER_CELL_VERTEX = 4 + 2
+#: K8's f64 instructions, the least that csrc/tess_clip.cu's function
+#: needs: per side of each cell of the tasks its vector (2 subtracts);
+#: per (task, plane, subject vertex) one side d = ev.x*(c.y-p0.y) -
+#: ev.y*(c.x-p0.x) (5) and d >= 0 (1), the next vertex's d being its
+#: d_nxt; per crossing the denominator, its test, the divide and the
+#: intersection (a subtract, multiply and add per coordinate)
+K8_PER_CELL_SIDE = 2
+K8_PER_VERTEX = 5 + 1
+K8_PER_CROSSING = 2 + F64_DIV_OPS + 6
 
 
 class PhaseError(RuntimeError):
@@ -613,13 +683,13 @@ def phase_flagship():
                                          zones="taxi")
     t_work = time.perf_counter() - t0
     t0 = time.perf_counter()
-    chips = mt.tessellate(polys, res, grid, keep_core_geom=False)
+    chips = mt.tessellate(polys, res, grid, keep_core_geom=False, device=DEV)
     t_tess = time.perf_counter() - t0
     t0 = time.perf_counter()
     idx = mt.build_pip_index(polys, res, grid, chips=chips, device=DEV)
     t_idx = time.perf_counter() - t0
     log(f"[flagship] {len(polys)} zones (built in {t_work:.2f} s) -> "
-        f"{len(chips)} chips ({int(chips.is_core.sum())} core), host "
+        f"{len(chips)} chips ({int(chips.is_core.sum())} core), "
         f"tessellation {t_tess:.2f} s; index build {t_idx:.2f} s: window "
         f"{idx.W}x{idx.H}, pool {tuple(idx.pool.shape)}, gzones "
         f"{tuple(idx.gzones.shape)}, err_lattice {idx.err_lattice:.3e}, "
@@ -1050,6 +1120,9 @@ def launch_counts():
     from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
                                                     overlay_pairs, prep_b)
     from mosaic_tpu_torch.ops.projection import project_lattice
+    from mosaic_tpu_torch.ops.tess_classify import tess_classify
+    from mosaic_tpu_torch.ops.tess_clip import tess_clip
+    from mosaic_tpu_torch.core.index.h3.system import SAMPLE_COUNTS
     return {"h3_project_lattice": project_lattice.launches,
             "h3_dense_join": dense_join.launches,
             "h3_latlng_to_cell": latlng_to_cell_margin.launches,
@@ -1062,7 +1135,12 @@ def launch_counts():
             "native_pip_first_match": native.pip_first_match.calls,
             "native_recheck_zones": native.recheck_zones.calls,
             "native_intersect_area_pairs":
-                native.intersect_area_pairs.calls}
+                native.intersect_area_pairs.calls,
+            "tess_classify": tess_classify.launches,
+            "tess_clip": tess_clip.launches,
+            "tess_clip_relaunches": tess_clip.relaunches,
+            "sample_points": SAMPLE_COUNTS["points"],
+            "sample_host_points": SAMPLE_COUNTS["host_points"]}
 
 
 def reset_counts() -> None:
@@ -1074,6 +1152,9 @@ def reset_counts() -> None:
     from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
                                                     overlay_pairs, prep_b)
     from mosaic_tpu_torch.ops.projection import project_lattice
+    from mosaic_tpu_torch.ops.tess_classify import tess_classify
+    from mosaic_tpu_torch.ops.tess_clip import tess_clip
+    from mosaic_tpu_torch.core.index.h3.system import SAMPLE_COUNTS
     project_lattice.launches = 0
     dense_join.launches = 0
     latlng_to_cell_margin.launches = 0
@@ -1085,6 +1166,10 @@ def reset_counts() -> None:
     native.pip_first_match.calls = 0
     native.recheck_zones.calls = 0
     native.intersect_area_pairs.calls = 0
+    tess_classify.launches = 0
+    tess_clip.launches = 0
+    tess_clip.relaunches = 0
+    SAMPLE_COUNTS.update(points=0, host_points=0)
 
 
 def sorted_join(label: str, polys, grid, res: int, batches, chips=None,
@@ -1345,6 +1430,45 @@ class StepClock:
         return out
 
 
+def tess_stage_targets():
+    """The stage functions of ``tessellate`` a StepClock times: the
+    candidates (with the sampling's cell kernel), the cell tables, the
+    classify and clip kernels with their CSR packing and copies back."""
+    from mosaic_tpu_torch.core import tessellate as tess
+    from mosaic_tpu_torch.core.index.h3.system import H3IndexSystem
+    return [(H3IndexSystem, "candidate_cells_batch"),
+            (H3IndexSystem, "cell_boundary"), (H3IndexSystem, "cell_center"),
+            (tess, "_classify_pairs"), (tess, "_clip_tasks")]
+
+
+def tessellate_staged(arr, res: int, grid, keep_core_geom: bool):
+    """(ChipSet, seconds, seconds by stage) of ``tessellate`` on the card;
+    ``assembly`` is the rest: the per-geometry ChipSet assembly and the
+    host's CSR and ring-pool packing."""
+    import mosaic_tpu_torch as mt
+    with StepClock(tess_stage_targets()) as clock:
+        t0 = time.perf_counter()
+        chips = mt.tessellate(arr, res, grid, keep_core_geom=keep_core_geom,
+                              device=DEV)
+        seconds = time.perf_counter() - t0
+        stages = clock.take()
+    stages["assembly"] = round(seconds - sum(stages.values()), 4)
+    return chips, seconds, stages
+
+
+def chipset_diff(a, b) -> list:
+    """The fields in which two ChipSets differ, bit for bit."""
+    import numpy as np
+    out = [f for f in ("cell_id", "geom_id", "is_core")
+           if not np.array_equal(getattr(a, f), getattr(b, f))]
+    for f in ("coords", "ring_offsets", "part_offsets", "geom_offsets",
+              "types"):
+        x, y = np.asarray(getattr(a.geoms, f)), np.asarray(getattr(b.geoms, f))
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            out.append(f"geoms.{f}")
+    return out
+
+
 def k4_op_costs():
     """(per real edge pair, per A edge, per B edge, per match, per edge
     length) f32 operations (K4_ARITH) of K4's plain version.  The plain
@@ -1514,18 +1638,30 @@ def phase_overlay(zones, grid):
     t0 = time.perf_counter()
     foot = footprints(OVERLAY_FOOTPRINTS)
     t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    chips_a = mt.tessellate(foot, RES, grid, keep_core_geom=True)
-    t_tess_a = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    chips_b = mt.tessellate(zones, RES, grid, keep_core_geom=True)
-    t_tess_b = time.perf_counter() - t0
+    chips_a, t_tess_a, stages_a = tessellate_staged(foot, RES, grid, True)
+    chips_b, t_tess_b, _ = tessellate_staged(zones, RES, grid, True)
     GA, GB = len(foot), len(zones)
     log(f"[overlay] {GA} footprints (made in {t_gen:.2f} s) -> "
-        f"{len(chips_a)} chips ({int(chips_a.is_core.sum())} core), host "
-        f"tessellation {t_tess_a:.2f} s; {GB} zones -> {len(chips_b)} chips "
-        f"({int(chips_b.is_core.sum())} core), host tessellation "
-        f"{t_tess_b:.2f} s")
+        f"{len(chips_a)} chips ({int(chips_a.is_core.sum())} core), "
+        f"tessellation on the card {t_tess_a:.2f} s, by stage {stages_a}; "
+        f"{GB} zones -> {len(chips_b)} chips "
+        f"({int(chips_b.is_core.sum())} core), tessellation {t_tess_b:.2f} s")
+    # the first footprints' ChipSet against the plain path
+    first = foot.take(list(range(OVERLAY_TESS_CHECK)))
+    t0 = time.perf_counter()
+    dev_first = mt.tessellate(first, RES, grid, keep_core_geom=True,
+                              device=DEV)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_first = mt.tessellate(first, RES, grid, keep_core_geom=True,
+                                device="cpu")
+    t_plain = time.perf_counter() - t0
+    diff = chipset_diff(dev_first, plain_first)
+    log(f"[overlay] the first {OVERLAY_TESS_CHECK} footprints: "
+        f"{len(dev_first)} chips on the card ({t_first:.2f} s), "
+        f"{len(plain_first)} by the plain path on the CPU ({t_plain:.2f} "
+        f"s); differing fields {diff}")
+    check(not diff, f"footprint ChipSet differs from the plain path: {diff}")
 
     # ---- the main path, counted: both entry points, counts to 0 before;
     # the steps inside them timed by wrapping the module functions
@@ -1759,6 +1895,8 @@ def phase_overlay(zones, grid):
     return {"counts_intersects": c_inter, "counts_area": c_area,
             "chips": [len(chips_a), len(chips_b)],
             "tessellate_s": [t_tess_a, t_tess_b],
+            "tessellate_stages_s": stages_a,
+            "tessellate_first_s": [t_first, t_plain],
             "steps_intersects_s": steps_inter, "steps_area_s": steps_area,
             "matches": matches, "max_dup": dup, "hazard_pairs": n_hazard,
             "area_pairs_checked": len(sampled),
@@ -2161,6 +2299,297 @@ def phase_knn():
     return {"paths": summary, "k5": k5, "k6": k6}
 
 
+class LastArgs:
+    """The arguments of the last call of each named module function while
+    the block runs (restored on exit)."""
+
+    def __init__(self, targets):
+        self.targets, self.args = list(targets), {}
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name in self.targets]
+        for mod, name, fn in self.saved:
+            def keep(*args, _fn=fn, _name=name):
+                self.args[_name] = args
+                return _fn(*args)
+            setattr(mod, name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def k7_work(args):
+    """(f64 instructions, bytes) of K7 on its inputs: the per-edge,
+    per-query, per-straddle, per-vertex, per-side and per-zero counts
+    above over this run's pairs (the straddles, the bbox overlaps and the
+    zero orientations counted on the card in blocks), the per-cell ones
+    over the table's cells that a pair names; each input read once, the
+    two flags written once."""
+    import torch
+    edges, edge_off, pair_geo, pair_cell, verts, counts, centers = args
+    P, K = int(pair_geo.shape[0]), int(verts.shape[1])
+    ne = (edge_off[1:] - edge_off[:-1])[pair_geo]
+    n = counts[pair_cell].to(torch.int64)
+    sentinel = torch.full((1, 4), float("inf"), dtype=edges.dtype,
+                          device=edges.device)
+    edges_p = torch.cat([edges, sentinel])
+    kk = torch.arange(K, device=edges.device)
+    work = collections.Counter()
+
+    def orient(p, q, r):
+        return (q[..., 0] - p[..., 0]) * (r[..., 1] - p[..., 1]) - \
+            (q[..., 1] - p[..., 1]) * (r[..., 0] - p[..., 0])
+
+    block = max(1, (1 << 22) // max(int(ne.max()), 1))
+    for s in range(0, P, block):
+        e = min(s + block, P)
+        ar = torch.arange(int(ne[s:e].max()), device=edges.device)
+        real = ar[None] < ne[s:e, None]
+        eg = edges_p[torch.where(real, edge_off[pair_geo[s:e], None] + ar,
+                                 int(edges.shape[0]))]
+        cv = verts[pair_cell[s:e]]
+        vmask = kk[None] < n[s:e, None]
+        py = torch.cat([centers[pair_cell[s:e], 1:2], cv[..., 1]], 1)
+        qmask = torch.cat([torch.ones_like(vmask[:, :1]), vmask], 1)
+        st = (eg[:, None, :, 1] <= py[..., None]) != \
+            (eg[:, None, :, 3] <= py[..., None])
+        work["straddles"] += int((st & qmask[..., None]).sum())
+        inf = float("inf")
+        cb = [torch.where(vmask, cv[..., i], v).amin(1) if v > 0 else
+              torch.where(vmask, cv[..., i], v).amax(1)
+              for i, v in ((0, inf), (1, inf), (0, -inf), (1, -inf))]
+        ov = (cb[0][:, None] <= torch.maximum(eg[..., 0], eg[..., 2])) & \
+            (torch.minimum(eg[..., 0], eg[..., 2]) <= cb[2][:, None]) & \
+            (cb[1][:, None] <= torch.maximum(eg[..., 1], eg[..., 3])) & \
+            (torch.minimum(eg[..., 1], eg[..., 3]) <= cb[3][:, None])
+        work["overlap_sides"] += int((ov.sum(1) * n[s:e]).sum())
+        ci, ei = torch.nonzero(ov, as_tuple=True)
+        a = eg[ci, ei, None, 0:2]
+        b = eg[ci, ei, None, 2:4]
+        u, m = cv[ci], vmask[ci]
+        nxt = torch.where(kk[None] + 1 >= n[s:e][ci, None], 0, kk[None] + 1)
+        w = torch.gather(u, 1, nxt[..., None].expand(-1, -1, 2))
+        work["zero_vertices"] += int(((orient(a, b, u) == 0) & m).sum())
+        work["zero_sides"] += int(((orient(u, w, a) == 0) & m).sum() +
+                                  ((orient(u, w, b) == 0) & m).sum())
+    work["pair_edges"] = int(ne.sum())
+    work["query_edges"] = int((ne * (n + 1)).sum())
+    work["cell_vertices"] = int(counts[torch.unique(pair_cell)].sum())
+    ops = K7_PER_EDGE * work["pair_edges"] + \
+        K7_PER_QUERY_EDGE * work["query_edges"] + \
+        K7_PER_STRADDLE * work["straddles"] + \
+        (K7_PER_VERTEX + K7_PER_SIDE) * work["overlap_sides"] + \
+        K7_PER_ZERO_VERTEX * work["zero_vertices"] + \
+        K7_PER_ZERO_SIDE * work["zero_sides"] + \
+        K7_PER_CELL_VERTEX * work["cell_vertices"]
+    U = int(verts.shape[0])
+    nbytes = 32 * int(edges.shape[0]) + 8 * int(edge_off.shape[0]) + \
+        16 * P + (16 * K + 4 + 16) * U + 2 * P
+    return ops, nbytes, dict(work)
+
+
+def k8_work(args):
+    """(f64 instructions, bytes, the plain version's output) of K8 on its
+    inputs: the planes, subject vertices and crossings of this run's tasks
+    (counted by running the plain version, whose half-plane step sees
+    each), at the counts above; each input read once, the clipped rings
+    and counts written once."""
+    import torch
+    from mosaic_tpu_torch.ops import tess_clip as tcl
+    work = collections.Counter()
+    halfplane = tcl._halfplane_ref
+
+    def counted(subj, counts, p0, p1, active):
+        out = halfplane(subj, counts, p0, p1, active)
+        vidx = torch.arange(subj.shape[1], device=subj.device)
+        valid = (vidx[None] < counts[:, None]) & active[:, None]
+        work["planes"] += int(active.sum())
+        work["vertices"] += int(valid.sum())
+        # the new count is the inside vertices plus the crossings
+        work["crossings"] += int((out[1] - counts)[active].sum()) + \
+            _outside(subj, counts, p0, p1, active)
+        return out
+
+    tcl._halfplane_ref = counted
+    try:
+        xy, off, count = tcl.clip_tasks_ref(*args)
+    finally:
+        tcl._halfplane_ref = halfplane
+    ring_xy, ring_off, task_ring, task_cell, verts, counts = args
+    work["cell_sides"] = int(counts[torch.unique(task_cell)].sum())
+    ops = K8_PER_CELL_SIDE * work["cell_sides"] + \
+        K8_PER_VERTEX * work["vertices"] + \
+        K8_PER_CROSSING * work["crossings"]
+    T, U, K = int(task_ring.shape[0]), int(verts.shape[0]), \
+        int(verts.shape[1])
+    nbytes = 16 * int(ring_xy.shape[0]) + 8 * int(ring_off.shape[0]) + \
+        16 * T + (16 * K + 4) * U + 16 * int(xy.shape[0]) + 4 * T
+    return ops, nbytes, dict(work), (xy, off, count)
+
+
+def _outside(subj, counts, p0, p1, active) -> int:
+    """Subject vertices of the active rows outside the plane (d < 0), in
+    the plain version's arithmetic."""
+    import torch
+    ev = p1 - p0
+    d = ev[:, None, 0] * (subj[..., 1] - p0[:, None, 1]) - \
+        ev[:, None, 1] * (subj[..., 0] - p0[:, None, 0])
+    vidx = torch.arange(subj.shape[1], device=subj.device)
+    valid = (vidx[None] < counts[:, None]) & active[:, None]
+    return int(((d < 0) & valid).sum())
+
+
+def same_clip(a, b) -> bool:
+    """Two clip outputs (xy, off, count) with equal counts and, packed,
+    bit-equal rings."""
+    import torch
+    from mosaic_tpu_torch.ops.tess_clip import compact
+    if not torch.equal(a[2], b[2]):
+        return False
+    fa, fb = compact(*a)[0], compact(*b)[0]
+    return fa.shape == fb.shape and torch.equal(fa.view(torch.int64),
+                                                fb.view(torch.int64))
+
+
+def phase_chips():
+    """BASELINE config 2, chip generation: conus_counties() at H3 res 5 on
+    the card, counted and timed by stage; its ChipSet against the plain
+    path, its candidate sets against the host's; K7 and K8 against their
+    plain versions on the run's own inputs and the degenerate set, timed
+    beside their bounds."""
+    import numpy as np
+    import torch
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.bench.workloads import (conus_counties,
+                                                  tess_adversarial)
+    from mosaic_tpu_torch.core import tessellate as tess
+    from mosaic_tpu_torch.ops import cell as cell_op
+    from mosaic_tpu_torch.ops import tess_classify as tc
+    from mosaic_tpu_torch.ops import tess_clip as tcl
+
+    counties = conus_counties()
+    grid = mt.get_index_system("H3")
+    t0 = time.perf_counter()
+    mt.tessellate(counties.take(list(range(COUNTY_WARM))), COUNTY_RES, grid,
+                  keep_core_geom=False, device=DEV)
+    t_warm = time.perf_counter() - t0
+
+    # ---- the main path, counted: counts to 0, drive, read; the stages
+    # timed, the plain versions watched, the kernels' inputs kept
+    plain_fns = [(tc, "classify_pairs_ref"), (tcl, "clip_tasks_ref"),
+                 (cell_op, "latlng_to_cell_margin_ref")]
+    with LastArgs([(tess, "tess_classify"), (tess, "tess_clip")]) as kept, \
+            StepClock(tess_stage_targets() + plain_fns) as clock:
+        reset_counts()
+        t0 = time.perf_counter()
+        chips = mt.tessellate(counties, COUNTY_RES, grid,
+                              keep_core_geom=False, device=DEV)
+        t_run = time.perf_counter() - t0
+        counts = launch_counts()
+        stages = clock.take()
+    plain_ran = sorted(n for _, n in plain_fns if n in stages)
+    stages["assembly"] = round(t_run - sum(stages.values()), 4)
+    log(f"[chips] {len(counties)} counties at H3 res {COUNTY_RES} -> "
+        f"{len(chips)} chips ({int(chips.is_core.sum())} core) in "
+        f"{t_run:.3f} s on the card (warm-up on {COUNTY_WARM} counties "
+        f"{t_warm:.2f} s); by stage {stages}; counts {counts}")
+    check(len(chips) == COUNTY_CHIPS, f"{len(chips)} chips, not "
+          f"{COUNTY_CHIPS}")
+    check(counts["tess_classify"] >= 1 and counts["tess_clip"] >= 1 and
+          counts["h3_latlng_to_cell"] >= 1, "a kernel of the chip path "
+          f"never launched: {counts}")
+    check(not plain_ran, f"plain versions ran on the card's path: "
+          f"{plain_ran}")
+
+    # ---- the ChipSet against the plain path, the candidates against the
+    # host's exact sets
+    t0 = time.perf_counter()
+    plain = mt.tessellate(counties, COUNTY_RES, grid, keep_core_geom=False,
+                          device="cpu")
+    t_plain = time.perf_counter() - t0
+    diff = chipset_diff(chips, plain)
+    log(f"[chips] the plain path (the kernels' plain versions on the CPU) "
+        f"in {t_plain:.2f} s: {len(plain)} chips; differing fields {diff}")
+    check(not diff, f"chip generation differs from the plain path: {diff}")
+    bboxes = counties.bboxes()
+    t0 = time.perf_counter()
+    host = grid.candidate_cells_batch(bboxes, COUNTY_RES)
+    t_host = time.perf_counter() - t0
+    on_card = grid.candidate_cells_batch(bboxes, COUNTY_RES, device=DEV)
+    bad = sum(not np.array_equal(a, b) for a, b in zip(host, on_card))
+    log(f"[chips] candidate sets: {bad} of {len(host)} differ from the "
+        f"host's exact sets ({t_host:.2f} s on the host); "
+        f"{counts['sample_host_points']} of {counts['sample_points']} "
+        f"sampling points sent to the host")
+    check(bad == 0, f"{bad} candidate sets differ from the host's")
+
+    # ---- K7 and K8 against their plain versions: the run's inputs, the
+    # degenerate set
+    k7_args = kept.args["tess_classify"]
+    k8_args = kept.args["tess_clip"]
+    adv = tess_adversarial(grid)
+    adv7 = [torch.from_numpy(np.ascontiguousarray(adv[k])).to(DEV) for k in
+            ("edges", "edge_off", "pair_geo", "pair_cell", "cell_verts",
+             "cell_counts", "centers")]
+    adv8 = [torch.from_numpy(np.ascontiguousarray(adv[k])).to(DEV) for k in
+            ("ring_xy", "ring_off", "task_ring", "task_cell", "cell_verts",
+             "cell_counts")]
+    for label, a7, a8 in (("run", k7_args, k8_args),
+                          ("degenerate", adv7, adv8)):
+        got = tc.tess_classify(*a7)
+        want = tc.classify_pairs_ref(*a7)
+        flags = [int((g != w).sum()) for g, w in zip(got, want)]
+        relaunch = tcl.tess_clip.relaunches
+        got8 = tcl.tess_clip(*a8)
+        relaunch = tcl.tess_clip.relaunches - relaunch
+        ok8 = same_clip(got8, tcl.clip_tasks_ref(*a8))
+        log(f"[chips] K7 on the {label} set ({int(a7[2].shape[0])} pairs): "
+            f"touching and core differ from the plain version at {flags}; "
+            f"K8 ({int(a8[2].shape[0])} tasks, {relaunch} relaunches): "
+            f"{'bit-equal' if ok8 else 'DIFFERENT'}")
+        check(flags == [0, 0], f"K7 differs from plain on the {label} set")
+        check(ok8, f"K8 differs from plain on the {label} set")
+        if label == "degenerate":
+            check(relaunch >= 1, "the degenerate set's concave rings did "
+                  "not overflow K8's convex capacity")
+
+    # ---- K7 and K8 timed beside their bounds and plain versions
+    ops7, bytes7, w7 = k7_work(k7_args)
+    ops8, bytes8, w8, _ = k8_work(k8_args)
+    k7 = timed_kernel("chips K7", lambda: tc.tess_classify(*k7_args),
+                      lambda: tc.classify_pairs_ref(*k7_args),
+                      "classify_kernel", 2)
+    small_ms = kernel_device_ms(lambda: tc.tess_classify(*adv7), 30,
+                                "classify_kernel")[0]
+    log(f"[chips] K7 on the degenerate set ({int(adv7[2].shape[0])} pairs, "
+        f"a thread a pair): {small_ms:.4f} ms")
+    k8 = timed_kernel("chips K8", lambda: tcl.tess_clip(*k8_args),
+                      lambda: tcl.clip_tasks_ref(*k8_args), "clip_kernel", 2)
+    rows = {}
+    for name, k, ops, nbytes, work in (("tess_classify", k7, ops7, bytes7,
+                                        w7),
+                                       ("tess_clip", k8, ops8, bytes8, w8)):
+        ops_ms = ops / PEAK_F64_OPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        bound = max(ops_ms, bytes_ms)
+        log(f"[chips] {name}: bound {bound:.4f} ms (f64 instructions "
+            f"{ops_ms:.4f}: {ops}, from {work}; bytes {bytes_ms:.4f}: "
+            f"{nbytes}), roofline share {bound / k[0]:.4f}")
+        rows[name] = {"ms": k[0], "ms_source": k[1], "events_ms": k[2],
+                      "host_ms": k[3], "plain_ms": k[4], "bound_ms": bound,
+                      "bound_by": "operations" if ops_ms >= bytes_ms
+                      else "bytes", "max_abs_err": 0.0, "work": work}
+    rows["tess_classify"]["degenerate_ms"] = small_ms
+    return {"counts": counts, "chips": len(chips),
+            "core": int(chips.is_core.sum()), "s": t_run, "warm_s": t_warm,
+            "stages_s": stages, "plain_s": t_plain,
+            "host_candidates_s": t_host, "k7": rows["tess_classify"],
+            "k8": rows["tess_clip"]}
+
+
 def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2199,6 +2628,7 @@ def main() -> int:
         bng = phase_sorted_bng()
         over = phase_overlay(polys, grid)
         knn = phase_knn()
+        chip = phase_chips()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2207,7 +2637,8 @@ def main() -> int:
              "overlay intersects": over["counts_intersects"],
              "overlay area": over["counts_area"],
              "knn brute": knn["paths"]["brute"]["counts"],
-             "knn ring": knn["paths"]["ring"]["counts"]}
+             "knn ring": knn["paths"]["ring"]["counts"],
+             "chip generation": chip["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -2223,6 +2654,8 @@ def main() -> int:
                                 if k not in ("kernel", "prep", "counts_intersects",
                                              "counts_area")}}))
     log(json.dumps({"knn": knn["paths"]}))
+    log(json.dumps({"chips": {k: v for k, v in chip.items()
+                              if k not in ("k7", "k8")}}))
     log(card)
     log(json.dumps({"kernels": [
         kernel_line("h3_project_lattice",
@@ -2264,7 +2697,17 @@ def main() -> int:
                     "mosaic_tpu_torch/csrc/knn_ring_step.cu",
                     "mosaic_tpu/models/knn.py:285",
                     knn["paths"]["ring"]["counts"]["knn_ring_step"],
-                    knn["k6"], by_path("knn_ring_step"))]}))
+                    knn["k6"], by_path("knn_ring_step")),
+        kernel_line("tess_classify",
+                    "mosaic_tpu_torch/csrc/tess_classify.cu",
+                    "mosaic_tpu/core/tessellate.py:330 + :102 (tess/parity "
+                    "and tess/pair_check under classify_cells_multi :282)",
+                    chip["counts"]["tess_classify"], chip["k7"],
+                    by_path("tess_classify")),
+        kernel_line("tess_clip", "mosaic_tpu_torch/csrc/tess_clip.cu",
+                    "mosaic_tpu/core/tessellate.py:488 (tess/clip)",
+                    chip["counts"]["tess_clip"], chip["k8"],
+                    by_path("tess_clip"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

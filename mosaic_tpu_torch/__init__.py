@@ -37,7 +37,7 @@ from .bench.workloads import (ais_pings_ports, build_workload, nyc_points,
 from .core.geometry.array import GeometryArray, GeometryBuilder, GeometryType
 from .core.geometry.wkt import read_wkt, write_wkt
 from .core.index.factory import get_index_system
-from .core.tessellate import point_chips, tessellate
+from .core.tessellate import point_chips, polyfill, tessellate
 from .models import (CheckpointManager, SpatialKNN, build_knn_indexes,
                      knn_host_truth, knn_index_from_arrays)
 from .ops.projection import project_lattice, project_lattice_ref
@@ -55,7 +55,7 @@ from .types import ChipSet
 __all__ = [
     "resolve_device", "build_workload", "nyc_points", "taxi_zones",
     "GeometryArray", "GeometryBuilder", "GeometryType", "read_wkt",
-    "write_wkt", "get_index_system", "point_chips", "tessellate",
+    "write_wkt", "get_index_system", "point_chips", "polyfill", "tessellate",
     "project_lattice", "project_lattice_ref", "DensePIPIndex", "PIPIndex",
     "build_dense_pip_index", "build_pip_index", "dense_index_from_arrays",
     "sorted_index_from_arrays", "host_recheck_fn", "localize",

@@ -418,3 +418,144 @@ def widen_zone_slots(tables: dict, step: int = 15) -> dict:
     out = {k: v for k, v in tables.items() if k != "aux"}
     out.update(pool=pool, gzones=wide)
     return out
+
+
+#: a res-5 H3 pentagon's centre (lon, lat), and a CONUS point
+PENTAGON_RES5 = (58.1577, 10.4473)
+CONUS_POINT = (-98.0, 39.0)
+
+
+def _regular(center, radius: float, k: int, phase: float) -> np.ndarray:
+    """A convex CCW k-gon, its vertices rounded to 2^-20 degrees."""
+    th = phase + 2 * np.pi * np.arange(k) / k
+    v = np.asarray(center)[None] + radius * np.stack(
+        [np.cos(th), np.sin(th)], -1)
+    return np.round(v * 2.0 ** 20) / 2.0 ** 20
+
+
+def _zigzag(p0: np.ndarray, p1: np.ndarray, teeth: int,
+            depth: float) -> np.ndarray:
+    """A concave ring whose 2 * teeth vertices zigzag across the line
+    p0 -> p1, closed by two points well on one side: a convex clip's
+    plane along that line meets it some 2 * teeth times."""
+    d = p1 - p0
+    nrm = np.array([-d[1], d[0]]) / np.hypot(*d)
+    s = np.linspace(0.05, 0.95, 2 * teeth)
+    side = np.tile([depth, -depth], teeth)
+    pts = p0 + s[:, None] * d + side[:, None] * nrm
+    back = [p0 + 0.95 * d - 4 * depth * nrm, p0 + 0.05 * d - 4 * depth * nrm]
+    return np.vstack([pts, back])
+
+
+def tess_adversarial(grid: IndexSystem, res: int = 5, n_random: int = 24,
+                     seed: int = 0) -> dict:
+    """Inputs of the tessellation kernels (``ops/tess_classify.py``,
+    ``ops/tess_clip.py``) where their tests tie or overflow, as numpy
+    flat CSR.  Cells: the H3 cells at ``res`` around a CONUS point and
+    around a pentagon (rings 0-1), and convex cells of 7-10 vertices.
+    Geometries: each H3 cell's own boundary (edges along cell sides);
+    triangles through a cell's vertices and its centre; rectangles with
+    horizontal edges at a cell vertex's latitude and a centre's; a ring
+    around the pentagon and one with the pentagon as its hole; stars
+    through the large cells' vertices; concave zigzags across cell sides
+    (beyond the clip's convex capacity, in shared and in global memory);
+    and ``n_random`` seeded random star polygons.  Pairs: every geometry
+    with every cell whose bbox its own bbox meets (grown by 0.05
+    degrees); clip tasks: each pair's rings.
+
+    Returns edges [E, 4], edge_off, pair_geo, pair_cell (pairs grouped by
+    geometry), cell_verts [U, 10, 2] (rows past a cell's count repeat its
+    last vertex), cell_counts (int32), centers [U, 2], ring_xy [V, 2],
+    ring_off, task_ring, task_cell and rings (per geometry, its open
+    rings, shell first)."""
+    rng = np.random.default_rng(seed)
+    kmax = 10
+    ids = []
+    for lon, lat in (CONUS_POINT, PENTAGON_RES5):
+        c = grid.point_to_cell(np.array([[lon, lat]]), res)
+        ring = grid.k_ring(c, 1)[0]
+        ids.append(ring[ring >= 0])
+    ids = np.unique(np.concatenate(ids))
+    hv, hc = grid.cell_boundary(ids)
+    hcen = grid.cell_center(ids)
+    cells = [(hv[i, :hc[i]], hcen[i]) for i in range(len(ids))]
+    base = np.asarray(CONUS_POINT) + np.array([1.5, 0.5])
+    for j, k in enumerate(range(7, kmax + 1)):
+        ctr = base + np.array([0.25 * j, 0.0])
+        cells.append((_regular(ctr, 0.1, k, 0.3 * j), ctr))
+    geoms = []                       # per geometry: list of open rings
+    for v, ctr in cells:
+        n = len(v)
+        geoms.append([v])
+        geoms.append([np.array([v[0], v[n // 3], v[2 * n // 3]])])
+        geoms.append([np.array([ctr, v[1], v[min(3, n - 1)]])])
+        lo, hi = ctr[0] - 0.3, ctr[0] + 0.3
+        for ya, yb in ((v[0, 1], ctr[1]), (v[n // 2, 1], v[1, 1])):
+            y0, y1 = min(ya, yb), max(ya, yb)
+            if y1 > y0:
+                geoms.append([np.array([[lo, y0], [hi, y0], [hi, y1],
+                                        [lo, y1]])])
+        if n >= 7:
+            star = np.array([v[i] if i % 2 == 0 else
+                             ctr + 0.4 * (v[i] - ctr) for i in range(n)])
+            geoms.append([star])
+        for teeth, k in ((24, 0), (40, n // 2)):
+            p0, p1 = v[k], v[(k + 1) % n]
+            geoms.append([_zigzag(p0, p1, teeth,
+                                  0.02 * np.hypot(*(p1 - p0)))])
+    pi = int(np.argmin(np.hypot(*(hcen - np.asarray(PENTAGON_RES5)).T)))
+    pv, pc = hv[pi, :hc[pi]], hcen[pi]
+    geoms.append([pc + 1.5 * (pv - pc)])
+    geoms.append([pc + 2.0 * (pv - pc), pv[::-1]])
+    for _ in range(n_random):
+        v, ctr = cells[rng.integers(len(cells))]
+        k = int(rng.integers(5, 30))
+        th = np.sort(rng.uniform(0, 2 * np.pi, k))
+        rad = rng.uniform(0.02, 0.15, k)
+        geoms.append([np.round((ctr + rng.uniform(-0.1, 0.1, 2) + rad[:, None]
+                                * np.stack([np.cos(th), np.sin(th)], -1))
+                               * 2.0 ** 16) / 2.0 ** 16])
+    # cell table
+    U = len(cells)
+    cell_verts = np.zeros((U, kmax, 2))
+    cell_counts = np.zeros(U, np.int32)
+    centers = np.zeros((U, 2))
+    for u, (v, ctr) in enumerate(cells):
+        cell_verts[u, :len(v)] = v
+        cell_verts[u, len(v):] = v[-1]
+        cell_counts[u] = len(v)
+        centers[u] = ctr
+    # edges and rings, CSR
+    edges_by, pool, ring_of = [], [], []
+    for rings in geoms:
+        edges_by.append(np.concatenate([
+            np.concatenate([r, np.roll(r, -1, 0)], 1) for r in rings]))
+        ring_of.append(list(range(len(pool), len(pool) + len(rings))))
+        pool.extend(rings)
+    edge_off = np.concatenate([[0], np.cumsum([len(e) for e in edges_by])])
+    ring_off = np.concatenate([[0], np.cumsum([len(r) for r in pool])])
+    # pairs by bbox
+    gb = np.array([[e[:, [0, 2]].min(), e[:, [1, 3]].min(),
+                    e[:, [0, 2]].max(), e[:, [1, 3]].max()]
+                   for e in edges_by])
+    valid = np.arange(kmax)[None] < cell_counts[:, None]
+    cb = np.stack([np.where(valid, cell_verts[..., 0], np.inf).min(1),
+                   np.where(valid, cell_verts[..., 1], np.inf).min(1),
+                   np.where(valid, cell_verts[..., 0], -np.inf).max(1),
+                   np.where(valid, cell_verts[..., 1], -np.inf).max(1)], -1)
+    near = (gb[:, None, 0] - 0.05 <= cb[None, :, 2]) & \
+        (cb[None, :, 0] <= gb[:, None, 2] + 0.05) & \
+        (gb[:, None, 1] - 0.05 <= cb[None, :, 3]) & \
+        (cb[None, :, 1] <= gb[:, None, 3] + 0.05)
+    pair_geo, pair_cell = np.nonzero(near)
+    task_ring = np.concatenate([ring_of[g] for g in pair_geo])
+    task_cell = np.repeat(pair_cell, [len(ring_of[g]) for g in pair_geo])
+    return {"edges": np.concatenate(edges_by),
+            "edge_off": edge_off.astype(np.int64),
+            "pair_geo": pair_geo.astype(np.int64),
+            "pair_cell": pair_cell.astype(np.int64),
+            "cell_verts": cell_verts, "cell_counts": cell_counts,
+            "centers": centers, "ring_xy": np.concatenate(pool),
+            "ring_off": ring_off.astype(np.int64),
+            "task_ring": task_ring.astype(np.int64),
+            "task_cell": task_cell.astype(np.int64), "rings": geoms}

@@ -133,13 +133,16 @@ class IndexSystem(abc.ABC):
         candidate generation (core/Mosaic.scala:61-99)."""
 
     def candidate_cells_batch(self, bboxes: np.ndarray, res: int,
-                              max_cells: int = 4_000_000) -> list:
+                              max_cells: int = 4_000_000,
+                              device=None) -> list:
         """candidate_cells for G bboxes at once: [G, 4] -> list of G int64
         arrays.  Default loops; grids whose candidate generation has
         per-call fixed costs (H3's dense sample lattice re-encodes the
         same cells for every overlapping bbox) override with a shared
         pass — profiling showed per-geometry candidate generation was
-        67% of tessellation time on the 281-zone bench workload."""
+        67% of tessellation time on the 281-zone bench workload.
+        ``device`` is where a grid that samples point lattices (H3) finds
+        their cells; this loop does not sample and ignores it."""
         out = []
         for g in range(len(bboxes)):
             bb = bboxes[g]

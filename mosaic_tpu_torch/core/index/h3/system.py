@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from ..base import IndexSystem
 from . import index as ix
@@ -24,6 +25,18 @@ from .constants import MAX_H3_RES
 from .hexmath import geo_to_xyz
 
 EARTH_RADIUS_KM = 6371.0088
+#: sampling lattices take the cell kernel from this many points, at
+#: resolutions up to SAMPLE_MAX_RES; smaller or finer ones the host ids
+SAMPLE_MIN_POINTS = 32768
+SAMPLE_MAX_RES = 10
+#: planar degrees: a sampling point whose kernel margin is below this is
+#: assigned again by the exact host path (the band the sorted join and
+#: chip_smoke.py hold the kernel to; it covers the f32 rounding of
+#: absolute CONUS longitudes)
+SAMPLE_MARGIN_DEG = 3e-5
+#: sampling points through the cell kernel, and those of them sent to the
+#: host path for a margin below SAMPLE_MARGIN_DEG
+SAMPLE_COUNTS = {"points": 0, "host_points": 0}
 
 
 def _deg_to_latlng(xy: np.ndarray) -> np.ndarray:
@@ -65,6 +78,34 @@ class H3IndexSystem(IndexSystem):
         if res not in self.resolutions():
             raise ValueError(f"resolution {res} outside supported range "
                              f"{self.resolutions()} for H3")
+
+    def _point_to_cell_sample(self, xy: np.ndarray, res: int,
+                              device=None) -> np.ndarray:
+        """Cell ids of a candidate-sampling lattice, equal to
+        ``point_to_cell``'s.
+
+        On ``device``, a lattice of at least SAMPLE_MIN_POINTS points at
+        res <= SAMPLE_MAX_RES goes through the cell kernel
+        (``ops/cell.py``, one launch; its plain version on the CPU) as
+        f32 degrees, and every point whose margin is below
+        SAMPLE_MARGIN_DEG is assigned again by the exact f64 host path,
+        so the candidate sets are the host's.  Otherwise (no device, a
+        small lattice, a fine res) the host path alone."""
+        if device is None or res > SAMPLE_MAX_RES or \
+                len(xy) < SAMPLE_MIN_POINTS:
+            return self.point_to_cell(xy, res)
+        from ....ops.cell import latlng_to_cell_margin
+        self._check_res(res)
+        xy = np.asarray(xy, np.float64)
+        cells, margin = latlng_to_cell_margin(
+            torch.from_numpy(xy.astype(np.float32)).to(device), res)
+        cells = cells.cpu().numpy()
+        low = np.nonzero(margin.cpu().numpy() < SAMPLE_MARGIN_DEG)[0]
+        if len(low):
+            cells[low] = self.point_to_cell(xy[low], res)
+        SAMPLE_COUNTS["points"] += len(xy)
+        SAMPLE_COUNTS["host_points"] += len(low)
+        return cells
 
     def cell_center(self, cells: np.ndarray) -> np.ndarray:
         return _latlng_to_deg(ix.cell_to_latlng(cells))
@@ -156,12 +197,14 @@ class H3IndexSystem(IndexSystem):
         return out
 
     def candidate_cells(self, bbox: np.ndarray, res: int,
-                        max_cells: int = 4_000_000) -> np.ndarray:
+                        max_cells: int = 4_000_000,
+                        device=None) -> np.ndarray:
         """Cells possibly intersecting a lon/lat bbox, by lattice-dense
         point sampling + dedupe (every cell contains a disk of its
         inradius; spacing 1.2*inr per latitude band keeps the sample
         half-diagonal at most ~0.9*inr for every row, so each cell's
-        inscribed disk contains a sample)."""
+        inscribed disk contains a sample).  The lattice's ids come from
+        ``_point_to_cell_sample`` on ``device``."""
         self._check_res(res)
         inr, circ = self._cell_metrics_deg(res)
         x0, y0, x1, y1 = (float(bbox[0]) - circ, float(bbox[1]) - circ,
@@ -176,8 +219,8 @@ class H3IndexSystem(IndexSystem):
             gx, gy = np.meshgrid(bx0 + np.arange(nx) * sx,
                                  by0 + np.arange(ny) * sy, indexing="ij")
             pts.append(np.stack([gx.ravel(), gy.ravel()], axis=-1))
-        cells = np.unique(self.point_to_cell(
-            np.concatenate(pts), res))
+        cells = np.unique(self._point_to_cell_sample(
+            np.concatenate(pts), res, device))
         if len(cells) > max_cells:
             raise ValueError(
                 f"bbox covers {len(cells)} cells at res {res}")
@@ -231,8 +274,15 @@ class H3IndexSystem(IndexSystem):
                 if own.any():
                     yield cells[own]
 
+    def _candidates_each(self, bboxes, ok, res: int, max_cells: int,
+                         device) -> list:
+        """candidate_cells per bbox (empty where ``ok`` is False)."""
+        return [self.candidate_cells(bb, res, max_cells, device) if k
+                else np.empty(0, np.int64) for bb, k in zip(bboxes, ok)]
+
     def candidate_cells_batch(self, bboxes: np.ndarray, res: int,
-                              max_cells: int = 4_000_000) -> list:
+                              max_cells: int = 4_000_000,
+                              device=None) -> list:
         """Shared-lattice batch candidate generation.
 
         The per-bbox path re-encodes a dense sample lattice per call;
@@ -242,11 +292,12 @@ class H3IndexSystem(IndexSystem):
         bbox, latlng_to_cell runs once, and each geometry selects its
         sample rows/cols by index arithmetic.  Falls back to the
         per-bbox loop when the union is much larger than the sum of
-        parts (sparse, far-apart geometries)."""
+        parts (sparse, far-apart geometries).  The lattices' ids come
+        from ``_point_to_cell_sample`` on ``device``."""
         bboxes = np.asarray(bboxes, np.float64)
         ok = ~np.any(np.isnan(bboxes), axis=1)
         if ok.sum() < 2:
-            return super().candidate_cells_batch(bboxes, res, max_cells)
+            return self._candidates_each(bboxes, ok, res, max_cells, device)
         self._check_res(res)
         inr, circ = self._cell_metrics_deg(res)
         padded = bboxes.copy()
@@ -266,14 +317,14 @@ class H3IndexSystem(IndexSystem):
             np.maximum(padded[ok, 3] - padded[ok, 1], sy))
         if total > 4 * max_cells or \
                 total * (sy * sy) > 6.0 * area_sum:
-            return super().candidate_cells_batch(bboxes, res, max_cells)
+            return self._candidates_each(bboxes, ok, res, max_cells, device)
         band_cells = []
         for bx0, by0, sx, sb, nx, ny in bands:
             gx, gy = np.meshgrid(bx0 + np.arange(nx) * sx,
                                  by0 + np.arange(ny) * sb, indexing="ij")
-            band_cells.append(self.point_to_cell(
+            band_cells.append(self._point_to_cell_sample(
                 np.stack([gx.ravel(), gy.ravel()], axis=-1),
-                res).reshape(nx, ny))
+                res, device).reshape(nx, ny))
         out = []
         for g in range(len(bboxes)):
             if not ok[g]:

@@ -738,9 +738,9 @@ class SpatialKNN(IterativeTransformer):
             return self._geoms_pruned_topk(left, right)
         grid = self.grid
         chips_l = tessellate(left, self.res, grid,
-                             keep_core_geom=False)
+                             keep_core_geom=False, device=self.device)
         chips_r = tessellate(right, self.res, grid,
-                             keep_core_geom=False)
+                             keep_core_geom=False, device=self.device)
         # sorted cell -> right geom table
         rc = chips_r.cell_id.astype(np.int64)
         rg = chips_r.geom_id.astype(np.int64)

@@ -57,15 +57,18 @@ EPS_DEG = 1e-6
 
 def pack_chip_rows(polys: GeometryArray, res: int, grid: IndexSystem,
                    chips: Optional[ChipSet] = None,
-                   origin: Optional[np.ndarray] = None):
+                   origin: Optional[np.ndarray] = None,
+                   device: DeviceLike = None):
     """ChipSet -> dense rows (cell i64, geom i32, edges [N, E, 4] f32
     origin-local with 1e9 padding, valid bool, origin, chips).
 
     Core chips are fully covered by their polygon, so for the overlay a
     core chip is the cell itself: ``tessellate(keep_core_geom=True)``
-    emits the cell polygon for it."""
+    emits the cell polygon for it; without ``chips`` it tessellates on
+    ``device``."""
     if chips is None:
-        chips = tessellate(polys, res, grid, keep_core_geom=True)
+        chips = tessellate(polys, res, grid, keep_core_geom=True,
+                           device=device)
     A, B, M = build_edges_np(chips.geoms)
     if origin is None:
         bb = polys.bboxes()
@@ -122,8 +125,9 @@ def overlay_row_pairs(chips_a: ChipSet, chips_b: ChipSet,
     ascending key order; the dense [GA, GB] matrix never
     materializes."""
     dev = resolve_device(device)
-    ra = pack_chip_rows(polys_a, res, grid, chips=chips_a)
-    rb = pack_chip_rows(polys_b, res, grid, chips=chips_b, origin=ra[4])
+    ra = pack_chip_rows(polys_a, res, grid, chips=chips_a, device=dev)
+    rb = pack_chip_rows(polys_b, res, grid, chips=chips_b, origin=ra[4],
+                        device=dev)
     ca, _, ea, va = ra[:4]
     cb, _, eb, vb = rb[:4]
     row_mult = int(len(cb)) + 1
@@ -155,9 +159,11 @@ def overlay_intersection_area(polys_a: GeometryArray,
     Returns (ga [K], gb [K], area [K]) for pairs with area > 0."""
     from ..core.geometry.clip import pairs_intersection_area
     if chips_a is None:
-        chips_a = tessellate(polys_a, res, grid, keep_core_geom=True)
+        chips_a = tessellate(polys_a, res, grid, keep_core_geom=True,
+                             device=device)
     if chips_b is None:
-        chips_b = tessellate(polys_b, res, grid, keep_core_geom=True)
+        chips_b = tessellate(polys_b, res, grid, keep_core_geom=True,
+                             device=device)
     rows_a, rows_b = overlay_row_pairs(chips_a, chips_b, polys_a, polys_b,
                                        res, grid, device=device)
     areas = pairs_intersection_area(chips_a.geoms, rows_a, chips_b.geoms,
@@ -229,9 +235,9 @@ def overlay_intersects(polys_a: GeometryArray, polys_b: GeometryArray,
     f64.  This is the BASELINE config 3 (building footprints x flood
     zones) engine."""
     dev = resolve_device(device)
-    rows_a = pack_chip_rows(polys_a, res, grid, chips=chips_a)
+    rows_a = pack_chip_rows(polys_a, res, grid, chips=chips_a, device=dev)
     rows_b = pack_chip_rows(polys_b, res, grid, chips=chips_b,
-                            origin=rows_a[4])
+                            origin=rows_a[4], device=dev)
     h, z = overlay_dense(overlay_rows_from_arrays(rows_a, dev),
                          overlay_rows_from_arrays(rows_b, dev),
                          len(polys_a), len(polys_b),

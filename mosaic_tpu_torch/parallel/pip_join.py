@@ -206,7 +206,8 @@ def build_dense_pip_index(polys: GeometryArray, res: int, grid,
         _dense_reject("non_h3_grid")
         return None
     if chips is None:
-        chips = tessellate(polys, res, grid, keep_core_geom=False)
+        chips = tessellate(polys, res, grid, keep_core_geom=False,
+                           device=dev)
     if len(chips) == 0:
         _dense_reject("no_chips")
         return None
@@ -472,7 +473,8 @@ def build_pip_index(polys: GeometryArray, res: int, grid,
                          f"{dense!r}")
     dev = resolve_device(device)
     if chips is None:
-        chips = tessellate(polys, res, grid, keep_core_geom=False)
+        chips = tessellate(polys, res, grid, keep_core_geom=False,
+                           device=dev)
     if dense != "never":
         d = build_dense_pip_index(polys, res, grid, chips=chips, device=dev)
         if d is not None:

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import mosaic_tpu_torch as mt
+from mosaic_tpu_torch.core.tessellate import convex_clip_rings
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "mosaic_tpu"}
@@ -43,6 +44,7 @@ sys.modules["mosaic_tpu"] = None
 import numpy as np
 import torch
 import mosaic_tpu_torch as mt
+from mosaic_tpu_torch.core.tessellate import convex_clip_rings
 
 torch.set_num_threads(1)
 polys = mt.read_wkt([
@@ -100,6 +102,16 @@ def test_entry_points_default_to_cuda():
     polys = mt.read_wkt(["POLYGON ((-74.02 40.70, -73.95 40.70, "
                          "-73.95 40.76, -74.02 40.76, -74.02 40.70))"])
     grid = mt.get_index_system("H3")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.tessellate(polys, 9, grid)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.polyfill(polys, 9, grid)
+    assert len(mt.tessellate(polys, 9, grid, device="cpu")) > 0
+    square = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convex_clip_rings([square], square[None], np.array([4], np.int32))
+    assert convex_clip_rings([square], square[None], np.array([4], np.int32),
+                             device="cpu")[0][0].shape == (4, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mt.build_pip_index(polys, 9, grid)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -137,8 +137,8 @@ def packed(data, grids):
     jg, tg = grids
     jra = jov.pack_chip_rows(ja, RES, jg)
     jrb = jov.pack_chip_rows(jb, RES, jg, origin=jra[4])
-    tra = tov.pack_chip_rows(ta, RES, tg)
-    trb = tov.pack_chip_rows(tb, RES, tg, origin=tra[4])
+    tra = tov.pack_chip_rows(ta, RES, tg, device="cpu")
+    trb = tov.pack_chip_rows(tb, RES, tg, origin=tra[4], device="cpu")
     return jra, jrb, tra, trb
 
 
@@ -248,8 +248,8 @@ def test_intersects_edge_cases(case, grids):
     if case is disjoint_sets:
         assert not got.any()
     if case is crowded_cell:
-        ra = tov.pack_chip_rows(ta, RES, tg)
-        rb = tov.pack_chip_rows(tb, RES, tg, origin=ra[4])
+        ra = tov.pack_chip_rows(ta, RES, tg, device="cpu")
+        rb = tov.pack_chip_rows(tb, RES, tg, origin=ra[4], device="cpu")
         _, start, upper = tops.probe(overlay_rows_from_arrays(ra, "cpu"),
                                      overlay_rows_from_arrays(rb, "cpu"))
         assert int((upper - start).max()) > 8
@@ -261,8 +261,8 @@ def test_row_pairs_equal_jax(data, grids):
     jg, tg = grids
     jca = jtess_module.tessellate(ja, RES, jg, keep_core_geom=True)
     jcb = jtess_module.tessellate(jb, RES, jg, keep_core_geom=True)
-    tca = ttess(ta, RES, tg, keep_core_geom=True)
-    tcb = ttess(tb, RES, tg, keep_core_geom=True)
+    tca = ttess(ta, RES, tg, keep_core_geom=True, device="cpu")
+    tcb = ttess(tb, RES, tg, keep_core_geom=True, device="cpu")
     j = jov.overlay_row_pairs(jca, jcb, ja, jb, RES, jg)
     t = tov.overlay_row_pairs(tca, tcb, ta, tb, RES, tg, device="cpu")
     assert len(t[0]) > 100
@@ -372,7 +372,8 @@ def test_overlay_entry_points_default_to_cuda(data, grids):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tov.overlay_intersection_area(ta, tb, RES, tg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        overlay_rows_from_arrays(tov.pack_chip_rows(tb, RES, tg))
+        overlay_rows_from_arrays(tov.pack_chip_rows(tb, RES, tg,
+                                                    device="cpu"))
 
 
 def test_footprints_follow_bench_py():

@@ -63,7 +63,7 @@ def test_taxi_workload_res9_bit_equal():
     assert np.asarray(jp.coords).tobytes() == np.asarray(tp.coords).tobytes()
     assert np.array_equal(jp.ring_offsets, tp.ring_offsets)
     j = jtess(jp, res, jg, keep_core_geom=False)
-    t = ttess(tp, res, tg, keep_core_geom=False)
+    t = ttess(tp, res, tg, keep_core_geom=False, device="cpu")
     assert len(t) > 1000 and t.is_core.any() and (~t.is_core).any()
     assert_chipsets_equal(j, t)
 
@@ -85,7 +85,7 @@ def test_holes_and_multipolygons_custom_grid_bit_equal(res):
     j = jtess(jread_wkt(CUSTOM_WKT), res,
               JCustom(JConf(0, 16, 0, 16, 2, 1.0, 1.0)))
     t = ttess(tread_wkt(CUSTOM_WKT), res,
-              TCustom(TConf(0, 16, 0, 16, 2, 1.0, 1.0)))
+              TCustom(TConf(0, 16, 0, 16, 2, 1.0, 1.0)), device="cpu")
     assert_chipsets_equal(j, t)
 
 
@@ -96,6 +96,7 @@ def test_h3_polygon_with_hole_keep_core_bit_equal():
            " -74.00 40.72))"]
     assert jget("CUSTOM(0,16,0,16,2,1,1)") is not None
     j = jtess(jread_wkt(wkt), 9, jget("H3"), keep_core_geom=True)
-    t = ttess(tread_wkt(wkt), 9, tget("H3"), keep_core_geom=True)
+    t = ttess(tread_wkt(wkt), 9, tget("H3"), keep_core_geom=True,
+              device="cpu")
     assert t.is_core.sum() > 0
     assert_chipsets_equal(j, t)
