@@ -25,7 +25,9 @@ Phases (any failure exits non-zero and prints no result):
 4. df contract — K1 against the f64 host lattice (hexmath) on 500,000
    points in ±0.4° × ±0.3° around (-74.0, 40.7): no disagreement with
    margin >= err_lattice_bound(9, "df", 0.4);
-5. flagship join (dense) — 281 taxi zones at H3 res 9, the streamed join
+5. flagship join (dense) — 281 taxi zones at H3 res 9 (their
+   tessellation on the card counted, its K7 and K8 inputs kept for phase
+   13), the streamed join
    over 4 batches of 2^22 points (seeds 100-103) in 2^18-row chunks,
    through the public entry points; final zones equal ``pip_host_truth``
    on a seeded 65,536-point sample, uncertain share below 5e-3, one K2
@@ -77,8 +79,9 @@ Phases (any failure exits non-zero and prints no result):
     (res 3, 100-200 km east and north) on 2^20 points, 0 mismatches;
 11. overlay — 2^17 footprint boxes from bench.py's generator (seed 41)
     x the 281 taxi zones at H3 res 9, each side tessellated once on the
-    card (``keep_core_geom=True``; the footprints timed by stage, and the
-    ChipSet of the first 2^14 held bit-equal to the plain path) and
+    card (``keep_core_geom=True``; both counted, the footprints timed by
+    stage and their K7 and K8 inputs kept for phase 13, and the ChipSet
+    of the first 2^14 held bit-equal to the plain path) and
     reused: ``overlay_intersects`` (one K4
     launch) and ``overlay_intersection_area`` (one or two K4 launches
     and the native ``intersect_area_pairs``), counted; the entry point's
@@ -126,16 +129,25 @@ Phases (any failure exits non-zero and prints no result):
     launches, K8 relaunches, K3 launches, sampling points and those sent
     to the host path) with no plain version running; 93,595 chips,
     bit-equal to ``tessellate(..., device="cpu")`` (the plain versions);
-    the candidate sets equal to the host's exact sets; K7 and K8 against
-    their plain versions on the run's own inputs and on
-    ``tess_adversarial``'s degenerate set (edges along cell sides and
-    through vertices, horizontal edges, a pentagon, cells of up to 10
-    vertices, concave rings past K8's convex capacity, relaunched), timed
-    beside their bounds (f64 instructions counted from the run's data at
-    the FP64 rate, and bytes);
-14. the ``sorted``, ``overlay``, ``knn`` and ``chips`` summary lines, the
-    card, the ``kernels`` JSON line (K1-K8 with launches per path), then
-    the last line ``{"ok": true, "device": {...}}``.
+    the candidate sets equal to the host's exact sets; every tessellation
+    on the card (this one, phase 5's index build and phase 11's two
+    sides) with exactly one K7 launch and one K8 launch plus its
+    relaunches; K7 and K8, at every lane width they take and at the
+    wrappers' pick, bit-equal to their plain versions on four input
+    sets: the county run's, ``tess_adversarial``'s degenerate set (edges
+    along cell sides and through vertices, horizontal edges, a pentagon,
+    cells of up to 10 vertices, concave rings past K8's convex capacity,
+    relaunched), phase 5's index build over the 281 taxi zones and phase
+    11's 2^17 footprints; each timed on each set (K8 but on the
+    degenerate set, whose relaunches sit inside the call) beside its
+    bound (f64 instructions counted from the set's data at the FP64
+    rate, and bytes), its plain version and its wrapper's host enqueue,
+    and at every lane width;
+14. the ``sorted``, ``overlay``, ``knn``, ``chips`` and ``tess_kernels``
+    (K7 and K8 by input set and lane width) summary lines, the card, the
+    ``kernels`` JSON line (K1-K8 with launches per path, the
+    tessellations of phases 5 and 11 among the paths), then the last
+    line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -288,9 +300,11 @@ PEAK_F64_OPS = 34e12 / 2
 #: are not counted
 F64_DIV_OPS = 8
 #: K7's f64 instructions, the least that csrc/tess_classify.cu's
-#: function needs: per (pair, edge) the two subtracts and the compare of
-#: den and dx, and the bbox test's four min/max and four compares; per
-#: (pair, query, edge) two compares; per straddling one a subtract, the
+#: function needs: per (pair, edge) dx = bx - ax and xe = ax + dx, and
+#: the bbox test's four min/max and four compares; per (pair, query,
+#: edge) two compares; per straddling one px < ax and px < xe, and where
+#: that does not settle it px >= ax and px >= xe (the crossing's x lies
+#: between ax and xe); where neither does, den = by - ay, a subtract, the
 #: divide, a multiply, an add and a compare.  Per overlapping (pair, edge)
 #: and cell vertex v_k: v_k - a (2), d_k = orient(a, b, v_k) on those and
 #: the edge's vector (3) and its sign and zero tests (2), which side k's
@@ -302,9 +316,11 @@ F64_DIV_OPS = 8
 #: which the bbox test took, for d_k; the side's four min/max and four
 #: compares for d3 and d4.  Per cell of the table and vertex: its bbox's
 #: four min/max and its side vector's two subtracts
-K7_PER_EDGE = 3 + 8
+K7_PER_EDGE = 2 + 8
 K7_PER_QUERY_EDGE = 2
-K7_PER_STRADDLE = 4 + F64_DIV_OPS
+K7_PER_STRADDLE = 2
+K7_PER_STRADDLE_RIGHT = 2
+K7_PER_EXACT = 5 + F64_DIV_OPS
 K7_PER_VERTEX = 2 + 3 + 2
 K7_PER_SIDE = 3 + 5 + 4
 K7_PER_ZERO_VERTEX = 4
@@ -682,9 +698,8 @@ def phase_flagship():
     polys, grid, res = mt.build_workload(n_side=16, grid_name="H3",
                                          zones="taxi")
     t_work = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    chips = mt.tessellate(polys, res, grid, keep_core_geom=False, device=DEV)
-    t_tess = time.perf_counter() - t0
+    chips, t_tess = tessellate_kept("flagship index build", polys, res,
+                                    grid, keep_core_geom=False)
     t0 = time.perf_counter()
     idx = mt.build_pip_index(polys, res, grid, chips=chips, device=DEV)
     t_idx = time.perf_counter() - t0
@@ -1441,16 +1456,37 @@ def tess_stage_targets():
             (tess, "_classify_pairs"), (tess, "_clip_tasks")]
 
 
-def tessellate_staged(arr, res: int, grid, keep_core_geom: bool):
-    """(ChipSet, seconds, seconds by stage) of ``tessellate`` on the card;
-    ``assembly`` is the rest: the per-geometry ChipSet assembly and the
-    host's CSR and ring-pool packing."""
+#: tessellations on the card by path: their kernel launch counts and the
+#: last K7 and K8 inputs (phase 13 holds K7 and K8 to their plain
+#: versions and times them on each)
+TESS_PATHS: dict = {}
+
+
+def tessellate_kept(path: str, arr, res: int, grid, keep_core_geom: bool):
+    """(ChipSet, seconds) of ``tessellate`` on the card, its launch
+    counts (counts to 0 before, read after) and its last K7 and K8
+    arguments kept in TESS_PATHS[path]."""
     import mosaic_tpu_torch as mt
-    with StepClock(tess_stage_targets()) as clock:
+    from mosaic_tpu_torch.core import tessellate as tess
+    with LastArgs([(tess, "tess_classify"), (tess, "tess_clip")]) as kept:
+        reset_counts()
         t0 = time.perf_counter()
         chips = mt.tessellate(arr, res, grid, keep_core_geom=keep_core_geom,
                               device=DEV)
         seconds = time.perf_counter() - t0
+        counts = launch_counts()
+    TESS_PATHS[path] = {"counts": counts, "k7": kept.args["tess_classify"],
+                        "k8": kept.args["tess_clip"]}
+    return chips, seconds
+
+
+def tessellate_staged(path: str, arr, res: int, grid, keep_core_geom: bool):
+    """(ChipSet, seconds, seconds by stage) of :func:`tessellate_kept`;
+    ``assembly`` is the rest: the per-geometry ChipSet assembly and the
+    host's CSR and ring-pool packing."""
+    with StepClock(tess_stage_targets()) as clock:
+        chips, seconds = tessellate_kept(path, arr, res, grid,
+                                         keep_core_geom)
         stages = clock.take()
     stages["assembly"] = round(seconds - sum(stages.values()), 4)
     return chips, seconds, stages
@@ -1638,8 +1674,10 @@ def phase_overlay(zones, grid):
     t0 = time.perf_counter()
     foot = footprints(OVERLAY_FOOTPRINTS)
     t_gen = time.perf_counter() - t0
-    chips_a, t_tess_a, stages_a = tessellate_staged(foot, RES, grid, True)
-    chips_b, t_tess_b, _ = tessellate_staged(zones, RES, grid, True)
+    chips_a, t_tess_a, stages_a = tessellate_staged(
+        "overlay footprint tessellation", foot, RES, grid, True)
+    chips_b, t_tess_b, _ = tessellate_staged(
+        "overlay zone tessellation", zones, RES, grid, True)
     GA, GB = len(foot), len(zones)
     log(f"[overlay] {GA} footprints (made in {t_gen:.2f} s) -> "
         f"{len(chips_a)} chips ({int(chips_a.is_core.sum())} core), "
@@ -2352,11 +2390,19 @@ def k7_work(args):
                                  int(edges.shape[0]))]
         cv = verts[pair_cell[s:e]]
         vmask = kk[None] < n[s:e, None]
+        px = torch.cat([centers[pair_cell[s:e], 0:1], cv[..., 0]], 1)
         py = torch.cat([centers[pair_cell[s:e], 1:2], cv[..., 1]], 1)
         qmask = torch.cat([torch.ones_like(vmask[:, :1]), vmask], 1)
         st = (eg[:, None, :, 1] <= py[..., None]) != \
             (eg[:, None, :, 3] <= py[..., None])
-        work["straddles"] += int((st & qmask[..., None]).sum())
+        st &= qmask[..., None]
+        ax = eg[:, None, :, 0]
+        xe = ax + (eg[:, None, :, 2] - ax)
+        left = st & (px[..., None] < ax) & (px[..., None] < xe)
+        right = st & ~left & (px[..., None] >= ax) & (px[..., None] >= xe)
+        work["straddles"] += int(st.sum())
+        work["straddles_not_left"] += int((st & ~left).sum())
+        work["exact"] += int((st & ~left & ~right).sum())
         inf = float("inf")
         cb = [torch.where(vmask, cv[..., i], v).amin(1) if v > 0 else
               torch.where(vmask, cv[..., i], v).amax(1)
@@ -2381,6 +2427,8 @@ def k7_work(args):
     ops = K7_PER_EDGE * work["pair_edges"] + \
         K7_PER_QUERY_EDGE * work["query_edges"] + \
         K7_PER_STRADDLE * work["straddles"] + \
+        K7_PER_STRADDLE_RIGHT * work["straddles_not_left"] + \
+        K7_PER_EXACT * work["exact"] + \
         (K7_PER_VERTEX + K7_PER_SIDE) * work["overlap_sides"] + \
         K7_PER_ZERO_VERTEX * work["zero_vertices"] + \
         K7_PER_ZERO_SIDE * work["zero_sides"] + \
@@ -2526,68 +2574,103 @@ def phase_chips():
         f"sampling points sent to the host")
     check(bad == 0, f"{bad} candidate sets differ from the host's")
 
-    # ---- K7 and K8 against their plain versions: the run's inputs, the
-    # degenerate set
-    k7_args = kept.args["tess_classify"]
-    k8_args = kept.args["tess_clip"]
+    # ---- K7 and K8 against their plain versions, at every lane width
+    # they take, on four input sets: the county run's, the degenerate set,
+    # the flagship's index build (phase 5) and the overlay's footprints
+    # (phase 11)
+    TESS_PATHS["chip generation"] = {"counts": counts,
+                                     "k7": kept.args["tess_classify"],
+                                     "k8": kept.args["tess_clip"]}
     adv = tess_adversarial(grid)
-    adv7 = [torch.from_numpy(np.ascontiguousarray(adv[k])).to(DEV) for k in
-            ("edges", "edge_off", "pair_geo", "pair_cell", "cell_verts",
-             "cell_counts", "centers")]
-    adv8 = [torch.from_numpy(np.ascontiguousarray(adv[k])).to(DEV) for k in
-            ("ring_xy", "ring_off", "task_ring", "task_cell", "cell_verts",
-             "cell_counts")]
-    for label, a7, a8 in (("run", k7_args, k8_args),
-                          ("degenerate", adv7, adv8)):
-        got = tc.tess_classify(*a7)
+    sets = {"county": TESS_PATHS["chip generation"],
+            "degenerate": {
+                "k7": [torch.from_numpy(np.ascontiguousarray(adv[k])).to(DEV)
+                       for k in ("edges", "edge_off", "pair_geo",
+                                 "pair_cell", "cell_verts", "cell_counts",
+                                 "centers")],
+                "k8": [torch.from_numpy(np.ascontiguousarray(adv[k])).to(DEV)
+                       for k in ("ring_xy", "ring_off", "task_ring",
+                                 "task_cell", "cell_verts", "cell_counts")]},
+            "zones": TESS_PATHS["flagship index build"],
+            "footprints": TESS_PATHS["overlay footprint tessellation"]}
+    for path, kept_path in TESS_PATHS.items():
+        c = kept_path["counts"]
+        check(c["tess_classify"] == 1 and
+              c["tess_clip"] == 1 + c["tess_clip_relaunches"],
+              f"{path}: K7 launched {c['tess_classify']} "
+              f"and K8 {c['tess_clip']} times ({c['tess_clip_relaunches']} "
+              "relaunches), not once each")
+    for label, kernel_args in sets.items():
+        a7, a8 = kernel_args["k7"], kernel_args["k8"]
         want = tc.classify_pairs_ref(*a7)
-        flags = [int((g != w).sum()) for g, w in zip(got, want)]
-        relaunch = tcl.tess_clip.relaunches
-        got8 = tcl.tess_clip(*a8)
-        relaunch = tcl.tess_clip.relaunches - relaunch
-        ok8 = same_clip(got8, tcl.clip_tasks_ref(*a8))
+        flags = {lanes: [int((g != w).sum()) for g, w in
+                         zip(tc.tess_classify(*a7, lanes=lanes), want)]
+                 for lanes in (None, *tc.LANES)}
+        want8 = tcl.clip_tasks_ref(*a8)
+        ok8, relaunch = {}, 0
+        for lanes in (None, *tcl.LANES):
+            before = tcl.tess_clip.relaunches
+            ok8[lanes] = same_clip(tcl.tess_clip(*a8, lanes=lanes), want8)
+            if lanes is None:
+                relaunch = tcl.tess_clip.relaunches - before
         log(f"[chips] K7 on the {label} set ({int(a7[2].shape[0])} pairs): "
-            f"touching and core differ from the plain version at {flags}; "
-            f"K8 ({int(a8[2].shape[0])} tasks, {relaunch} relaunches): "
-            f"{'bit-equal' if ok8 else 'DIFFERENT'}")
-        check(flags == [0, 0], f"K7 differs from plain on the {label} set")
-        check(ok8, f"K8 differs from plain on the {label} set")
+            f"touching and core differ from the plain version at {flags} "
+            f"by lanes a pair (None: the wrapper's pick); K8 "
+            f"({int(a8[2].shape[0])} tasks, {relaunch} relaunches) "
+            f"bit-equal by lanes a task {ok8}")
+        check(all(f == [0, 0] for f in flags.values()),
+              f"K7 differs from plain on the {label} set: {flags}")
+        check(all(ok8.values()), f"K8 differs from plain on the {label} "
+              f"set: {ok8}")
         if label == "degenerate":
             check(relaunch >= 1, "the degenerate set's concave rings did "
                   "not overflow K8's convex capacity")
 
-    # ---- K7 and K8 timed beside their bounds and plain versions
-    ops7, bytes7, w7 = k7_work(k7_args)
-    ops8, bytes8, w8, _ = k8_work(k8_args)
-    k7 = timed_kernel("chips K7", lambda: tc.tess_classify(*k7_args),
-                      lambda: tc.classify_pairs_ref(*k7_args),
-                      "classify_kernel", 2)
-    small_ms = kernel_device_ms(lambda: tc.tess_classify(*adv7), 30,
-                                "classify_kernel")[0]
-    log(f"[chips] K7 on the degenerate set ({int(adv7[2].shape[0])} pairs, "
-        f"a thread a pair): {small_ms:.4f} ms")
-    k8 = timed_kernel("chips K8", lambda: tcl.tess_clip(*k8_args),
-                      lambda: tcl.clip_tasks_ref(*k8_args), "clip_kernel", 2)
-    rows = {}
-    for name, k, ops, nbytes, work in (("tess_classify", k7, ops7, bytes7,
-                                        w7),
-                                       ("tess_clip", k8, ops8, bytes8, w8)):
-        ops_ms = ops / PEAK_F64_OPS * 1e3
-        bytes_ms = nbytes / PEAK_BYTES * 1e3
-        bound = max(ops_ms, bytes_ms)
-        log(f"[chips] {name}: bound {bound:.4f} ms (f64 instructions "
-            f"{ops_ms:.4f}: {ops}, from {work}; bytes {bytes_ms:.4f}: "
-            f"{nbytes}), roofline share {bound / k[0]:.4f}")
-        rows[name] = {"ms": k[0], "ms_source": k[1], "events_ms": k[2],
-                      "host_ms": k[3], "plain_ms": k[4], "bound_ms": bound,
-                      "bound_by": "operations" if ops_ms >= bytes_ms
-                      else "bytes", "max_abs_err": 0.0, "work": work}
-    rows["tess_classify"]["degenerate_ms"] = small_ms
+    # ---- K7 and K8 timed beside their bounds and plain versions, by
+    # input set, and at every lane width they take
+    rows = {"tess_classify": {"shapes": {}}, "tess_clip": {"shapes": {}}}
+    for label, kernel_args in sets.items():
+        a7, a8 = kernel_args["k7"], kernel_args["k8"]
+        timed = [("tess_classify", tc, a7, k7_work(a7),
+                  lambda a=a7: tc.classify_pairs_ref(*a), "classify_kernel")]
+        if label != "degenerate":      # its K8 relaunches inside the call
+            timed.append(("tess_clip", tcl, a8, k8_work(a8)[:3],
+                          lambda a=a8: tcl.clip_tasks_ref(*a),
+                          "clip_kernel"))
+        for name, mod, args, (ops, nbytes, work), plain, kname in timed:
+            wrapper = getattr(mod, name)
+            kernel = lambda a=args, f=wrapper: f(*a)
+            k = timed_kernel(f"chips {name} {label}", kernel, plain, kname,
+                             2)
+            ops_ms = ops / PEAK_F64_OPS * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            bound = max(ops_ms, bytes_ms)
+            row = {"ms": k[0], "ms_source": k[1], "events_ms": k[2],
+                   "host_ms": k[3], "plain_ms": k[4], "bound_ms": bound,
+                   "bound_by": "operations" if ops_ms >= bytes_ms
+                   else "bytes", "share": bound / k[0], "work": work}
+            if label != "degenerate":
+                row["lanes_ms"] = {
+                    lanes: kernel_device_ms(
+                        lambda a=args, w=lanes, f=wrapper: f(*a, lanes=w),
+                        30, kname)[0] for lanes in mod.LANES}
+            log(f"[chips] {name} on the {label} set: {k[0]:.4f} ms, bound "
+                f"{bound:.4f} ms (f64 instructions {ops_ms:.4f}: {ops}, "
+                f"from {work}; bytes {bytes_ms:.4f}: {nbytes}), roofline "
+                f"share {bound / k[0]:.4f}"
+                + (f"; by lanes {row['lanes_ms']}"
+                   if "lanes_ms" in row else ""))
+            rows[name]["shapes"][label] = row
+    for name in rows:
+        # the kernels line reads the county run's
+        rows[name].update({**rows[name]["shapes"]["county"],
+                           "max_abs_err": 0.0})
     return {"counts": counts, "chips": len(chips),
             "core": int(chips.is_core.sum()), "s": t_run, "warm_s": t_warm,
             "stages_s": stages, "plain_s": t_plain,
             "host_candidates_s": t_host, "k7": rows["tess_classify"],
-            "k8": rows["tess_clip"]}
+            "k8": rows["tess_clip"],
+            "tess_counts": {p: v["counts"] for p, v in TESS_PATHS.items()}}
 
 
 def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
@@ -2638,7 +2721,7 @@ def main() -> int:
              "overlay area": over["counts_area"],
              "knn brute": knn["paths"]["brute"]["counts"],
              "knn ring": knn["paths"]["ring"]["counts"],
-             "chip generation": chip["counts"]}
+             **chip["tess_counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -2655,7 +2738,11 @@ def main() -> int:
                                              "counts_area")}}))
     log(json.dumps({"knn": knn["paths"]}))
     log(json.dumps({"chips": {k: v for k, v in chip.items()
-                              if k not in ("k7", "k8")}}))
+                              if k not in ("k7", "k8", "tess_counts")}}))
+    log(json.dumps({"tess_kernels": {
+        name: {label: {k: v for k, v in row.items() if k != "work"}
+               for label, row in chip[key]["shapes"].items()}
+        for name, key in (("tess_classify", "k7"), ("tess_clip", "k8"))}}))
     log(card)
     log(json.dumps({"kernels": [
         kernel_line("h3_project_lattice",
@@ -2701,7 +2788,7 @@ def main() -> int:
         kernel_line("tess_classify",
                     "mosaic_tpu_torch/csrc/tess_classify.cu",
                     "mosaic_tpu/core/tessellate.py:330 + :102 (tess/parity "
-                    "and tess/pair_check under classify_cells_multi :282)",
+                    "and tess/pair_check under classify_cells_multi :385)",
                     chip["counts"]["tess_classify"], chip["k7"],
                     by_path("tess_classify")),
         kernel_line("tess_clip", "mosaic_tpu_torch/csrc/tess_clip.cu",

@@ -28,15 +28,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _kernels
 from .projection import check_rc
 
-#: the most vertices a cell may have (the kernel keeps them in registers)
+#: the most vertices a cell may have (the kernel's widest template)
 MAX_K = 10
+#: lanes a pair the kernel takes, 32 / lanes pairs a warp
+LANES = (1, 2, 4, 8, 16, 32)
+#: the wrapper's pick of lanes a pair: at least this many edges a lane,
+#: and groups widened until a launch has WARPS_PER_SM warps an SM
+EDGES_PER_LANE = 8
+WARPS_PER_SM = 16
+#: the kernel's queue of items for phase B: drained by a warp when it
+#: holds 32, at most 63 between drains
+QUEUE = 64
 #: the plain version's block: at most this many pairs, and pairs x padded
 #: edges x queries at most PLAIN_BUDGET elements a block
 PLAIN_BLOCK = 4096
@@ -168,13 +177,31 @@ def classify_pairs_ref(edges, edge_off, pair_geo, pair_cell, cell_verts,
     return touching, core
 
 
+def lanes_for(items: int, pairs: int, sms: int) -> int:
+    """The lanes a pair of a launch of ``pairs`` pairs and ``items``
+    (pair, edge) items on ``sms`` SMs: the largest power of two that
+    leaves a lane EDGES_PER_LANE edges of the mean pair, widened while
+    the launch has fewer than WARPS_PER_SM warps an SM; at most 32."""
+    w = 1
+    while w < 32 and 2 * w * EDGES_PER_LANE * pairs <= items:
+        w *= 2
+    while w < 32 and pairs * w < 32 * WARPS_PER_SM * sms:
+        w *= 2
+    return w
+
+
+@functools.cache
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signature."""
     lib = _kernels.load("tess_classify")
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.tess_classify_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i64,
-                                         vp, vp, vp]
+                                         i, vp, vp, vp]
     lib.tess_classify_launch.restype = i
     lib.tess_classify_error_string.argtypes = [i]
     lib.tess_classify_error_string.restype = ctypes.c_char_p
@@ -224,17 +251,21 @@ def _check(edges, edge_off, pair_geo, pair_cell, cell_verts, cell_counts,
 def tess_classify(edges: torch.Tensor, edge_off: torch.Tensor,
                   pair_geo: torch.Tensor, pair_cell: torch.Tensor,
                   cell_verts: torch.Tensor, cell_counts: torch.Tensor,
-                  centers: torch.Tensor) -> Tuple[torch.Tensor,
-                                                  torch.Tensor]:
+                  centers: torch.Tensor, lanes: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(touching [P] bool, core [P] bool) of every (cell, geometry) pair.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream, one launch and a thread for each pair, and raise
-    on anything it does not take or on a CUDA error; there is no
-    fallback.  ``tess_classify.launches`` counts
-    kernel launches."""
+    the current stream, once, ``lanes`` (one of LANES; None:
+    :func:`lanes_for`) a pair, and raise on anything it does not take or
+    on a CUDA error; there is no fallback.  ``tess_classify.launches``
+    counts kernel launches."""
     _check(edges, edge_off, pair_geo, pair_cell, cell_verts, cell_counts,
            centers)
+    if lanes is not None and (type(lanes) is not int or
+                              lanes not in LANES):
+        raise ValueError(f"tess_classify: lanes {lanes!r}, not None or one "
+                         f"of {LANES}")
     dev = edges.device
     if dev.type == "cpu":
         return classify_pairs_ref(edges, edge_off, pair_geo, pair_cell,
@@ -254,13 +285,22 @@ def tess_classify(edges: torch.Tensor, edge_off: torch.Tensor,
     if P == 0:
         return (torch.empty(0, dtype=torch.bool, device=dev),
                 torch.empty(0, dtype=torch.bool, device=dev))
-    pcmin, pcmax, pgmin, pgmax = torch.stack([
-        pair_cell.min(), pair_cell.max(), pair_geo.min(),
-        pair_geo.max()]).tolist()
+    G = int(edge_off.shape[0]) - 1
+    # a pair's edge count, read at a clamped geometry until the range
+    # check below has passed
+    ne = (edge_off[1:] - edge_off[:-1])[pair_geo.clamp(0, max(G - 1, 0))] \
+        if G > 0 else torch.zeros_like(pair_geo)
+    pcmin, pcmax, pgmin, pgmax, items, ne_min, ne_max = torch.stack([
+        pair_cell.min(), pair_cell.max(), pair_geo.min(), pair_geo.max(),
+        ne.sum(), ne.min(), ne.max()]).tolist()
     if pcmin < 0 or pcmax >= cell_verts.shape[0] or pgmin < 0 or \
-            pgmax >= edge_off.shape[0] - 1:
+            pgmax >= G:
         raise ValueError("tess_classify: a pair's cell or geometry is out "
                          "of range")
+    if ne_min < 0 or ne_max >= 1 << 30:
+        raise ValueError("tess_classify: a geometry's edge count is "
+                         f"outside 0..2^30 - 1 ({ne_min}..{ne_max})")
+    lanes = lanes_for(items, P, _sms(dev)) if lanes is None else lanes
     touching = torch.empty(P, dtype=torch.bool, device=dev)
     core = torch.empty(P, dtype=torch.bool, device=dev)
     lib = _lib()
@@ -269,7 +309,7 @@ def tess_classify(edges: torch.Tensor, edge_off: torch.Tensor,
             edges.data_ptr(), edge_off.data_ptr(), pair_geo.data_ptr(),
             pair_cell.data_ptr(), cell_verts.data_ptr(),
             cell_counts.data_ptr(), centers.data_ptr(),
-            int(cell_verts.shape[1]), P, touching.data_ptr(),
+            int(cell_verts.shape[1]), P, lanes, touching.data_ptr(),
             core.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check_rc(lib, "tess_classify", rc, "launch")
     tess_classify.launches += 1

@@ -38,6 +38,16 @@ from .projection import check_rc
 
 #: the plain version's chunk: tasks x padded ring width at most this
 PLAIN_BUDGET = 1 << 20
+#: lanes a job the kernel takes: a thread a job (1), or a group of lanes
+#: over the subject's vertices
+LANES = (1, 4, 8, 16, 32)
+#: the kernel's shared memory a block: two buffers of Cs vertices a job
+SMEM_BUDGET = 100 * 1024
+#: the largest capacity (ring length + K + 1) a launch may have for a
+#: thread a job: the footprints' 4-vertex boxes (capacity 11) clip
+#: faster so, the counties' and zones' rings (capacity 24-25) faster on
+#: 4 lanes (chip_smoke.py phase 13 times every width)
+THREAD_CAP = 16
 
 
 def _halfplane_ref(subj, counts, p0, p1, active):
@@ -159,10 +169,8 @@ def _lib() -> ctypes.CDLL:
     lib = _kernels.load("tess_clip")
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.tess_clip_launch.argtypes = [vp, vp, vp, i64, vp, vp, vp, vp, i, vp,
-                                     vp, vp, vp, vp, vp, vp]
+                                     vp, vp, vp, vp, vp, i, i, vp]
     lib.tess_clip_launch.restype = i
-    lib.tess_clip_smem_verts.argtypes = []
-    lib.tess_clip_smem_verts.restype = i
     lib.tess_clip_error_string.argtypes = [i]
     lib.tess_clip_error_string.restype = ctypes.c_char_p
     return lib
@@ -201,18 +209,48 @@ def _check(ring_xy, ring_off, task_ring, task_cell, cell_verts,
                              f"outside 0..{K}, the cell table's width")
 
 
-def _launch(lib, args, jobs, cap):
-    """One launch over ``jobs`` (task ids) at capacities ``cap``: (xy, off
-    [J], count [J]), count -1 where a job overflowed."""
+def lanes_for(cap_max: int, K: int) -> int:
+    """The lanes a job of a launch whose largest capacity is ``cap_max``
+    (cells of ``K`` vertex slots): a thread where no capacity passes
+    THREAD_CAP, else 4 where every job's buffers fit in shared memory,
+    else a warp."""
+    if cap_max <= THREAD_CAP:
+        return 1
+    return 4 if smem_verts(4, cap_max, K) >= cap_max else 32
+
+
+def slots(lanes: int) -> int:
+    """Jobs a block of the kernel takes at ``lanes`` a job: 64 threads a
+    block at one lane a job, else 256 (csrc/tess_clip.cu ``Shape``)."""
+    return 64 if lanes == 1 else 256 // lanes
+
+
+def smem_verts(lanes: int, cap_max: int, K: int) -> int:
+    """Cs, the vertices of each of a job's two buffers in shared memory:
+    the launch's largest capacity, or what SMEM_BUDGET holds for the
+    block's jobs beside their cells (jobs of larger capacity use global
+    scratch)."""
+    return max(0, min(cap_max, (SMEM_BUDGET // (slots(lanes) * 16) - K)
+                      // 2))
+
+
+def _launch(lib, args, jobs, cap, lanes: Optional[int]):
+    """One launch over ``jobs`` (task ids) at capacities ``cap``, ``lanes``
+    a job (None: :func:`lanes_for`): (xy, off [J], count [J]), count -1
+    where a job overflowed."""
     ring_xy, ring_off, task_ring, task_cell, cell_verts, cell_counts = args
     dev = ring_xy.device
     J = int(jobs.shape[0])
     cap64 = cap.to(torch.int64)
     size = cap64 + 1
     out_off = torch.cumsum(size, 0) - size
-    big = torch.where(cap64 > lib.tess_clip_smem_verts(), 2 * cap64, 0)
+    n_out, cap_max = torch.stack([size.sum(), cap64.max()]).tolist()
+    K = int(cell_verts.shape[1])
+    lanes = lanes_for(cap_max, K) if lanes is None else lanes
+    cs = smem_verts(lanes, cap_max, K)
+    big = torch.where(cap64 > cs, 2 * cap64, 0)
     scratch_off = torch.cumsum(big, 0) - big
-    n_out, n_scratch = torch.stack([size.sum(), big.sum()]).tolist()
+    n_scratch = int(big.sum()) if cap_max > cs else 0
     xy = torch.empty((n_out, 2), dtype=torch.float64, device=dev)
     scratch = torch.empty((max(n_scratch, 1), 2), dtype=torch.float64,
                           device=dev)
@@ -222,9 +260,9 @@ def _launch(lib, args, jobs, cap):
         rc = lib.tess_clip_launch(
             ring_xy.data_ptr(), ring_off.data_ptr(), jobs.data_ptr(), J,
             task_ring.data_ptr(), task_cell.data_ptr(), cell_verts.data_ptr(),
-            cell_counts.data_ptr(), int(cell_verts.shape[1]), cap.data_ptr(),
+            cell_counts.data_ptr(), K, cap.data_ptr(),
             out_off.data_ptr(), scratch_off.data_ptr(), scratch.data_ptr(),
-            xy.data_ptr(), count.data_ptr(),
+            xy.data_ptr(), count.data_ptr(), lanes, cs,
             torch.cuda.current_stream(dev).cuda_stream)
     check_rc(lib, "tess_clip", rc, "launch")
     tess_clip.launches += 1
@@ -233,7 +271,8 @@ def _launch(lib, args, jobs, cap):
 
 def tess_clip(ring_xy: torch.Tensor, ring_off: torch.Tensor,
               task_ring: torch.Tensor, task_cell: torch.Tensor,
-              cell_verts: torch.Tensor, cell_counts: torch.Tensor
+              cell_verts: torch.Tensor, cell_counts: torch.Tensor,
+              lanes: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(xy, off, count) of every task's clipped ring (the module's CSR).
 
@@ -241,10 +280,15 @@ def tess_clip(ring_xy: torch.Tensor, ring_off: torch.Tensor,
     the current stream at the convex capacity (ring length + K + 1), then
     again, at twice their capacity, on the tasks that overflowed it,
     until none does; they raise on anything the kernel does not take or
-    on a CUDA error, and there is no fallback.  ``tess_clip.launches``
-    counts kernel launches, ``tess_clip.relaunches`` those after the
-    first of a call."""
+    on a CUDA error, and there is no fallback.  ``lanes`` (one of LANES)
+    fixes the lanes a task for every launch; None lets each launch pick
+    (:func:`lanes_for`).  ``tess_clip.launches`` counts kernel launches,
+    ``tess_clip.relaunches`` those after the first of a call."""
     _check(ring_xy, ring_off, task_ring, task_cell, cell_verts, cell_counts)
+    if lanes is not None and (type(lanes) is not int or
+                              lanes not in LANES):
+        raise ValueError(f"tess_clip: lanes {lanes!r}, not None or one of "
+                         f"{LANES}")
     dev = ring_xy.device
     if dev.type == "cpu":
         return clip_tasks_ref(ring_xy, ring_off, task_ring, task_cell,
@@ -272,13 +316,13 @@ def tess_clip(ring_xy: torch.Tensor, ring_off: torch.Tensor,
     lens = (args[1][1:] - args[1][:-1])[args[2]]
     cap = lens + int(cell_verts.shape[1]) + 1
     jobs = torch.arange(T, dtype=torch.int64, device=dev)
-    xy, off, count = _launch(lib, args, jobs, cap)
+    xy, off, count = _launch(lib, args, jobs, cap, lanes)
     while True:
         bad = torch.nonzero(count < 0).flatten()
         if not len(bad):
             return xy, off, count
         cap[bad] *= 2
-        xy2, off2, count2 = _launch(lib, args, bad, cap[bad])
+        xy2, off2, count2 = _launch(lib, args, bad, cap[bad], lanes)
         tess_clip.relaunches += 1
         off[bad] = off2 + xy.shape[0]
         count[bad] = count2

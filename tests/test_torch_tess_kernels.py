@@ -13,9 +13,12 @@ convex capacity).  The JAX package's jitted f64 kernels (x64 on, as the
 tier-1 run has it) agree on the random set; on the degenerate set its
 jitted clip drops or adds vertices where a vertex lies on a clip line
 (ROADMAP C4), and there the port's vertex counts are those of an exact
-rational Sutherland-Hodgman.
+rational Sutherland-Hodgman.  The CUDA kernels run only on the card;
+numpy models of their lane widths, queues and scans are held here to
+the plain versions, on these inputs and on the tessellate calls' own.
 """
 
+import functools
 from fractions import Fraction
 
 import numpy as np
@@ -492,6 +495,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(which):
             fn(*args[:5], args[5].long())
         with pytest.raises(ValueError, match="differ"):
             fn(*args[:3], args[3][:-1], *args[4:])
+    # lanes a pair or a task: one of the kernel's widths, or None; every
+    # other value raises on the CPU too
+    mod = tc if which == "classify" else tcl
+    for bad in (0, 3, 64, True, 4.0, "4", *({2} - set(mod.LANES))):
+        with pytest.raises(ValueError, match="lanes"):
+            fn(*args, lanes=bad)
+    for good in (None, *mod.LANES):
+        fn(*args, lanes=good)
     # a count past the cell table's width would read the next cell's
     # vertices; a negative one is no cell
     verts, counts = args[4], args[5]
@@ -515,3 +526,310 @@ def test_compact_and_closed_rings():
     assert rings[1] is None and rings[0].shape == (4, 2)
     assert np.array_equal(rings[2], xy[12:17].numpy())
     assert tcl.closed_rings(xy, off, count, min_count=4)[0] is None
+
+
+# ------------------------------------------ numpy models of the kernels'
+# schedules: the wrappers' plans and the kernels' splits of the work, in
+# numpy f64, against the plain versions
+
+@functools.cache
+def kernel_inputs(source: str):
+    """(classify args, clip args) as numpy arrays: a CASES set, or the
+    tessellate calls' own (a small taxi index build, 256 footprints) as
+    the port's CPU path hands them to the wrappers."""
+    if source in CASES:
+        d = CASES[source]()
+        return [d[k] for k in CLASSIFY_KEYS], [d[k] for k in CLIP_KEYS]
+    kept = {}
+
+    def keep(name, fn):
+        def run(*args):
+            kept[name] = [a.numpy() for a in args]
+            return fn(*args)
+        return run
+
+    if source == "taxi":
+        from mosaic_tpu_torch.bench.workloads import build_workload
+        arr, grid, res = build_workload(n_side=4, grid_name="H3",
+                                        zones="taxi")
+        core_geom = False
+    else:
+        from mosaic_tpu_torch.bench.workloads import footprints
+        arr, grid, res, core_geom = footprints(256), tget("H3"), 9, True
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(ttess, "tess_classify",
+                   keep("classify", ttess.tess_classify))
+        mp.setattr(ttess, "tess_clip", keep("clip", ttess.tess_clip))
+        ttess.tessellate(arr, res, grid, keep_core_geom=core_geom,
+                         device="cpu")
+    finally:
+        mp.undo()
+    return kept["classify"], kept["clip"]
+
+
+MODEL_SOURCES = ("random", "adversarial", "taxi", "footprints")
+
+
+
+
+def _orient(p, q, r):
+    return (q[..., 0] - p[..., 0]) * (r[..., 1] - p[..., 1]) - \
+        (q[..., 1] - p[..., 1]) * (r[..., 0] - p[..., 0])
+
+
+def k7_model(args, lanes):
+    """K7 in numpy, warp by warp: ``lanes`` (None: the wrapper's
+    ``lanes_for`` on an H100's 132 SMs) a pair, 32 / lanes pairs a warp, lane l of a pair's
+    group on its edges l, l + lanes, ...  Phase A: the parity bits an
+    edge settles without a divide (the query left of both the edge's
+    start and its rounded end) XORed into the lane's word; edges with
+    queries between them, or whose bboxes overlap, appended to the warp's
+    queue.  Phase B, a warp's worth at a time and the rest at the end:
+    the queued queries' crossings by the divide XORed in, the
+    overlapping edges' flags ORed in.  Returns (touching, core, drains of
+    a full warp, divides)."""
+    edges, edge_off, pair_geo, pair_cell, verts, counts, centers = args
+    P, K = len(pair_geo), verts.shape[1]
+    ne = np.diff(edge_off)[pair_geo]
+    W = tc.lanes_for(int(ne.sum()), P, 132) if lanes is None else lanes
+    assert W in tc.LANES
+    G = 32 // W
+    n = counts[pair_cell].astype(np.int64)
+    qx = np.concatenate([centers[pair_cell, None, 0],
+                         verts[pair_cell, :, 0]], 1)       # [P, K + 1]
+    qy = np.concatenate([centers[pair_cell, None, 1],
+                         verts[pair_cell, :, 1]], 1)
+    qreal = np.arange(K + 1)[None] <= n[:, None]
+    vmask = qreal[:, 1:]
+    inf = np.inf
+    bb = np.stack([np.where(vmask, verts[pair_cell, :, 0], inf).min(1),
+                   np.where(vmask, verts[pair_cell, :, 1], inf).min(1),
+                   np.where(vmask, verts[pair_cell, :, 0], -inf).max(1),
+                   np.where(vmask, verts[pair_cell, :, 1], -inf).max(1)], 1)
+    tame = (np.abs(qy) < 2.0 ** 1000).all(1, where=qreal)
+    par = np.zeros(P, np.int64)
+    flags = np.zeros(P, np.int64)
+    full_drains = divides = 0
+
+    def pair_check(p, e):
+        a, b = edges[e, None, 0:2], edges[e, None, 2:4]
+        v = np.stack([verts[pair_cell[p], :, 0], verts[pair_cell[p], :, 1]],
+                     -1)
+        k = np.arange(K)[None]
+        nxt = np.where(k + 1 >= n[p, None], 0, k + 1)
+        w = np.take_along_axis(v, nxt[..., None], 1)
+        m = vmask[p]
+        d1, d2 = _orient(a, b, v), _orient(a, b, w)
+        d3, d4 = _orient(v, w, a), _orient(v, w, b)
+        proper = ((d1 > 0) != (d2 > 0)) & ((d3 > 0) != (d4 > 0)) & \
+            (d1 != 0) & (d2 != 0) & (d3 != 0) & (d4 != 0)
+
+        def on_seg(p_, q_, r_, d):
+            return (d == 0) & \
+                (np.minimum(p_[..., 0], q_[..., 0]) <= r_[..., 0]) & \
+                (r_[..., 0] <= np.maximum(p_[..., 0], q_[..., 0])) & \
+                (np.minimum(p_[..., 1], q_[..., 1]) <= r_[..., 1]) & \
+                (r_[..., 1] <= np.maximum(p_[..., 1], q_[..., 1]))
+
+        touch = on_seg(a, b, v, d1) | on_seg(a, b, w, d2) | \
+            on_seg(v, w, a, d3) | on_seg(v, w, b, d4)
+        hit = ((proper | touch) & m).any(1)
+        inside = ((d3 >= 0) | ~m).all(1)
+        np.bitwise_or.at(flags, p, hit | (inside << 1))
+
+    def drain(queue):
+        nonlocal divides
+        for qp, qe, _, qexact in queue:
+            divides += int(qexact.sum())
+            ax, ay, bx, by = edges[qe]
+            den = 1.0 if by == ay else by - ay
+            with np.errstate(invalid="ignore", divide="ignore"):
+                xi = ax + (qy[qp] - ay) / den * (bx - ax)
+            par[qp] ^= int(((qexact & (qx[qp] < xi))
+                            << np.arange(K + 1)).sum())
+        over = [(qp, qe) for qp, qe, qov, _ in queue if qov]
+        if over:
+            pair_check(*(np.array(x) for x in zip(*over)))
+
+    for p0 in range(0, P, G):
+        pairs = np.arange(p0, min(p0 + G, P))
+        queue = []
+        for it in range(int((-(-ne[pairs] // W)).max())):
+            # lane (slot, l) on edge it * W + l of the slot's pair
+            slot, lane = np.divmod(np.arange(len(pairs) * W), W)
+            p, k = pairs[slot], it * W + lane
+            p, k = p[k < ne[p]], k[k < ne[p]]
+            e = edge_off[pair_geo[p]] + k
+            ax, ay, bx, by = (edges[e, c, None] for c in range(4))
+            st = (ay <= qy[p]) != (by <= qy[p])
+            # the crossing's x lies between ax and xe: a query left of
+            # both is a crossing, one at or right of both is none
+            xe = ax + (bx - ax)
+            sure = tame[p, None] & (np.abs(edges[e]) < 2.0 ** 1000).all(
+                1, keepdims=True)
+            left = sure & (qx[p] < ax) & (qx[p] < xe)
+            right = sure & (qx[p] >= ax) & (qx[p] >= xe)
+            bits = st & left & qreal[p]
+            exact = st & ~left & ~right & qreal[p]
+            np.bitwise_xor.at(par, p, (bits << np.arange(K + 1)).sum(1))
+            ov = (bb[p, 0] <= np.maximum(ax, bx)[:, 0]) & \
+                (np.minimum(ax, bx)[:, 0] <= bb[p, 2]) & \
+                (bb[p, 1] <= np.maximum(ay, by)[:, 0]) & \
+                (np.minimum(ay, by)[:, 0] <= bb[p, 3])
+            keep = ov | exact.any(1)
+            queue += list(zip(p[keep], e[keep], ov[keep], exact[keep]))
+            assert len(queue) < tc.QUEUE
+            if len(queue) >= 32:
+                full_drains += 1
+                drain(queue[:32])
+                queue = queue[32:]
+        drain(queue)
+    vm = (1 << n) - 1
+    vin = (par >> 1) & vm
+    hit, inside = (flags & 1) > 0, (flags & 2) > 0
+    core = (vin == vm) & ~hit & ~inside
+    touching = hit | ((par & 1) > 0) | (vin != 0) | inside | core
+    return touching, core, full_drains, divides
+
+
+@pytest.mark.parametrize("name,lanes", [
+    (name, lanes) for name in MODEL_SOURCES
+    for lanes in ((None, *tc.LANES) if name in CASES else (None, 1))])
+def test_k7_lane_model_equals_plain(name, lanes):
+    """K7's lanes and queue, modelled in numpy at every lane width the
+    kernel has on the CASES sets, and at the wrapper's pick and a thread
+    a pair on the tessellate calls' own inputs, with the parity
+    settled without a divide where the edge's ends bracket the crossing:
+    the plain version's booleans."""
+    a7 = kernel_inputs(name)[0]
+    want = [t.numpy() for t in tc.classify_pairs_ref(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in a7))]
+    touching, core, full_drains, divides = k7_model(a7, lanes)
+    assert np.array_equal(touching, want[0])
+    assert np.array_equal(core, want[1])
+    # a box's straddling edges are vertical: ax == xe, no divide
+    assert (divides == 0) == (name == "footprints")
+    # the degenerate set's warps drain full warps of queued items
+    assert full_drains > 0 or name != "adversarial"
+    assert want[0].any() and (want[0] & ~want[1]).any()
+
+
+def test_k7_lanes_for():
+    """At least EDGES_PER_LANE edges a lane, widened to fill the card:
+    the county run's 16.8 edges a pair and the taxi zones' 27.4 take 2
+    lanes a pair on an H100's 132 SMs, the footprints' 4 a thread, the
+    degenerate set's 533 pairs a warp a pair."""
+    assert tc.lanes_for(3_551_032, 211_466, 132) == 2
+    assert tc.lanes_for(4_807_440, 175_454, 132) == 2
+    assert tc.lanes_for(6_280_040, 1_570_010, 132) == 1
+    assert tc.lanes_for(8_900, 533, 132) == 32
+    assert tc.lanes_for(10**9, 10**6, 1) == 32
+    assert tc.lanes_for(10**6, 10**6, 1) == 1
+
+
+def k8_model(args, lanes):
+    """K8 in numpy, launch by launch as the wrapper plans them: capacity
+    V + K + 1, then twice it for the jobs that overflowed.  Per plane a
+    job's vertices go to its lanes in rounds of ``lanes`` (None: each
+    launch's ``lanes_for``); a round's emit positions are the job's
+    count so far plus the segmented shuffle scan of the lanes' emit
+    counts, as the kernel's __shfl_up_sync(width) steps compute it, and
+    one lane walks the ring carrying d_nxt into d_cur.  Returns (xy, off,
+    count) with the kernel's offsets (a job's capacity + 1 rows), the
+    launches and the lane widths they took."""
+    ring_xy, ring_off, task_ring, task_cell, verts, counts = args
+    T, K = len(task_ring), verts.shape[1]
+    lens = np.diff(ring_off)[task_ring]
+    cap = lens + K + 1
+    count = np.full(T, -1, np.int64)
+    rings = [None] * T
+    jobs, widths = np.arange(T), []
+    while len(jobs):
+        w = tcl.lanes_for(int(cap[jobs].max()), K) if lanes is None \
+            else lanes
+        assert w in tcl.LANES
+        widths.append(w)
+        for t in jobs:
+            C = int(cap[t])
+            src = ring_xy[ring_off[task_ring[t]]:ring_off[task_ring[t] + 1]]
+            n, ok = len(src), len(src) <= C
+            cc = int(counts[task_cell[t]])
+            cv = verts[task_cell[t]]
+            for k in range(cc if ok else 0):
+                p0, p1 = cv[k], cv[0 if k + 1 >= cc else k + 1]
+                ev = p1 - p0
+                d = ev[0] * (src[:, 1] - p0[1]) - ev[1] * (src[:, 0] - p0[0])
+                dn = np.roll(d, -1)                 # d_nxt is d_cur of i + 1
+                emit_v = (d >= 0).astype(np.int64)
+                emit_i = ((d >= 0) != (dn >= 0)).astype(np.int64)
+                cnt = emit_v + emit_i
+                if w == 1:
+                    pos = np.cumsum(cnt) - cnt
+                else:
+                    rounds = -(-n // w)
+                    c2 = np.zeros(rounds * w, np.int64)
+                    c2[:n] = cnt
+                    incl = c2.reshape(rounds, w).copy()
+                    lane = np.arange(w)[None]
+                    o = 1
+                    while o < w:
+                        up = np.roll(incl, o, axis=1)
+                        incl = np.where(lane >= o, incl + up, incl)
+                        o <<= 1
+                    before = np.concatenate([[0], np.cumsum(incl[:, -1])])
+                    pos = (before[:-1, None] + incl - c2.reshape(rounds, w)
+                           ).reshape(-1)[:n]
+                m = int(cnt.sum())
+                dst = np.zeros((min(m, C), 2))
+                nxt = np.roll(src, -1, axis=0)
+                denom = d - dn
+                with np.errstate(invalid="ignore", divide="ignore"):
+                    tt = np.where(denom != 0, d / np.where(denom == 0, 1.0,
+                                                           denom), 0.0)
+                inter = src + tt[:, None] * (nxt - src)
+                for i in range(n):
+                    if emit_v[i] and pos[i] < C:
+                        dst[pos[i]] = src[i]
+                    if emit_i[i] and pos[i] + emit_v[i] < C:
+                        dst[pos[i] + emit_v[i]] = inter[i]
+                src, n = dst, m
+                if m > C:
+                    ok = False
+                    break
+            if ok:
+                count[t] = n
+                rings[t] = src
+        jobs = np.nonzero(count < 0)[0]
+        cap[jobs] *= 2
+    size = cap + 1
+    off = np.cumsum(size) - size
+    xy = np.zeros((int(size.sum()), 2))
+    for t in range(T):
+        if count[t] >= 1:
+            xy[off[t]:off[t] + count[t]] = rings[t]
+            xy[off[t] + count[t]] = rings[t][0]
+    return xy, off, count, widths
+
+
+@pytest.mark.parametrize("name,lanes", [
+    (name, lanes) for name in MODEL_SOURCES
+    for lanes in ((None, *tcl.LANES) if name in CASES else (None, 1))])
+def test_k8_lane_model_equals_plain(name, lanes):
+    """K8 at every lane width the kernel has, and the wrapper's own pick,
+    modelled in numpy (every width on the CASES sets; the wrapper's pick
+    and a thread on the tessellate calls' own inputs):
+    compacted, the clipped rings, their offsets and counts equal
+    clip_tasks_ref's bit for bit; the degenerate set relaunches its
+    concave rings."""
+    a8 = kernel_inputs(name)[1]
+    want = tcl.clip_tasks_ref(*(torch.from_numpy(np.ascontiguousarray(a))
+                                for a in a8))
+    xy, off, count, widths = k8_model(a8, lanes)
+    flat, new_off = tcl.compact(torch.from_numpy(xy), torch.from_numpy(off),
+                                torch.from_numpy(count.astype(np.int32)))
+    assert torch.equal(torch.from_numpy(count.astype(np.int32)), want[2])
+    assert torch.equal(new_off, want[1])
+    assert torch.equal(flat.view(torch.int64), want[0].view(torch.int64))
+    assert len(widths) > 1 if name == "adversarial" else len(widths) == 1
+    assert lanes is None or set(widths) == {lanes}
