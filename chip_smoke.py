@@ -131,20 +131,24 @@ Phases (any failure exits non-zero and prints no result):
     bit-equal to ``tessellate(..., device="cpu")`` (the plain versions);
     the candidate sets equal to the host's exact sets; every tessellation
     on the card (this one, phase 5's index build and phase 11's two
-    sides) with exactly one K7 launch and one K8 launch plus its
-    relaunches; K7 and K8, at every lane width they take and at the
-    wrappers' pick, bit-equal to their plain versions on four input
-    sets: the county run's, ``tess_adversarial``'s degenerate set (edges
-    along cell sides and through vertices, horizontal edges, a pentagon,
-    cells of up to 10 vertices, concave rings past K8's convex capacity,
+    sides) with exactly one K7 launch and one K8 launch for each class
+    of ring length plus its relaunches; K7 and K8, at the lanes their
+    wrappers pick, bit-equal to their plain versions on four input sets:
+    the county run's, ``tess_adversarial``'s degenerate set (edges along
+    cell sides and through vertices, horizontal edges, a pentagon, cells
+    of up to 10 vertices, concave rings past K8's convex capacity,
     relaunched), phase 5's index build over the 281 taxi zones and phase
-    11's 2^17 footprints; each timed on each set (K8 but on the
-    degenerate set, whose relaunches sit inside the call) beside its
-    bound (f64 instructions counted from the set's data at the FP64
-    rate, and bytes), its plain version and its wrapper's host enqueue,
-    and at every lane width;
+    11's 2^17 footprints; K7 also on prefixes of the county run's pairs,
+    for which its wrapper picks each of its other widths, and K8 on the
+    county run's tasks with 1% of their rings made 16 times longer,
+    which its wrapper launches apart at a warp a task; the picks
+    together cover every width of both kernels; each timed on each set
+    (K8 but on the degenerate set, whose relaunches sit inside the call)
+    beside its bound (f64 instructions counted from the set's data at
+    the FP64 rate, and bytes), its plain version and its wrapper's host
+    enqueue;
 14. the ``sorted``, ``overlay``, ``knn``, ``chips`` and ``tess_kernels``
-    (K7 and K8 by input set and lane width) summary lines, the card, the
+    (K7 and K8 by input set) summary lines, the card, the
     ``kernels`` JSON line (K1-K8 with launches per path, the
     tessellations of phases 5 and 11 among the paths), then the last
     line ``{"ok": true, "device": {...}}``.
@@ -286,6 +290,11 @@ KNN_CROWD_RINGS = 6
 COUNTY_RES = 5
 COUNTY_WARM = 256
 COUNTY_CHIPS = 93_595
+#: K8's mixed set: every LONG_EVERY-th county task's ring made
+#: LONG_FACTOR times longer (17 vertices to 272, past shared memory at 4
+#: lanes a task)
+LONG_EVERY = 100
+LONG_FACTOR = 16
 #: the overlay's first footprints whose ChipSet is held against the plain
 #: path (tessellate on the CPU)
 OVERLAY_TESS_CHECK = 1 << 14
@@ -300,31 +309,36 @@ PEAK_F64_OPS = 34e12 / 2
 #: are not counted
 F64_DIV_OPS = 8
 #: K7's f64 instructions, the least that csrc/tess_classify.cu's
-#: function needs: per (pair, edge) dx = bx - ax and xe = ax + dx, and
-#: the bbox test's four min/max and four compares; per (pair, query,
-#: edge) two compares; per straddling one px < ax and px < xe, and where
-#: that does not settle it px >= ax and px >= xe (the crossing's x lies
-#: between ax and xe); where neither does, den = by - ay, a subtract, the
-#: divide, a multiply, an add and a compare.  Per overlapping (pair, edge)
-#: and cell vertex v_k: v_k - a (2), d_k = orient(a, b, v_k) on those and
-#: the edge's vector (3) and its sign and zero tests (2), which side k's
-#: d1 and side k-1's d2 share; per such pair and cell side (u, w): d3 =
-#: orient(u, w, a) from the side's vector and -(u - a) (3, negation
-#: exact), d4 = orient(u, w, b) (5) and their sign and zero tests (4),
-#: d3 >= 0 being their OR.  An orientation that is exactly 0 adds its
-#: on-segment range test: four compares against the edge's min/max,
-#: which the bbox test took, for d_k; the side's four min/max and four
-#: compares for d3 and d4.  Per cell of the table and vertex: its bbox's
-#: four min/max and its side vector's two subtracts
-K7_PER_EDGE = 2 + 8
+#: function needs.  Per edge of a geometry that a pair names, once: dx =
+#: bx - ax, its rounded end xe = ax + dx and its four min/max; and dy =
+#: by - ay where a crossing or an overlapping pair needs it.  Per (pair,
+#: edge) the bbox test's four compares; per (pair, query, edge) two
+#: compares; per straddling one px < ax and px < xe, and where that does
+#: not settle it px >= ax and px >= xe (the crossing's x lies between ax
+#: and xe); where neither does, py - ay, the divide by dy, a multiply, an
+#: add and a compare.  Per overlapping (pair, edge) and cell vertex v_k:
+#: v_k - a (2), d_k = orient(a, b, v_k) on those and the edge's vector
+#: (3) and its sign and zero tests (2), which side k's d1 and side k-1's
+#: d2 share; per such pair and cell side (u, w): d3 = orient(u, w, a)
+#: from the side's vector and -(u - a) (3, negation exact), d4 =
+#: orient(u, w, b) (5) and their sign and zero tests (4), d3 >= 0 being
+#: their OR.  An orientation that is exactly 0 adds its on-segment range
+#: test: four compares against the edge's min/max for d_k, against the
+#: side's for d3 and d4, and the side's four min/max once per cell side
+#: that needs them.  Per cell of the table and vertex: its bbox's four
+#: min/max and its side vector's two subtracts
+K7_PER_EDGE = 2 + 4
+K7_PER_DY_EDGE = 1
+K7_PER_PAIR_EDGE = 4
 K7_PER_QUERY_EDGE = 2
 K7_PER_STRADDLE = 2
 K7_PER_STRADDLE_RIGHT = 2
-K7_PER_EXACT = 5 + F64_DIV_OPS
+K7_PER_EXACT = 4 + F64_DIV_OPS
 K7_PER_VERTEX = 2 + 3 + 2
 K7_PER_SIDE = 3 + 5 + 4
 K7_PER_ZERO_VERTEX = 4
-K7_PER_ZERO_SIDE = 4 + 4
+K7_PER_ZERO_SIDE = 4
+K7_PER_ZERO_CELL_SIDE = 4
 K7_PER_CELL_VERTEX = 4 + 2
 #: K8's f64 instructions, the least that csrc/tess_clip.cu's function
 #: needs: per side of each cell of the tasks its vector (2 subtracts);
@@ -392,11 +406,12 @@ def queued_ms(fn, reps: int):
     return None
 
 
-def kernel_device_ms(fn, reps: int, kernel_name: str):
+def kernel_device_ms(fn, reps: int, kernel_name: str, launches: int = 1):
     """(ms, source): the mean device time of the CUDA kernel named
-    ``kernel_name`` per call of ``fn``.  The profiler's reading, the
-    kernel alone, when its trace of a burst of ``reps`` calls (after a
-    warm-up burst that starts the tracing) holds every launch; else
+    ``kernel_name`` per call of ``fn``, which launches it ``launches``
+    times.  The profiler's reading, the kernel alone, when its trace of a
+    burst of ``reps`` calls (after a warm-up burst that starts the
+    tracing) holds every launch; else
     :func:`queued_ms` over the whole call, with the profiler's count in
     the source; else the events of a launch loop, host gaps included."""
     import torch
@@ -422,10 +437,10 @@ def kernel_device_ms(fn, reps: int, kernel_name: str):
                 count += evt.count
     except RuntimeError as e:         # no CUPTI tracing available
         log(f"[kernel] torch.profiler unavailable: {e}")
-    if count == reps and total > 0:
+    if count == reps * launches and total > 0:
         return total / 1e3 / reps, "profiler"
     log(f"[kernel] the profiler recorded {count} {kernel_name} launches "
-        f"of {reps}: the queued burst's events stand in")
+        f"of {reps * launches}: the queued burst's events stand in")
     ms = queued_ms(fn, reps)
     if ms is not None:
         return ms, f"events, queued burst (profiler kept {count} of {reps})"
@@ -600,14 +615,15 @@ def host_ms_per_launch(fn, reps: int) -> float:
 
 
 def timed_kernel(label: str, kernel, plain, kernel_name: str,
-                 reps_plain: int):
+                 reps_plain: int, launches: int = 1):
     """(device ms, its source, events ms per launch in a loop, host ms
-    per launch, plain ms) of a kernel call against its plain version,
-    timed in turns.  The device time is the profiler's when it records
-    the kernel, else the event time of a launch loop (which includes
-    the host's launch gaps)."""
+    per launch, plain ms) of a kernel call, which launches the kernel
+    ``launches`` times, against its plain version, timed in turns.  The
+    device time is the profiler's when it records the kernel, else the
+    event time of a launch loop (which includes the host's launch
+    gaps)."""
     plain_ms, events_ms = in_turns(plain, kernel, reps_plain, 50)
-    ms, source = kernel_device_ms(kernel, 50, kernel_name)
+    ms, source = kernel_device_ms(kernel, 50, kernel_name, launches)
     host_ms = host_ms_per_launch(kernel, 200)
     log(f"[{label}] kernel {ms:.4f} ms ({source}; events over a launch "
         f"loop {events_ms:.4f} ms), host enqueue "
@@ -2360,15 +2376,16 @@ class LastArgs:
 
 
 def k7_work(args):
-    """(f64 instructions, bytes) of K7 on its inputs: the per-edge,
+    """(f64 instructions, bytes) of K7 on its inputs: the per-(pair, edge),
     per-query, per-straddle, per-vertex, per-side and per-zero counts
     above over this run's pairs (the straddles, the bbox overlaps and the
-    zero orientations counted on the card in blocks), the per-cell ones
-    over the table's cells that a pair names; each input read once, the
-    two flags written once."""
+    zero orientations counted on the card in blocks), the per-edge and
+    per-cell ones over the table's edges, cells and cell sides that they
+    name; each input read once, the two flags written once."""
     import torch
     edges, edge_off, pair_geo, pair_cell, verts, counts, centers = args
     P, K = int(pair_geo.shape[0]), int(verts.shape[1])
+    E = int(edges.shape[0])
     ne = (edge_off[1:] - edge_off[:-1])[pair_geo]
     n = counts[pair_cell].to(torch.int64)
     sentinel = torch.full((1, 4), float("inf"), dtype=edges.dtype,
@@ -2376,6 +2393,7 @@ def k7_work(args):
     edges_p = torch.cat([edges, sentinel])
     kk = torch.arange(K, device=edges.device)
     work = collections.Counter()
+    dy_edges, zero_cell_sides = [], []
 
     def orient(p, q, r):
         return (q[..., 0] - p[..., 0]) * (r[..., 1] - p[..., 1]) - \
@@ -2386,8 +2404,8 @@ def k7_work(args):
         e = min(s + block, P)
         ar = torch.arange(int(ne[s:e].max()), device=edges.device)
         real = ar[None] < ne[s:e, None]
-        eg = edges_p[torch.where(real, edge_off[pair_geo[s:e], None] + ar,
-                                 int(edges.shape[0]))]
+        eidx = torch.where(real, edge_off[pair_geo[s:e], None] + ar, E)
+        eg = edges_p[eidx]
         cv = verts[pair_cell[s:e]]
         vmask = kk[None] < n[s:e, None]
         px = torch.cat([centers[pair_cell[s:e], 0:1], cv[..., 0]], 1)
@@ -2400,9 +2418,10 @@ def k7_work(args):
         xe = ax + (eg[:, None, :, 2] - ax)
         left = st & (px[..., None] < ax) & (px[..., None] < xe)
         right = st & ~left & (px[..., None] >= ax) & (px[..., None] >= xe)
+        exact = st & ~left & ~right
         work["straddles"] += int(st.sum())
         work["straddles_not_left"] += int((st & ~left).sum())
-        work["exact"] += int((st & ~left & ~right).sum())
+        work["exact"] += int(exact.sum())
         inf = float("inf")
         cb = [torch.where(vmask, cv[..., i], v).amin(1) if v > 0 else
               torch.where(vmask, cv[..., i], v).amax(1)
@@ -2411,6 +2430,7 @@ def k7_work(args):
             (torch.minimum(eg[..., 0], eg[..., 2]) <= cb[2][:, None]) & \
             (cb[1][:, None] <= torch.maximum(eg[..., 1], eg[..., 3])) & \
             (torch.minimum(eg[..., 1], eg[..., 3]) <= cb[3][:, None])
+        dy_edges.append(eidx[real & (ov | exact.any(1))])
         work["overlap_sides"] += int((ov.sum(1) * n[s:e]).sum())
         ci, ei = torch.nonzero(ov, as_tuple=True)
         a = eg[ci, ei, None, 0:2]
@@ -2418,13 +2438,23 @@ def k7_work(args):
         u, m = cv[ci], vmask[ci]
         nxt = torch.where(kk[None] + 1 >= n[s:e][ci, None], 0, kk[None] + 1)
         w = torch.gather(u, 1, nxt[..., None].expand(-1, -1, 2))
+        z3 = (orient(u, w, a) == 0) & m
+        z4 = (orient(u, w, b) == 0) & m
         work["zero_vertices"] += int(((orient(a, b, u) == 0) & m).sum())
-        work["zero_sides"] += int(((orient(u, w, a) == 0) & m).sum() +
-                                  ((orient(u, w, b) == 0) & m).sum())
+        work["zero_sides"] += int(z3.sum() + z4.sum())
+        zero_cell_sides.append(
+            (pair_cell[s:e][ci, None] * K + kk[None])[z3 | z4])
     work["pair_edges"] = int(ne.sum())
+    work["edges"] = int((edge_off[1:] - edge_off[:-1])[
+        torch.unique(pair_geo)].sum())
+    work["dy_edges"] = int(torch.unique(torch.cat(dy_edges)).numel())
+    work["zero_cell_sides"] = int(
+        torch.unique(torch.cat(zero_cell_sides)).numel())
     work["query_edges"] = int((ne * (n + 1)).sum())
     work["cell_vertices"] = int(counts[torch.unique(pair_cell)].sum())
-    ops = K7_PER_EDGE * work["pair_edges"] + \
+    ops = K7_PER_EDGE * work["edges"] + \
+        K7_PER_DY_EDGE * work["dy_edges"] + \
+        K7_PER_PAIR_EDGE * work["pair_edges"] + \
         K7_PER_QUERY_EDGE * work["query_edges"] + \
         K7_PER_STRADDLE * work["straddles"] + \
         K7_PER_STRADDLE_RIGHT * work["straddles_not_left"] + \
@@ -2432,9 +2462,10 @@ def k7_work(args):
         (K7_PER_VERTEX + K7_PER_SIDE) * work["overlap_sides"] + \
         K7_PER_ZERO_VERTEX * work["zero_vertices"] + \
         K7_PER_ZERO_SIDE * work["zero_sides"] + \
+        K7_PER_ZERO_CELL_SIDE * work["zero_cell_sides"] + \
         K7_PER_CELL_VERTEX * work["cell_vertices"]
     U = int(verts.shape[0])
-    nbytes = 32 * int(edges.shape[0]) + 8 * int(edge_off.shape[0]) + \
+    nbytes = 32 * E + 8 * int(edge_off.shape[0]) + \
         16 * P + (16 * K + 4 + 16) * U + 2 * P
     return ops, nbytes, dict(work)
 
@@ -2500,6 +2531,57 @@ def same_clip(a, b) -> bool:
     fa, fb = compact(*a)[0], compact(*b)[0]
     return fa.shape == fb.shape and torch.equal(fa.view(torch.int64),
                                                 fb.view(torch.int64))
+
+
+def k7_pick(args) -> int:
+    """The lanes a pair that tess_classify picks for ``args``."""
+    import torch
+    from mosaic_tpu_torch.ops import tess_classify as tc
+    edge_off, pair_geo = args[1], args[2]
+    ne = (edge_off[1:] - edge_off[:-1])[pair_geo]
+    return tc.lanes_for(int(ne.sum()), int(pair_geo.shape[0]),
+                        torch.cuda.get_device_properties(
+                            pair_geo.device).multi_processor_count)
+
+
+def k8_picks(args) -> list:
+    """The lanes a task of each launch of tess_clip's first round for
+    ``args``, one launch for each of its capacity classes."""
+    from mosaic_tpu_torch.ops import tess_clip as tcl
+    ring_off, task_ring, K = args[1], args[2], int(args[4].shape[1])
+    cap = (ring_off[1:] - ring_off[:-1])[task_ring] + K + 1
+    return [tcl.lanes_for(int(cap[p].max()), K)
+            for p in tcl.classes(cap, K)]
+
+
+def with_long_rings(args, every: int, factor: int):
+    """K8's inputs ``args`` with every ``every``-th task's ring replaced
+    by a copy of it ``factor`` times as long (each edge cut into
+    ``factor`` pieces): a call of mostly short rings and a few long
+    ones."""
+    import torch
+    ring_xy, ring_off, task_ring, task_cell, verts, counts = args
+    rings = task_ring[::every]
+    lens = ring_off[rings + 1] - ring_off[rings]
+    # vertex i of ring r: each long ring's vertices, then its pieces
+    owner = torch.repeat_interleave(
+        torch.arange(len(rings), device=ring_xy.device), lens)
+    start = torch.repeat_interleave(ring_off[rings], lens)
+    first = torch.cumsum(lens, 0) - lens
+    i = torch.arange(len(owner), device=ring_xy.device) - \
+        torch.repeat_interleave(first, lens)
+    a = ring_xy[start + i]
+    b = ring_xy[start + torch.where(i + 1 >= lens[owner], 0, i + 1)]
+    t = torch.arange(factor, dtype=ring_xy.dtype,
+                     device=ring_xy.device) / factor
+    dense = (a[:, None] + t[None, :, None] * (b - a)[:, None]).reshape(-1, 2)
+    long_off = ring_off[-1] + factor * torch.cat([first, lens.sum()[None]])
+    task_ring = task_ring.clone()
+    task_ring[::every] = len(ring_off) - 1 + torch.arange(
+        len(rings), device=ring_xy.device)
+    return [torch.cat([ring_xy, dense]),
+            torch.cat([ring_off, long_off[1:]]), task_ring, task_cell,
+            verts, counts]
 
 
 def phase_chips():
@@ -2574,10 +2656,12 @@ def phase_chips():
         f"sampling points sent to the host")
     check(bad == 0, f"{bad} candidate sets differ from the host's")
 
-    # ---- K7 and K8 against their plain versions, at every lane width
-    # they take, on four input sets: the county run's, the degenerate set,
-    # the flagship's index build (phase 5) and the overlay's footprints
-    # (phase 11)
+    # ---- K7 and K8 against their plain versions, at the lanes their
+    # wrappers pick, on four input sets: the county run's, the degenerate
+    # set, the flagship's index build (phase 5) and the overlay's
+    # footprints (phase 11); K7 also on prefixes of the county run's
+    # pairs and K8 on its tasks with a few long rings, so that the picks
+    # cover every width of both kernels
     TESS_PATHS["chip generation"] = {"counts": counts,
                                      "k7": kept.args["tess_classify"],
                                      "k8": kept.args["tess_clip"]}
@@ -2595,72 +2679,82 @@ def phase_chips():
             "footprints": TESS_PATHS["overlay footprint tessellation"]}
     for path, kept_path in TESS_PATHS.items():
         c = kept_path["counts"]
+        first = len(k8_picks(kept_path["k8"]))
         check(c["tess_classify"] == 1 and
-              c["tess_clip"] == 1 + c["tess_clip_relaunches"],
+              c["tess_clip"] == first + c["tess_clip_relaunches"],
               f"{path}: K7 launched {c['tess_classify']} "
               f"and K8 {c['tess_clip']} times ({c['tess_clip_relaunches']} "
-              "relaunches), not once each")
-    for label, kernel_args in sets.items():
-        a7, a8 = kernel_args["k7"], kernel_args["k8"]
-        want = tc.classify_pairs_ref(*a7)
-        flags = {lanes: [int((g != w).sum()) for g, w in
-                         zip(tc.tess_classify(*a7, lanes=lanes), want)]
-                 for lanes in (None, *tc.LANES)}
-        want8 = tcl.clip_tasks_ref(*a8)
-        ok8, relaunch = {}, 0
-        for lanes in (None, *tcl.LANES):
-            before = tcl.tess_clip.relaunches
-            ok8[lanes] = same_clip(tcl.tess_clip(*a8, lanes=lanes), want8)
-            if lanes is None:
-                relaunch = tcl.tess_clip.relaunches - before
-        log(f"[chips] K7 on the {label} set ({int(a7[2].shape[0])} pairs): "
-            f"touching and core differ from the plain version at {flags} "
-            f"by lanes a pair (None: the wrapper's pick); K8 "
-            f"({int(a8[2].shape[0])} tasks, {relaunch} relaunches) "
-            f"bit-equal by lanes a task {ok8}")
-        check(all(f == [0, 0] for f in flags.values()),
-              f"K7 differs from plain on the {label} set: {flags}")
-        check(all(ok8.values()), f"K8 differs from plain on the {label} "
-              f"set: {ok8}")
+              f"relaunches), not 1 and {first} plus the relaunches")
+    k7_sets = {label: v["k7"] for label, v in sets.items()}
+    k8_sets = {label: v["k8"] for label, v in sets.items()}
+    county7 = k7_sets["county"]
+    P = int(county7[2].shape[0])
+    picked = {k7_pick(a) for a in k7_sets.values()}
+    for h in range(1, 12):
+        a7 = [*county7[:2], county7[2][:P >> h], county7[3][:P >> h],
+              *county7[4:]]
+        if k7_pick(a7) not in picked:
+            picked.add(k7_pick(a7))
+            k7_sets[f"county prefix {P >> h}"] = a7
+    k8_sets["county, long rings"] = with_long_rings(k8_sets["county"],
+                                                    LONG_EVERY, LONG_FACTOR)
+    picks = {"k7": {label: k7_pick(a) for label, a in k7_sets.items()},
+             "k8": {label: k8_picks(a) for label, a in k8_sets.items()}}
+    log(f"[chips] the wrappers' lanes by input set (K8: those of its first "
+        f"round's launches) {picks}")
+    check(set(picks["k7"].values()) == set(tc.LANES) and
+          {w for ws in picks["k8"].values() for w in ws} == set(tcl.LANES),
+          f"the input sets do not reach every width of K7 {tc.LANES} and "
+          f"K8 {tcl.LANES}: {picks}")
+    for label, a7 in k7_sets.items():
+        flags = [int((g != w).sum()) for g, w in
+                 zip(tc.tess_classify(*a7), tc.classify_pairs_ref(*a7))]
+        log(f"[chips] K7 on the {label} set ({int(a7[2].shape[0])} pairs, "
+            f"{picks['k7'][label]} lanes a pair): touching and core differ "
+            f"from the plain version at {flags}")
+        check(flags == [0, 0], f"K7 differs from plain on the {label} set: "
+              f"{flags}")
+    for label, a8 in k8_sets.items():
+        before = tcl.tess_clip.relaunches
+        ok = same_clip(tcl.tess_clip(*a8), tcl.clip_tasks_ref(*a8))
+        relaunch = tcl.tess_clip.relaunches - before
+        log(f"[chips] K8 on the {label} set ({int(a8[2].shape[0])} tasks, "
+            f"{picks['k8'][label]} lanes a task, {relaunch} relaunches): "
+            f"bit-equal to the plain version {ok}")
+        check(ok, f"K8 differs from plain on the {label} set")
         if label == "degenerate":
             check(relaunch >= 1, "the degenerate set's concave rings did "
                   "not overflow K8's convex capacity")
 
     # ---- K7 and K8 timed beside their bounds and plain versions, by
-    # input set, and at every lane width they take
+    # input set
     rows = {"tess_classify": {"shapes": {}}, "tess_clip": {"shapes": {}}}
-    for label, kernel_args in sets.items():
-        a7, a8 = kernel_args["k7"], kernel_args["k8"]
-        timed = [("tess_classify", tc, a7, k7_work(a7),
-                  lambda a=a7: tc.classify_pairs_ref(*a), "classify_kernel")]
-        if label != "degenerate":      # its K8 relaunches inside the call
-            timed.append(("tess_clip", tcl, a8, k8_work(a8)[:3],
-                          lambda a=a8: tcl.clip_tasks_ref(*a),
-                          "clip_kernel"))
-        for name, mod, args, (ops, nbytes, work), plain, kname in timed:
-            wrapper = getattr(mod, name)
-            kernel = lambda a=args, f=wrapper: f(*a)
-            k = timed_kernel(f"chips {name} {label}", kernel, plain, kname,
-                             2)
-            ops_ms = ops / PEAK_F64_OPS * 1e3
-            bytes_ms = nbytes / PEAK_BYTES * 1e3
-            bound = max(ops_ms, bytes_ms)
-            row = {"ms": k[0], "ms_source": k[1], "events_ms": k[2],
-                   "host_ms": k[3], "plain_ms": k[4], "bound_ms": bound,
-                   "bound_by": "operations" if ops_ms >= bytes_ms
-                   else "bytes", "share": bound / k[0], "work": work}
-            if label != "degenerate":
-                row["lanes_ms"] = {
-                    lanes: kernel_device_ms(
-                        lambda a=args, w=lanes, f=wrapper: f(*a, lanes=w),
-                        30, kname)[0] for lanes in mod.LANES}
-            log(f"[chips] {name} on the {label} set: {k[0]:.4f} ms, bound "
-                f"{bound:.4f} ms (f64 instructions {ops_ms:.4f}: {ops}, "
-                f"from {work}; bytes {bytes_ms:.4f}: {nbytes}), roofline "
-                f"share {bound / k[0]:.4f}"
-                + (f"; by lanes {row['lanes_ms']}"
-                   if "lanes_ms" in row else ""))
-            rows[name]["shapes"][label] = row
+    timed = [("tess_classify", tc, label, sets[label]["k7"], k7_work,
+              tc.classify_pairs_ref, "classify_kernel") for label in sets]
+    # K8 but on the degenerate set, whose relaunches sit inside the call
+    timed += [("tess_clip", tcl, label, a8, lambda a: k8_work(a)[:3],
+               tcl.clip_tasks_ref, "clip_kernel")
+              for label, a8 in k8_sets.items() if label != "degenerate"]
+    for name, mod, label, args, work_of, ref, kname in timed:
+        ops, nbytes, work = work_of(args)
+        wrapper = getattr(mod, name)
+        lanes = picks["k7" if name == "tess_classify" else "k8"][label]
+        k = timed_kernel(f"chips {name} {label}",
+                         lambda a=args, f=wrapper: f(*a),
+                         lambda a=args, f=ref: f(*a), kname, 2,
+                         len(lanes) if isinstance(lanes, list) else 1)
+        ops_ms = ops / PEAK_F64_OPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        bound = max(ops_ms, bytes_ms)
+        rows[name]["shapes"][label] = {
+            "ms": k[0], "ms_source": k[1], "events_ms": k[2],
+            "host_ms": k[3], "plain_ms": k[4], "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "share": bound / k[0], "lanes": lanes, "work": work}
+        log(f"[chips] {name} on the {label} set, {lanes} lanes: "
+            f"{k[0]:.4f} ms, bound {bound:.4f} ms (f64 instructions "
+            f"{ops_ms:.4f}: {ops}, from {work}; bytes {bytes_ms:.4f}: "
+            f"{nbytes}), roofline share {bound / k[0]:.4f}")
     for name in rows:
         # the kernels line reads the county run's
         rows[name].update({**rows[name]["shapes"]["county"],

@@ -56,13 +56,16 @@
 // pair names its geometry and its cell; the cells are a table of
 // [U, K] vertices (CCW, rows past the count unread), counts and centres.
 //
-// What bounds it on an H100: f64 operations.  Per (pair, edge): two
-// subtracts and a compare, then per query two compares, and where the
-// edge straddles the query a subtract, a divide, a multiply, an add and
-// a compare; the bbox test's four min/max and four compares; where the
-// bboxes overlap (5% of the county run's (pair, edge) items), one
-// orientation per cell vertex and two per cell side, with their sign and
-// zero tests.  chip_smoke.py counts these from the run's own data.
+// What bounds it on an H100: f64 operations.  Per edge of a geometry
+// that a pair names, once: bx - ax, its rounded end ax + (bx - ax) and
+// its bbox's four min/max; per (pair, edge) the bbox test's four
+// compares; per query two compares, where the edge straddles the
+// query two more, where the query is not left of both ends two more,
+// and where those do not settle it a subtract, a divide, a multiply, an
+// add and a compare; where the bboxes overlap
+// (5% of the county run's (pair, edge) items), one orientation per cell
+// vertex and two per cell side, with their sign and zero tests.
+// chip_smoke.py counts these from the run's own data.
 //
 // Design: W lanes a pair (W in {1, 2, 4, 8, 16, 32}: the wrapper gives
 // a lane at least 8 edges of the mean pair, 2 lanes on the county run

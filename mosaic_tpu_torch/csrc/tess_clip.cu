@@ -39,26 +39,30 @@
 // crossing a subtract, a test, the divide and two multiply-adds
 // (chip_smoke.py counts them from the run's data).
 //
-// Design: a group of W lanes a job, W in {1, 4, 8, 16, 32} chosen by the
+// Design: a group of W lanes a job, W in {1, 4, 32} chosen by the
 // wrapper per launch from the capacities.  The job's cell vertices are
 // loaded once into shared memory, the ring copied into the second of the
 // job's two ping-pong buffers, and the planes alternate between them.
 // The buffers hold Cs vertices each in dynamic shared memory (Cs the
 // launch's largest capacity, or what a 100 KB budget allows); a job of
 // larger capacity uses its own two buffers in global scratch, which the
-// wrapper allocates.  __launch_bounds__ holds a thread to 64 registers,
-// so shared memory alone sets the jobs in flight.
+// wrapper allocates.  __launch_bounds__ holds
+// a thread to 64 registers, so shared memory alone sets the jobs in
+// flight.
 //   * W = 1, a thread a job (64 a block): the thread walks each plane's
 //     ring once, carrying d_nxt into the next vertex's d_cur; slot s's
 //     vertex i sits at (i * 64 + s), so a warp's lanes read neighbouring
 //     words;
-//   * W >= 4, lanes over the subject's vertices (256 threads a block,
-//     256 / W jobs): each plane's emit positions come from a prefix sum
-//     of the lanes' emit counts (0-2) over the group, a segmented shuffle
-//     scan (width W).
-// The wrapper takes a thread a job where every capacity is small (the
-// footprints' boxes), 4 lanes where the buffers fit in shared memory
-// (the counties' and zones' rings), a warp past that.  A job's buffers
+//   * W = 4 or 32, lanes over the subject's vertices (256 threads a
+//     block, 256 / W jobs): each plane's emit positions come from a
+//     prefix sum of the lanes' emit counts (0-2) over the group, a
+//     segmented shuffle scan (width W).
+// The wrapper launches the tasks whose buffers fit in shared memory at 4
+// lanes a job apart from the longer rings, which take a warp a job (on
+// 4 lanes a long ring is a long chain of rounds).  The first launch
+// takes a thread a job where every capacity is small (the footprints'
+// boxes), else 4 lanes (the counties' and zones' rings); 8 and 16 lanes
+// lost to 4 on every measured set.  A job's buffers
 // in shared memory bound the jobs in flight on an SM (about 260 at the
 // counties' capacity of 24), and each job is a chain of dependent
 // steps: its loads, then plane after plane, each with its divides.
@@ -271,7 +275,7 @@ extern "C" {
 // i32 (each <= K <= 10); per job j < J: jobs [J] i64 (a task), cap [J]
 // i32 (>= 1), out_off [J] i64 (C + 1 rows each in out_xy), scratch_off
 // [J] i64 (2 C rows in scratch, read only where C > Cs); out_count [J]
-// i32.  W lanes a job (1, 4, 8, 16 or 32); Cs vertices a buffer in
+// i32.  W lanes a job (1, 4 or 32); Cs vertices a buffer in
 // shared memory (Shape<W>::slots * (2 Cs + K) * 16 bytes, at most
 // 227 KB).
 // All on the device; the wrapper checks them.  Launches on `stream` and
@@ -295,8 +299,6 @@ int tess_clip_launch(const double* ring_xy, const long long* ring_off,
   switch (W) {
     TESS_CLIP_W(1)
     TESS_CLIP_W(4)
-    TESS_CLIP_W(8)
-    TESS_CLIP_W(16)
     TESS_CLIP_W(32)
   }
 #undef TESS_CLIP_W

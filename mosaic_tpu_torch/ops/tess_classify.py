@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -251,21 +251,16 @@ def _check(edges, edge_off, pair_geo, pair_cell, cell_verts, cell_counts,
 def tess_classify(edges: torch.Tensor, edge_off: torch.Tensor,
                   pair_geo: torch.Tensor, pair_cell: torch.Tensor,
                   cell_verts: torch.Tensor, cell_counts: torch.Tensor,
-                  centers: torch.Tensor, lanes: Optional[int] = None
+                  centers: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(touching [P] bool, core [P] bool) of every (cell, geometry) pair.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream, once, ``lanes`` (one of LANES; None:
-    :func:`lanes_for`) a pair, and raise on anything it does not take or
-    on a CUDA error; there is no fallback.  ``tess_classify.launches``
-    counts kernel launches."""
+    the current stream, once, :func:`lanes_for`'s lanes a pair, and raise
+    on anything it does not take or on a CUDA error; there is no
+    fallback.  ``tess_classify.launches`` counts kernel launches."""
     _check(edges, edge_off, pair_geo, pair_cell, cell_verts, cell_counts,
            centers)
-    if lanes is not None and (type(lanes) is not int or
-                              lanes not in LANES):
-        raise ValueError(f"tess_classify: lanes {lanes!r}, not None or one "
-                         f"of {LANES}")
     dev = edges.device
     if dev.type == "cpu":
         return classify_pairs_ref(edges, edge_off, pair_geo, pair_cell,
@@ -300,7 +295,7 @@ def tess_classify(edges: torch.Tensor, edge_off: torch.Tensor,
     if ne_min < 0 or ne_max >= 1 << 30:
         raise ValueError("tess_classify: a geometry's edge count is "
                          f"outside 0..2^30 - 1 ({ne_min}..{ne_max})")
-    lanes = lanes_for(items, P, _sms(dev)) if lanes is None else lanes
+    lanes = lanes_for(items, P, _sms(dev))
     touching = torch.empty(P, dtype=torch.bool, device=dev)
     core = torch.empty(P, dtype=torch.bool, device=dev)
     lib = _lib()

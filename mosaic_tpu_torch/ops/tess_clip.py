@@ -40,14 +40,15 @@ from .projection import check_rc
 PLAIN_BUDGET = 1 << 20
 #: lanes a job the kernel takes: a thread a job (1), or a group of lanes
 #: over the subject's vertices
-LANES = (1, 4, 8, 16, 32)
+LANES = (1, 4, 32)
 #: the kernel's shared memory a block: two buffers of Cs vertices a job
 SMEM_BUDGET = 100 * 1024
 #: the largest capacity (ring length + K + 1) a launch may have for a
 #: thread a job: the footprints' 4-vertex boxes (capacity 11) clip
 #: faster so, the counties' and zones' rings (capacity 24-25) faster on
-#: 4 lanes (chip_smoke.py phase 13 times every width)
+#: 4 lanes (PERF.md's K8 width table)
 THREAD_CAP = 16
+
 
 
 def _halfplane_ref(subj, counts, p0, p1, active):
@@ -216,7 +217,7 @@ def lanes_for(cap_max: int, K: int) -> int:
     else a warp."""
     if cap_max <= THREAD_CAP:
         return 1
-    return 4 if smem_verts(4, cap_max, K) >= cap_max else 32
+    return 4 if cap_max <= shared_verts(4, K) else 32
 
 
 def slots(lanes: int) -> int:
@@ -225,19 +226,36 @@ def slots(lanes: int) -> int:
     return 64 if lanes == 1 else 256 // lanes
 
 
+def shared_verts(lanes: int, K: int) -> int:
+    """The vertices of each of a job's two buffers that SMEM_BUDGET holds
+    at ``lanes`` a job, beside the block's cells."""
+    return max(0, (SMEM_BUDGET // (slots(lanes) * 16) - K) // 2)
+
+
 def smem_verts(lanes: int, cap_max: int, K: int) -> int:
     """Cs, the vertices of each of a job's two buffers in shared memory:
-    the launch's largest capacity, or what SMEM_BUDGET holds for the
-    block's jobs beside their cells (jobs of larger capacity use global
-    scratch)."""
-    return max(0, min(cap_max, (SMEM_BUDGET // (slots(lanes) * 16) - K)
-                      // 2))
+    the launch's largest capacity, or what SMEM_BUDGET holds (jobs of
+    larger capacity use global scratch)."""
+    return min(cap_max, shared_verts(lanes, K))
 
 
-def _launch(lib, args, jobs, cap, lanes: Optional[int]):
-    """One launch over ``jobs`` (task ids) at capacities ``cap``, ``lanes``
-    a job (None: :func:`lanes_for`): (xy, off [J], count [J]), count -1
-    where a job overflowed."""
+def classes(cap: torch.Tensor, K: int) -> List[torch.Tensor]:
+    """The positions in ``cap`` of a call's jobs, one launch each: those
+    whose buffers fit in shared memory at 4 lanes a job, then the longer
+    rings, which take a warp a job (on 4 lanes a long ring is a long
+    chain of rounds); an empty class is left out."""
+    long = cap > shared_verts(4, K)
+    if not bool(long.any()):
+        return [torch.arange(len(cap), device=cap.device)]
+    return [p for p in (torch.nonzero(~long).flatten(),
+                        torch.nonzero(long).flatten()) if len(p)]
+
+
+def _launch(lib, args, jobs, cap, again: bool):
+    """One launch over ``jobs`` (task ids) at capacities ``cap``, at
+    :func:`lanes_for`'s lanes a job: (xy, off [J], count [J]), count -1
+    where a job overflowed.  ``again``: a relaunch on overflowed
+    tasks."""
     ring_xy, ring_off, task_ring, task_cell, cell_verts, cell_counts = args
     dev = ring_xy.device
     J = int(jobs.shape[0])
@@ -246,7 +264,7 @@ def _launch(lib, args, jobs, cap, lanes: Optional[int]):
     out_off = torch.cumsum(size, 0) - size
     n_out, cap_max = torch.stack([size.sum(), cap64.max()]).tolist()
     K = int(cell_verts.shape[1])
-    lanes = lanes_for(cap_max, K) if lanes is None else lanes
+    lanes = lanes_for(cap_max, K)
     cs = smem_verts(lanes, cap_max, K)
     big = torch.where(cap64 > cs, 2 * cap64, 0)
     scratch_off = torch.cumsum(big, 0) - big
@@ -266,13 +284,30 @@ def _launch(lib, args, jobs, cap, lanes: Optional[int]):
             torch.cuda.current_stream(dev).cuda_stream)
     check_rc(lib, "tess_clip", rc, "launch")
     tess_clip.launches += 1
+    tess_clip.relaunches += again
     return xy, out_off, count
+
+
+def _launches(lib, args, jobs, cap, again: bool):
+    """:func:`_launch` over each of the jobs' :func:`classes`: (xy, off,
+    count) in the order of ``jobs``."""
+    parts = classes(cap, int(args[4].shape[1]))
+    if len(parts) == 1:
+        return _launch(lib, args, jobs, cap, again)
+    outs = [_launch(lib, args, jobs[p], cap[p], again) for p in parts]
+    off = torch.empty(len(jobs), dtype=torch.int64, device=cap.device)
+    count = torch.empty(len(jobs), dtype=torch.int32, device=cap.device)
+    base = 0
+    for p, (xy_p, off_p, count_p) in zip(parts, outs):
+        off[p] = off_p + base
+        count[p] = count_p
+        base += xy_p.shape[0]
+    return torch.cat([o[0] for o in outs]), off, count
 
 
 def tess_clip(ring_xy: torch.Tensor, ring_off: torch.Tensor,
               task_ring: torch.Tensor, task_cell: torch.Tensor,
-              cell_verts: torch.Tensor, cell_counts: torch.Tensor,
-              lanes: Optional[int] = None
+              cell_verts: torch.Tensor, cell_counts: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(xy, off, count) of every task's clipped ring (the module's CSR).
 
@@ -280,15 +315,12 @@ def tess_clip(ring_xy: torch.Tensor, ring_off: torch.Tensor,
     the current stream at the convex capacity (ring length + K + 1), then
     again, at twice their capacity, on the tasks that overflowed it,
     until none does; they raise on anything the kernel does not take or
-    on a CUDA error, and there is no fallback.  ``lanes`` (one of LANES)
-    fixes the lanes a task for every launch; None lets each launch pick
-    (:func:`lanes_for`).  ``tess_clip.launches`` counts kernel launches,
-    ``tess_clip.relaunches`` those after the first of a call."""
+    on a CUDA error, and there is no fallback.  Each round launches once
+    for the rings whose buffers fit in shared memory and once for the
+    longer ones (:func:`classes`), and each launch picks its lanes a
+    task (:func:`lanes_for`).  ``tess_clip.launches`` counts kernel
+    launches, ``tess_clip.relaunches`` those on overflowed tasks."""
     _check(ring_xy, ring_off, task_ring, task_cell, cell_verts, cell_counts)
-    if lanes is not None and (type(lanes) is not int or
-                              lanes not in LANES):
-        raise ValueError(f"tess_clip: lanes {lanes!r}, not None or one of "
-                         f"{LANES}")
     dev = ring_xy.device
     if dev.type == "cpu":
         return clip_tasks_ref(ring_xy, ring_off, task_ring, task_cell,
@@ -316,14 +348,13 @@ def tess_clip(ring_xy: torch.Tensor, ring_off: torch.Tensor,
     lens = (args[1][1:] - args[1][:-1])[args[2]]
     cap = lens + int(cell_verts.shape[1]) + 1
     jobs = torch.arange(T, dtype=torch.int64, device=dev)
-    xy, off, count = _launch(lib, args, jobs, cap, lanes)
+    xy, off, count = _launches(lib, args, jobs, cap, False)
     while True:
         bad = torch.nonzero(count < 0).flatten()
         if not len(bad):
             return xy, off, count
         cap[bad] *= 2
-        xy2, off2, count2 = _launch(lib, args, bad, cap[bad], lanes)
-        tess_clip.relaunches += 1
+        xy2, off2, count2 = _launches(lib, args, bad, cap[bad], True)
         off[bad] = off2 + xy.shape[0]
         count[bad] = count2
         xy = torch.cat([xy, xy2])

@@ -19,6 +19,7 @@ the plain versions, on these inputs and on the tessellate calls' own.
 """
 
 import functools
+import math
 from fractions import Fraction
 
 import numpy as np
@@ -495,14 +496,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take(which):
             fn(*args[:5], args[5].long())
         with pytest.raises(ValueError, match="differ"):
             fn(*args[:3], args[3][:-1], *args[4:])
-    # lanes a pair or a task: one of the kernel's widths, or None; every
-    # other value raises on the CPU too
-    mod = tc if which == "classify" else tcl
-    for bad in (0, 3, 64, True, 4.0, "4", *({2} - set(mod.LANES))):
-        with pytest.raises(ValueError, match="lanes"):
-            fn(*args, lanes=bad)
-    for good in (None, *mod.LANES):
-        fn(*args, lanes=good)
     # a count past the cell table's width would read the next cell's
     # vertices; a negative one is no cell
     verts, counts = args[4], args[5]
@@ -719,13 +712,46 @@ def test_k7_lanes_for():
     """At least EDGES_PER_LANE edges a lane, widened to fill the card:
     the county run's 16.8 edges a pair and the taxi zones' 27.4 take 2
     lanes a pair on an H100's 132 SMs, the footprints' 4 a thread, the
-    degenerate set's 533 pairs a warp a pair."""
+    degenerate set's 533 pairs a warp a pair; prefixes of the county
+    run's pairs, halved again and again, take every other width."""
     assert tc.lanes_for(3_551_032, 211_466, 132) == 2
     assert tc.lanes_for(4_807_440, 175_454, 132) == 2
     assert tc.lanes_for(6_280_040, 1_570_010, 132) == 1
     assert tc.lanes_for(8_900, 533, 132) == 32
     assert tc.lanes_for(10**9, 10**6, 1) == 32
     assert tc.lanes_for(10**6, 10**6, 1) == 1
+    picks = {tc.lanes_for(3_551_032 >> h, 211_466 >> h, 132)
+             for h in range(8)}
+    assert picks == set(tc.LANES) - {1}
+
+
+def test_k8_lanes_for():
+    """A thread a task on the footprints' boxes (capacity 11), 4 lanes on
+    the counties' 17-vertex rings (24), a warp past the 4-lane shared
+    budget (47 vertices a buffer at K = 6); the rings past it launched
+    apart, so a few long rings leave the rest on 4 lanes, and the
+    degenerate set (cells of 10 slots, capacities 16-93) takes both."""
+    assert tcl.lanes_for(11, 6) == 1
+    assert tcl.lanes_for(24, 6) == 4
+    assert tcl.lanes_for(47, 6) == 4
+    assert tcl.lanes_for(48, 6) == 32
+    assert (tcl.shared_verts(4, 6), tcl.shared_verts(32, 6)) == (47, 397)
+    assert tcl.smem_verts(32, 300, 6) == 300
+    county = torch.full((68_387,), 24)
+    assert [len(p) for p in tcl.classes(county, 6)] == [68_387]
+    county[::100] = 279
+    parts = tcl.classes(county, 6)
+    assert [len(p) for p in parts] == [67_703, 684]
+    assert [tcl.lanes_for(int(county[p].max()), 6) for p in parts] == \
+        [4, 32]
+    assert torch.equal(torch.sort(torch.cat(parts)).values,
+                       torch.arange(68_387))
+    d = tess_adversarial(tget("H3"))
+    cap = torch.from_numpy(np.diff(d["ring_off"])[d["task_ring"]] + 11)
+    assert [tcl.lanes_for(int(cap[p].max()), 10)
+            for p in tcl.classes(cap, 10)] == [4, 32]
+    assert [len(p) for p in tcl.classes(cap[cap > 45], 10)] == \
+        [int((cap > 45).sum())]
 
 
 def k8_model(args, lanes):
@@ -744,12 +770,8 @@ def k8_model(args, lanes):
     cap = lens + K + 1
     count = np.full(T, -1, np.int64)
     rings = [None] * T
-    jobs, widths = np.arange(T), []
-    while len(jobs):
-        w = tcl.lanes_for(int(cap[jobs].max()), K) if lanes is None \
-            else lanes
-        assert w in tcl.LANES
-        widths.append(w)
+
+    def clip_jobs(jobs, w):
         for t in jobs:
             C = int(cap[t])
             src = ring_xy[ring_off[task_ring[t]]:ring_off[task_ring[t] + 1]]
@@ -800,6 +822,15 @@ def k8_model(args, lanes):
             if ok:
                 count[t] = n
                 rings[t] = src
+
+    jobs, widths = np.arange(T), []
+    while len(jobs):
+        for part in tcl.classes(torch.from_numpy(cap[jobs]), K):
+            w = tcl.lanes_for(int(cap[jobs[part]].max()), K) \
+                if lanes is None else lanes
+            assert w in tcl.LANES
+            widths.append(w)
+            clip_jobs(jobs[part.numpy()], w)
         jobs = np.nonzero(count < 0)[0]
         cap[jobs] *= 2
     size = cap + 1
@@ -820,8 +851,9 @@ def test_k8_lane_model_equals_plain(name, lanes):
     modelled in numpy (every width on the CASES sets; the wrapper's pick
     and a thread on the tessellate calls' own inputs):
     compacted, the clipped rings, their offsets and counts equal
-    clip_tasks_ref's bit for bit; the degenerate set relaunches its
-    concave rings."""
+    clip_tasks_ref's bit for bit; rings past shared memory at 4 lanes
+    are launched apart, and the degenerate set relaunches its concave
+    rings."""
     a8 = kernel_inputs(name)[1]
     want = tcl.clip_tasks_ref(*(torch.from_numpy(np.ascontiguousarray(a))
                                 for a in a8))
@@ -831,5 +863,10 @@ def test_k8_lane_model_equals_plain(name, lanes):
     assert torch.equal(torch.from_numpy(count.astype(np.int32)), want[2])
     assert torch.equal(new_off, want[1])
     assert torch.equal(flat.view(torch.int64), want[0].view(torch.int64))
-    assert len(widths) > 1 if name == "adversarial" else len(widths) == 1
+    # one launch per class of ring length, then the relaunches
+    K = a8[4].shape[1]
+    first = len(tcl.classes(torch.from_numpy(np.diff(a8[1])[a8[2]] + K + 1),
+                            K))
+    assert len(widths) > first if name == "adversarial" else \
+        len(widths) == first
     assert lanes is None or set(widths) == {lanes}
