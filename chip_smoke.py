@@ -105,7 +105,8 @@ Phases (any failure exits non-zero and prints no result):
     k = 5, H3 res 4, at most 32 rings; the default path (brute: one K5
     launch per 8,192-row block, 128, and no K6) and the ring path
     (``brute_right_max=0``: one K6 launch per ring, no K5), each through
-    ``transform``: the brute path with a warm run and 3 counted steady
+    ``transform`` with the cost planner's engine decision printed: the
+    brute path with a warm run and 3 counted steady
     runs, the ring path with one counted run (K6's library loaded first),
     profiled for the device's busy time and recording K6's states; rows/s,
     iterations, rechecked and the steps' host seconds; ``right_id`` equal to
@@ -147,11 +148,27 @@ Phases (any failure exits non-zero and prints no result):
     beside its bound (f64 instructions counted from the set's data at
     the FP64 rate, and bytes), its plain version and its wrapper's host
     enqueue;
-14. the ``sorted``, ``overlay``, ``knn``, ``chips`` and ``tess_kernels``
-    (K7 and K8 by input set) summary lines, the card, the
-    ``kernels`` JSON line (K1-K8 with launches per path, the
-    tessellations of phases 5 and 11 among the paths), then the last
-    line ``{"ok": true, "device": {...}}``.
+14. join strategies, at the bench's sizes with 2^18-row chunks
+    (``mosaic.stream.chunk.rows``): the planner sweep of bench.py:760-800
+    over phase 5's dense index — ``nyc_points`` at 2^14, 2^17 and 2^20
+    (seed 500 + n % 97), ``calibrate`` (every candidate warm, zones
+    equal) and then 3 planned runs against 3 of the streamed join, zones
+    bit-equal and held to ``pip_host_truth`` on up to 65,536 points, K2
+    launches by strategy counted; phase 5's four 2^22 batches through the
+    planned join, zones equal to phase 5's; the refined A/B of
+    bench.py:922-993 (48 seven-vertex rings of radius 0.004 in +-0.1,
+    2^19 points, three quarters in +-0.12, ``default_rng(1292)``, H3 res
+    5): pinned ``refined`` (a cold run, then 5 timed), pinned ``flat`` (a
+    warm run, then 5 timed), one ``auto`` run; zones equal to
+    ``pip_host_truth`` on all points, ``levels == [5, 6]`` and refined
+    points under the pin, every routed id equal to the host
+    ``point_to_cell``, K3 launches by part (route, base body, refined
+    body) counted; the decisions printed;
+15. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``tess_kernels``
+    (K7 and K8 by input set) and ``strategies`` summary lines, the card,
+    the ``kernels`` JSON line (K1-K8 with launches per path, the
+    tessellations of phases 5 and 11 and the strategies' paths among
+    them), then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -295,6 +312,14 @@ COUNTY_CHIPS = 93_595
 #: lanes a task)
 LONG_EVERY = 100
 LONG_FACTOR = 16
+#: the join strategies (phase 14): the planner sweep's batch sizes and
+#: timed runs a side (bench.py:760-800); the refined A/B's points, base
+#: resolution and timed runs a pin (bench.py:922-993)
+STRAT_SIZES = (1 << 14, 1 << 17, 1 << 20)
+STRAT_REPS = 3
+REFINE_N = 1 << 19
+REFINE_RES = 5
+REFINE_REPS = 5
 #: the overlay's first footprints whose ChipSet is held against the plain
 #: path (tessellate on the CPU)
 OVERLAY_TESS_CHECK = 1 << 14
@@ -793,7 +818,7 @@ def phase_flagship():
     check(bad == 0, f"{bad} zones differ from pip_host_truth")
 
     profile_batch(run, batches[0], min(t_batch[1:]) * 1e3)
-    return launches, idx, grid, batches, rechecked, zones[0], polys, chips
+    return launches, idx, grid, batches, rechecked, zones, polys, chips
 
 
 def index_tables(idx) -> dict:
@@ -2089,7 +2114,14 @@ def phase_knn():
             f"{runs[-1][2]}")
         log(f"[knn {path}] steps of each counted run (s): "
             f"{[r[3] for r in runs]}")
+        d = knn._last_decision
+        decision = {"strategy": d.strategy, "reason": d.reason,
+                    "forced": d.forced}
+        log(f"[knn {path}] the planner's engine decision: {decision}")
+        check(d.strategy == path, f"knn {path}: the planner picked "
+              f"{d.strategy}")
         paths[path] = {"out": out, "s": times, "warm_s": t_warm,
+                       "decision": decision,
                        "rows_per_s": n / med, "counts": runs[-1][2],
                        "all_counts": [r[2] for r in runs],
                        "steps_s": [r[3] for r in runs],
@@ -2767,6 +2799,326 @@ def phase_chips():
             "tess_counts": {p: v["counts"] for p, v in TESS_PATHS.items()}}
 
 
+class RoutedGrid:
+    """A grid whose ``point_to_cell_device`` (the refined join's route)
+    keeps what it routed while ``keep`` is set, and times every call."""
+
+    def __init__(self, grid):
+        self.grid = grid
+        self.keep = False
+        self.routed = []
+        self.ms = []
+
+    def __getattr__(self, name):
+        return getattr(self.grid, name)
+
+    def point_to_cell_device(self, xy, res, device):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cells, host = self.grid.point_to_cell_device(xy, res, device)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if self.keep:
+            self.routed.append((xy, res, cells))
+        return cells, host
+
+
+def refine_workload():
+    """bench.py:936-950: 48 seven-vertex rings of radius 0.004 around
+    centres uniform in +-0.1, and REFINE_N points, three quarters
+    uniform in +-0.12 and the rest in +-2.0 (default_rng(1292))."""
+    import numpy as np
+    import mosaic_tpu_torch as mt
+    rng = np.random.default_rng(1292)
+    b = mt.GeometryBuilder()
+    for cx, cy in rng.uniform(-0.1, 0.1, size=(48, 2)):
+        ang = np.linspace(0.0, 2.0 * np.pi, 8)[:-1]
+        b.add_polygon(np.stack([cx + 0.004 * np.cos(ang),
+                                cy + 0.004 * np.sin(ang)], 1), [])
+    hot = REFINE_N * 3 // 4
+    pts = np.concatenate([rng.uniform(-0.12, 0.12, size=(hot, 2)),
+                          rng.uniform(-2.0, 2.0, size=(REFINE_N - hot, 2))])
+    return b.finish(), pts
+
+
+def phase_strategies(idx, grid, polys, batches, dense_zones):
+    """The single-device join strategies at the bench's sizes: the
+    planner sweep over the flagship's dense index (calibrate, then
+    planned against streamed), the flagship's batches through the
+    planned join, and the refined-vs-flat A/B on the skewed cluster."""
+    import numpy as np
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch import config
+    from mosaic_tpu_torch.parallel.pip_join import _overlap_frac
+    from mosaic_tpu_torch.sql.planner import planner
+
+    def set_conf(key, val):
+        config.set_default_config(config.apply_conf(
+            config.default_config(), key, val))
+
+    def k2_for(d, n):
+        chunk = getattr(d, "chunk", planner.chunk_rows())
+        return 1 if d.strategy == "monolithic" else -(-n // chunk)
+
+    def label(d):
+        return {"strategy": d.strategy, "reason": d.reason,
+                "chunk": getattr(d, "chunk", None), "forced": d.forced}
+
+    def parts_ms(parts, walls):
+        # median host ms of each part of the planned runs, and of what
+        # lies outside them (the call's own entry and exit)
+        out = {k: float(np.median([p[k] for p in parts])) * 1e3
+               for k in parts[0]}
+        out["outside"] = float(np.median(
+            [w - sum(p.values()) for p, w in zip(parts, walls)])) * 1e3
+        return out
+
+    def sketch_forms(pts):
+        # the planned join's bbox sketch alone, four strided column
+        # reductions and the JAX package's axis-0 reductions over the
+        # same [N, 2] view, median host ms of 3
+        bb = polys.bboxes()
+        ext = (float(np.nanmin(bb[:, 0])), float(np.nanmin(bb[:, 1])),
+               float(np.nanmax(bb[:, 2])), float(np.nanmax(bb[:, 3])))
+        view = np.asarray(pts, np.float64)[:, :2]
+        out = {}
+        for name, f in (("port", lambda: _overlap_frac(view, ext)),
+                        ("columns", lambda: (
+                            view[:, 0].min(), view[:, 1].min(),
+                            view[:, 0].max(), view[:, 1].max())),
+                        ("axis0", lambda: (view.min(axis=0),
+                                           view.max(axis=0)))):
+            ts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                f()
+                ts.append(time.perf_counter() - t0)
+            out[name] = float(np.median(ts)) * 1e3
+        return out
+
+    t_phase = time.perf_counter()
+    prev = config.default_config()
+    planner.reset()
+    set_conf("mosaic.stream.chunk.rows", str(CHUNK))
+    try:
+        # ---- the planner sweep (bench.py:760-800)
+        pjoin = mt.make_planned_pip_join(idx, grid, polys=polys)
+        off = mt.make_streamed_pip_join(idx, grid, polys, chunk=CHUNK,
+                                        device=DEV)
+        sweep = []
+        for n in STRAT_SIZES:
+            pts = mt.nyc_points(n, seed=500 + n % 97)
+            cands = planner.pip_join_candidates(n)
+            reset_counts()
+            try:
+                z_cal = pjoin.calibrate(pts)
+            except AssertionError as e:
+                raise PhaseError(f"planner sweep at {n}: {e}") from None
+            cal_k2 = launch_counts()["h3_dense_join"]
+            want = 2 * sum(1 if s == "monolithic" else -(-n // c)
+                           for s, c in cands)
+            check(cal_k2 == want, f"calibrate at {n} launched K2 {cal_k2} "
+                  f"times for {want}")
+            off(pts)                     # warm the streamed path
+            on_s, off_s, k2_on, parts_on = [], [], [], []
+            for rep in range(STRAT_REPS):
+                # the pair's order alternates: planned first on even reps
+                for which in (("on", "off") if rep % 2 == 0 else
+                              ("off", "on")):
+                    if which == "on":
+                        reset_counts()
+                        t0 = time.perf_counter()
+                        z_on, _ = pjoin(pts)
+                        on_s.append(time.perf_counter() - t0)
+                        k2_on.append(launch_counts()["h3_dense_join"])
+                        parts_on.append(pjoin.last_times)
+                    else:
+                        t0 = time.perf_counter()
+                        z_off, _ = off(pts)
+                        off_s.append(time.perf_counter() - t0)
+            d = pjoin.last_decision
+            bad = int(np.sum(z_on != z_off)) + int(np.sum(z_cal != z_on))
+            check(bad == 0, f"planner sweep at {n}: {bad} zones differ "
+                  "between planned, calibrated and streamed")
+            check(k2_on[-1] == k2_for(d, n), f"the planned run at {n} "
+                  f"launched K2 {k2_on[-1]} times for {d.strategy}")
+            sample = min(n, ORACLE_SAMPLE)
+            truth = mt.pip_host_truth(pts[:sample], polys)
+            check(np.array_equal(truth, z_on[:sample]), f"planner sweep at "
+                  f"{n}: zones differ from pip_host_truth")
+            sketch = sketch_forms(pts)
+            row = {"n": n, "candidates": [list(c) for c in cands],
+                   "decision": label(d), "k2_calibrate": cal_k2,
+                   "k2_planned": k2_on, "planned_s": on_s,
+                   "streamed_s": off_s,
+                   "planned_ms": float(np.median(on_s)) * 1e3,
+                   "streamed_ms": float(np.median(off_s)) * 1e3,
+                   "planned_parts_ms": parts_ms(parts_on, on_s),
+                   "sketch_ms": sketch, "mismatches": bad}
+            sweep.append(row)
+            log(f"[strategies] sweep n={n}: candidates {cands}, calibrate "
+                f"launched K2 {cal_k2} times; planned {row['planned_ms']:.3f}"
+                f" ms (median of {on_s}) vs streamed "
+                f"{row['streamed_ms']:.3f} ms ({off_s}), host clock, the "
+                f"pair's order alternating (planned first on reps 0, 2); "
+                f"planned run's parts, median ms "
+                f"{row['planned_parts_ms']}; bbox sketch alone, median ms "
+                f"{sketch}; decision {label(d)}, K2 per planned run "
+                f"{k2_on}; 0 zone mismatches, {sample} held to the oracle")
+
+        # ---- the flagship's batches through the planned join, each
+        # beside the streamed join (uncounted), the pair's order
+        # alternating; counts summed over the planned calls alone
+        planned_counts = None
+        decisions, t_batch, t_off, parts_fl, k2_want = [], [], [], [], 0
+        for i, (pts, dense) in enumerate(zip(batches, dense_zones)):
+            for which in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                if which == "off":
+                    t0 = time.perf_counter()
+                    off(pts)
+                    t_off.append(time.perf_counter() - t0)
+                    continue
+                reset_counts()
+                t0 = time.perf_counter()
+                zone, _ = pjoin(pts)
+                t_batch.append(time.perf_counter() - t0)
+                c = launch_counts()
+                planned_counts = c if planned_counts is None else {
+                    k: planned_counts[k] + c[k] for k in c}
+                parts_fl.append(pjoin.last_times)
+            d = pjoin.last_decision
+            decisions.append(label(d))
+            k2_want += k2_for(d, len(pts))
+            diff = int(np.sum(zone != dense))
+            check(diff == 0, f"planned flagship: {diff} zones differ from "
+                  "the dense streamed join")
+        sketch_fl = sketch_forms(batches[0])
+        check(planned_counts["h3_dense_join"] == k2_want, f"the planned "
+              f"flagship launched K2 {planned_counts['h3_dense_join']} "
+              f"times for {k2_want}")
+        check(planned_counts["h3_latlng_to_cell"] == 0 and
+              planned_counts["h3_project_lattice"] == 0,
+              "the planned flagship launched K1 or K3")
+        log(f"[strategies] planned flagship: {len(batches)} x {BATCH} "
+            f"points equal to phase 5's dense zones; per batch {t_batch} s, "
+            f"the streamed join beside it {t_off} s (host clock, planned "
+            f"first on batches 0 and 2); planned run's parts, median ms "
+            f"{parts_ms(parts_fl, t_batch)}; bbox sketch alone on batch 0, "
+            f"median ms {sketch_fl}; decisions {decisions}; counts "
+            f"{planned_counts}")
+
+        # ---- the refined A/B (bench.py:922-993)
+        rpolys, rpts = refine_workload()
+        rgrid = RoutedGrid(mt.get_index_system("H3"))
+        set_conf("mosaic.planner.force.refine", "refined")
+        reset_counts()
+        t0 = time.perf_counter()
+        rjoin = mt.make_refined_pip_join(rpolys, rgrid, REFINE_RES,
+                                         chunk=CHUNK, device=DEV)
+        t_build = time.perf_counter() - t0
+        build_counts = launch_counts()
+        reset_counts()
+        rgrid.keep = True
+        t0 = time.perf_counter()
+        z_cold, _ = rjoin(rpts)           # probe, deeper level, builds
+        t_cold = time.perf_counter() - t0
+        rgrid.keep = False
+        parts = [dict(rjoin.counts)]
+        stats = dict(rjoin.stats)
+        ref_s, z_ref = [], None
+        for _ in range(REFINE_REPS):
+            t0 = time.perf_counter()
+            z_ref, _ = rjoin(rpts)
+            ref_s.append(time.perf_counter() - t0)
+            parts.append(dict(rjoin.counts))
+        refined_counts = launch_counts()
+        # the first route is the probe's (its sample rows), the rest one
+        # a chunk
+        route_ms = list(rgrid.ms)
+        d_ref = label(rjoin.last_decision)
+        k3_parts = {p: sum(c[p] for c in parts)
+                    for p in ("route", "base", "refined")}
+        check(refined_counts["sample_points"] == 0, "the refined level's "
+              "sampling went through K3; its launches are not apart")
+        check(refined_counts["h3_latlng_to_cell"] == sum(k3_parts.values()),
+              f"the refined runs launched K3 "
+              f"{refined_counts['h3_latlng_to_cell']} times for the parts' "
+              f"{k3_parts}")
+        check(stats["levels"] == [REFINE_RES, REFINE_RES + 1] and
+              stats["refined_points"] > 0 and
+              rjoin.stats["strategy"] == "refined",
+              f"the refined pin ran {stats}")
+        routed = sum(len(xy) for xy, _, _ in rgrid.routed)
+        route_bad = sum(int(np.sum(c != rgrid.grid.point_to_cell(xy, r)))
+                        for xy, r, c in rgrid.routed)
+        check(routed >= REFINE_N and route_bad == 0, f"{route_bad} of "
+              f"{routed} routed ids differ from the host point_to_cell")
+
+        set_conf("mosaic.planner.force.refine", "flat")
+        reset_counts()
+        rjoin(rpts)                       # warm the flat path
+        flat_s, z_flat = [], None
+        for _ in range(REFINE_REPS):
+            t0 = time.perf_counter()
+            z_flat, _ = rjoin(rpts)
+            flat_s.append(time.perf_counter() - t0)
+        flat_counts = launch_counts()
+        check(rjoin.stats["strategy"] == "flat", "the flat pin ran "
+              f"{rjoin.stats}")
+        chunks = -(-REFINE_N // CHUNK)
+        check(flat_counts["h3_latlng_to_cell"] == chunks * (REFINE_REPS + 1),
+              f"the flat runs launched K3 {flat_counts['h3_latlng_to_cell']}"
+              f" times for {chunks * (REFINE_REPS + 1)} chunks")
+        set_conf("mosaic.planner.force.refine", "auto")
+        z_auto, _ = rjoin(rpts)
+        d_auto = label(rjoin.last_decision)
+        truth = mt.pip_host_truth(rpts, rpolys)
+        mism = {k: int(np.sum(z != truth)) for k, z in (
+            ("cold", z_cold), ("refined", z_ref), ("flat", z_flat),
+            ("auto", z_auto))}
+        check(sum(mism.values()) == 0, f"refine A/B zones differ from "
+              f"pip_host_truth: {mism}")
+        refine = {
+            "n": REFINE_N, "base_res": REFINE_RES, "build_s": t_build,
+            "cold_s": t_cold, "refined_s": ref_s, "flat_s": flat_s,
+            "refined_ms": float(np.median(ref_s)) * 1e3,
+            "flat_ms": float(np.median(flat_s)) * 1e3, "stats": stats,
+            "decision_refined": d_ref, "decision_auto": d_auto,
+            "k3_by_part": k3_parts, "parts_by_run": parts,
+            "route_ms": route_ms,
+            "route_ms_per_chunk": float(np.median(route_ms[1:])),
+            "route_host_points": parts[0]["route_host_points"],
+            "route_points": parts[0]["route_points"],
+            "mismatches": mism, "build_counts": build_counts}
+        log(f"[strategies] refine A/B: build {t_build:.3f} s (counts "
+            f"{build_counts}); cold refined run {t_cold:.3f} s; refined "
+            f"{refine['refined_ms']:.3f} ms (median of {ref_s}) vs flat "
+            f"{refine['flat_ms']:.3f} ms ({flat_s}), host clock; stats "
+            f"{stats}; K3 by part over the cold and timed runs {k3_parts}; "
+            f"route {parts[0]['route_points']} points in the cold run, "
+            f"{parts[0]['route_host_points']} re-assigned on the host, "
+            f"route ms per call {[round(t, 3) for t in route_ms]} (the "
+            f"probe's first), per chunk {refine['route_ms_per_chunk']:.3f}; "
+            f"decisions: pinned {d_ref}, auto {d_auto}; 0 mismatches "
+            f"against pip_host_truth on all {REFINE_N} points, {routed} "
+            f"routed ids equal to the host's")
+    finally:
+        config.set_default_config(prev)
+        planner.reset()
+    t_phase = time.perf_counter() - t_phase
+    log(f"[strategies] the phase took {t_phase:.1f} s")
+    return {"sweep": sweep, "planned_flagship": {
+                "s": t_batch, "streamed_s": t_off, "decisions": decisions,
+                "parts_ms": parts_ms(parts_fl, t_batch),
+                "parts_by_batch": parts_fl, "sketch_ms": sketch_fl},
+            "refine": refine, "phase_s": t_phase,
+            "paths": {"planned flagship": planned_counts,
+                      "refine A/B refined": {
+                          k: build_counts[k] + refined_counts[k]
+                          for k in refined_counts},
+                      "refine A/B flat": flat_counts}}
+
+
 def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2795,17 +3147,19 @@ def main() -> int:
         flops_pt, issued_pt = flops_per_point(RES, origin)
         kern = phase_kernel(origin, flops_pt, issued_pt)
         phase_df_contract()
-        launches, idx, grid, batches, rechecked, dense_zone, polys, chips = \
+        launches, idx, grid, batches, rechecked, dense_zones, polys, chips = \
             phase_flagship()
         join = phase_join_kernel(idx, grid, polys, batches, rechecked,
                                  flops_pt)
         cell = phase_cell_kernel(cell_ops_per_point(RES))
         custom = phase_sorted_custom()
-        h3s = phase_sorted_h3(polys, grid, chips, batches[0], dense_zone)
+        h3s = phase_sorted_h3(polys, grid, chips, batches[0],
+                              dense_zones[0])
         bng = phase_sorted_bng()
         over = phase_overlay(polys, grid)
         knn = phase_knn()
         chip = phase_chips()
+        strat = phase_strategies(idx, grid, polys, batches, dense_zones)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2815,7 +3169,7 @@ def main() -> int:
              "overlay area": over["counts_area"],
              "knn brute": knn["paths"]["brute"]["counts"],
              "knn ring": knn["paths"]["ring"]["counts"],
-             **chip["tess_counts"]}
+             **chip["tess_counts"], **strat["paths"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -2833,6 +3187,8 @@ def main() -> int:
     log(json.dumps({"knn": knn["paths"]}))
     log(json.dumps({"chips": {k: v for k, v in chip.items()
                               if k not in ("k7", "k8", "tess_counts")}}))
+    log(json.dumps({"strategies": {k: v for k, v in strat.items()
+                                   if k != "paths"}}))
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
                for label, row in chip[key]["shapes"].items()}

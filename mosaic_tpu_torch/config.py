@@ -1,0 +1,180 @@
+"""Configuration of the port: the conf keys its join strategies read.
+
+Port copy of the part of ``mosaic_tpu.config`` that the planner, the
+planned and refined PIP joins, the stream chunk and SpatialKNN's engine
+choice read.  Keys keep the JAX package's names, defaults, validators and
+error class, so a setting carries over 1:1:
+
+* ``mosaic.planner.enabled`` — the cost planner on or off;
+* ``mosaic.planner.force.<op>`` — pin one operator's strategy (ops and
+  strategies from ``sql.planner.FORCE_CHOICES``; "auto" clears the pin);
+* ``mosaic.stream.chunk.rows`` — rows per streamed-join chunk, and the
+  planner's monolithic-vs-streamed pivot;
+* ``mosaic.knn.strategy`` — "auto", "brute", "ring" or a positive
+  brute-right-max threshold;
+* ``mosaic.join.refine.{enabled,depth,dup.threshold,max.cells,
+  sample.rows}`` — the adaptive refined join.
+
+The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
+any other one, and for the pins of strategies and ops it does not run
+(the ``sharded`` PIP strategy, the ``equi_join`` and ``fusion`` ops).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+MOSAIC_PLANNER_ENABLED = "mosaic.planner.enabled"
+MOSAIC_PLANNER_FORCE_PREFIX = "mosaic.planner.force."
+MOSAIC_STREAM_CHUNK_ROWS = "mosaic.stream.chunk.rows"
+MOSAIC_KNN_STRATEGY = "mosaic.knn.strategy"
+MOSAIC_JOIN_REFINE_ENABLED = "mosaic.join.refine.enabled"
+MOSAIC_JOIN_REFINE_DEPTH = "mosaic.join.refine.depth"
+MOSAIC_JOIN_REFINE_DUP_THRESHOLD = "mosaic.join.refine.dup.threshold"
+MOSAIC_JOIN_REFINE_MAX_CELLS = "mosaic.join.refine.max.cells"
+MOSAIC_JOIN_REFINE_SAMPLE_ROWS = "mosaic.join.refine.sample.rows"
+
+
+class ConfigError(ValueError):
+    """A conf key carried an unusable value; the message names the key."""
+
+
+@dataclasses.dataclass(frozen=True)
+class MosaicConfig:
+    """Immutable snapshot of the port's settings."""
+
+    # cost planner (sql/planner.py): pure strategy choice, results are
+    # the same either way
+    planner_enabled: bool = True
+    # ((op, strategy), ...) pins from mosaic.planner.force.<op> keys
+    planner_force: tuple = ()
+    # rows per streamed-join chunk; also the planner's monolithic pivot
+    stream_chunk_rows: int = 262_144
+    # "auto" | "brute" | "ring" | positive-int brute-right-max
+    knn_strategy: str = "auto"
+    # adaptive PIP refinement: the kill switch (beats any pin), levels
+    # to deepen by, per-cell chip count below which a cell never
+    # refines, cap on the refined set, leading rows the probe samples
+    join_refine_enabled: bool = True
+    join_refine_depth: int = 1
+    join_refine_dup_threshold: int = 8
+    join_refine_max_cells: int = 4_096
+    join_refine_sample_rows: int = 65_536
+
+
+def _as_flag(key: str, value) -> bool:
+    s = str(value).strip().lower()
+    if s in ("true", "1", "yes", "on"):
+        return True
+    if s in ("false", "0", "no", "off"):
+        return False
+    raise ConfigError(f"{key}={value!r} is not a boolean "
+                      "(use true/false)")
+
+
+def _as_blocksize(key: str, value) -> int:
+    try:
+        n = int(str(value).strip())
+    except (TypeError, ValueError):
+        raise ConfigError(
+            f"{key}={value!r} is not an integer") from None
+    if n <= 0:
+        raise ConfigError(f"{key}={n} must be a positive integer")
+    return n
+
+
+def _as_count(key: str, value) -> int:
+    try:
+        n = int(str(value).strip())
+    except (TypeError, ValueError):
+        raise ConfigError(
+            f"{key}={value!r} is not an integer") from None
+    if n < 0:
+        raise ConfigError(f"{key}={n} must be >= 0 (0 disables)")
+    return n
+
+
+def _as_knn_strategy(key: str, value) -> str:
+    s = str(value).strip().lower()
+    if s in ("auto", "brute", "ring"):
+        return s
+    try:
+        n = int(s)
+    except ValueError:
+        raise ConfigError(
+            f"{key}={value!r} invalid (auto, brute, ring, or a "
+            "positive integer brute-right-max threshold)") from None
+    if n <= 0:
+        raise ConfigError(f"{key}={n} threshold must be positive")
+    return str(n)
+
+
+#: conf key -> (dataclass field, validating coercer)
+_CONF_FIELDS = {
+    MOSAIC_PLANNER_ENABLED: ("planner_enabled", _as_flag),
+    MOSAIC_STREAM_CHUNK_ROWS: ("stream_chunk_rows", _as_blocksize),
+    MOSAIC_KNN_STRATEGY: ("knn_strategy", _as_knn_strategy),
+    MOSAIC_JOIN_REFINE_ENABLED: ("join_refine_enabled", _as_flag),
+    MOSAIC_JOIN_REFINE_DEPTH: ("join_refine_depth", _as_blocksize),
+    MOSAIC_JOIN_REFINE_DUP_THRESHOLD:
+        ("join_refine_dup_threshold", _as_count),
+    MOSAIC_JOIN_REFINE_MAX_CELLS:
+        ("join_refine_max_cells", _as_blocksize),
+    MOSAIC_JOIN_REFINE_SAMPLE_ROWS:
+        ("join_refine_sample_rows", _as_blocksize),
+}
+
+
+def _apply_planner_force(cfg: MosaicConfig, key: str,
+                         value) -> MosaicConfig:
+    """``mosaic.planner.force.<op>`` assignment: validate op and
+    strategy against the planner's registry, "auto" clears the pin."""
+    from .sql.planner import FORCE_CHOICES
+    op = key[len(MOSAIC_PLANNER_FORCE_PREFIX):]
+    if op not in FORCE_CHOICES:
+        raise ConfigError(
+            f"{key!r}: unknown plannable op {op!r} (known: "
+            f"{', '.join(sorted(FORCE_CHOICES))})")
+    s = str(value).strip().lower()
+    if s not in FORCE_CHOICES[op]:
+        raise ConfigError(
+            f"{key}={value!r} invalid "
+            f"({', '.join(FORCE_CHOICES[op])})")
+    force = tuple((o, st) for o, st in cfg.planner_force if o != op)
+    if s != "auto":
+        force = force + ((op, s),)
+    return dataclasses.replace(cfg, planner_force=force)
+
+
+def planner_force_for(cfg: MosaicConfig, op: str) -> str:
+    """The pinned strategy for ``op`` ("auto" when unpinned)."""
+    for o, s in cfg.planner_force:
+        if o == op:
+            return s
+    return "auto"
+
+
+def apply_conf(cfg: MosaicConfig, key: str, value) -> MosaicConfig:
+    """One validated conf assignment -> a new config; a key the port
+    does not know raises ``ConfigError``."""
+    if key.startswith(MOSAIC_PLANNER_FORCE_PREFIX):
+        return _apply_planner_force(cfg, key, value)
+    if key not in _CONF_FIELDS:
+        raise ConfigError(
+            f"unknown conf key {key!r} (known: "
+            f"{', '.join(sorted(_CONF_FIELDS))} and "
+            f"{MOSAIC_PLANNER_FORCE_PREFIX}<op>)")
+    field, coerce = _CONF_FIELDS[key]
+    return dataclasses.replace(cfg, **{field: coerce(key, value)})
+
+
+_default_config: MosaicConfig = MosaicConfig()
+
+
+def set_default_config(cfg: MosaicConfig) -> None:
+    global _default_config
+    _default_config = cfg
+
+
+def default_config() -> MosaicConfig:
+    return _default_config

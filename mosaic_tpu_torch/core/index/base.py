@@ -28,6 +28,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+#: CRS units: a point whose device margin is below this band takes its
+#: cell from the exact f64 host path in ``point_to_cell_device`` (it
+#: covers the f32 rounding of absolute lon/lat degrees in H3's cell
+#: kernel)
+DEVICE_MARGIN_BAND = 3e-5
+
 
 def device_scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     """``v`` as a 0-dim tensor of ``like``'s dtype on its device, made by a
@@ -93,6 +99,29 @@ class IndexSystem(abc.ABC):
         cells = self.point_to_cell_torch(xy, res)
         return cells, torch.full(xy.shape[:-1], float("inf"),
                                  dtype=xy.dtype, device=xy.device)
+
+    #: dtype ``point_to_cell_device`` hands the device hooks: f64 where
+    #: they are torch ops (the host's arithmetic, op for op); a grid
+    #: whose hook is an f32 kernel overrides it
+    route_dtype = np.float64
+
+    def point_to_cell_device(self, xy: np.ndarray, res: int, device
+                             ) -> Tuple[np.ndarray, int]:
+        """Cell ids of [N, 2] f64 points on ``device``, equal to
+        ``point_to_cell``'s: ``point_to_cell_torch_margin`` on the points
+        in ``route_dtype`` (on H3 one launch of the cell kernel), and
+        every point whose margin is below DEVICE_MARGIN_BAND assigned
+        again by the exact host path.  Returns (cells [N] int64, the
+        number of points the host assigned)."""
+        xy = np.asarray(xy, np.float64)[:, :2]
+        cells, margin = self.point_to_cell_torch_margin(
+            torch.from_numpy(np.ascontiguousarray(xy, self.route_dtype)
+                             ).to(device), res)
+        cells = cells.cpu().numpy()
+        low = np.nonzero(margin.cpu().numpy() < DEVICE_MARGIN_BAND)[0]
+        if len(low):
+            cells[low] = self.point_to_cell(xy[low], res)
+        return cells, len(low)
 
     def point_in_bounds_torch(self, xy: torch.Tensor) -> torch.Tensor:
         """[N, 2] -> [N] bool on the same device: point lies inside the

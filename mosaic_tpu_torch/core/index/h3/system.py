@@ -17,7 +17,6 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
-import torch
 
 from ..base import IndexSystem
 from . import index as ix
@@ -29,13 +28,8 @@ EARTH_RADIUS_KM = 6371.0088
 #: resolutions up to SAMPLE_MAX_RES; smaller or finer ones the host ids
 SAMPLE_MIN_POINTS = 32768
 SAMPLE_MAX_RES = 10
-#: planar degrees: a sampling point whose kernel margin is below this is
-#: assigned again by the exact host path (the band the sorted join and
-#: chip_smoke.py hold the kernel to; it covers the f32 rounding of
-#: absolute CONUS longitudes)
-SAMPLE_MARGIN_DEG = 3e-5
 #: sampling points through the cell kernel, and those of them sent to the
-#: host path for a margin below SAMPLE_MARGIN_DEG
+#: host path for a margin below ``base.DEVICE_MARGIN_BAND``
 SAMPLE_COUNTS = {"points": 0, "host_points": 0}
 
 
@@ -54,6 +48,8 @@ class H3IndexSystem(IndexSystem):
     name = "H3"
     crs_id = 4326
     string_ids = False
+    #: the cell kernel takes f32 degrees
+    route_dtype = np.float32
 
     def __init__(self):
         self._inradius_deg: Dict[int, float] = {}
@@ -88,23 +84,17 @@ class H3IndexSystem(IndexSystem):
         res <= SAMPLE_MAX_RES goes through the cell kernel
         (``ops/cell.py``, one launch; its plain version on the CPU) as
         f32 degrees, and every point whose margin is below
-        SAMPLE_MARGIN_DEG is assigned again by the exact f64 host path,
-        so the candidate sets are the host's.  Otherwise (no device, a
-        small lattice, a fine res) the host path alone."""
+        ``base.DEVICE_MARGIN_BAND`` is assigned again by the exact f64
+        host path, so the candidate sets are the host's
+        (``point_to_cell_device``).
+        Otherwise (no device, a small lattice, a fine res) the host path
+        alone."""
         if device is None or res > SAMPLE_MAX_RES or \
                 len(xy) < SAMPLE_MIN_POINTS:
             return self.point_to_cell(xy, res)
-        from ....ops.cell import latlng_to_cell_margin
-        self._check_res(res)
-        xy = np.asarray(xy, np.float64)
-        cells, margin = latlng_to_cell_margin(
-            torch.from_numpy(xy.astype(np.float32)).to(device), res)
-        cells = cells.cpu().numpy()
-        low = np.nonzero(margin.cpu().numpy() < SAMPLE_MARGIN_DEG)[0]
-        if len(low):
-            cells[low] = self.point_to_cell(xy[low], res)
+        cells, host = self.point_to_cell_device(xy, res, device)
         SAMPLE_COUNTS["points"] += len(xy)
-        SAMPLE_COUNTS["host_points"] += len(low)
+        SAMPLE_COUNTS["host_points"] += host
         return cells
 
     def cell_center(self, cells: np.ndarray) -> np.ndarray:

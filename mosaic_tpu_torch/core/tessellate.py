@@ -40,8 +40,8 @@ from ..types import ChipSet
 from .geometry.array import GeometryArray, GeometryBuilder, GeometryType
 from .index.base import IndexSystem
 
-__all__ = ["tessellate", "polyfill", "point_chips", "convex_clip_rings",
-           "classify_cells"]
+__all__ = ["tessellate", "tessellate_subset", "polyfill", "point_chips",
+           "convex_clip_rings", "classify_cells"]
 
 
 # --------------------------------------------------------------- primitives
@@ -453,6 +453,28 @@ def tessellate(arr: GeometryArray, res: int, grid: IndexSystem,
         else:
             raise ValueError(f"unsupported geometry type {t}")
     return ChipSet.concat(parts_out)
+
+
+def tessellate_subset(arr: GeometryArray, geom_ids: np.ndarray,
+                      res: int, grid: IndexSystem,
+                      keep_core_geom: bool = True,
+                      device: DeviceLike = None
+                      ) -> Tuple[GeometryArray, ChipSet]:
+    """Tessellate only ``geom_ids`` of ``arr`` at ``res``, on ``device``
+    as :func:`tessellate` (CUDA unless the caller passes ``"cpu"``).
+
+    Returns ``(sub_arr, chips)`` where ``sub_arr = arr.take(geom_ids)``
+    and ``chips.geom_id`` is **subset-local**: chip ``geom_id == j``
+    refers to ``arr``'s geometry ``geom_ids[j]``; remap with
+    ``np.asarray(geom_ids)[chips.geom_id]``.  ``geom_ids`` order is
+    kept, so first-match over the subset agrees with first-match over
+    ``arr`` restricted to it.  The refined PIP join deepens the dense
+    cells' polygons with it."""
+    dev = resolve_device(device)
+    geom_ids = np.asarray(geom_ids, dtype=np.int64).reshape(-1)
+    sub = arr.take(geom_ids)
+    return sub, tessellate(sub, res, grid, keep_core_geom=keep_core_geom,
+                           device=dev)
 
 
 def _line_cells_mask(verts, counts, edges) -> np.ndarray:

@@ -31,21 +31,27 @@ Non-H3 grids take the exact blocked host path; geometry rows run the
 reference's ring join on the host with exact ``pairwise_geometry_distance``
 (or a bounded all-pairs pass for small right sides).
 
-Left out here (the JAX package has them): the ``mesh``/``axis`` sharded
-ring, and the ``mosaic.knn.strategy`` conf and planner choice of engine;
-the built-in rule picks brute for ``0 < m <= brute_right_max``, and
+The engine of a point workload: the ``mosaic.knn.strategy`` pin, else the
+cost planner's ``decide_knn`` (``sql/planner.py``: learned brute and ring
+costs within its memory guard, else brute for ``0 < m <=
+brute_right_max``), else, with the planner off, that rule alone;
 ``brute_right_max=0`` forces the ring.  Both engines give the same answer.
+
+Left out here (the JAX package has it): the ``mesh``/``axis`` sharded
+ring.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..config import default_config
 from ..core.geometry.array import GeometryArray, GeometryType
 from ..core.geometry.measures import pairwise_geometry_distance
 from ..core.geometry.padded import points_block
@@ -58,6 +64,7 @@ from ..ops.knn_brute import brute_topk
 from ..ops.knn_ring import lattice_order, ring_step
 from ..parallel.pip_join import _host_lattice
 from ..perf.pipeline import chunk_rows, stream
+from ..sql.planner import Decision, planner
 from .core import IterationState, IterativeTransformer
 
 #: f32 tie band (degrees) at the k-th rank boundary
@@ -320,6 +327,8 @@ class SpatialKNN(IterativeTransformer):
         self.device = resolve_device(device)
         self._idx: Optional[FusedKNNIndex] = None
         self._rowmap: Dict[int, np.ndarray] = {}
+        #: the planner's engine decision of the last point transform
+        self._last_decision: Optional[Decision] = None
 
     # ------------------------------------- IterativeTransformer protocol
     def initial_state(self, left_xy, right_xy) -> IterationState:
@@ -407,13 +416,47 @@ class SpatialKNN(IterativeTransformer):
                                           self.distance_threshold)
             return self._result(lp, rp, ids, d2, iterations=0,
                                 rechecked=len(lp))
-        return self._transform_points(lp, rp)
+        # timed so the planner's knn/brute and knn/ring coefficients
+        # learn from every run
+        t0 = time.perf_counter()
+        out = self._transform_points(lp, rp)
+        d = self._last_decision
+        if d is not None:
+            planner.observe_decision(d, time.perf_counter() - t0)
+        return out
 
-    def _points_strategy(self, n: int, m: int) -> str:
-        """Brute vs. ring for an n-left x m-right point workload: the
-        built-in right-side threshold.  Both paths are exact (same f64
-        re-rank, ties by right id), so this is purely a speed choice."""
-        return "brute" if 0 < m <= self.brute_right_max else "ring"
+    def _points_strategy(self, n: int, m: int
+                         ) -> Tuple[str, Optional[Decision]]:
+        """(engine, the planner's decision or None) for an n-left x
+        m-right point workload.  Both engines are exact (same f64
+        re-rank, ties by right id), so this is purely a speed choice:
+        the ``mosaic.knn.strategy`` pin wins (a positive integer there
+        replaces ``brute_right_max``), then the planner's ``decide_knn``,
+        then the built-in right-side threshold.  ``brute_right_max=0``
+        forces the ring over the planner's pick."""
+        if m == 0:
+            return "ring", None
+        threshold = self.brute_right_max
+        conf = default_config().knn_strategy
+        if conf not in ("auto", "brute", "ring"):
+            threshold = int(conf)       # numeric conf: new threshold
+            conf = "auto"
+        if conf != "auto":
+            d = None
+            if planner.enabled:
+                d = planner.record_decision(Decision(
+                    "knn", conf, "forced by mosaic.knn.strategy", n,
+                    cost_key=f"knn/{conf}", key_n=n, forced=True))
+            return conf, d
+        if planner.enabled:
+            d = planner.decide_knn(n, m, threshold)
+            if threshold <= 0 and d.strategy == "brute":
+                d.strategy = "ring"
+                d.reason = "brute_right_max=0 forces the ring"
+                d.cost_key = "knn/ring"
+                d.forced = True
+            return d.strategy, d
+        return ("brute" if 0 < m <= threshold else "ring"), None
 
     def _brute_device_topk(self, left_xy: np.ndarray,
                            right_xy: np.ndarray):
@@ -503,7 +546,9 @@ class SpatialKNN(IterativeTransformer):
         right_xy = np.asarray(right_xy, np.float64)
         k = self.k
         n = len(left_xy)
-        if self._points_strategy(n, len(right_xy)) == "brute":
+        strategy, self._last_decision = self._points_strategy(
+            n, len(right_xy))
+        if strategy == "brute":
             return self._brute_device_topk(left_xy, right_xy)
         self._idx, self._rowmap, residual = build_knn_indexes(
             right_xy, self.res, self.grid, device=self.device)

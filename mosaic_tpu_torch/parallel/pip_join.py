@@ -35,12 +35,20 @@ Points whose f32 result could differ from the exact f64 one are flagged
 chip edges for a dense index, against the polygons for a sorted one — by
 the native C++ kernels of ``native/``, so the final zones equal the
 exact oracle ``pip_host_truth``.
+
+Over these sit the join strategies, each the same zones by another
+path: ``make_streamed_pip_join`` (chunks through ``perf/pipeline.py``),
+``make_planned_pip_join`` (the cost planner of ``sql/planner.py`` picks
+one monolithic call or a chunk class per batch) and
+``make_refined_pip_join`` (the dense border cells' polygons tessellated
+a level deeper, each point routed to its level by its cell).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -48,6 +56,7 @@ import torch
 
 from .. import native
 from .._device import DeviceLike, resolve_device
+from ..config import default_config
 from ..core.geometry.array import GeometryArray
 from ..core.geometry.padded import build_edges_np
 from ..core.index.h3 import hexmath as hm
@@ -55,11 +64,13 @@ from ..core.index.h3.constants import M_SQRT7, RES0_U_GNOMONIC
 from ..core.index.h3.system import H3IndexSystem
 from ..core.index.h3.torchkernel import (FACEGAP_EPS, MAX_LOCAL_DEG,
                                          err_lattice_bound)
-from ..core.tessellate import _pip, _poly_edges, tessellate
+from ..core.tessellate import (_pip, _poly_edges, tessellate,
+                               tessellate_subset)
 from ..ops.dense_join import CORE_FLAG as _CORE_FLAG
 from ..ops.dense_join import JoinConsts, dense_join, join_tables, prepare
 from ..ops.lookup import lookup
 from ..perf.pipeline import chunk_rows, stream
+from ..sql.planner import Decision, planner
 from ..types import ChipSet
 
 #: f32 hazard band (degrees) around chip edges for the crossing-parity
@@ -67,10 +78,6 @@ from ..types import ChipSet
 #: (~1.5e-8 deg at city magnitudes) and the f32 edge-intersection
 #: arithmetic (~1e-7 deg), with ~8x safety.
 EPS_EDGE_DEG = 1e-6
-
-#: rows per chunk of the streamed join (the JAX package's
-#: ``mosaic.stream.chunk.rows`` default)
-DEFAULT_CHUNK_ROWS = 1 << 18
 
 CORE_FLAG = np.int32(_CORE_FLAG)
 
@@ -851,6 +858,13 @@ def host_recheck(points64: np.ndarray, zone: np.ndarray,
                             lambda pts: pip_host_truth(pts, polys))
 
 
+def _resolve_chunk(chunk: Optional[int]) -> int:
+    """Caller-supplied chunk rows, else ``mosaic.stream.chunk.rows``."""
+    if chunk is not None:
+        return int(chunk)
+    return int(default_config().stream_chunk_rows)
+
+
 def make_streamed_pip_join(idx, grid=None,
                            polys: Optional[GeometryArray] = None,
                            chunk: Optional[int] = None,
@@ -860,7 +874,8 @@ def make_streamed_pip_join(idx, grid=None,
     """End-to-end chunked join with transfer/compute/recheck overlap, on
     either index type.
 
-    Cuts a host batch into ``chunk``-row pieces and runs them through
+    Cuts a host batch into ``chunk``-row pieces (``chunk=None`` reads
+    ``mosaic.stream.chunk.rows``) and runs them through
     :func:`mosaic_tpu_torch.perf.pipeline.stream` on ``device`` (CUDA
     unless the caller passes ``"cpu"``; the index must live there): the
     localize + upload of chunk k+1 rides along with device compute on
@@ -875,7 +890,7 @@ def make_streamed_pip_join(idx, grid=None,
     if idx.device != dev:
         raise ValueError(f"index lives on {idx.device}, join asked for "
                          f"{dev}")
-    chunk = DEFAULT_CHUNK_ROWS if chunk is None else int(chunk)
+    chunk = _resolve_chunk(chunk)
     fn = make_pip_join_fn(idx, grid, eps, margin_eps)
     recheck = host_recheck_fn(idx, polys)
     origin = np.asarray(idx.origin, np.float64)
@@ -901,4 +916,397 @@ def make_streamed_pip_join(idx, grid=None,
 
     #: the bound host recheck (a dense index's counts its fallbacks)
     run.recheck = recheck
+    return run
+
+
+# ------------------------------------------------------ the planned join
+
+def _join_once(fn, idx, recheck, points64: np.ndarray, dev):
+    """One join call over f64 points in ``idx``'s frame (:func:`localize`:
+    the f64 origin shift, then the f32 cast) on ``dev``, then the f64
+    ``recheck`` of its flagged points: ``(zone [N] int32, rechecked)``."""
+    z, unc = fn(torch.from_numpy(localize(idx, points64)).to(dev))
+    z = z.cpu().numpy()
+    unc = unc.cpu().numpy()
+    return recheck(points64, z, unc), int(unc.sum())
+
+
+def _overlap_frac(points64: np.ndarray, poly_ext) -> Optional[float]:
+    """What fraction of the batch's bbox intersects the polygons' extent
+    ``poly_ext`` (x0, y0, x1, y1): an upper bound on the match rate.  The
+    bbox is one pass of torch's threaded ``aminmax`` over the host array:
+    numpy reduces an axis of width 2 a row at a time, and a reduction per
+    column reads the whole array each time."""
+    if poly_ext is None or not len(points64):
+        return None
+    lo, hi = torch.aminmax(torch.from_numpy(points64), dim=0)
+    (x0, y0), (x1, y1) = lo.tolist(), hi.tolist()
+    w = max(x1 - x0, 1e-12) * max(y1 - y0, 1e-12)
+    iw = max(0.0, min(x1, poly_ext[2]) - max(x0, poly_ext[0]))
+    ih = max(0.0, min(y1, poly_ext[3]) - max(y0, poly_ext[1]))
+    return min(1.0, (iw * ih) / w)
+
+
+def make_planned_pip_join(idx, grid=None,
+                          polys: Optional[GeometryArray] = None,
+                          eps: Optional[float] = None,
+                          margin_eps: Optional[float] = None):
+    """Cost-based entry point over the single-device PIP join family, on
+    the index's device.
+
+    Per call the planner (``sql/planner.py``) picks one monolithic call
+    of :func:`make_pip_join_fn` on the whole batch (on a dense index one
+    K2 launch), or :func:`make_streamed_pip_join` in one of two chunk
+    classes, from its learned per-(strategy, size-class) cost
+    coefficients; cold it falls back to the batch-vs-chunk threshold.
+    Every candidate localizes the same way (f64 origin shift before the
+    f32 cast), runs the same join body and the same f64 recheck, so the
+    zones are the same whichever path runs.  A bbox-overlap sketch of the
+    batch against the polygons' extent feeds the estimate.
+
+    After each call the wall time and matched rows flow back into the
+    planner.  ``run.calibrate(points64)`` runs every candidate warm,
+    feeds its time to the planner and raises AssertionError on any zone
+    difference.
+
+    Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``;
+    ``run.last_decision`` is the most recent pick and ``run.last_times``
+    its host seconds in the sketch, the decision, the chosen variant's
+    call and the planner's feedback."""
+    dev = idx.device
+    variants: dict = {}
+    poly_ext = None
+    if polys is not None and len(polys):
+        bb = polys.bboxes()
+        poly_ext = (float(np.nanmin(bb[:, 0])), float(np.nanmin(bb[:, 1])),
+                    float(np.nanmax(bb[:, 2])), float(np.nanmax(bb[:, 3])))
+
+    def _variant(strategy: str, chunk: int):
+        key = (strategy, chunk if strategy == "streamed" else 0)
+        if key in variants:
+            return variants[key]
+        if strategy == "monolithic":
+            fn = make_pip_join_fn(idx, grid, eps, margin_eps)
+            recheck = host_recheck_fn(idx, polys)
+
+            def mono(points64):
+                points64 = np.asarray(points64, np.float64)[:, :2]
+                if not len(points64):
+                    return np.empty(0, np.int32), 0
+                return _join_once(fn, idx, recheck, points64, dev)
+
+            variants[key] = mono
+        else:
+            variants[key] = make_streamed_pip_join(
+                idx, grid, polys=polys, chunk=chunk, eps=eps,
+                margin_eps=margin_eps, device=dev)
+        return variants[key]
+
+    def run(points64: np.ndarray):
+        t = [time.perf_counter()]
+        points64 = np.asarray(points64, np.float64)[:, :2]
+        frac = _overlap_frac(points64, poly_ext)
+        t.append(time.perf_counter())
+        d = planner.decide_pip_join(len(points64), in_extent_frac=frac)
+        chunk = getattr(d, "chunk", planner.chunk_rows())
+        t.append(time.perf_counter())
+        zone, rechecked = _variant(d.strategy, chunk)(points64)
+        t.append(time.perf_counter())
+        planner.observe_decision(d, t[3] - t[2],
+                                 rows_out=int(np.count_nonzero(zone >= 0)))
+        t.append(time.perf_counter())
+        run.last_decision = d
+        run.last_times = dict(zip(("sketch", "decide", "call", "observe"),
+                                  np.diff(t).tolist()))
+        return zone, rechecked
+
+    def calibrate(points64: np.ndarray):
+        """Run every candidate warm on this batch: seeds the planner's
+        coefficients and asserts the candidates' zones are equal."""
+        points64 = np.asarray(points64, np.float64)[:, :2]
+        n = len(points64)
+        ref = None
+        for strategy, chunk in planner.pip_join_candidates(n):
+            fn = _variant(strategy, chunk)
+            fn(points64)                # warm: builds stay out of the
+            t0 = time.perf_counter()    # learned coefficients
+            zone, _ = fn(points64)
+            wall = time.perf_counter() - t0
+            planner.observe_op(planner.pip_cost_key(strategy, chunk), n,
+                               wall, rows_out=int(np.count_nonzero(zone >= 0)))
+            if ref is None:
+                ref = zone
+            elif not np.array_equal(ref, zone):
+                raise AssertionError(
+                    f"pip_join strategy {strategy!r} (chunk {chunk}) "
+                    "diverged from the reference path")
+        return ref
+
+    run.calibrate = calibrate
+    run.last_decision = None
+    run.last_times = None
+    return run
+
+
+# ------------------------------------------------------ the refined join
+
+def _chips_clean(chips: ChipSet) -> bool:
+    """True when a chipset's index is *clean*: no cell id is both core
+    and border, and no cell is core for two polygons — the two
+    conditions whose violation rejects the dense path (overlap_regime,
+    duplicate_core).
+
+    In a clean index a core hit means no other polygon meets that cell
+    (it would have a chip there), so the core zone is the only
+    container; border-only hits take the first border slot, and the
+    stable sort of ``_build_sorted_index`` keeps slots in geom-id order,
+    so they resolve to the lowest containing id — the first-match rule
+    of :func:`pip_host_truth`.  So every point's final zone equals the
+    oracle at any resolution, and routing points between two clean
+    levels cannot change a zone.  An unclean chipset (overlapping
+    polygons sharing a core cell) voids the argument: the refined join
+    then runs flat."""
+    core = chips.is_core
+    core_cells = chips.cell_id[core]
+    if len(np.intersect1d(core_cells, chips.cell_id[~core])):
+        return False
+    return len(np.unique(core_cells)) == len(core_cells)
+
+
+def make_refined_pip_join(polys: GeometryArray, grid, res: int,
+                          chunk: Optional[int] = None,
+                          eps: Optional[float] = None,
+                          margin_eps: Optional[float] = None,
+                          device: DeviceLike = None):
+    """Adaptive per-cell refinement of the sorted join, on ``device``
+    (CUDA unless the caller passes ``"cpu"``).
+
+    The flat join pays ``max_dup`` chip probes per point, set by the
+    worst cell.  This join starts at ``res`` like the flat path, measures
+    per-cell candidate pairs on the first batch's leading
+    ``mosaic.join.refine.sample.rows`` points, and tessellates only the
+    dense border cells' polygons ``mosaic.join.refine.depth`` levels
+    deeper.  Each chunk's points are routed by their base-level cell
+    (``grid.point_to_cell_device``: on H3 one launch of the cell kernel,
+    low-margin points on the host, so the ids are the host's): a point
+    in a dense cell runs against the refined index, every other one
+    against the base index the flat path uses.  Both levels are sorted
+    indexes (``dense="never"``), so on H3 each part's join body is one
+    cell-kernel launch.
+
+    Both levels are gated on :func:`_chips_clean`, so the zones equal
+    :func:`pip_host_truth` and the flat path's.  The refined part's
+    recheck authority is the polygon subset whose bboxes touch a dense
+    cell (inflated by twice the base index's sagitta, order kept, ids
+    mapped back), which holds every polygon that can contain a
+    dense-routed point.  The planner's ``refine`` decision picks the
+    path (``mosaic.planner.force.refine`` pins it,
+    ``mosaic.join.refine.enabled`` off beats any pin).  A failure in the
+    refined path raises; nothing re-runs the batch flat.
+
+    Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``
+    with ``run.last_decision``, ``run.stats`` (levels, cells_refined,
+    cells_flat, refined_points, flat_points, strategy: what ran) and
+    ``run.counts`` (the last call's route, base-part and refined-part
+    join calls, routed points and those the host assigned)."""
+    dev = resolve_device(device)
+    chunk = _resolve_chunk(chunk)
+    chips = tessellate(polys, res, grid, keep_core_geom=False, device=dev)
+    idx_base = build_pip_index(polys, res, grid, chips=chips,
+                               dense="never", device=dev)
+    clean_base = _chips_clean(chips)
+    fn_base = make_pip_join_fn(idx_base, grid, eps, margin_eps)
+    recheck_base = host_recheck_fn(idx_base, polys)
+    b_cells = chips.cell_id[~chips.is_core]
+    u_cells, u_dup = (np.unique(b_cells, return_counts=True)
+                      if len(b_cells) else
+                      (np.empty(0, np.int64), np.empty(0, np.int64)))
+    state = {"probed": False, "dense": np.empty(0, np.int64),
+             "frac": 0.0, "depth": 0, "ref": None, "ref_unclean": False,
+             "flat": None}
+    counts = {}
+
+    def _route_cells(pts64: np.ndarray) -> np.ndarray:
+        """Base-level cell ids for the hot/cold split, equal to the
+        host's ``point_to_cell``.  Routing is never the answer's
+        authority: a cold-routed point runs the full base index, and the
+        subset holds every polygon that can contain a hot-routed one."""
+        if not len(pts64):
+            return np.empty(0, np.int64)
+        cells, host = grid.point_to_cell_device(pts64, res, dev)
+        counts["route"] += 1
+        counts["route_points"] += len(pts64)
+        counts["route_host_points"] += host
+        return cells
+
+    def _probe(points64: np.ndarray) -> None:
+        """Sticky selectivity probe: per border cell, the estimated
+        candidate pairs = (sample points in cell) x (chips in cell)."""
+        cfg = default_config()
+        sample = points64[:max(1, int(cfg.join_refine_sample_rows))]
+        if not len(u_cells) or not len(sample):
+            return
+        cells = _route_cells(sample)
+        pos = np.searchsorted(u_cells, cells)
+        posc = np.clip(pos, 0, len(u_cells) - 1)
+        valid = (pos < len(u_cells)) & (u_cells[posc] == cells)
+        hits = np.bincount(posc[valid], minlength=len(u_cells))
+        pairs = hits.astype(np.float64) * u_dup
+        total = float(pairs.sum())
+        floor = int(cfg.join_refine_dup_threshold)
+        sel = np.nonzero((u_dup >= floor) & (hits > 0))[0]
+        cap = max(1, int(cfg.join_refine_max_cells))
+        if len(sel) > cap:
+            sel = sel[np.argsort(-pairs[sel], kind="stable")[:cap]]
+        state["dense"] = np.sort(u_cells[sel])
+        state["frac"] = float(pairs[sel].sum()) / total if total else 0.0
+
+    def _ensure_refined(depth: int) -> bool:
+        """Build the deeper index over the dense cells' polygons once
+        (sticky at the first requested depth); False when the parity
+        gate fails at the refined level, and the caller runs flat."""
+        if state["ref"] is not None:
+            return True
+        if state["ref_unclean"]:
+            return False
+        dense = state["dense"]
+        if not len(dense):
+            state["ref"] = {"empty": True}
+            state["depth"] = max(1, int(depth))
+            return True
+        verts, vcount = grid.cell_boundary(dense)
+        m = np.arange(verts.shape[1])[None, :] < vcount[:, None]
+        vx, vy = verts[..., 0], verts[..., 1]
+        cb = np.stack([np.where(m, vx, np.inf).min(1),
+                       np.where(m, vy, np.inf).min(1),
+                       np.where(m, vx, -np.inf).max(1),
+                       np.where(m, vy, -np.inf).max(1)], axis=1)
+        # the true cell edge can bow past the vertex-chord bbox by the
+        # sagitta: the subset must hold every polygon that can contain a
+        # dense-routed point
+        pad = max(1e-9, 2.0 * float(idx_base.sagitta_deg))
+        cb += np.array([-pad, -pad, pad, pad])
+        pb = polys.bboxes()
+        inter = ~((pb[:, None, 0] > cb[None, :, 2]) |
+                  (pb[:, None, 2] < cb[None, :, 0]) |
+                  (pb[:, None, 1] > cb[None, :, 3]) |
+                  (pb[:, None, 3] < cb[None, :, 1]))
+        sub_ids = np.nonzero(inter.any(axis=1))[0]
+        depth = max(1, int(depth))
+        sub, sub_chips = tessellate_subset(polys, sub_ids, res + depth,
+                                           grid, keep_core_geom=False,
+                                           device=dev)
+        if not _chips_clean(sub_chips):
+            state["ref_unclean"] = True
+            return False
+        idx_ref = build_pip_index(sub, res + depth, grid, chips=sub_chips,
+                                  dense="never", device=dev)
+        state["ref"] = {"idx": idx_ref, "orig": sub_ids.astype(np.int32),
+                        "fn": make_pip_join_fn(idx_ref, grid, eps,
+                                               margin_eps),
+                        "recheck": host_recheck_fn(idx_ref, sub)}
+        state["depth"] = depth
+        return True
+
+    def _run_part(part: str, fn, idx_level, recheck, pts64: np.ndarray):
+        """One join call over a part's points in their level's own frame
+        (f64 shift by the level's origin, then the f32 cast), then that
+        level's f64 recheck."""
+        if not len(pts64):
+            return np.empty(0, np.int32), 0
+        out = _join_once(fn, idx_level, recheck, pts64, dev)
+        counts[part] += 1
+        return out
+
+    def _flat():
+        if state["flat"] is None:
+            state["flat"] = make_streamed_pip_join(
+                idx_base, grid, polys=polys, chunk=chunk, eps=eps,
+                margin_eps=margin_eps, device=dev)
+        return state["flat"]
+
+    def _refined(points64: np.ndarray):
+        ref = state["ref"]
+        dense = state["dense"]
+        n = len(points64)
+        zone = np.empty(n, np.int32)
+        rechecked = refined_pts = 0
+        for sl in chunk_rows(n, chunk):
+            pts = points64[sl]
+            if len(dense) and "idx" in ref:
+                cells = _route_cells(pts)
+                pos = np.searchsorted(dense, cells)
+                posc = np.clip(pos, 0, len(dense) - 1)
+                hot = (pos < len(dense)) & (dense[posc] == cells)
+            else:
+                hot = np.zeros(len(pts), bool)
+            out = np.empty(len(pts), np.int32)
+            za, ra = _run_part("base", fn_base, idx_base, recheck_base,
+                               pts[~hot])
+            out[~hot] = za
+            if hot.any():
+                zb, rb = _run_part("refined", ref["fn"], ref["idx"],
+                                   ref["recheck"], pts[hot])
+                orig = ref["orig"]
+                out[hot] = np.where(zb >= 0,
+                                    orig[np.clip(zb, 0, len(orig) - 1)],
+                                    np.int32(-1))
+                rechecked += rb
+                refined_pts += int(hot.sum())
+            rechecked += ra
+            zone[sl] = out
+        return zone, rechecked, refined_pts
+
+    def run(points64: np.ndarray):
+        points64 = np.asarray(points64, np.float64)[:, :2]
+        n = len(points64)
+        counts.update(route=0, base=0, refined=0, route_points=0,
+                      route_host_points=0)
+        if not state["probed"]:
+            _probe(points64)
+            state["probed"] = True
+        if not clean_base:
+            # a parity gate, not a cost call: the clean-index argument
+            # does not hold, so no pin can choose refinement
+            d = Decision("refine", "flat",
+                         "overlap regime at base level (parity gate)",
+                         n, cost_key="refine/flat", key_n=n, forced=True)
+            d.depth = 0
+            planner.record_decision(d)
+        else:
+            d = planner.decide_refine(n, state["frac"], idx_base.max_dup)
+            if d.strategy == "refined" and \
+                    not _ensure_refined(getattr(d, "depth", 1)):
+                d.strategy = "flat"
+                d.reason = ("overlap regime at refined level "
+                            "(parity gate)")
+                d.cost_key = "refine/flat"
+                d.forced = True
+                planner.record_decision(d)
+        t0 = time.perf_counter()
+        refined_pts = 0
+        if d.strategy == "refined":
+            zone, rechecked, refined_pts = _refined(points64)
+        else:
+            zone, rechecked = _flat()(points64)
+        planner.observe_decision(d, time.perf_counter() - t0,
+                                 rows_out=int(np.count_nonzero(zone >= 0)))
+        depth = state["depth"] or int(getattr(d, "depth", 1) or 1)
+        refined_run = (d.strategy == "refined" and state["ref"] is not None
+                       and refined_pts > 0)
+        cells_refined = len(state["dense"]) if refined_run else 0
+        run.stats = {
+            "levels": [res, res + depth] if refined_run else [res],
+            "cells_refined": cells_refined,
+            "cells_flat": len(u_cells) - cells_refined,
+            "refined_points": int(refined_pts),
+            "flat_points": int(n - refined_pts),
+            "strategy": "refined" if refined_run else "flat",
+        }
+        run.last_decision = d
+        return zone, rechecked
+
+    run.stats = None
+    run.last_decision = None
+    run.counts = counts
     return run

@@ -8,7 +8,8 @@ default.
   ``mosaic_tpu`` (an ``ast`` scan; the root module name must match
   exactly, so ``mosaic_tpu_torch`` itself does not count).
 * Entry points that create device state, called without ``device`` on a
-  host without CUDA, raise RuntimeError instead of running on the CPU.
+  host without CUDA, raise RuntimeError instead of running on the CPU;
+  the planned join runs on its index's device.
 """
 
 import ast
@@ -61,6 +62,15 @@ pts = np.stack([rng.uniform(-74.03, -73.89, 4000),
 run = mt.make_streamed_pip_join(idx, grid, polys, chunk=1000, device="cpu")
 zone, rechecked = run(pts)
 assert np.array_equal(zone, mt.pip_host_truth(pts, polys))
+from mosaic_tpu_torch import config
+from mosaic_tpu_torch.sql.planner import planner
+config.set_default_config(config.apply_conf(
+    config.default_config(), "mosaic.planner.force.refine", "refined"))
+refined = mt.make_refined_pip_join(polys, grid, 9, chunk=1000, device="cpu")
+assert np.array_equal(refined(pts)[0], zone)
+assert np.array_equal(mt.make_planned_pip_join(idx, grid, polys)(pts)[0],
+                      zone)
+assert planner.report()["decisions"] == 2
 hist = mt.zone_histogram(torch.from_numpy(zone), len(polys))
 assert int(hist.sum()) == int((zone >= 0).sum()) > 0
 assert "jax" not in sys.modules or sys.modules["jax"] is None
@@ -90,6 +100,9 @@ def test_no_file_imports_jax_or_mosaic_tpu():
     files = sorted((REPO / "mosaic_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"mosaic_tpu_torch/config.py",
+            "mosaic_tpu_torch/sql/planner.py"} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) &
                                             FORBIDDEN)
            for f in files}
@@ -119,6 +132,16 @@ def test_entry_points_default_to_cuda():
     idx = mt.build_pip_index(polys, 9, grid, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mt.make_streamed_pip_join(idx, grid, polys)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.make_refined_pip_join(polys, grid, 9)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.tessellate_subset(polys, [0], 9, grid)
+    sub, chips = mt.tessellate_subset(polys, [0], 9, grid, device="cpu")
+    assert len(sub) == 1 and len(chips) > 0
+    # the planned join runs on its index's device, here the CPU
+    planned = mt.make_planned_pip_join(idx, grid, polys)
+    pts = np.array([[-74.0, 40.73], [-73.0, 40.0]])
+    assert np.array_equal(planned(pts)[0], mt.pip_host_truth(pts, polys))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mt.dense_index_from_arrays({}, None)
     with pytest.raises(RuntimeError):

@@ -1,10 +1,12 @@
 """SpatialKNN of the PyTorch port against the JAX package and the f64 oracle.
 
-The JAX package runs on the CPU as the tier-1 suite runs it; its engine is
-pinned through its own conf key ``knn_strategy`` ("brute" or "ring"), so
-both packages take the same engine and their counts compare.  The port
-runs on ``device="cpu"``, where the brute top-k (K5) and the ring step
-(K6) are their plain versions.
+The JAX package runs on the CPU as the tier-1 suite runs it.  Both
+packages' engines are pinned through their own ``mosaic.knn.strategy``
+conf ("brute" or "ring"), so both take the same engine and their counts
+compare; both cost planners are reset before each test, so an unpinned
+choice is the cold rule in both.  The port runs on ``device="cpu"``,
+where the brute top-k (K5) and the ring step (K6) are their plain
+versions.
 
 * The ENGINES matrix of tests/test_knn.py (brute and rings) over its
   brute-force, k-larger, threshold, small-right-side, vertex-anchored and
@@ -30,6 +32,12 @@ runs on ``device="cpu"``, where the brute top-k (K5) and the ring step
   threshold, equal to the JAX package's and to ``knn_host_truth``; the
   plain versions at those widths (kc 65 and m, lists of 65 and 130)
   against the JAX device bodies on integer inputs with ties, bit for bit.
+* The engine choice (``_points_strategy`` and ``_last_decision``) equal
+  to the JAX package's under ``mosaic.knn.strategy`` = brute, ring, auto
+  and a numeric threshold, cold and after the same learned costs, with
+  the ``brute_ok`` guard past 4 * ``brute_right_max``; the one stated
+  divergence, ``brute_right_max=0`` forcing the ring over a learned
+  brute pick.
 * ``ais_pings_ports`` byte-identical to bench.py's inline config-4
   generator; the wrappers' refusals (kc < 1, wrong dtypes); the CUDA
   default; the chunk index ``stream`` hands to ``compute``.
@@ -45,6 +53,7 @@ import pytest
 import torch
 
 from mosaic_tpu import config as jconfig
+from mosaic_tpu.sql.planner import planner as jplanner
 from mosaic_tpu.core.geometry.array import GeometryBuilder as JBuilder
 from mosaic_tpu.core.index.factory import get_index_system as jget
 from mosaic_tpu.models import CheckpointManager as JCheckpoint
@@ -53,11 +62,13 @@ from mosaic_tpu.models import core as jcore
 from mosaic_tpu.models import knn as jknn
 from mosaic_tpu.parallel.pip_join import _host_lattice as jlattice
 import mosaic_tpu_torch as mt
+from mosaic_tpu_torch import config as tconfig
 from mosaic_tpu_torch.core.geometry.array import GeometryBuilder as TBuilder
 from mosaic_tpu_torch.models import core as tcore
 from mosaic_tpu_torch.models import knn as tknn
 from mosaic_tpu_torch.ops import knn_brute, knn_ring
 from mosaic_tpu_torch.perf.pipeline import chunk_rows, stream
+from mosaic_tpu_torch.sql.planner import planner as tplanner
 
 NYC = (-74.25, 40.5, -73.7, 40.9)
 
@@ -82,16 +93,34 @@ def grids():
     return jget("H3"), mt.get_index_system("H3")
 
 
+@pytest.fixture(autouse=True)
+def cold_planners():
+    """Both packages' configs snapshotted and restored around each test,
+    and both cost planners reset: no test's engine choice comes from
+    another's timings."""
+    jprev, tprev = jconfig.default_config(), tconfig.default_config()
+    jplanner.reset()
+    tplanner.reset()
+    yield
+    jconfig.set_default_config(jprev)
+    tconfig.set_default_config(tprev)
+    jplanner.reset()
+    tplanner.reset()
+
+
 @contextlib.contextmanager
-def jax_engine(strategy: str):
-    """Pin the JAX package's KNN engine through its conf key."""
-    old = jconfig.default_config()
-    jconfig.set_default_config(dataclasses.replace(old,
+def pinned_engine(strategy: str):
+    """Pin both packages' KNN engine through their conf keys."""
+    old = jconfig.default_config(), tconfig.default_config()
+    jconfig.set_default_config(dataclasses.replace(old[0],
+                                                   knn_strategy=strategy))
+    tconfig.set_default_config(dataclasses.replace(old[1],
                                                    knn_strategy=strategy))
     try:
         yield
     finally:
-        jconfig.set_default_config(old)
+        jconfig.set_default_config(old[0])
+        tconfig.set_default_config(old[1])
 
 
 def _pts(n, seed, bbox=NYC):
@@ -165,10 +194,10 @@ def test_knn_equals_jax_and_oracle(grids, case, eng):
     jg, tg = grids
     strategy, kw = eng
     left, right, params = CASES[case](jg)
-    with jax_engine(strategy):
+    with pinned_engine(strategy):
         ref = JKNN(jg, **params, **kw).transform(left, right)
-    out = mt.SpatialKNN(tg, **params, **kw, device="cpu").transform(left,
-                                                                    right)
+        out = mt.SpatialKNN(tg, **params, **kw, device="cpu").transform(
+            left, right)
     _same_as_jax(out, ref)
     _check_oracle(out, left, right, params["k"],
                   params.get("distance_threshold"))
@@ -497,10 +526,10 @@ def test_knn_any_k_equals_jax_and_oracle(grids, eng, k, thr):
     left, right = _pts(300, 21), _pts(400, 22)
     params = dict(k=k, index_resolution=7, max_iterations=32,
                   distance_threshold=thr)
-    with jax_engine(strategy):
+    with pinned_engine(strategy):
         ref = JKNN(jg, **params, **kw).transform(left, right)
-    out = mt.SpatialKNN(tg, **params, **kw, device="cpu").transform(left,
-                                                                    right)
+        out = mt.SpatialKNN(tg, **params, **kw, device="cpu").transform(
+            left, right)
     _same_as_jax(out, ref)
     _check_oracle(out, left, right, k, thr)
     assert out["right_id"].shape == (300, k)
@@ -631,6 +660,96 @@ def test_ring_step_ref_ties_bit_equal(k):
         # ties between numbers were there
         assert np.any((td2[:, 1:] == td2[:, :-1]) & np.isfinite(td2[:, 1:]))
         assert padded == (thr is None)
+
+
+def _set_both(key, val):
+    for m in (jconfig, tconfig):
+        m.set_default_config(m.apply_conf(m.default_config(), key, val))
+
+
+def _learn(brute_ms: float, ring_ms: float):
+    """The same knn/brute and knn/ring costs fed to both planners."""
+    for pl in (jplanner, tplanner):
+        pl.observe_op("knn/brute", 1000, brute_ms * 1e-3)
+        pl.observe_op("knn/ring", 1000, ring_ms * 1e-3)
+
+
+def _choice(knn, m):
+    strategy, d = knn._points_strategy(1000, m)
+    fields = None if d is None else (
+        d.op, d.strategy, d.reason, d.est_rows, d.cost_key, d.key_n,
+        d.forced)
+    return strategy, fields
+
+
+@pytest.mark.parametrize("conf", ["auto", "brute", "ring", "64"])
+@pytest.mark.parametrize("learned", [None, "brute", "ring"])
+@pytest.mark.parametrize("enabled", ["true", "false"])
+def test_engine_choice_equals_jax(grids, conf, learned, enabled):
+    """_points_strategy's engine and decision equal the JAX package's,
+    the ``brute_ok`` guard included: past 4 * brute_right_max (400 here)
+    no learned cost picks brute."""
+    jg, tg = grids
+    _set_both("mosaic.knn.strategy", conf)
+    _set_both("mosaic.planner.enabled", enabled)
+    if learned:
+        _learn(0.01 if learned == "brute" else 5.0,
+               0.01 if learned == "ring" else 5.0)
+    jk = JKNN(jg, k=3, brute_right_max=100)
+    tk = mt.SpatialKNN(tg, k=3, brute_right_max=100, device="cpu")
+    for m in (0, 1, 50, 64, 65, 100, 101, 300, 400, 401, 5000):
+        got = _choice(tk, m)
+        assert got == _choice(jk, m), (m, got)
+        if conf == "auto" and enabled == "true" and learned == "brute":
+            assert got[0] == ("brute" if 0 < m <= 400 else "ring")
+    assert jplanner.decisions == tplanner.decisions
+
+
+@pytest.mark.parametrize("conf,learned", [("auto", None), ("ring", None),
+                                          ("brute", None),
+                                          ("auto", "ring")])
+def test_transform_decision_equals_jax(grids, conf, learned):
+    """A whole transform takes the same engine, keeps the same
+    ``_last_decision`` and feeds the planner once, as the JAX package's."""
+    jg, tg = grids
+    _set_both("mosaic.knn.strategy", conf)
+    if learned:
+        _learn(5.0, 0.01)
+    left, right = _pts(400, 31), _pts(60, 32)
+    params = dict(k=3, index_resolution=7, max_iterations=32)
+    jk, tk = JKNN(jg, **params), mt.SpatialKNN(tg, **params, device="cpu")
+    ref = jk.transform(left, right)
+    out = tk.transform(left, right)
+    _same_as_jax(out, ref)
+    d, jd = tk._last_decision, jk._last_decision
+    assert (d.strategy, d.reason, d.cost_key, d.forced) == \
+        (jd.strategy, jd.reason, jd.cost_key, jd.forced)
+    assert d.strategy == (conf if conf != "auto" else
+                          ("ring" if learned else "brute"))
+    rt, rj = tplanner.report(), jplanner.report()
+    assert (rt["decisions"], rt["observations"], rt["ms_keys"]) == \
+        (rj["decisions"], rj["observations"], rj["ms_keys"])
+
+
+def test_zero_brute_right_max_forces_the_ring(grids):
+    """Cold, both packages march rings at ``brute_right_max=0``.  With
+    learned costs favouring brute and a right side within the guard
+    (4 * max(0, 1) rows) the JAX package's planner picks brute; the port
+    keeps the ring (the stated divergence)."""
+    jg, tg = grids
+    jk = JKNN(jg, k=3, brute_right_max=0)
+    tk = mt.SpatialKNN(tg, k=3, brute_right_max=0, device="cpu")
+    for m in (1, 4, 5, 300):
+        assert _choice(tk, m) == _choice(jk, m)
+        assert _choice(tk, m)[0] == "ring"
+    _learn(0.01, 5.0)
+    for m in (1, 4):
+        assert _choice(jk, m)[0] == "brute"
+        strategy, d = tk._points_strategy(1000, m)
+        assert strategy == "ring" and d.forced
+        assert (d.reason, d.cost_key) == ("brute_right_max=0 forces the "
+                                          "ring", "knn/ring")
+    assert _choice(tk, 5) == _choice(jk, 5)
 
 
 def test_ais_pings_ports_matches_bench_generator():
