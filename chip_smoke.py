@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. device — name and power limit (nvidia-smi); exits if CUDA is absent;
-2. build — compiles the eight kernels from ``csrc/`` with ``nvcc``, one
+2. build — compiles the ten kernels from ``csrc/`` with ``nvcc``, one
    process per source, and the native host library from
    ``native/geokernels.cpp`` with ``g++``, all started together:
    ``h3_projection`` (K1, the projection alone), ``h3_dense_join`` (K2,
@@ -15,8 +15,9 @@ Phases (any failure exits non-zero and prints no result):
    ``overlay_pairs`` (K4, the overlay's chip-pair probe),
    ``knn_brute_topk`` (K5, SpatialKNN's all-pairs top-k),
    ``knn_ring_step`` (K6, SpatialKNN's ring step), ``tess_classify`` (K7,
-   tessellation's cell classification) and ``tess_clip`` (K8, its
-   border-chip clip);
+   tessellation's cell classification), ``tess_clip`` (K8, its
+   border-chip clip), ``raster_convolve`` (K9, the raster stencil, f64
+   and f32) and ``raster_combine`` (K10, the NaN-aware tile combine);
 3. K1 vs plain — the projection kernel against its plain PyTorch
    version on the card, 2^22 localized NYC points (seed 100) at res 9
    around the flagship index's origin: all five outputs bit-equal; timed
@@ -164,11 +165,38 @@ Phases (any failure exits non-zero and prints no result):
     points under the pin, every routed id equal to the host
     ``point_to_cell``, K3 launches by part (route, base body, refined
     body) counted; the decisions printed;
-15. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``tess_kernels``
-    (K7 and K8 by input set) and ``strategies`` summary lines, the card,
-    the ``kernels`` JSON line (K1-K8 with launches per path, the
-    tessellations of phases 5 and 11 and the strategies' paths among
-    them), then the last line ``{"ok": true, "device": {...}}``.
+15. raster to grid (BASELINE config 5) — a. bench.py:1444-1456's
+    1000x800 DEM (srid 4326) through ``raster_to_grid([dem], 8, grid,
+    combiner="avg")`` on the card after the 64x64 warm-up: 2,645 cells,
+    the dict bit-equal to the same call with ``device="cpu"``, one K3
+    launch per ``tessellate_raster`` call, the pixels the host
+    re-assigned, the host's stage times (ownership: centres and nudge,
+    the route's copies, K3, the host re-assignment; the grouping; the
+    per-cell window loop; the combine; the per-cell reduce); b. an
+    SRTM-sized tile (3601 x 3601 pixels of 1 arc-second, pixel centres
+    on whole degrees from (-75, 41), bench.py's formula scaled to it, a
+    seeded 360 x 360 NaN block) cut into 4 phase-aligned quarter tiles
+    that overlap by 64 pixels, through ``raster_to_grid`` on the card:
+    K3 and K10 launches counted, every pixel's cell equal to the host
+    ``point_to_cell`` on a seeded 2^20-pixel sample and on every pixel
+    whose K3 margin sent it to the host, the ``count`` combiner's cells
+    summing to the tile's valid pixels, and a 1024 x 1024 corner in 4
+    tiles bit-equal to ``device="cpu"``; c. K9 bit-equal to
+    ``convolve_ref`` on the SRTM tile in f64 with 3x3, 5x5 and 4x4
+    weights (through ``rops.convolve``) and on the DEM in f32 (through
+    ``sharded_convolve`` with ``group=None``), each timed beside its
+    plain version, its bound (the raster's bytes; a multiply-add a tap)
+    and ``F.conv2d`` (TF32 off); d. K10 bit-equal to ``combine_ref`` for
+    all six reducers on the quarters' stack (4 x 3601 x 3601 f64) and on
+    the largest stack the SRTM run gave it, each timed beside its plain
+    version, its byte bound and ``torch.nanmean`` (avg) or
+    ``torch.nansum`` (sum);
+16. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+    ``raster`` and ``tess_kernels`` (K7 and K8 by input set) summary
+    lines, the card, the ``kernels`` JSON line (K1-K10 with launches per
+    path, the tessellations of phases 5 and 11, the strategies' and the
+    raster paths among them), then the last line ``{"ok": true,
+    "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -219,7 +247,8 @@ EXACT_PRODUCT_FLOPS = 3
 EDGE_FLOPS = 4
 STRADDLE_FLOPS = 16
 KERNELS = ("h3_projection", "h3_dense_join", "h3_cell", "overlay_pairs",
-           "knn_brute_topk", "knn_ring_step", "tess_classify", "tess_clip")
+           "knn_brute_topk", "knn_ring_step", "tess_classify", "tess_clip",
+           "raster_convolve", "raster_combine")
 #: points of each K3 set held against the f64 host ids (numpy, ~9 s per
 #: 2^20 points on one core)
 HOST_SAMPLE = 1 << 20
@@ -1176,6 +1205,8 @@ def launch_counts():
     from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
                                                     overlay_pairs, prep_b)
     from mosaic_tpu_torch.ops.projection import project_lattice
+    from mosaic_tpu_torch.ops.raster_combine import raster_combine
+    from mosaic_tpu_torch.ops.raster_convolve import raster_convolve
     from mosaic_tpu_torch.ops.tess_classify import tess_classify
     from mosaic_tpu_torch.ops.tess_clip import tess_clip
     from mosaic_tpu_torch.core.index.h3.system import SAMPLE_COUNTS
@@ -1196,7 +1227,9 @@ def launch_counts():
             "tess_clip": tess_clip.launches,
             "tess_clip_relaunches": tess_clip.relaunches,
             "sample_points": SAMPLE_COUNTS["points"],
-            "sample_host_points": SAMPLE_COUNTS["host_points"]}
+            "sample_host_points": SAMPLE_COUNTS["host_points"],
+            "raster_convolve": raster_convolve.launches,
+            "raster_combine": raster_combine.launches}
 
 
 def reset_counts() -> None:
@@ -1208,6 +1241,8 @@ def reset_counts() -> None:
     from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
                                                     overlay_pairs, prep_b)
     from mosaic_tpu_torch.ops.projection import project_lattice
+    from mosaic_tpu_torch.ops.raster_combine import raster_combine
+    from mosaic_tpu_torch.ops.raster_convolve import raster_convolve
     from mosaic_tpu_torch.ops.tess_classify import tess_classify
     from mosaic_tpu_torch.ops.tess_clip import tess_clip
     from mosaic_tpu_torch.core.index.h3.system import SAMPLE_COUNTS
@@ -1226,6 +1261,8 @@ def reset_counts() -> None:
     tess_clip.launches = 0
     tess_clip.relaunches = 0
     SAMPLE_COUNTS.update(points=0, host_points=0)
+    raster_convolve.launches = 0
+    raster_combine.launches = 0
 
 
 def sorted_join(label: str, polys, grid, res: int, batches, chips=None,
@@ -3119,6 +3156,423 @@ def phase_strategies(idx, grid, polys, batches, dense_zones):
                       "refine A/B flat": flat_counts}}
 
 
+#: BASELINE config 5 as bench.py:1444-1456 runs it: a 1000x800 synthetic
+#: DEM (srid 4326) to H3 res-8 cells, combiner avg, after a 64x64 warm-up
+DEM_GT = (-74.25, 0.0005, 0.0, 40.92, 0.0, -0.0005)
+DEM_SHAPE = (800, 1000)
+R2G_RES = 8
+R2G_CELLS = 2645
+#: an SRTM 1-arc-second tile: 3601 x 3601 pixels of 1/3600 degree, pixel
+#: centres on whole degrees from (-75, 41); bench.py's DEM formula scaled
+#: to it and a seeded NaN block of SRTM_HOLE^2 pixels (1.0%); cut into 4
+#: phase-aligned quarter tiles that overlap by SRTM_OVERLAP pixels
+SRTM_N = 3601
+SRTM_HOLE = 360
+SRTM_OVERLAP = 64
+SRTM_SEED = 3601
+#: pixels of the SRTM run held against the host ids, and the corner held
+#: bit-equal to the CPU path
+SRTM_SAMPLE = 1 << 20
+SRTM_CORNER = 1024
+#: K9's weight arrays on the SRTM tile (f64) and on the DEM (f32, the halo
+#: form, odd sides only)
+K9_SHAPES = ((3, 3), (5, 5), (4, 4))
+K9_HALO_SHAPE = (3, 3)
+K9_SEED = 9
+
+
+def srtm_tile():
+    """The SRTM-sized tile: bench.py's sin/ramp DEM scaled from 1000 x
+    800 to SRTM_N pixels a side, NaN over a seeded SRTM_HOLE block."""
+    import numpy as np
+    import mosaic_tpu_torch as mt
+    n, px = SRTM_N, 1.0 / 3600
+    yy, xx = np.mgrid[0:n, 0:n]
+    data = np.sin(xx / (60.0 * n / 1000)) * 50 + yy * (0.1 * 800 / n)
+    r0, c0 = np.random.default_rng(SRTM_SEED).integers(0, n - SRTM_HOLE, 2)
+    data[r0:r0 + SRTM_HOLE, c0:c0 + SRTM_HOLE] = np.nan
+    gt = mt.GeoTransform(-75.0 - px / 2, px, 0.0, 41.0 + px / 2, 0.0, -px)
+    return mt.RasterTile(data[None], gt, srid=4326)
+
+
+def quarter_tiles(tile, overlap: int = SRTM_OVERLAP):
+    """4 windows of ``tile``, cut at its middle row and column and
+    widened by ``overlap`` / 2 pixels past the cut (phase-aligned, so
+    ``combine`` pastes them back on the tile's grid)."""
+    half, h2 = tile.height // 2, overlap // 2
+    wh, ww = tile.width // 2, overlap // 2
+    rows = ((0, half + h2), (half - h2, tile.height - (half - h2)))
+    cols = ((0, wh + ww), (wh - ww, tile.width - (wh - ww)))
+    return [tile.window(c0, r0, w, h) for r0, h in rows for c0, w in cols]
+
+
+def raster_stage_targets():
+    """The stage functions of ``raster_to_grid`` a StepClock times: the
+    pixel centres, the grid's device route, K3 (synchronized) and the
+    host re-assignment inside it; the grouping; ``tessellate_raster``
+    (whose rest is the per-cell window loop); the combine; the reduce."""
+    from mosaic_tpu_torch.core.index.h3.system import H3IndexSystem
+    from mosaic_tpu_torch.core.raster import rops
+    from mosaic_tpu_torch.io import raster_grid
+    return [(rops, "_pixel_points"), (H3IndexSystem, "point_to_cell_device"),
+            (H3IndexSystem, "point_to_cell_torch_margin"),
+            (H3IndexSystem, "point_to_cell"), (rops, "_ownership"),
+            (rops, "_group_by_cell"), (rops, "tessellate_raster"),
+            (rops, "combine"), (raster_grid, "_reduce_cell")]
+
+
+def raster_stages(s: dict, total: float) -> dict:
+    """Host seconds by stage from a StepClock's take: the ownership pass
+    (centres and nudge; the route's f32 copy, upload and copy back; K3;
+    the host re-assignment), the grouping, the per-cell window and mask
+    loop, the combine, the per-cell reduce and the rest."""
+    g = collections.defaultdict(float, s)
+    route = g["point_to_cell_device"] - g["point_to_cell_torch_margin"] - \
+        g["point_to_cell"]
+    windows = g["tessellate_raster"] - g["_ownership"] - g["_group_by_cell"]
+    out = {"ownership": g["_ownership"], "centres": g["_pixel_points"],
+           "route_copies": route, "k3": g["point_to_cell_torch_margin"],
+           "host_reassign": g["point_to_cell"],
+           "grouping": g["_group_by_cell"], "windows": windows,
+           "combine": g["combine"], "reduce": g["_reduce_cell"],
+           "rest": total - g["tessellate_raster"] - g["combine"] -
+           g["_reduce_cell"]}
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def same_values(a, b) -> bool:
+    """Two {cell: value} dicts equal in keys, order and value bits."""
+    import numpy as np
+    return list(a) == list(b) and np.array_equal(
+        np.asarray(list(a.values()), np.float64).view(np.int64),
+        np.asarray(list(b.values()), np.float64).view(np.int64))
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors with NaN at the same places and equal bits elsewhere
+    (a NaN's payload is not compared)."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    ia = a.view(torch.int64 if a.dtype == torch.float64 else torch.int32)
+    ib = b.view(ia.dtype)
+    return bool(torch.equal(ia[~na], ib[~nb]))
+
+
+class KeepOwnership:
+    """Keeps (tile, ownership, pixels the host re-assigned) of every
+    ``rops._ownership`` call while the block runs."""
+
+    def __enter__(self):
+        from mosaic_tpu_torch.core.raster import rops
+        self.kept, self.fn = [], rops._ownership
+
+        def keep(tile, res, grid, device):
+            own, host = self.fn(tile, res, grid, device)
+            self.kept.append((tile, own, host))
+            return own, host
+        rops._ownership = keep
+        return self
+
+    @property
+    def host_points(self) -> int:
+        return sum(host for *_, host in self.kept)
+
+    def __exit__(self, *exc):
+        from mosaic_tpu_torch.core.raster import rops
+        rops._ownership = self.fn
+
+
+class KeepLargestStack:
+    """Keeps the largest stack ``rops.combine`` hands K10's wrapper while
+    the block runs."""
+
+    def __enter__(self):
+        from mosaic_tpu_torch.core.raster import rops
+        self.stack, self.fn = None, rops.raster_combine
+
+        def keep(stack, reducer="avg"):
+            if self.stack is None or stack.numel() > self.stack.numel():
+                self.stack = stack
+            return self.fn(stack, reducer)
+        rops.raster_combine = keep
+        return self
+
+    def __exit__(self, *exc):
+        from mosaic_tpu_torch.core.raster import rops
+        rops.raster_combine = self.fn
+
+
+def raster_run(label: str, tiles, grid, combiner: str = "avg",
+               profiled: bool = False):
+    """(cells, seconds, stages, counts, kept ownership) of one
+    ``raster_to_grid`` call on the card, counts set to 0 just before and
+    read just after; ``profiled`` adds the device's busy seconds (its
+    kernels and copies in a ``torch.profiler`` trace) and idle share to
+    the stages."""
+    import contextlib
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.core.raster import rops
+    trace = profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) if profiled \
+        else contextlib.nullcontext()
+    with KeepOwnership() as own, \
+            StepClock(raster_stage_targets(),
+                      sync=("point_to_cell_torch_margin",)) as clock, \
+            trace as prof:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cells = mt.raster_to_grid(tiles, R2G_RES, grid, combiner=combiner,
+                                  device=DEV)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        stages = raster_stages(clock.take(), seconds)
+    if profiled:
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        stages.update(device_busy=round(busy, 4),
+                      device_idle=round(1.0 - busy / seconds, 6))
+    calls = len(own.kept)
+    check(calls == len(tiles) and counts["h3_latlng_to_cell"] == calls,
+          f"{label}: {counts['h3_latlng_to_cell']} K3 launches for {calls} "
+          f"tessellate_raster calls of {len(tiles)} tiles")
+    counts["host_points"] = own.host_points
+    log(f"[raster] {label}: {len(cells)} cells in {seconds:.3f} s (host "
+        f"clock), {sum(t.height * t.width for t in tiles)} pixels in "
+        f"{len(tiles)} tiles; K3 {counts['h3_latlng_to_cell']} (one per "
+        f"tessellate_raster call), K10 {counts['raster_combine']}; "
+        f"{own.host_points} pixel centres re-assigned on the host; stages "
+        f"(s) {stages}")
+    return cells, seconds, stages, counts, own.kept
+
+
+def check_ownership(label: str, kept, grid):
+    """Every kept pixel's card-assigned cell against the host
+    ``point_to_cell`` on a seeded SRTM_SAMPLE-pixel sample and on every
+    pixel whose K3 margin sent it to the host; returns (sampled, low)."""
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch.core.index.base import DEVICE_MARGIN_BAND
+    from mosaic_tpu_torch.core.raster import rops
+    sizes = [own.size for _, own, _ in kept]
+    pick = np.sort(np.random.default_rng(SRTM_SEED).choice(
+        sum(sizes), min(SRTM_SAMPLE, sum(sizes)), replace=False))
+    starts = np.cumsum([0] + sizes)
+    low_total = 0
+    for i, (tile, own, _) in enumerate(kept):
+        pts = rops._pixel_points(tile)
+        flat = own.ravel()
+        mine = pick[(pick >= starts[i]) & (pick < starts[i + 1])] - starts[i]
+        bad = int(np.sum(grid.point_to_cell(pts[mine], R2G_RES) !=
+                         flat[mine]))
+        check(bad == 0, f"{label}: {bad} of {len(mine)} sampled pixels of "
+              f"tile {i} differ from the host's cells")
+        _, margin = grid.point_to_cell_torch_margin(
+            torch.from_numpy(pts.astype(np.float32)).to(DEV), R2G_RES)
+        low = np.nonzero(margin.cpu().numpy() < DEVICE_MARGIN_BAND)[0]
+        bad = int(np.sum(grid.point_to_cell(pts[low], R2G_RES) != flat[low]))
+        check(bad == 0, f"{label}: {bad} of {len(low)} re-assigned pixels "
+              f"of tile {i} differ from the host's cells")
+        low_total += len(low)
+    log(f"[raster] {label}: {len(pick)} sampled pixels and all {low_total} "
+        "re-assigned pixels equal to the host's point_to_cell")
+    return len(pick), low_total
+
+
+def conv_bound(x, w):
+    """(bound ms, by) of K9 on ``x`` with weights ``w``: the raster read
+    and written once and the weights read, at HBM3's rate; one
+    multiply-add a tap and pixel at the FP64 or FP32 rate."""
+    taps, pixels, item = w.numel(), x.numel(), x.element_size()
+    bytes_ms = (2 * pixels + taps) * item / PEAK_BYTES * 1e3
+    rate = PEAK_F64_OPS if item == 8 else PEAK_F32_FLOPS / 2
+    ops_ms = taps * pixels / rate * 1e3
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms > bytes_ms
+                                   else "bytes")
+
+
+def phase_raster(grid):
+    """BASELINE config 5 on the card, the SRTM-sized tile with overlapping
+    quarter tiles, and K9 and K10 against their plain versions."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.core.raster import rops
+    from mosaic_tpu_torch.ops.raster_combine import (REDUCERS, combine_ref,
+                                                     raster_combine)
+    from mosaic_tpu_torch.ops.raster_convolve import (convolve_ref,
+                                                      raster_convolve,
+                                                      same_pads)
+    from mosaic_tpu_torch.parallel.raster_halo import sharded_convolve
+    t_phase = time.perf_counter()
+    paths = {}
+
+    # a. config 5 exactly as bench.py runs it
+    gtr = mt.GeoTransform(*DEM_GT)
+    yy, xx = np.mgrid[0:DEM_SHAPE[0], 0:DEM_SHAPE[1]]
+    dem = mt.RasterTile((np.sin(xx / 60.0) * 50 + yy * 0.1)[None], gtr,
+                        srid=4326)
+    small = mt.RasterTile(dem.data[:, :64, :64], gtr, srid=4326)
+    mt.raster_to_grid([small], R2G_RES, grid, combiner="avg", device=DEV)
+    cfg5, cfg5_s, cfg5_stages, paths["raster config 5"], _ = raster_run(
+        "config 5", [dem], grid)
+    cfg5_host = paths["raster config 5"]["host_points"]
+    check(len(cfg5) == R2G_CELLS,
+          f"config 5: {len(cfg5)} cells, expected {R2G_CELLS}")
+    t0 = time.perf_counter()
+    cpu = mt.raster_to_grid([dem], R2G_RES, grid, combiner="avg",
+                            device="cpu")
+    cfg5_cpu_s = time.perf_counter() - t0
+    check(same_values(cfg5, cpu), "config 5: the card's cells differ from "
+          "the device='cpu' call's")
+    log(f"[raster] config 5: {len(cfg5)} cells bit-equal to the "
+        f"device='cpu' call ({cfg5_cpu_s:.3f} s); {cfg5_host} pixels "
+        "re-assigned on the host")
+
+    # b. the SRTM-sized tile in four overlapping quarter tiles
+    t0 = time.perf_counter()
+    tile = srtm_tile()
+    quads = quarter_tiles(tile)
+    valid = int(tile.valid_mask().sum())
+    setup_s = time.perf_counter() - t0
+    with KeepLargestStack() as largest:
+        srtm, srtm_s, srtm_stages, paths["raster srtm"], kept = raster_run(
+            "srtm", quads, grid)
+    srtm_host = paths["raster srtm"]["host_points"]
+    check(paths["raster srtm"]["raster_combine"] > 0,
+          "srtm: no K10 launch on the overlapping tiles' path")
+    sampled, low = check_ownership("srtm", kept, grid)
+    check(low == srtm_host, f"srtm: {low} low-margin pixels, {srtm_host} "
+          "re-assigned by the route")
+    counts, _, count_stages, *_ = raster_run("srtm count", quads, grid,
+                                             combiner="count", profiled=True)
+    check(sum(counts.values()) == valid and set(counts) == set(srtm),
+          f"srtm: counts sum to {sum(counts.values())}, {valid} valid "
+          "pixels")
+    corner = tile.window(0, 0, SRTM_CORNER, SRTM_CORNER)
+    cq = quarter_tiles(corner)
+    card_c = mt.raster_to_grid(cq, R2G_RES, grid, combiner="avg", device=DEV)
+    cpu_c = mt.raster_to_grid(cq, R2G_RES, grid, combiner="avg",
+                              device="cpu")
+    check(same_values(card_c, cpu_c), "srtm corner: the card's cells differ "
+          "from the device='cpu' call's")
+    log(f"[raster] srtm: {len(srtm)} cells; counts conserve all {valid} "
+        f"valid pixels; its {SRTM_CORNER}^2 corner in 4 tiles: "
+        f"{len(card_c)} cells bit-equal to the device='cpu' call; tile "
+        f"built in {setup_s:.2f} s")
+
+    # c. K9 against its plain version
+    rng = np.random.default_rng(K9_SEED)
+    x64 = torch.from_numpy(np.where(tile.valid_mask(), tile.data, 0.0)
+                           ).to(DEV)
+    weights = [torch.from_numpy(rng.normal(0, 1, s)).to(DEV)
+               for s in K9_SHAPES]
+    reset_counts()
+    conv_tiles = [rops.convolve(tile, w.cpu().numpy(), device=DEV)
+                  for w in weights]
+    paths["raster convolve srtm"] = launch_counts()
+    dem32 = torch.from_numpy(np.asarray(dem.data, np.float32)).to(DEV)
+    w32 = torch.from_numpy(rng.normal(0, 1, K9_HALO_SHAPE).astype(
+        np.float32)).to(DEV)
+    reset_counts()
+    halo = sharded_convolve(dem, w32.cpu().numpy(), None, device=DEV)
+    paths["raster halo dem"] = launch_counts()
+    check(paths["raster convolve srtm"]["raster_convolve"] == len(K9_SHAPES)
+          and paths["raster halo dem"]["raster_convolve"] == 1,
+          "K9 launches: one per convolve and sharded_convolve call")
+    k9 = {}
+    cases = [(f"f64 {s[0]}x{s[1]} srtm", x64, w, ct.data)
+             for s, w, ct in zip(K9_SHAPES, weights, conv_tiles)]
+    cases.append((f"f32 {K9_HALO_SHAPE[0]}x{K9_HALO_SHAPE[1]} halo dem",
+                   dem32, w32, halo.data))
+    for label, x, w, entry in cases:
+        x3 = x if x.dim() == 3 else x[None]
+        ker = raster_convolve(x3, w)
+        ref = convolve_ref(x3, w)
+        check(same_bits(ker, ref), f"K9 {label}: differs from convolve_ref")
+        check(np.array_equal(entry, ker.cpu().numpy()),
+              f"K9 {label}: the entry point's output differs from the "
+              "wrapper's")
+        ms, source, events_ms, host_ms, plain_ms = timed_kernel(
+            f"raster K9 {label}", lambda: raster_convolve(x3, w),
+            lambda: convolve_ref(x3, w), "convolve_kernel", 3)
+        top, bottom, left, right = same_pads(*w.shape)
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib_ms = time_ms(lambda: F.conv2d(
+                F.pad(x3[:, None], (left, right, top, bottom)),
+                w[None, None]), 3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        bound, by = conv_bound(x3, w)
+        k9[label] = {"ms": ms, "ms_source": source, "events_ms": events_ms,
+                     "host_ms": host_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": lib_ms, "max_abs_err": 0.0,
+                     "shape": list(x3.shape) + list(w.shape)}
+        log(f"[raster] K9 {label}: bit-equal to convolve_ref; {ms:.4f} ms "
+            f"({source}), bound {bound:.4f} ms ({by}), share "
+            f"{bound / ms:.3f}; plain {plain_ms:.3f} ms; F.conv2d "
+            f"{lib_ms:.4f} ms (TF32 off)")
+
+    # d. K10 against its plain version
+    stack_np, _ = rops.combine_stack(quads)
+    stack = torch.from_numpy(stack_np).to(DEV)
+    del stack_np
+    main_stack = largest.stack
+    k10 = {}
+    library = {"avg": lambda s: torch.nanmean(s, dim=0),
+               "sum": lambda s: torch.nansum(s, dim=0)}
+    for reducer in sorted(REDUCERS):
+        for label, s in (("quarters", stack), ("main path", main_stack)):
+            ker = raster_combine(s, reducer)
+            check(same_bits(ker, combine_ref(s, reducer)),
+                  f"K10 {reducer} {label}: differs from combine_ref")
+        ms, source, events_ms, host_ms, plain_ms = timed_kernel(
+            f"raster K10 {reducer}", lambda: raster_combine(stack, reducer),
+            lambda: combine_ref(stack, reducer), "combine_kernel", 2)
+        main_ms, main_src = kernel_device_ms(
+            lambda: raster_combine(main_stack, reducer), 50,
+            "combine_kernel")
+        lib = library.get(reducer)
+        lib_ms = time_ms(lambda: lib(stack), 10) if lib else None
+        bound = (stack.numel() + stack[0].numel()) * 8 / PEAK_BYTES * 1e3
+        k10[reducer] = {
+            "ms": ms, "ms_source": source, "events_ms": events_ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": lib_ms, "max_abs_err": 0.0,
+            "library": ("torch.nanmean" if reducer == "avg" else
+                        "torch.nansum" if reducer == "sum" else
+                        "none: torch.nanmedian takes the lower middle value"
+                        if reducer == "median" else "none: no one call"),
+            "main_path_ms": main_ms, "main_path_ms_source": main_src,
+            "main_path_shape": list(main_stack.shape)}
+        log(f"[raster] K10 {reducer}: bit-equal to combine_ref on the "
+            f"quarters' stack {list(stack.shape)} and the main path's "
+            f"largest {list(main_stack.shape)}; {ms:.4f} ms ({source}), "
+            f"bound {bound:.4f} ms (bytes), share {bound / ms:.3f}; plain "
+            f"{plain_ms:.3f} ms; library {lib_ms}; main path's stack "
+            f"{main_ms:.4f} ms ({main_src})")
+    del stack
+    t_phase = time.perf_counter() - t_phase
+    log(f"[raster] the phase took {t_phase:.1f} s")
+    return {"config5": {"cells": len(cfg5), "s": cfg5_s, "cpu_s": cfg5_cpu_s,
+                        "stages": cfg5_stages, "host_points": cfg5_host},
+            "srtm": {"cells": len(srtm), "s": srtm_s, "stages": srtm_stages,
+                     "count_stages": count_stages,
+                     "host_points": srtm_host, "valid_pixels": valid,
+                     "sampled": sampled, "corner_cells": len(card_c),
+                     "k10_launches": paths["raster srtm"]["raster_combine"]},
+            "k9": k9, "k10": k10, "phase_s": t_phase, "paths": paths}
+
+
 def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3137,6 +3591,7 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
     try:
         import torch
         name, card = phase_device()
@@ -3160,6 +3615,7 @@ def main() -> int:
         knn = phase_knn()
         chip = phase_chips()
         strat = phase_strategies(idx, grid, polys, batches, dense_zones)
+        raster = phase_raster(grid)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3169,7 +3625,7 @@ def main() -> int:
              "overlay area": over["counts_area"],
              "knn brute": knn["paths"]["brute"]["counts"],
              "knn ring": knn["paths"]["ring"]["counts"],
-             **chip["tess_counts"], **strat["paths"]}
+             **chip["tess_counts"], **strat["paths"], **raster["paths"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -3189,6 +3645,10 @@ def main() -> int:
                               if k not in ("k7", "k8", "tess_counts")}}))
     log(json.dumps({"strategies": {k: v for k, v in strat.items()
                                    if k != "paths"}}))
+    log(json.dumps({"raster": {k: v for k, v in raster.items()
+                               if k != "paths"}}))
+    log(f"[chip_smoke] phases 1-15 took {time.perf_counter() - t_start:.1f} "
+        "s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
                for label, row in chip[key]["shapes"].items()}
@@ -3244,7 +3704,19 @@ def main() -> int:
         kernel_line("tess_clip", "mosaic_tpu_torch/csrc/tess_clip.cu",
                     "mosaic_tpu/core/tessellate.py:488 (tess/clip)",
                     chip["counts"]["tess_clip"], chip["k8"],
-                    by_path("tess_clip"))]}))
+                    by_path("tess_clip")),
+        kernel_line("raster_convolve",
+                    "mosaic_tpu_torch/csrc/raster_convolve.cu",
+                    "mosaic_tpu/core/raster/rops.py:318 (convolve) + "
+                    "mosaic_tpu/parallel/raster_halo.py:30 (_convolve_fn)",
+                    raster["paths"]["raster convolve srtm"]["raster_convolve"]
+                    + raster["paths"]["raster halo dem"]["raster_convolve"],
+                    raster["k9"]["f64 3x3 srtm"], by_path("raster_convolve")),
+        kernel_line("raster_combine",
+                    "mosaic_tpu_torch/csrc/raster_combine.cu",
+                    "mosaic_tpu/core/raster/rops.py:188 (combine)",
+                    raster["paths"]["raster srtm"]["raster_combine"],
+                    raster["k10"]["avg"], by_path("raster_combine"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,8 @@ each module's counterpart is easy to find.
 Entry points that create device state (``build_pip_index``,
 ``build_dense_pip_index``, ``make_streamed_pip_join``,
 ``make_refined_pip_join``, ``tessellate``, ``tessellate_subset``, the
-``overlay_*`` entry points, ``SpatialKNN``) run on CUDA unless the caller
+``overlay_*`` entry points, ``SpatialKNN``, ``raster_to_grid`` and the
+raster operators that compute on a device) run on CUDA unless the caller
 passes ``device="cpu"``, and
 raise RuntimeError when no CUDA device exists and none was asked for.
 
@@ -41,8 +42,10 @@ from .bench.workloads import (ais_pings_ports, build_workload, nyc_points,
 from .core.geometry.array import GeometryArray, GeometryBuilder, GeometryType
 from .core.geometry.wkt import read_wkt, write_wkt
 from .core.index.factory import get_index_system
+from .core.raster import GeoTransform, RasterTile, read_gtiff, write_gtiff
 from .core.tessellate import (point_chips, polyfill, tessellate,
                               tessellate_subset)
+from .io.raster_grid import raster_to_grid
 from .models import (CheckpointManager, SpatialKNN, build_knn_indexes,
                      knn_host_truth, knn_index_from_arrays)
 from .ops.projection import project_lattice, project_lattice_ref
@@ -73,5 +76,6 @@ __all__ = [
     "overlay_intersection_area", "overlay_intersects", "overlay_row_pairs",
     "overlay_rows_from_arrays", "pack_chip_rows", "ais_pings_ports",
     "CheckpointManager", "SpatialKNN", "build_knn_indexes", "knn_host_truth",
-    "knn_index_from_arrays",
+    "knn_index_from_arrays", "RasterTile", "GeoTransform", "raster_to_grid",
+    "read_gtiff", "write_gtiff",
 ]

@@ -1,9 +1,11 @@
-"""Configuration of the port: the conf keys its join strategies read.
+"""Configuration of the port: the conf keys its join strategies and its
+raster layer read.
 
 Port copy of the part of ``mosaic_tpu.config`` that the planner, the
-planned and refined PIP joins, the stream chunk and SpatialKNN's engine
-choice read.  Keys keep the JAX package's names, defaults, validators and
-error class, so a setting carries over 1:1:
+planned and refined PIP joins, the stream chunk, SpatialKNN's engine
+choice, the raster checkpoint and the codecs' error policy read.  Keys
+keep the JAX package's names, defaults, validators and error class, so a
+setting carries over 1:1:
 
 * ``mosaic.planner.enabled`` — the cost planner on or off;
 * ``mosaic.planner.force.<op>`` — pin one operator's strategy (ops and
@@ -13,7 +15,12 @@ error class, so a setting carries over 1:1:
 * ``mosaic.knn.strategy`` — "auto", "brute", "ring" or a positive
   brute-right-max threshold;
 * ``mosaic.join.refine.{enabled,depth,dup.threshold,max.cells,
-  sample.rows}`` — the adaptive refined join.
+  sample.rows}`` — the adaptive refined join;
+* ``mosaic.raster.{checkpoint,use.checkpoint,tmp.prefix,blocksize}`` —
+  the raster checkpoint directory and switch (``core/raster/checkpoint``),
+  the temp prefix and the block size;
+* ``mosaic.io.on.error`` — "raise", "skip" or "null", the codecs'
+  policy for a malformed record (``resilience/ingest``).
 
 The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
 any other one, and for the pins of strategies and ops it does not run
@@ -33,6 +40,15 @@ MOSAIC_JOIN_REFINE_DEPTH = "mosaic.join.refine.depth"
 MOSAIC_JOIN_REFINE_DUP_THRESHOLD = "mosaic.join.refine.dup.threshold"
 MOSAIC_JOIN_REFINE_MAX_CELLS = "mosaic.join.refine.max.cells"
 MOSAIC_JOIN_REFINE_SAMPLE_ROWS = "mosaic.join.refine.sample.rows"
+MOSAIC_RASTER_CHECKPOINT = "mosaic.raster.checkpoint"
+MOSAIC_RASTER_USE_CHECKPOINT = "mosaic.raster.use.checkpoint"
+MOSAIC_RASTER_TMP_PREFIX = "mosaic.raster.tmp.prefix"
+MOSAIC_RASTER_BLOCKSIZE = "mosaic.raster.blocksize"
+MOSAIC_IO_ON_ERROR = "mosaic.io.on.error"
+
+MOSAIC_RASTER_CHECKPOINT_DEFAULT = "/tmp/mosaic_tpu/checkpoint"
+MOSAIC_RASTER_TMP_PREFIX_DEFAULT = "/tmp"
+MOSAIC_RASTER_BLOCKSIZE_DEFAULT = 128
 
 
 class ConfigError(ValueError):
@@ -60,6 +76,15 @@ class MosaicConfig:
     join_refine_dup_threshold: int = 8
     join_refine_max_cells: int = 4_096
     join_refine_sample_rows: int = 65_536
+    # raster checkpointing (core/raster/checkpoint.py): with the switch
+    # on, serialized tiles spill GeoTIFF files into the directory
+    raster_checkpoint: str = MOSAIC_RASTER_CHECKPOINT_DEFAULT
+    raster_use_checkpoint: bool = False
+    raster_tmp_prefix: str = MOSAIC_RASTER_TMP_PREFIX_DEFAULT
+    raster_blocksize: int = MOSAIC_RASTER_BLOCKSIZE_DEFAULT
+    # ingestion error policy (resilience/ingest.py): "raise" fails fast,
+    # "skip" drops malformed records, "null" fills them
+    io_on_error: str = "raise"
 
 
 def _as_flag(key: str, value) -> bool:
@@ -94,6 +119,18 @@ def _as_count(key: str, value) -> int:
     return n
 
 
+def _as_on_error(key: str, value) -> str:
+    s = str(value).strip().lower()
+    if s not in ("raise", "skip", "null"):
+        raise ConfigError(f"{key}={value!r} invalid "
+                          "(raise, skip, or null)")
+    return s
+
+
+def _as_str(key: str, value) -> str:
+    return str(value)
+
+
 def _as_knn_strategy(key: str, value) -> str:
     s = str(value).strip().lower()
     if s in ("auto", "brute", "ring"):
@@ -122,6 +159,11 @@ _CONF_FIELDS = {
         ("join_refine_max_cells", _as_blocksize),
     MOSAIC_JOIN_REFINE_SAMPLE_ROWS:
         ("join_refine_sample_rows", _as_blocksize),
+    MOSAIC_RASTER_CHECKPOINT: ("raster_checkpoint", _as_str),
+    MOSAIC_RASTER_USE_CHECKPOINT: ("raster_use_checkpoint", _as_flag),
+    MOSAIC_RASTER_TMP_PREFIX: ("raster_tmp_prefix", _as_str),
+    MOSAIC_RASTER_BLOCKSIZE: ("raster_blocksize", _as_blocksize),
+    MOSAIC_IO_ON_ERROR: ("io_on_error", _as_on_error),
 }
 
 

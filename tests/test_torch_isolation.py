@@ -4,8 +4,11 @@ default.
 * In a subprocess where ``jax`` and ``mosaic_tpu`` cannot be imported,
   the port imports and runs a small dense PIP join on the CPU, exact
   against its own oracle.
+  So does the raster layer: a small DEM through ``raster_to_grid``,
+  equal to per-cell means of the host cell ids.
 * No file of the port, nor chip_smoke.py, imports ``jax`` or
-  ``mosaic_tpu`` (an ``ast`` scan; the root module name must match
+  ``mosaic_tpu`` (an ``ast`` scan over every subpackage, ``core/raster``,
+  ``io`` and ``resilience`` among them; the root module name must match
   exactly, so ``mosaic_tpu_torch`` itself does not count).
 * Entry points that create device state, called without ``device`` on a
   host without CUDA, raise RuntimeError instead of running on the CPU;
@@ -73,8 +76,16 @@ assert np.array_equal(mt.make_planned_pip_join(idx, grid, polys)(pts)[0],
 assert planner.report()["decisions"] == 2
 hist = mt.zone_histogram(torch.from_numpy(zone), len(polys))
 assert int(hist.sum()) == int((zone >= 0).sum()) > 0
+yy, xx = np.mgrid[0:40, 0:50]
+dem = mt.RasterTile((np.sin(xx / 60.0) * 50 + yy * 0.1)[None],
+                    mt.GeoTransform(-74.25, 0.0005, 0.0, 40.92, 0.0, -0.0005))
+cells = mt.raster_to_grid([dem], 8, grid, combiner="avg", device="cpu")
+cx, cy = dem.pixel_centers()
+own = grid.point_to_cell(np.stack([cx.ravel(), cy.ravel()], -1), 8)
+assert cells == {int(c): float(dem.data[0].ravel()[own == c].mean())
+                 for c in np.unique(own)}
 assert "jax" not in sys.modules or sys.modules["jax"] is None
-print("SLICE_OK", int((zone >= 0).sum()), rechecked)
+print("SLICE_OK", int((zone >= 0).sum()), rechecked, len(cells))
 """
 
 
@@ -102,7 +113,16 @@ def test_no_file_imports_jax_or_mosaic_tpu():
     assert len(files) > 20
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"mosaic_tpu_torch/config.py",
-            "mosaic_tpu_torch/sql/planner.py"} <= names
+            "mosaic_tpu_torch/sql/planner.py",
+            "mosaic_tpu_torch/core/raster/tile.py",
+            "mosaic_tpu_torch/core/raster/gtiff.py",
+            "mosaic_tpu_torch/core/raster/rops.py",
+            "mosaic_tpu_torch/core/raster/checkpoint.py",
+            "mosaic_tpu_torch/io/raster_grid.py",
+            "mosaic_tpu_torch/resilience/ingest.py",
+            "mosaic_tpu_torch/parallel/raster_halo.py",
+            "mosaic_tpu_torch/ops/raster_convolve.py",
+            "mosaic_tpu_torch/ops/raster_combine.py"} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) &
                                             FORBIDDEN)
            for f in files}
@@ -144,6 +164,11 @@ def test_entry_points_default_to_cuda():
     assert np.array_equal(planned(pts)[0], mt.pip_host_truth(pts, polys))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mt.dense_index_from_arrays({}, None)
+    dem = mt.RasterTile(np.zeros((1, 4, 4)),
+                        mt.GeoTransform(-74.0, 0.001, 0.0, 40.7, 0.0, -0.001))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.raster_to_grid([dem], 8, grid)
+    assert len(mt.raster_to_grid([dem], 8, grid, device="cpu")) > 0
     with pytest.raises(RuntimeError):
         mt.resolve_device("cuda")
     assert np.array_equal(mt.localize(idx, np.zeros((1, 2))),

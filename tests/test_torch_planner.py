@@ -2,9 +2,10 @@
 
 * Each conf key the port carries (``mosaic.planner.enabled``,
   ``mosaic.planner.force.<op>``, ``mosaic.stream.chunk.rows``,
-  ``mosaic.knn.strategy`` and the five ``mosaic.join.refine.*`` keys)
-  accepts and rejects the same values as the JAX package's, with the same
-  defaults and the same error class.  The stated exception: the pins this
+  ``mosaic.knn.strategy`` and the five ``mosaic.join.refine.*`` keys;
+  the raster and ``mosaic.io.on.error`` keys are held in
+  tests/test_torch_raster.py) accepts and rejects the same values as the
+  JAX package's, with the same defaults and the same error class.  The stated exception: the pins this
   port leaves out (the ``sharded`` PIP strategy, the ``equi_join`` and
   ``fusion`` ops) and the keys of later slices raise ``ConfigError``.
 * Pins give the same Decision fields (strategy, reason, est_rows,
@@ -63,7 +64,9 @@ KEY_VALUES = {
 FIELDS_PORTED = ("planner_enabled", "planner_force", "stream_chunk_rows",
                  "knn_strategy", "join_refine_enabled", "join_refine_depth",
                  "join_refine_dup_threshold", "join_refine_max_cells",
-                 "join_refine_sample_rows")
+                 "join_refine_sample_rows", "raster_checkpoint",
+                 "raster_use_checkpoint", "raster_tmp_prefix",
+                 "raster_blocksize", "io_on_error")
 
 
 @pytest.fixture(autouse=True)
