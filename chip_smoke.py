@@ -182,15 +182,22 @@ Phases (any failure exits non-zero and prints no result):
     whose K3 margin sent it to the host, the ``count`` combiner's cells
     summing to the tile's valid pixels, and a 1024 x 1024 corner in 4
     tiles bit-equal to ``device="cpu"``; c. K9 bit-equal to
-    ``convolve_ref`` on the SRTM tile in f64 with 3x3, 5x5 and 4x4
-    weights (through ``rops.convolve``) and on the DEM in f32 (through
-    ``sharded_convolve`` with ``group=None``), each timed beside its
-    plain version, its bound (the raster's bytes; a multiply-add a tap)
-    and ``F.conv2d`` (TF32 off); d. K10 bit-equal to ``combine_ref`` for
+    ``convolve_ref`` on the SRTM tile in f64 with 3x3, 5x5, 4x4 and 7x7
+    weights (through ``rops.convolve``) and on the DEM and the SRTM tile
+    in f32 with 3x3 weights (through ``sharded_convolve`` with
+    ``group=None``), one launch a call, each timed beside its plain
+    version, its bound (the raster's bytes; a rounded multiply and a
+    rounded add a tap, at the FP64 or FP32 rate) and ``F.conv2d`` (TF32
+    off); then, untimed, K9's edge set in f64 and f32 (rasters smaller
+    than the stencil, a [3, 517, 1029] raster under 5x5, 3x3, 1x9, 9x1
+    and 11x11, a -0.0 tap, an infinite tap, the stencil that takes the
+    small tile), each bit-equal; d. K10 bit-equal to ``combine_ref`` for
     all six reducers on the quarters' stack (4 x 3601 x 3601 f64) and on
     the largest stack the SRTM run gave it, each timed beside its plain
     version, its byte bound and ``torch.nanmean`` (avg) or
-    ``torch.nansum`` (sum);
+    ``torch.nansum`` (sum); e. ``rops.ndvi`` on a two-band SRTM-sized
+    stack bit-equal to ``device="cpu"``, its torch ops' device time
+    beside its byte bound;
 16. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
     ``raster`` and ``tess_kernels`` (K7 and K8 by input set) summary
     lines, the card, the ``kernels`` JSON line (K1-K10 with launches per
@@ -3174,11 +3181,22 @@ SRTM_SEED = 3601
 #: bit-equal to the CPU path
 SRTM_SAMPLE = 1 << 20
 SRTM_CORNER = 1024
-#: K9's weight arrays on the SRTM tile (f64) and on the DEM (f32, the halo
+#: K9's weight arrays on the SRTM tile (f64, through rops.convolve) and
+#: on the DEM and the SRTM tile (f32, through sharded_convolve: the halo
 #: form, odd sides only)
-K9_SHAPES = ((3, 3), (5, 5), (4, 4))
+K9_SHAPES = ((3, 3), (5, 5), (4, 4), (7, 7))
 K9_HALO_SHAPE = (3, 3)
 K9_SEED = 9
+#: K9's edge set, untimed: rasters smaller than a 5 x 5 stencil, a
+#: multi-band raster whose sides are no multiple of any tile, stencils of
+#: one row and one column, one only a runtime-size instance takes, and
+#: one too large for the large tile's shared memory
+K9_SMALL_RASTERS = ((1, 1, 1), (1, 3, 1), (1, 5, 7))
+K9_BANDS = (3, 517, 1029)
+K9_EDGE_STENCILS = ((5, 5), (3, 3), (1, 9), (9, 1), (11, 11))
+K9_WIDE_RASTER = (1, 300, 400)
+#: ndvi on a two-band SRTM-sized stack: the tile as RED, a seeded NIR
+NDVI_SEED = 304
 
 
 def srtm_tile():
@@ -3384,16 +3402,129 @@ def check_ownership(label: str, kept, grid):
     return len(pick), low_total
 
 
+#: instructions of one tap: a rounded multiply and a rounded add (an FMA
+#: would change the bits, so K9 and its plain version never fuse them)
+K9_TAP_OPS = 2
+
+
 def conv_bound(x, w):
     """(bound ms, by) of K9 on ``x`` with weights ``w``: the raster read
-    and written once and the weights read, at HBM3's rate; one
-    multiply-add a tap and pixel at the FP64 or FP32 rate."""
+    and written once and the weights read, at HBM3's rate; a multiply and
+    an add a tap and pixel, each an instruction at the FP64 rate
+    (PEAK_F64_OPS) or the FP32 rate (PEAK_F32_FLOPS / 2)."""
     taps, pixels, item = w.numel(), x.numel(), x.element_size()
     bytes_ms = (2 * pixels + taps) * item / PEAK_BYTES * 1e3
     rate = PEAK_F64_OPS if item == 8 else PEAK_F32_FLOPS / 2
-    ops_ms = taps * pixels / rate * 1e3
+    ops_ms = K9_TAP_OPS * taps * pixels / rate * 1e3
     return max(bytes_ms, ops_ms), ("operations" if ops_ms > bytes_ms
                                    else "bytes")
+
+
+def k9_edge_set() -> int:
+    """K9's wrapper on the card against ``convolve_ref`` on the edge set,
+    untimed, in f64 and f32: rasters smaller than the 5 x 5 stencil, a
+    multi-band raster under several stencils (one row, one column, one
+    only a runtime-size instance takes), a stencil that takes the small
+    tile, and weights with a -0.0 tap, an infinite tap (w * 0 outside the
+    tile is NaN, never skipped) and zeros of both signs in the raster.
+    Returns the number of cases, each bit-equal, with one launch each."""
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch.ops import raster_convolve as rc
+    rng = np.random.default_rng(K9_SEED + 1)
+
+    def raster(shape):
+        x = rng.normal(0, 100, shape)
+        u = rng.random(shape)
+        x[u < 0.1] = 0.0
+        x[(u >= 0.1) & (u < 0.2)] = -0.0
+        return x
+
+    def small_tile_side(item):
+        # the smallest square stencil past the fixed sizes that the large
+        # tile cannot hold
+        return next(k for k in range(8, 512) if rc.pick_instance(k, k, item)
+                    != rc.pick_instance(11, 11, item))
+
+    cases = [(shape, (5, 5), "") for shape in K9_SMALL_RASTERS]
+    cases += [(K9_BANDS, k, "") for k in K9_EDGE_STENCILS]
+    cases += [(K9_BANDS, (5, 5), "-0.0 tap"), (K9_BANDS, (3, 3), "inf tap")]
+    n, sides = 0, []
+    for dtype in (torch.float64, torch.float32):
+        side = small_tile_side(torch.empty((), dtype=dtype).element_size())
+        sides.append(side)
+        for shape, kshape, note in cases + [
+                (K9_WIDE_RASTER, (side, side), "small tile")]:
+            x = torch.from_numpy(raster(shape)).to(DEV, dtype)
+            w = rng.normal(0, 1, kshape)
+            if note == "-0.0 tap":
+                w[0, 0] = w[2, 3] = -0.0
+            if note == "inf tap":
+                w[1, 2] = np.inf
+            w = torch.from_numpy(w).to(DEV, dtype)
+            before = rc.raster_convolve.launches
+            ker = rc.raster_convolve(x, w)
+            torch.cuda.synchronize()
+            check(rc.raster_convolve.launches == before + 1,
+                  f"K9 edge {shape} {kshape}: not one launch")
+            check(same_bits(ker, rc.convolve_ref(x, w)),
+                  f"K9 edge {dtype} {shape} under {kshape} {note}: differs "
+                  "from convolve_ref")
+            n += 1
+    log(f"[raster] K9 edge set: {n} cases bit-equal to convolve_ref (f64 "
+        f"and f32; rasters {K9_SMALL_RASTERS} under 5x5; {K9_BANDS} under "
+        f"{K9_EDGE_STENCILS}, a -0.0 tap, an inf tap; {K9_WIDE_RASTER} "
+        f"under the small tile's {sides[0]}^2 (f64) and {sides[1]}^2 "
+        "(f32))")
+    return n
+
+
+def ndvi_check(tile) -> dict:
+    """``rops.ndvi`` on the card against ``device="cpu"`` on a two-band
+    SRTM-sized stack (the tile as RED, a seeded NIR with some pixels of
+    NIR + RED == 0): bit-equal; the device time of its torch ops
+    (``rops.ndvi_body`` on the bands and mask on the card, CUDA events),
+    the whole call's host ms (host copies and uploads included), and the
+    ops' byte bound (two f64 bands and the bool mask read, the f64 result
+    written)."""
+    import numpy as np
+    import torch
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.core.raster import rops
+    rng = np.random.default_rng(NDVI_SEED)
+    red = tile.data[0]
+    nir = rng.uniform(0.0, 300.0, red.shape)
+    zero = rng.random(red.shape) < 1e-3
+    nir[zero] = -red[zero]
+    stack = mt.RasterTile(np.stack([red, nir]), tile.gt, srid=4326)
+    card = rops.ndvi(stack, 0, 1, device=DEV)
+    cpu = rops.ndvi(stack, 0, 1, device="cpu")
+    a, b = torch.from_numpy(card.data), torch.from_numpy(cpu.data)
+    check(same_bits(a, b), "ndvi: the card's output differs from the "
+          "device='cpu' call's")
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rops.ndvi(stack, 0, 1, device=DEV)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    m = stack.valid_mask()
+    bands = torch.from_numpy(stack.data).to(DEV)
+    valid = torch.from_numpy(m[0] & m[1]).to(DEV)
+    check(same_bits(rops.ndvi_body(bands[0], bands[1], valid).cpu()[None],
+                    a), "ndvi: ndvi_body differs from the call")
+    ms = time_ms(lambda: rops.ndvi_body(bands[0], bands[1], valid), 20)
+    pixels = red.size
+    bound = pixels * (2 * 8 + 1 + 8) / PEAK_BYTES * 1e3
+    nan = int(np.isnan(card.data).sum())
+    log(f"[raster] ndvi on a two-band {list(red.shape)} stack: bit-equal "
+        f"to device='cpu' ({nan} NaN pixels); its torch ops {ms:.4f} ms "
+        f"(CUDA events over 20 calls on the card's bands), bound "
+        f"{bound:.4f} ms (bytes), share {bound / ms:.3f}; the call "
+        f"{host_ms:.3f} ms (host clock, copies included)")
+    return {"ms": ms, "host_ms": host_ms, "bound_ms": bound,
+            "bound_by": "bytes", "nan_pixels": nan,
+            "shape": [2] + list(red.shape)}
 
 
 def phase_raster(grid):
@@ -3483,14 +3614,21 @@ def phase_raster(grid):
     reset_counts()
     halo = sharded_convolve(dem, w32.cpu().numpy(), None, device=DEV)
     paths["raster halo dem"] = launch_counts()
+    x32 = torch.from_numpy(np.where(tile.valid_mask(), tile.data, 0.0)
+                           .astype(np.float32)).to(DEV)
+    reset_counts()
+    halo_srtm = sharded_convolve(tile, w32.cpu().numpy(), None, device=DEV)
+    paths["raster halo srtm"] = launch_counts()
     check(paths["raster convolve srtm"]["raster_convolve"] == len(K9_SHAPES)
-          and paths["raster halo dem"]["raster_convolve"] == 1,
+          and paths["raster halo dem"]["raster_convolve"] == 1
+          and paths["raster halo srtm"]["raster_convolve"] == 1,
           "K9 launches: one per convolve and sharded_convolve call")
     k9 = {}
+    halo_label = f"f32 {K9_HALO_SHAPE[0]}x{K9_HALO_SHAPE[1]} halo"
     cases = [(f"f64 {s[0]}x{s[1]} srtm", x64, w, ct.data)
              for s, w, ct in zip(K9_SHAPES, weights, conv_tiles)]
-    cases.append((f"f32 {K9_HALO_SHAPE[0]}x{K9_HALO_SHAPE[1]} halo dem",
-                   dem32, w32, halo.data))
+    cases += [(f"{halo_label} dem", dem32, w32, halo.data),
+              (f"{halo_label} srtm", x32, w32, halo_srtm.data)]
     for label, x, w, entry in cases:
         x3 = x if x.dim() == 3 else x[None]
         ker = raster_convolve(x3, w)
@@ -3521,6 +3659,7 @@ def phase_raster(grid):
             f"({source}), bound {bound:.4f} ms ({by}), share "
             f"{bound / ms:.3f}; plain {plain_ms:.3f} ms; F.conv2d "
             f"{lib_ms:.4f} ms (TF32 off)")
+    k9_edges = k9_edge_set()
 
     # d. K10 against its plain version
     stack_np, _ = rops.combine_stack(quads)
@@ -3561,6 +3700,9 @@ def phase_raster(grid):
             f"{plain_ms:.3f} ms; library {lib_ms}; main path's stack "
             f"{main_ms:.4f} ms ({main_src})")
     del stack
+
+    # e. ndvi (torch ops) on a two-band SRTM-sized stack
+    ndvi = ndvi_check(tile)
     t_phase = time.perf_counter() - t_phase
     log(f"[raster] the phase took {t_phase:.1f} s")
     return {"config5": {"cells": len(cfg5), "s": cfg5_s, "cpu_s": cfg5_cpu_s,
@@ -3570,7 +3712,8 @@ def phase_raster(grid):
                      "host_points": srtm_host, "valid_pixels": valid,
                      "sampled": sampled, "corner_cells": len(card_c),
                      "k10_launches": paths["raster srtm"]["raster_combine"]},
-            "k9": k9, "k10": k10, "phase_s": t_phase, "paths": paths}
+            "k9": k9, "k9_edge_cases": k9_edges, "k10": k10, "ndvi": ndvi,
+            "phase_s": t_phase, "paths": paths}
 
 
 def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
@@ -3709,8 +3852,9 @@ def main() -> int:
                     "mosaic_tpu_torch/csrc/raster_convolve.cu",
                     "mosaic_tpu/core/raster/rops.py:318 (convolve) + "
                     "mosaic_tpu/parallel/raster_halo.py:30 (_convolve_fn)",
-                    raster["paths"]["raster convolve srtm"]["raster_convolve"]
-                    + raster["paths"]["raster halo dem"]["raster_convolve"],
+                    sum(raster["paths"][p]["raster_convolve"]
+                        for p in ("raster convolve srtm", "raster halo dem",
+                                  "raster halo srtm")),
                     raster["k9"]["f64 3x3 srtm"], by_path("raster_convolve")),
         kernel_line("raster_combine",
                     "mosaic_tpu_torch/csrc/raster_combine.cu",

@@ -347,15 +347,21 @@ def ndvi(tile: RasterTile, red_band: int, nir_band: int,
     dev = resolve_device(device)
     d = torch.tensor(np.asarray(tile.data, _F)[[red_band, nir_band]],
                      device=dev)
-    red, nir = d[0], d[1]
-    nan = torch.tensor(float("nan"), dtype=torch.float64, device=dev)
-    denom = nir + red
-    out = torch.where(denom == 0, nan, (nir - red) / denom)
     m = tile.valid_mask()
-    out = torch.where(torch.from_numpy(m[red_band] & m[nir_band]).to(dev),
-                      out, nan)
+    valid = torch.from_numpy(m[red_band] & m[nir_band]).to(dev)
+    out = ndvi_body(d[0], d[1], valid)
     return RasterTile(out.cpu().numpy()[None], tile.gt, nodata=None,
                       srid=tile.srid, meta={"op": "ndvi"})
+
+
+def ndvi_body(red: torch.Tensor, nir: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """:func:`ndvi`'s device work: (NIR - RED) / (NIR + RED) of two f64
+    bands, NaN where the sum is 0 or ``valid`` (bool) is False."""
+    nan = torch.tensor(float("nan"), dtype=torch.float64, device=red.device)
+    denom = nir + red
+    out = torch.where(denom == 0, nan, (nir - red) / denom)
+    return torch.where(valid, out, nan)
 
 
 def convolve(tile: RasterTile, kernel: np.ndarray,

@@ -18,6 +18,14 @@ numpy models of the kernels' order of operations.
   value where ``jnp.nanmedian`` takes the mean of the two.
 * The wrappers reject what the kernels do not take, and on CPU tensors
   launch nothing.
+* The stencil kernel's launch plan (``launch_plan``: the instance and its
+  tile, the limits) is plain Python: every stencil maps to an instance
+  whose shared memory fits, and an input the kernel does not take is
+  refused before any launch.  A numpy model of the kernel's march (the
+  persistent grid's unit ranges, the shared-memory ring with its halo
+  rows kept from step to step and the next step staged ahead, the rows a
+  thread sums in registers) is bit-equal to ``convolve_ref`` for every
+  instance, with ranges that cross strips and bands.
 """
 
 import numpy as np
@@ -31,11 +39,15 @@ from mosaic_tpu_torch.core.raster import rops as trops
 from mosaic_tpu_torch.core.raster.tile import GeoTransform, RasterTile
 from mosaic_tpu_torch.ops.raster_combine import (REDUCERS, combine_ref,
                                                  raster_combine)
+from mosaic_tpu_torch.ops import raster_convolve as rc
 from mosaic_tpu_torch.ops.raster_convolve import (convolve_ref,
                                                   raster_convolve, same_pads)
 
 GT = (-74.0, 0.001, 0.0, 40.9, 0.0, -0.001)
-SHAPES = [(3, 3), (5, 5), (4, 4), (2, 3), (1, 1), (3, 6)]
+SHAPES = [(3, 3), (5, 5), (4, 4), (2, 3), (1, 1), (3, 6), (7, 7), (1, 9),
+          (9, 1), (11, 11)]
+#: rasters smaller than a 5 x 5 stencil, and a multi-band raster
+SMALL_AND_BANDS = [(1, 1, 1), (1, 3, 1), (1, 5, 7), (1, 2, 9), (3, 9, 10)]
 
 
 def ulp_diff(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -70,6 +82,92 @@ def convolve_model(x: np.ndarray, w: np.ndarray) -> np.ndarray:
         for j in range(kw):
             prod = (w[i, j] * xp[:, i:i + H, j:j + W]).astype(x.dtype)
             out = (out + prod).astype(x.dtype)
+    return out
+
+
+def march_model(x: np.ndarray, w: np.ndarray, instance: int,
+                grid: int) -> np.ndarray:
+    """numpy model of the stencil kernel's march as
+    csrc/raster_convolve.cu runs it with ``grid`` resident blocks: each
+    block's range of (band, strip, step) units, its ring of shared rows
+    (values never staged read as NaN, so a read of a stale or unstaged row
+    shows), the next step's rows staged before this step's sums, and each
+    thread's ROWS_PER_THREAD outputs summed input row by input row.
+    Every output is written once."""
+    kh, kw = w.shape
+    _, _, tw, ny = rc.INSTANCES[instance]
+    R, th = rc.ROWS_PER_THREAD, rc.tile_rows(instance)
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    n_ring, sw = 2 * th + kh - 1, tw + kw - 1
+    B, H, W = x.shape
+    strips, steps = -(-W // tw), -(-H // th)
+    units = B * strips * steps
+    G = min(units, grid)
+    out = np.full_like(x, np.nan)
+    written = np.zeros(x.shape, bool)
+    tx = np.arange(tw)
+    for blk in range(G):
+        u, u_end = units * blk // G, units * (blk + 1) // G
+        band, rem = divmod(u, strips * steps)
+        strip, step = divmod(rem, steps)
+        ring = np.full((n_ring, sw), np.nan, x.dtype)
+        base, fresh = 0, True
+
+        def stage(ring_row, g0, nrows):
+            gc = c0 - pw + np.arange(sw)
+            for rr in range(nrows):
+                rp = ring_row + rr
+                rp = rp - n_ring if rp >= n_ring else rp
+                gr = g0 + rr
+                row = np.zeros(sw, x.dtype)
+                if 0 <= gr < H:
+                    ok = (gc >= 0) & (gc < W)
+                    row[ok] = x[band, gr, gc[ok]]
+                ring[rp] = row
+
+        while u < u_end:
+            r0, c0 = step * th, strip * tw
+            if fresh:
+                base = 0
+                stage(0, r0 - ph, th + kh - 1)
+            more = u + 1 < u_end and step + 1 < steps
+            if more:
+                nxt = base + th + kh - 1
+                stage(nxt - n_ring if nxt >= n_ring else nxt,
+                      r0 + th + kh - 1 - ph, th)
+            snap = ring.copy()
+            for ty in range(ny):
+                acc = np.zeros((R, tw), x.dtype)
+                rbase = base + ty * R
+                for q in range(R + kh - 1):
+                    p = rbase + q
+                    p = p - n_ring if p >= n_ring else p
+                    for j in range(kw):
+                        v = snap[p, tx + j]
+                        for o in range(R):
+                            i = q - o
+                            if 0 <= i < kh:
+                                acc[o] = (acc[o] + (w[i, j] * v).astype(
+                                    x.dtype)).astype(x.dtype)
+                for o in range(R):
+                    r = r0 + ty * R + o
+                    c = c0 + tx
+                    ok = c < W
+                    if r < H:
+                        assert not written[band, r, c[ok]].any()
+                        written[band, r, c[ok]] = True
+                        out[band, r, c[ok]] = acc[o][ok]
+            base += th
+            base = base - n_ring if base >= n_ring else base
+            fresh = not more
+            step += 1
+            if step == steps:
+                step = 0
+                strip += 1
+                if strip == strips:
+                    strip, band = 0, band + 1
+            u += 1
+    assert written.all()
     return out
 
 
@@ -167,6 +265,102 @@ def test_convolve_against_jax(shape):
     x = np.where(tt.valid_mask(), d, 0.0)
     scale = convolve_model(np.abs(x), np.abs(w))
     assert np.all(np.abs(got - want) <= 1e-12 * scale + 1e-300)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("bhw", SMALL_AND_BANDS)
+def test_convolve_small_and_multiband(dtype, bhw):
+    """Rasters smaller than the 5 x 5 stencil (1 x 1, 3 x 1, 5 x 7, 2 x 9)
+    and a 3-band raster: the plain version bit-equal to the numpy model,
+    and rops.convolve within the JAX tolerance of jrops.convolve."""
+    rng = np.random.default_rng(sum(bhw))
+    x = rng.normal(0, 100, bhw).astype(dtype)
+    w = rng.normal(0, 1, (5, 5)).astype(dtype)
+    got = convolve_ref(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    assert np.array_equal(got.view(np.uint8),
+                          convolve_model(x, w).view(np.uint8))
+    d = x.astype(np.float64)
+    want = np.asarray(jrops.convolve(JRasterTile(d, JGeoTransform(*GT)),
+                                     w.astype(np.float64)).data)
+    port = trops.convolve(RasterTile(d, GeoTransform(*GT)),
+                          w.astype(np.float64), device="cpu").data
+    assert port.shape == want.shape == d.shape
+    scale = convolve_model(np.abs(d), np.abs(w.astype(np.float64)))
+    assert np.all(np.abs(port - want) <= 1e-12 * scale + 1e-300)
+
+
+def test_launch_plan_instances_and_limits():
+    """The wrapper's instance and tile picker, pure Python: the fixed
+    stencils take their own instance, every other stencil the first
+    runtime-size instance whose shared memory fits (a large one the
+    small tile), each within SMEM_LIMIT; the limits follow the kernel's
+    int indices and the tile; what the kernel does not take raises
+    ValueError before any launch."""
+    fixed = {(kh, kw): i for i, (kh, kw, _, _) in enumerate(rc.INSTANCES)
+             if kh}
+    assert set(fixed) == {(3, 3), (4, 4), (5, 5), (7, 7)}
+    runtime = [i for i, inst in enumerate(rc.INSTANCES) if inst[0] == 0]
+    assert len(runtime) == 2
+    for item in (8, 4):
+        for kh in range(1, 40):
+            for kw in (1, 2, 3, 5, 9, 16, 33):
+                i = rc.launch_plan((2, 3601, 3601), (kh, kw), item)
+                assert i == fixed.get((kh, kw), runtime[0])
+                assert rc.smem_bytes(i, kh, kw, item) <= rc.SMEM_LIMIT
+                assert rc.tile_rows(i) == rc.ROWS_PER_THREAD * \
+                    rc.INSTANCES[i][3]
+        # past the large tile's shared memory, the small tile, then none
+        big = next(k for k in range(1, 200)
+                   if rc.smem_bytes(runtime[0], k, k, item) > rc.SMEM_LIMIT)
+        assert rc.pick_instance(big, big, item) == runtime[1]
+        none = next(k for k in range(big, 2000)
+                    if rc.smem_bytes(runtime[1], k, k, item) > rc.SMEM_LIMIT)
+        with pytest.raises(ValueError, match="shared memory"):
+            rc.launch_plan((1, 8, 8), (none, none), item)
+    # a stencil side of SMEM_LIMIT / 4 fits no instance, so the kernel's
+    # int indices (a side, two steps, a stencil side) stay below 2^31
+    side = rc.SMEM_LIMIT // 4
+    for i in range(len(rc.INSTANCES)):
+        assert rc.smem_bytes(i, side, 1, 4) > rc.SMEM_LIMIT
+        assert rc.smem_bytes(i, 1, side, 4) > rc.SMEM_LIMIT
+    steps = max(rc.tile_rows(i) for i in range(len(rc.INSTANCES)))
+    assert rc.MAX_ROWS + 2 * steps + rc.SMEM_LIMIT // 4 < 2 ** 31
+    assert rc.MAX_COLS + 2 * max(i[2] for i in rc.INSTANCES) + \
+        rc.SMEM_LIMIT // 4 < 2 ** 31
+    assert rc.MAX_BANDS == 2 ** 31 - 1
+    for shape in ((rc.MAX_BANDS + 1, 1, 1), (1, rc.MAX_ROWS + 1, 1),
+                  (1, 1, rc.MAX_COLS + 1)):
+        with pytest.raises(ValueError, match="limits"):
+            rc.launch_plan(shape, (3, 3), 8)
+    before = raster_convolve.launches
+    rc.launch_plan((1, rc.MAX_ROWS, rc.MAX_COLS), (3, 3), 4)
+    assert raster_convolve.launches == before
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("instance,kshape,bhw,grid", [
+    (0, (3, 3), (2, 37, 70), 3),
+    (1, (4, 4), (1, 70, 130), 4),
+    (2, (5, 5), (2, 33, 65), 5),
+    (3, (7, 7), (1, 65, 64), 2),
+    (4, (1, 9), (2, 40, 67), 3),
+    (4, (9, 1), (1, 70, 30), 2),
+    (5, (11, 11), (2, 19, 40), 5),
+    (5, (2, 3), (1, 3, 2), 7),
+    (4, (3, 5), (1, 230, 30), 1),
+    (5, (6, 2), (2, 61, 20), 3),
+])
+def test_march_model_equals_plain(dtype, instance, kshape, bhw, grid):
+    """The kernel's march, modelled in numpy, bit-equal to convolve_ref:
+    block ranges that start mid-strip, cross strips and bands, rings that
+    wrap, a step past the last row, a tile narrower than the strip."""
+    rng = np.random.default_rng(instance * 100 + sum(bhw))
+    x = rng.normal(0, 100, bhw).astype(dtype)
+    w = rng.normal(0, 1, kshape).astype(dtype)
+    w[0, 0] = -0.0
+    want = convolve_ref(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    got = march_model(x, w, instance, grid)
+    assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
 def test_convolve_is_not_flipped():
