@@ -198,12 +198,32 @@ Phases (any failure exits non-zero and prints no result):
     ``torch.nansum`` (sum); e. ``rops.ndvi`` on a two-band SRTM-sized
     stack bit-equal to ``device="cpu"``, its torch ops' device time
     beside its byte bound;
-16. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
-    ``raster`` and ``tess_kernels`` (K7 and K8 by input set) summary
-    lines, the card, the ``kernels`` JSON line (K1-K10 with launches per
-    path, the tessellations of phases 5 and 11, the strategies' and the
-    raster paths among them), then the last line ``{"ok": true,
-    "device": {...}}``.
+16. the sharded paths in a NCCL world of one rank (a ``FileStore`` in a
+    temporary directory), each through its public entry point with the
+    group, counted under its own ``sharded ...`` path and held to its
+    single-device counterpart on the same inputs: ``make_sharded_pip_join``
+    and ``zone_histogram`` on phase 5's first 2^20 points (zones, flags
+    and counts bit-equal to the one-device K2 call, final zones to phase
+    5's, one K2 launch); ``make_sharded_streamed_pip_join`` and the
+    planned join pinned to ``sharded`` (a group of one runs the streamed
+    join) each on a whole 2^22 batch of phase 5 (zones bit-equal to phase
+    5's, one K2 launch per chunk); phase 9's sorted H3 index sharded on
+    2^18 points (one K3 launch, zones equal to phase 9's);
+    ``overlay_intersects`` and ``overlay_intersection_area`` on phase 11's
+    first 4,096 footprints (the cell-hash exchange, K4; equal to the
+    single-device calls); ``SpatialKNN(group=...)`` on phase 12's first
+    2^15 pings (one K6 launch per ring; ids and distances equal to phase
+    12's ring); ``sharded_convolve`` on the SRTM tile in f32 3x3 (bit-equal
+    to phase 15's ``group=None``), and K9 on four widened row slabs of the
+    tile's first 3,600 rows bit-equal to K9 on those rows whole (the seams
+    a multi-rank halo cuts); each path's collectives' calls, bytes and
+    host seconds (each ended at a synchronize), the phase's seconds;
+17. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+    ``raster``, ``sharded`` and ``tess_kernels`` (K7 and K8 by input set)
+    summary lines, the card, the ``kernels`` JSON line (K1-K10 with
+    launches per path, the tessellations of phases 5 and 11, the
+    strategies', the raster and the sharded paths among them), then the
+    last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -359,6 +379,17 @@ REFINE_REPS = 5
 #: the overlay's first footprints whose ChipSet is held against the plain
 #: path (tessellate on the CPU)
 OVERLAY_TESS_CHECK = 1 << 14
+#: phase 16, the sharded paths in a NCCL world of one: phase 5's first
+#: points through the sharded join and the zone histogram, the sorted H3
+#: index on fewer, phase 11's first footprints through the overlay,
+#: phase 12's first pings through the ring; the halo's seams emulated
+#: over this many slabs of the SRTM tile's first SHARD_HALO_ROWS rows
+SHARD_JOIN_N = 1 << 20
+SHARD_H3_N = 1 << 18
+SHARD_FOOTPRINTS = 4096
+SHARD_PINGS = 1 << 15
+SHARD_SLABS = 4
+SHARD_HALO_ROWS = 3600
 #: NVIDIA H100 SXM data sheet: 34 TFLOP/s in f64 outside the tensor cores,
 #: an FMA as two flops, so 17e12 f64 instructions a second (an add,
 #: multiply, compare or min/max each one)
@@ -2016,6 +2047,7 @@ def phase_overlay(zones, grid):
         f"the pairs mode call {pairs_ms:.4f} ms by events (match "
         "list, one launch, the count read back)")
     return {"counts_intersects": c_inter, "counts_area": c_area,
+            "shard_inputs": (foot, chips_b),
             "chips": [len(chips_a), len(chips_b)],
             "tessellate_s": [t_tess_a, t_tess_b],
             "tessellate_stages_s": stages_a,
@@ -2426,7 +2458,11 @@ def phase_knn():
                for p, r in paths.items()}
     summary["oracle_mismatches"] = mism
     summary["wide_k"] = wide
-    return {"paths": summary, "k5": k5, "k6": k6}
+    # phase 16 runs the ring over a process group on the first pings
+    sub = slice(0, SHARD_PINGS)
+    return {"paths": summary, "k5": k5, "k6": k6,
+            "shard_inputs": (pings[sub], ports, ring["out"]["right_id"][sub],
+                             ring["out"]["distance"][sub])}
 
 
 class LastArgs:
@@ -3713,7 +3749,223 @@ def phase_raster(grid):
                      "sampled": sampled, "corner_cells": len(card_c),
                      "k10_launches": paths["raster srtm"]["raster_combine"]},
             "k9": k9, "k9_edge_cases": k9_edges, "k10": k10, "ndvi": ndvi,
-            "phase_s": t_phase, "paths": paths}
+            "phase_s": t_phase, "paths": paths,
+            "halo_inputs": (tile, w32.cpu().numpy(), halo_srtm.data)}
+
+def phase_sharded(idx, grid, polys, batches, dense_zones, h3s, over, knn,
+                  raster):
+    """The sharded entry points over a ``torch.distributed`` NCCL group of
+    one rank on the card, each held to its single-device counterpart on
+    the same inputs (both timed, host clock to a synchronize), its
+    launches and collectives counted and the collectives' host seconds
+    (each ended at a synchronize) taken."""
+    import os
+    import tempfile
+    from datetime import timedelta
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch import config
+    from mosaic_tpu_torch.parallel import collectives as coll
+    from mosaic_tpu_torch.parallel import overlay as ov
+    from mosaic_tpu_torch.parallel import pip_join as pj
+    from mosaic_tpu_torch.parallel.raster_halo import sharded_convolve
+
+    t_phase = time.perf_counter()
+    paths, stats = {}, {}
+    names = ("all_gather", "all_reduce", "all_to_all", "broadcast",
+             "exchange_halo")
+    clock = StepClock([(coll, f) for f in names], sync=set(names))
+
+    def synced(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def pair(path, sharded, single):
+        """(sharded output, single-device output): the sharded call
+        counted (launch and collective counts to 0, drive, read), then
+        its single-device counterpart."""
+        with clock:
+            reset_counts()
+            coll.reset_counts()
+            out, t = synced(sharded)
+            paths[path] = launch_counts()
+            stats[path] = {"s": round(t, 4), "collectives": {
+                k: {"calls": v[0], "bytes": v[1]}
+                for k, v in coll.COUNTS.items() if v[0]},
+                "collective_s": clock.take()}
+        one, stats[path]["one_device_s"] = synced(single)
+        log(f"[sharded] {path}: {stats[path]}; launches "
+            f"{ {k: v for k, v in paths[path].items() if v} }")
+        return out, one
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=timedelta(seconds=60))
+        try:
+            G = dist.group.WORLD
+            # NCCL builds its communicator at the first collective
+            _, t_start = synced(lambda: coll.all_reduce(
+                torch.zeros(1, device=DEV), G))
+            log(f"[sharded] NCCL world of {dist.get_world_size()}; its "
+                f"first collective took {t_start:.3f} s")
+            # a. the sharded join and the zone histogram, against the
+            # one-device K2 call and phase 5's final zones
+            pts = batches[0][:SHARD_JOIN_N]
+            loc = torch.from_numpy(pj.localize(idx, pts))
+            run = pj.make_sharded_pip_join(idx, grid, G, device=DEV)
+            one = pj.make_pip_join_fn(idx)
+            (z, u), (z1, u1) = pair("sharded pip join", lambda: run(loc),
+                                    lambda: one(loc.to(DEV)))
+            check(torch.equal(z, z1) and torch.equal(u, u1),
+                  "sharded join: zones or flags differ from one device")
+            hist, hist1 = pair(
+                "sharded zone histogram",
+                lambda: pj.zone_histogram(z, len(polys), G),
+                lambda: pj.zone_histogram(z1, len(polys)))
+            check(torch.equal(hist, hist1),
+                  "sharded zone histogram differs from one device")
+            final = pj.host_recheck_fn(idx)(pts, z.cpu().numpy(),
+                                            u.cpu().numpy())
+            check(np.array_equal(final, dense_zones[0][:SHARD_JOIN_N]),
+                  "sharded join: final zones differ from phase 5's")
+            check(paths["sharded pip join"]["h3_dense_join"] == 1,
+                  "sharded join: not one K2 launch")
+            # b. the sharded streamed join and c. the planned join pinned
+            # to sharded (a group of one runs the streamed join), each on
+            # a whole 2^22 batch, against the streamed join and phase 5
+            n_chunks = -(-BATCH // CHUNK)
+            shj = pj.make_sharded_streamed_pip_join(
+                idx, grid, G, polys=polys, chunk=CHUNK, device=DEV)
+            streamed = pj.make_streamed_pip_join(idx, grid, polys,
+                                                 chunk=CHUNK, device=DEV)
+            (zs, _), (zs1, _) = pair("sharded streamed",
+                                     lambda: shj(batches[1]),
+                                     lambda: streamed(batches[1]))
+            check(np.array_equal(zs, dense_zones[1]) and
+                  np.array_equal(zs1, dense_zones[1]),
+                  "sharded streamed zones differ from phase 5's")
+            prev = config.default_config()
+            config.set_default_config(config.apply_conf(
+                prev, "mosaic.planner.force.pip_join", "sharded"))
+            try:
+                planned = pj.make_planned_pip_join(idx, grid, polys,
+                                                   group=G)
+                (zp, _), _ = pair("sharded planned",
+                                  lambda: planned(batches[2]),
+                                  lambda: streamed(batches[2]))
+            finally:
+                config.set_default_config(prev)
+            check(np.array_equal(zp, dense_zones[2]),
+                  "planned sharded zones differ from phase 5's")
+            for p in ("sharded streamed", "sharded planned"):
+                check(paths[p]["h3_dense_join"] == n_chunks,
+                      f"{p}: {paths[p]['h3_dense_join']} K2 launches for "
+                      f"{n_chunks} chunks")
+            # d. the sorted H3 index (K3 under the sorted body), against
+            # its streamed join and phase 9's final zones
+            p18 = batches[0][:SHARD_H3_N]
+            shs = pj.make_sharded_streamed_pip_join(
+                h3s["idx"], grid, G, polys=polys, chunk=CHUNK, device=DEV)
+            one = pj.make_streamed_pip_join(h3s["idx"], grid, polys,
+                                            chunk=CHUNK, device=DEV)
+            (zh, _), (zh1, _) = pair("sharded h3 sorted",
+                                     lambda: shs(p18), lambda: one(p18))
+            check(np.array_equal(zh, h3s["zones"][0][:SHARD_H3_N]) and
+                  np.array_equal(zh1, zh),
+                  "sharded sorted H3 zones differ from phase 9's")
+            check(paths["sharded h3 sorted"]["h3_latlng_to_cell"] ==
+                  -(-SHARD_H3_N // CHUNK), "sharded sorted H3: K3 launches")
+            # e. the overlay on phase 11's first footprints
+            foot, chips_b = over["shard_inputs"]
+            sub = foot.take(list(range(SHARD_FOOTPRINTS)))
+            chips_a = mt.tessellate(sub, RES, grid, keep_core_geom=True,
+                                    device=DEV)
+            kw = dict(device=DEV, chips_a=chips_a, chips_b=chips_b)
+            hits, hits1 = pair(
+                "sharded overlay intersects",
+                lambda: ov.overlay_intersects(sub, polys, RES, grid,
+                                              group=G, **kw),
+                lambda: ov.overlay_intersects(sub, polys, RES, grid, **kw))
+            check(np.array_equal(hits, hits1),
+                  "sharded overlay hits differ from one device")
+            area, area1 = pair(
+                "sharded overlay area",
+                lambda: ov.overlay_intersection_area(sub, polys, RES, grid,
+                                                     group=G, **kw),
+                lambda: ov.overlay_intersection_area(sub, polys, RES, grid,
+                                                     **kw))
+            check(all(np.array_equal(a, b) for a, b in zip(area, area1)),
+                  "sharded overlay areas differ from one device")
+            check(paths["sharded overlay intersects"]["overlay_pairs"] == 1
+                  and paths["sharded overlay area"]["overlay_pairs"] >= 1,
+                  "sharded overlay: K4 launches")
+            # f. the ring over the group on phase 12's first pings,
+            # against the one-device ring and phase 12's ring rows
+            pings, ports, ids, dists = knn["shard_inputs"]
+            kw = dict(k=KNN_K, index_resolution=KNN_RES,
+                      max_iterations=KNN_MAX_IT, device=DEV)
+            out, out1 = pair(
+                "sharded knn ring",
+                lambda: mt.SpatialKNN(grid, group=G, **kw).transform(
+                    pings, ports),
+                lambda: mt.SpatialKNN(grid, brute_right_max=0,
+                                      **kw).transform(pings, ports))
+            for o in (out, out1):
+                check(np.array_equal(o["right_id"], ids) and
+                      np.array_equal(o["distance"], dists, equal_nan=True),
+                      "sharded ring ids or distances differ from phase 12")
+            check(paths["sharded knn ring"]["knn_ring_step"] ==
+                  out["iterations"] and
+                  paths["sharded knn ring"]["knn_brute_topk"] == 0,
+                  "sharded ring: K6 launches")
+            # g. the halo over the group on the SRTM tile, against phase
+            # 15's group=None call
+            tile, w, want = raster["halo_inputs"]
+            got, _ = pair("sharded raster halo",
+                          lambda: sharded_convolve(tile, w, G, device=DEV),
+                          lambda: sharded_convolve(tile, w, device=DEV))
+            check(same_bits(torch.from_numpy(got.data),
+                            torch.from_numpy(want)),
+                  "sharded halo differs from group=None")
+            seams = halo_seams(tile, w)
+        finally:
+            dist.destroy_process_group()
+    t_phase = time.perf_counter() - t_phase
+    log(f"[sharded] the phase took {t_phase:.1f} s (host clock)")
+    return {"paths": stats, "nccl_first_s": t_start, "halo_seams": seams,
+            "phase_s": t_phase, "counts": paths}
+
+
+def halo_seams(tile, w) -> dict:
+    """K9 on SHARD_SLABS row slabs of the tile's first SHARD_HALO_ROWS
+    rows, each widened by the halo rows a rank would receive (zero rows
+    past the ends), cropped and stacked: bit-equal to K9 on those rows
+    whole, as the multi-rank halo needs."""
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch.ops.raster_convolve import raster_convolve
+    x = np.where(tile.valid_mask(), np.asarray(tile.data, np.float32),
+                 np.float32(0.0))[:, :SHARD_HALO_ROWS]
+    x = torch.from_numpy(x).to(DEV)
+    wt = torch.from_numpy(np.asarray(w, np.float32)).to(DEV)
+    halo = w.shape[0] // 2
+    S = SHARD_HALO_ROWS // SHARD_SLABS
+    padded = torch.nn.functional.pad(x, (0, 0, halo, halo))
+    parts = [raster_convolve(padded[:, r * S:(r + 1) * S + 2 * halo], wt)
+             [:, halo:halo + S] for r in range(SHARD_SLABS)]
+    whole = raster_convolve(x, wt)
+    ok = same_bits(torch.cat(parts, dim=1), whole)
+    log(f"[sharded] K9 on {SHARD_SLABS} widened slabs of {S} rows: "
+        f"{'bit-equal' if ok else 'DIFFERENT'} to the whole "
+        f"{SHARD_HALO_ROWS}-row tile")
+    check(ok, "K9 on widened slabs differs from the whole tile")
+    return {"slabs": SHARD_SLABS, "rows": SHARD_HALO_ROWS,
+            "bit_equal": ok}
 
 
 def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
@@ -3759,6 +4011,8 @@ def main() -> int:
         chip = phase_chips()
         strat = phase_strategies(idx, grid, polys, batches, dense_zones)
         raster = phase_raster(grid)
+        shard = phase_sharded(idx, grid, polys, batches, dense_zones, h3s,
+                              over, knn, raster)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3768,7 +4022,8 @@ def main() -> int:
              "overlay area": over["counts_area"],
              "knn brute": knn["paths"]["brute"]["counts"],
              "knn ring": knn["paths"]["ring"]["counts"],
-             **chip["tess_counts"], **strat["paths"], **raster["paths"]}
+             **chip["tess_counts"], **strat["paths"], **raster["paths"],
+             **shard["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -3782,15 +4037,17 @@ def main() -> int:
         for p, r in (("custom", custom), ("h3", h3s), ("bng", bng))}}))
     log(json.dumps({"overlay": {k: v for k, v in over.items()
                                 if k not in ("kernel", "prep", "counts_intersects",
-                                             "counts_area")}}))
+                                             "counts_area", "shard_inputs")}}))
     log(json.dumps({"knn": knn["paths"]}))
     log(json.dumps({"chips": {k: v for k, v in chip.items()
                               if k not in ("k7", "k8", "tess_counts")}}))
     log(json.dumps({"strategies": {k: v for k, v in strat.items()
                                    if k != "paths"}}))
     log(json.dumps({"raster": {k: v for k, v in raster.items()
-                               if k != "paths"}}))
-    log(f"[chip_smoke] phases 1-15 took {time.perf_counter() - t_start:.1f} "
+                               if k not in ("paths", "halo_inputs")}}))
+    log(json.dumps({"sharded": {k: v for k, v in shard.items()
+                                if k != "counts"}}))
+    log(f"[chip_smoke] phases 1-16 took {time.perf_counter() - t_start:.1f} "
         "s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}

@@ -13,7 +13,10 @@ SpatialKNN (``models/``), its brute-force top-k and its ring step two
 more (``ops/knn_brute.py``, ``ops/knn_ring.py``); and the join
 strategies over them: the cost planner (``sql/planner.py``, read from
 ``config.py``'s conf keys), the planned join and the adaptive refined
-join (``parallel/pip_join.py``).  The
+join (``parallel/pip_join.py``); and the sharded paths over a
+``torch.distributed`` process group (``parallel/collectives.py``): the
+sharded and sharded-streamed join, the overlay's cell-hash exchange,
+SpatialKNN's sharded ring and the raster halo in row slabs.  The
 package imports torch and numpy, never jax and nothing of
 ``mosaic_tpu``; its module layout and names follow ``mosaic_tpu`` so
 each module's counterpart is easy to find.

@@ -20,11 +20,14 @@ setting carries over 1:1:
   the raster checkpoint directory and switch (``core/raster/checkpoint``),
   the temp prefix and the block size;
 * ``mosaic.io.on.error`` — "raise", "skip" or "null", the codecs'
-  policy for a malformed record (``resilience/ingest``).
+  policy for a malformed record (``resilience/ingest``);
+* ``mosaic.shard.skew.refresh`` — every how many chunks the sharded
+  streamed join re-packs its skew-aware placement
+  (``parallel/placement.py``).
 
 The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
-any other one, and for the pins of strategies and ops it does not run
-(the ``sharded`` PIP strategy, the ``equi_join`` and ``fusion`` ops).
+any other one, and for the pins of ops it does not run (the
+``equi_join`` and ``fusion`` ops).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ MOSAIC_RASTER_USE_CHECKPOINT = "mosaic.raster.use.checkpoint"
 MOSAIC_RASTER_TMP_PREFIX = "mosaic.raster.tmp.prefix"
 MOSAIC_RASTER_BLOCKSIZE = "mosaic.raster.blocksize"
 MOSAIC_IO_ON_ERROR = "mosaic.io.on.error"
+MOSAIC_SHARD_SKEW_REFRESH = "mosaic.shard.skew.refresh"
 
 MOSAIC_RASTER_CHECKPOINT_DEFAULT = "/tmp/mosaic_tpu/checkpoint"
 MOSAIC_RASTER_TMP_PREFIX_DEFAULT = "/tmp"
@@ -85,6 +89,9 @@ class MosaicConfig:
     # ingestion error policy (resilience/ingest.py): "raise" fails fast,
     # "skip" drops malformed records, "null" fills them
     io_on_error: str = "raise"
+    # every K-th chunk of the sharded streamed join re-packs the
+    # skew-aware placement (parallel/placement.py)
+    shard_skew_refresh: int = 16
 
 
 def _as_flag(key: str, value) -> bool:
@@ -164,6 +171,7 @@ _CONF_FIELDS = {
     MOSAIC_RASTER_TMP_PREFIX: ("raster_tmp_prefix", _as_str),
     MOSAIC_RASTER_BLOCKSIZE: ("raster_blocksize", _as_blocksize),
     MOSAIC_IO_ON_ERROR: ("io_on_error", _as_on_error),
+    MOSAIC_SHARD_SKEW_REFRESH: ("shard_skew_refresh", _as_blocksize),
 }
 
 

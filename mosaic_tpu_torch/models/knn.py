@@ -37,8 +37,15 @@ costs within its memory guard, else brute for ``0 < m <=
 brute_right_max``), else, with the planner off, that rule alone;
 ``brute_right_max=0`` forces the ring.  Both engines give the same answer.
 
-Left out here (the JAX package has it): the ``mesh``/``axis`` sharded
-ring.
+Over a ``torch.distributed`` process group (``group=``, the JAX
+package's ``mesh``/``axis``) a point workload always takes the ring: the
+left rows and their running top-k split into row blocks over the ranks,
+the right side's windows replicate on every rank's device, each rank's
+ring step is K6 on its own rows, and one ``all_reduce`` of the rows not
+yet done per ring keeps every rank marching the same rings.  The exact
+host passes then run on each rank's own rows, and the ids and distances
+are gathered.  A checkpoint with a group of more than one rank is left
+out: each rank's state is its own block.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from ..core.index.h3.system import H3IndexSystem
 from ..core.tessellate import tessellate
 from ..ops.knn_brute import brute_topk
 from ..ops.knn_ring import lattice_order, ring_step
+from ..parallel import collectives as coll
 from ..parallel.pip_join import _host_lattice
 from ..perf.pipeline import chunk_rows, stream
 from ..sql.planner import Decision, planner
@@ -307,14 +315,17 @@ class SpatialKNN(IterativeTransformer):
     point coordinate arrays or GeometryArrays (geometry rows use exact
     st_distance semantics) and returns a dict of columnar matches.
     Device state lives on ``device``: CUDA unless the caller passes
-    ``"cpu"``, where the kernels' plain versions run.
+    ``"cpu"``, where the kernels' plain versions run.  ``group`` is an
+    optional ``torch.distributed`` process group over which every rank
+    calls ``transform`` with the same inputs and gets the whole result.
     """
 
     def __init__(self, grid: IndexSystem, k: int = 5,
                  index_resolution: int = 7, max_iterations: int = 16,
                  distance_threshold: Optional[float] = None,
                  checkpoint=None,
-                 brute_right_max: int = 32768, device: DeviceLike = None):
+                 brute_right_max: int = 32768, device: DeviceLike = None,
+                 group=None):
         super().__init__(max_iterations=max_iterations,
                          checkpoint=checkpoint)
         #: right-side size up to which the device brute-force path is
@@ -325,6 +336,14 @@ class SpatialKNN(IterativeTransformer):
         self.res = int(index_resolution)
         self.distance_threshold = distance_threshold
         self.device = resolve_device(device)
+        #: optional ``torch.distributed`` process group: the left rows
+        #: (and the running top-k) split over its ranks, the right-side
+        #: windows replicate (broadcast regime, as the PIP join's)
+        self.group = group
+        if checkpoint is not None and coll.group_size(group) > 1:
+            raise NotImplementedError(
+                "a checkpoint of the ring march over more than one rank "
+                "is not ported; pass checkpoint=None or group=None")
         self._idx: Optional[FusedKNNIndex] = None
         self._rowmap: Dict[int, np.ndarray] = {}
         #: the planner's engine decision of the last point transform
@@ -375,22 +394,26 @@ class SpatialKNN(IterativeTransformer):
         top_d2, top_code = (torch.as_tensor(state.payload[key],
                                             device=self.device)
                             for key in ("top_d2", "top_code"))
-        top_d2, top_code = ring_step(
-            idx.entry, idx.pool_xy, self._pts, self._al, self._bl,
-            self._a0r, self._b0r, self._wr, self._hr, self._eoffr,
-            top_d2, top_code, torch.from_numpy(offs_p).to(self.device),
-            torch.from_numpy(omask).to(self.device), idx.cap, self._thr2())
+        if len(self._pts):
+            top_d2, top_code = ring_step(
+                idx.entry, idx.pool_xy, self._pts, self._al, self._bl,
+                self._a0r, self._b0r, self._wr, self._hr, self._eoffr,
+                top_d2, top_code, torch.from_numpy(offs_p).to(self.device),
+                torch.from_numpy(omask).to(self.device), idx.cap,
+                self._thr2())
         # convergence: every kth distance within the separation floor
         # (no unvisited cell can hold a closer point).  Only the scalar
         # decision crosses to host — the top-k state stays device-side
-        # between rings.
+        # between rings; over a group the count is summed, so every rank
+        # stops at the same ring.
         sep = self._sep_floor(d)
         if self.distance_threshold is not None and \
                 sep >= self.distance_threshold:
             not_done = 0
         else:
             kth = top_d2[:, self.k - 1]
-            not_done = int((~(kth <= float(np.float32(sep) ** 2))).sum())
+            not_done = int(coll.all_reduce(
+                (~(kth <= float(np.float32(sep) ** 2))).sum(), self.group))
         return IterationState(
             iteration=d, converged=not_done == 0,
             payload={"top_d2": top_d2, "top_code": top_code},
@@ -433,8 +456,9 @@ class SpatialKNN(IterativeTransformer):
         the ``mosaic.knn.strategy`` pin wins (a positive integer there
         replaces ``brute_right_max``), then the planner's ``decide_knn``,
         then the built-in right-side threshold.  ``brute_right_max=0``
-        forces the ring over the planner's pick."""
-        if m == 0:
+        forces the ring over the planner's pick, and so does a group:
+        its rows and lists shard, the brute pass is one device's."""
+        if self.group is not None or m == 0:
             return "ring", None
         threshold = self.brute_right_max
         conf = default_config().knn_strategy
@@ -558,6 +582,35 @@ class SpatialKNN(IterativeTransformer):
                                           self.distance_threshold)
             return self._result(left_xy, right_xy, ids, d2,
                                 iterations=0, rechecked=n)
+        D, r = coll.group_size(self.group), coll.group_rank(self.group)
+        if D == 1:
+            rid, d2, d, rechecked = self._ring_march(left_xy, right_xy,
+                                                     residual)
+            return self._result(left_xy, right_xy, rid, d2, iterations=d,
+                                rechecked=rechecked)
+        # each rank marches and rechecks its own block of rows; the
+        # blocks, padded to one length, are gathered in rank order
+        blk = coll.row_block(n, D, r)
+        per = -(-n // D)
+        rid, d2, d, rechecked = self._ring_march(left_xy[blk], right_xy,
+                                                 residual)
+        pad = ((0, per - len(rid)), (0, 0))
+        rid = coll.all_gather(torch.from_numpy(np.pad(
+            rid, pad, constant_values=-1)).to(self.device), self.group)
+        d2 = coll.all_gather(torch.from_numpy(np.pad(
+            d2, pad, constant_values=np.inf)).to(self.device), self.group)
+        rechecked = coll.all_reduce(torch.tensor(
+            rechecked, dtype=torch.int64, device=self.device), self.group)
+        return self._result(left_xy, right_xy, rid[:n].cpu().numpy(),
+                            d2[:n].cpu().numpy(), iterations=d,
+                            rechecked=int(rechecked))
+
+    def _ring_march(self, left_xy: np.ndarray, right_xy: np.ndarray,
+                    residual: np.ndarray):
+        """The ring march over ``left_xy`` and the exact host passes on
+        its rows: (ids [n, k], d2 [n, k] f64, iterations, rechecked)."""
+        k = self.k
+        n = len(left_xy)
         idx = self._idx
         rows, order, face, no_window = ring_rows(idx, left_xy, self.device)
         (self._pts, self._al, self._bl, self._a0r, self._b0r, self._wr,
@@ -651,10 +704,8 @@ class SpatialKNN(IterativeTransformer):
             top_d2[sel, :k] = d2_h.astype(np.float32)
             rid[sel, k:] = -1
             top_d2[sel, k:] = np.inf
-        rid = rid[:, :k]
-        d2 = top_d2[:, :k].astype(np.float64)
-        return self._result(left_xy, right_xy, rid, d2, iterations=d,
-                            rechecked=int(flagged.sum()) + n_merged)
+        return (rid[:, :k], top_d2[:, :k].astype(np.float64), d,
+                int(flagged.sum()) + n_merged)
 
     def _result(self, left_xy, right_xy, rid, d2, iterations: int,
                 rechecked: int):

@@ -30,14 +30,23 @@ f64 against the ORIGINAL geometries (:func:`overlay_host_pair`).  Two
 polygons that share a cell but do not touch do not intersect: the cell is
 only the candidate filter.
 
-The sharded exchange of the JAX package (``mesh``/``axis``, the cell-hash
-all-to-all) is not ported; each entry point runs on CUDA unless the
-caller passes ``device="cpu"``.
+Over a ``torch.distributed`` process group (``group=``, the JAX
+package's ``mesh``/``axis``) both sides' rows split into row blocks over
+the ranks and route to rank hash(cell) % D by one ``all_to_all`` of each
+column (:func:`_exchange_rows`, into buckets sized exactly from the host
+hash, :func:`_exact_bucket_cap`; an overflowing bucket is counted and the
+exchange runs again at twice the capacity).  Each rank then runs the same
+chip-pair kernel on the rows it received: the dense form sums the [GA, GB]
+hits and hazards over the ranks (the JAX package's ``psum``), the pairs
+form gathers each rank's keys.  Every rank returns the whole answer.
+Each entry point runs on CUDA unless the caller passes ``device="cpu"``.
+The JAX package's probe-width cap (``_exact_dup_cap``) has no counterpart:
+the kernel walks each B row's whole range.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +58,11 @@ from ..core.index.base import IndexSystem
 from ..core.tessellate import _pip, _poly_edges, _seg_cross, tessellate
 from ..ops.overlay_pairs import ChipRows, overlay_dense, overlay_pairs
 from ..types import ChipSet
+from . import collectives as coll
 
 EPS_DEG = 1e-6
+#: the hash's multiplier: 0x9E3779B97F4A7C15 as a wrapped int64
+_HASH_MIX = int(np.uint64(0x9E3779B97F4A7C15).astype(np.int64))
 
 
 # ----------------------------------------------------------- host packing
@@ -113,17 +125,122 @@ def hazard_eps(edges_a: np.ndarray, edges_b: np.ndarray) -> float:
     return max(EPS_DEG, 64.0 * float(np.spacing(np.float32(ext))))
 
 
+def _pad_rows(cell, ids, edges, valid, rows_per_dev: int, n_dev: int):
+    """Row-block placement padded to [n_dev * rows_per_dev] rows: -1 cells
+    and ids, 1e9 edges, invalid.  ``ids`` keeps its dtype."""
+    n = len(cell)
+    total = rows_per_dev * n_dev
+    if n > total:
+        raise ValueError(f"{n} rows exceed {n_dev}x{rows_per_dev}")
+    pad = total - n
+    cell = np.concatenate([cell, np.full(pad, -1, np.int64)])
+    ids = np.concatenate([ids, np.full(pad, -1, ids.dtype)])
+    edges = np.concatenate(
+        [edges, np.full((pad, *edges.shape[1:]), 1e9, np.float32)])
+    valid = np.concatenate([valid, np.zeros(pad, bool)])
+    return cell, ids, edges, valid
+
+
+def _hash_dest(cell: torch.Tensor, n_dev: int) -> torch.Tensor:
+    """Destination rank of each cell: an int64 mix (the product wraps),
+    an arithmetic shift, and a floor modulus, as the JAX package's."""
+    h = cell * _HASH_MIX
+    h = h ^ (h >> 29)
+    return ((h % n_dev + n_dev) % n_dev).to(torch.int32)
+
+
+def _hash_dest_np(cell: np.ndarray, n_dev: int) -> np.ndarray:
+    """Host mirror of :func:`_hash_dest`, which sizes the exchange's
+    buckets before it runs."""
+    with np.errstate(over="ignore"):
+        h = np.asarray(cell, np.int64) * np.int64(_HASH_MIX)
+    h = h ^ (h >> 29)
+    return ((h % n_dev + n_dev) % n_dev).astype(np.int32)
+
+
+def _exact_bucket_cap(cells: np.ndarray, valid: np.ndarray,
+                      n_dev: int) -> int:
+    """The most valid rows any rank receives (at least 64): computed from
+    the whole input, so every rank sizes its buckets alike."""
+    if not valid.any():
+        return 64
+    d = _hash_dest_np(cells[valid], n_dev)
+    return max(64, int(np.bincount(d, minlength=n_dev).max()))
+
+
+def _exchange_rows(rows: ChipRows, bucket_cap: int, group
+                   ) -> Tuple[ChipRows, int]:
+    """Route this rank's rows to rank hash(cell) % D: a stable sort by
+    destination, each row's position in its bucket, a scatter into [D *
+    bucket_cap] send buffers and one ``all_to_all`` per column.  Returns
+    the rows received ([D * bucket_cap], padding invalid) and how many
+    valid rows of this rank found their bucket full (dropped, so the
+    caller must retry)."""
+    D = coll.group_size(group)
+    cell, ids, edges, valid = rows
+    dev = cell.device
+    dest = torch.where(valid, _hash_dest(cell, D).long(), D)
+    dest_s, order = torch.sort(dest, stable=True)
+    pos = torch.arange(dest.shape[0], device=dev) - \
+        torch.searchsorted(dest_s, dest_s)
+    real = dest_s < D
+    ok = real & (pos < bucket_cap)
+    overflow = int((real & ~ok).sum())
+    at = (dest_s * bucket_cap + pos)[ok]
+    src = order[ok]
+    n = D * bucket_cap
+    sc = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    si = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    se = torch.full((n,) + tuple(edges.shape[1:]), 1e9,
+                    dtype=torch.float32, device=dev)
+    sv = torch.zeros(n, dtype=torch.bool, device=dev)
+    sc[at], si[at], se[at], sv[at] = cell[src], ids[src], edges[src], \
+        valid[src]
+    got = ChipRows(*(coll.all_to_all(t, group) for t in (sc, si, se, sv)))
+    return got, overflow
+
+
+def _sharded_rows(rows: tuple, group, dev: torch.device) -> ChipRows:
+    """This rank's row block of packed host rows (cell, ids, edges, valid),
+    padded to equal blocks, on ``dev``."""
+    D, r = coll.group_size(group), coll.group_rank(group)
+    per = -(-len(rows[0]) // D)
+    padded = _pad_rows(*rows[:4], per, D)
+    return overlay_rows_from_arrays(
+        [a[r * per:(r + 1) * per] for a in padded], dev)
+
+
+def _exchanged(a: tuple, b: tuple, group, dev: torch.device,
+               join: Callable[[ChipRows, ChipRows], object]):
+    """``join`` on the rows this rank receives from both sides' exchange,
+    with the buckets sized exactly; a bucket overflow on any rank (only
+    a wrong size could cause one) doubles the capacity and runs the
+    exchange again on every rank."""
+    D = coll.group_size(group)
+    cap = max(_exact_bucket_cap(a[0], a[3], D),
+              _exact_bucket_cap(b[0], b[3], D))
+    ra, rb = _sharded_rows(a, group, dev), _sharded_rows(b, group, dev)
+    while True:
+        xa, ofa = _exchange_rows(ra, cap, group)
+        xb, ofb = _exchange_rows(rb, cap, group)
+        over = torch.tensor([ofa + ofb], dtype=torch.int64, device=dev)
+        if int(coll.all_reduce(over, group, "max")) == 0:
+            return join(xa, xb)
+        cap *= 2
+
+
 # ----------------------------------------------------------- device logic
 
 def overlay_row_pairs(chips_a: ChipSet, chips_b: ChipSet,
                       polys_a: GeometryArray, polys_b: GeometryArray,
                       res: int, grid: IndexSystem,
-                      device: DeviceLike = None
+                      device: DeviceLike = None, group=None
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """All (row A, row B) chip pairs that share a cell and (possibly)
     touch, as (rows_a [K], rows_b [K]) global chip-row indices in
-    ascending key order; the dense [GA, GB] matrix never
-    materializes."""
+    ascending key order; the dense [GA, GB] matrix never materializes.
+    Over a ``group`` each rank probes the rows the cell-hash exchange
+    gives it, and every rank's keys are gathered."""
     dev = resolve_device(device)
     ra = pack_chip_rows(polys_a, res, grid, chips=chips_a, device=dev)
     rb = pack_chip_rows(polys_b, res, grid, chips=chips_b, origin=ra[4],
@@ -131,10 +248,20 @@ def overlay_row_pairs(chips_a: ChipSet, chips_b: ChipSet,
     ca, _, ea, va = ra[:4]
     cb, _, eb, vb = rb[:4]
     row_mult = int(len(cb)) + 1
-    keys = overlay_pairs(
-        overlay_rows_from_arrays((ca, np.arange(len(ca)), ea, va), dev),
-        overlay_rows_from_arrays((cb, np.arange(len(cb)), eb, vb), dev),
-        row_mult, hazard_eps(ea, eb), pair_cap=max(1024, 4 * len(ca)))
+    eps = hazard_eps(ea, eb)
+    a = (ca, np.arange(len(ca), dtype=np.int64), ea, va)
+    b = (cb, np.arange(len(cb), dtype=np.int64), eb, vb)
+    if group is None:
+        keys = overlay_pairs(overlay_rows_from_arrays(a, dev),
+                             overlay_rows_from_arrays(b, dev), row_mult,
+                             eps, pair_cap=max(1024, 4 * len(ca)))
+    else:
+        D = coll.group_size(group)
+        cap = max(1024, 4 * -(-max(len(ca), len(cb)) // D))
+        keys = coll.all_gather_varlen(_exchanged(
+            a, b, group, dev,
+            lambda xa, xb: overlay_pairs(xa, xb, row_mult, eps, cap)),
+            group)
     keys = np.unique(keys.cpu().numpy())
     return keys // row_mult, keys % row_mult
 
@@ -143,7 +270,8 @@ def overlay_intersection_area(polys_a: GeometryArray,
                               polys_b: GeometryArray, res: int,
                               grid: IndexSystem, device: DeviceLike = None,
                               chips_a: Optional[ChipSet] = None,
-                              chips_b: Optional[ChipSet] = None):
+                              chips_b: Optional[ChipSet] = None,
+                              group=None):
     """Exact ST_IntersectionAgg AREA: for every intersecting polygon pair,
     the planar area of the intersection.
 
@@ -155,6 +283,8 @@ def overlay_intersection_area(polys_a: GeometryArray,
     fragment-shoelace kernel (``clip.pairs_intersection_area``) and are
     summed per (geomA, geomB).  ``chips_a``/``chips_b`` are each side's
     ``tessellate(..., keep_core_geom=True)``, made here when not given.
+    Over a ``group`` the row pairs come from the sharded exchange
+    (:func:`overlay_row_pairs`) and every rank sums every pair's area.
 
     Returns (ga [K], gb [K], area [K]) for pairs with area > 0."""
     from ..core.geometry.clip import pairs_intersection_area
@@ -165,7 +295,8 @@ def overlay_intersection_area(polys_a: GeometryArray,
         chips_b = tessellate(polys_b, res, grid, keep_core_geom=True,
                              device=device)
     rows_a, rows_b = overlay_row_pairs(chips_a, chips_b, polys_a, polys_b,
-                                       res, grid, device=device)
+                                       res, grid, device=device,
+                                       group=group)
     areas = pairs_intersection_area(chips_a.geoms, rows_a, chips_b.geoms,
                                     rows_b)
     ga = chips_a.geom_id[rows_a].astype(np.int64)
@@ -226,21 +357,30 @@ def overlay_intersects(polys_a: GeometryArray, polys_b: GeometryArray,
                        res: int, grid: IndexSystem,
                        device: DeviceLike = None,
                        chips_a: Optional[ChipSet] = None,
-                       chips_b: Optional[ChipSet] = None) -> np.ndarray:
+                       chips_b: Optional[ChipSet] = None,
+                       group=None) -> np.ndarray:
     """Exact ST_Intersects overlay: [GA, GB] bool.
 
     Packs both sides' chips (tessellated here unless ``chips_a``/
     ``chips_b`` are given, with ``keep_core_geom=True``), runs the chip
     join on the device, then settles the f32-hazard pairs on the host in
-    f64.  This is the BASELINE config 3 (building footprints x flood
+    f64.  Over a ``group`` each rank joins the rows the cell-hash
+    exchange gives it and one ``all_reduce`` each sums the hits and
+    hazards.  This is the BASELINE config 3 (building footprints x flood
     zones) engine."""
     dev = resolve_device(device)
     rows_a = pack_chip_rows(polys_a, res, grid, chips=chips_a, device=dev)
     rows_b = pack_chip_rows(polys_b, res, grid, chips=chips_b,
                             origin=rows_a[4], device=dev)
-    h, z = overlay_dense(overlay_rows_from_arrays(rows_a, dev),
-                         overlay_rows_from_arrays(rows_b, dev),
-                         len(polys_a), len(polys_b),
-                         hazard_eps(rows_a[2], rows_b[2]))
+    ga, gb = len(polys_a), len(polys_b)
+    eps = hazard_eps(rows_a[2], rows_b[2])
+    if group is None:
+        h, z = overlay_dense(overlay_rows_from_arrays(rows_a, dev),
+                             overlay_rows_from_arrays(rows_b, dev), ga, gb,
+                             eps)
+    else:
+        h, z = (coll.all_reduce(t, group) for t in _exchanged(
+            rows_a, rows_b, group, dev,
+            lambda xa, xb: overlay_dense(xa, xb, ga, gb, eps)))
     return resolve_hazards(h.cpu().numpy() > 0, z.cpu().numpy() > 0,
                            polys_a, polys_b)

@@ -39,9 +39,14 @@ exact oracle ``pip_host_truth``.
 Over these sit the join strategies, each the same zones by another
 path: ``make_streamed_pip_join`` (chunks through ``perf/pipeline.py``),
 ``make_planned_pip_join`` (the cost planner of ``sql/planner.py`` picks
-one monolithic call or a chunk class per batch) and
+one monolithic call, a chunk class or the sharded join per batch) and
 ``make_refined_pip_join`` (the dense border cells' polygons tessellated
-a level deeper, each point routed to its level by its cell).
+a level deeper, each point routed to its level by its cell).  Over a
+``torch.distributed`` process group (``parallel/collectives.py``),
+``make_sharded_pip_join`` and ``make_sharded_streamed_pip_join`` split
+the points over the ranks, each running the same join on its own device
+with the index replicated, and gather the zones; ``zone_histogram`` sums
+its counts over the group.
 """
 
 from __future__ import annotations
@@ -69,8 +74,11 @@ from ..core.tessellate import (_pip, _poly_edges, tessellate,
 from ..ops.dense_join import CORE_FLAG as _CORE_FLAG
 from ..ops.dense_join import JoinConsts, dense_join, join_tables, prepare
 from ..ops.lookup import lookup
+from ..perf.bucketing import pow2_bucket
 from ..perf.pipeline import chunk_rows, stream
-from ..sql.planner import Decision, planner
+from ..sql.planner import FORCE_CHOICES, Decision, planner
+from . import collectives as coll
+from .placement import SkewRebalancer, placement_slots
 from ..types import ChipSet
 
 #: f32 hazard band (degrees) around chip edges for the crossing-parity
@@ -652,15 +660,22 @@ def make_dense_pip_join_fn(idx: DensePIPIndex, eps: float = EPS_EDGE_DEG,
     return functools.partial(dense_join, tables=tables, consts=consts)
 
 
-def zone_histogram(zone: torch.Tensor, num_zones: int) -> torch.Tensor:
+def zone_histogram(zone: torch.Tensor, num_zones: int,
+                   group=None) -> torch.Tensor:
     """Per-zone match counts — the canonical aggregation after the join
     (reference: groupBy(index_id).count()).  Unmatched (-1) rows, and
     any zone id outside [0, num_zones), are masked to one overflow bin
-    before ``torch.bincount`` (which rejects negatives) and dropped."""
+    before ``torch.bincount`` (which rejects negatives) and dropped.
+
+    Over a process group (every rank holding the same ``zone``) each
+    rank counts its block of rows and one ``all_reduce`` sums the counts:
+    the JAX package's sharded segment sum and ``psum``."""
+    zone = zone[coll.row_block(zone.shape[0], coll.group_size(group),
+                               coll.group_rank(group))]
     valid = (zone >= 0) & (zone < num_zones)
     z = torch.where(valid, zone, num_zones).long()
-    return torch.bincount(z, minlength=num_zones + 1)[:num_zones].to(
-        torch.int32)
+    counts = torch.bincount(z, minlength=num_zones + 1)[:num_zones]
+    return coll.all_reduce(counts, group).to(torch.int32)
 
 
 def dense_recheck_np(pts: np.ndarray, g: np.ndarray, aux: dict, Z: int,
@@ -865,6 +880,15 @@ def _resolve_chunk(chunk: Optional[int]) -> int:
     return int(default_config().stream_chunk_rows)
 
 
+def _check_device(idx, device: DeviceLike) -> torch.device:
+    """``device`` resolved, checked to be the index's."""
+    dev = resolve_device(device)
+    if idx.device != dev:
+        raise ValueError(f"index lives on {idx.device}, join asked for "
+                         f"{dev}")
+    return dev
+
+
 def make_streamed_pip_join(idx, grid=None,
                            polys: Optional[GeometryArray] = None,
                            chunk: Optional[int] = None,
@@ -886,10 +910,7 @@ def make_streamed_pip_join(idx, grid=None,
 
     Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``;
     ``run.recheck`` is its :func:`host_recheck_fn`."""
-    dev = resolve_device(device)
-    if idx.device != dev:
-        raise ValueError(f"index lives on {idx.device}, join asked for "
-                         f"{dev}")
+    dev = _check_device(idx, device)
     chunk = _resolve_chunk(chunk)
     fn = make_pip_join_fn(idx, grid, eps, margin_eps)
     recheck = host_recheck_fn(idx, polys)
@@ -916,6 +937,147 @@ def make_streamed_pip_join(idx, grid=None,
 
     #: the bound host recheck (a dense index's counts its fallbacks)
     run.recheck = recheck
+    return run
+
+
+# ------------------------------------------------------ the sharded joins
+
+#: padding rows of the sharded streamed join get this local-frame
+#: coordinate (degrees): far outside every workload extent, so every
+#: index gives them zone -1, yet small enough that f32 trig in the
+#: projections stays finite.  The dense join and the H3 sorted body leave
+#: them unflagged, the CUSTOM sorted body flags them (as the JAX
+#: package's does); only a rank's real rows reach the recheck
+_PAD_SENTINEL_DEG = 4.0e3
+
+
+def make_sharded_pip_join(idx, grid=None, group=None,
+                          eps: Optional[float] = None,
+                          margin_eps: Optional[float] = None,
+                          device: DeviceLike = None):
+    """The join over a process group: the points split over the ranks,
+    the index replicated on every rank's device (the reference's
+    broadcast-join regime).
+
+    Returns ``fn(points [N, 2] local f32) -> (zone [N] int32, uncertain
+    [N] bool)`` on ``device`` (the index's; CUDA unless the caller passes
+    ``"cpu"``), N divisible by the group's size.  Every rank calls it with
+    the same points, runs :func:`make_pip_join_fn` on its block of N / D
+    rows (on a dense index one K2 launch; on a sorted H3 index K3 under the
+    sorted body) and gets every rank's rows back by one ``all_gather``
+    each of ``zone`` and ``uncertain``.  ``group=None`` is the
+    single-device call."""
+    dev = _check_device(idx, device)
+    fn = make_pip_join_fn(idx, grid, eps, margin_eps)
+    D, r = coll.group_size(group), coll.group_rank(group)
+
+    def run(points) -> Tuple[torch.Tensor, torch.Tensor]:
+        points = torch.as_tensor(points)
+        n = int(points.shape[0])
+        if n % D:
+            raise ValueError(f"{n} points do not split evenly over {D} "
+                             "ranks")
+        zone, unc = fn(points[coll.row_block(n, D, r)].to(dev))
+        return coll.all_gather(zone, group), coll.all_gather(unc, group)
+
+    return run
+
+
+def _shard_skew_readback(zones_padded: np.ndarray, D: int) -> np.ndarray:
+    """Per-shard matched-candidate counts from a [D * rows] zone vector
+    (padding rows read zone -1 and drop out)."""
+    return (np.asarray(zones_padded).reshape(D, -1) >= 0).sum(axis=1)
+
+
+def make_sharded_streamed_pip_join(idx, grid=None, group=None,
+                                   polys: Optional[GeometryArray] = None,
+                                   chunk: Optional[int] = None,
+                                   eps: Optional[float] = None,
+                                   margin_eps: Optional[float] = None,
+                                   refresh: Optional[int] = None,
+                                   nbins: int = 16,
+                                   device: DeviceLike = None):
+    """:func:`make_streamed_pip_join` over a process group, with
+    skew-aware placement.
+
+    Each chunk of ``chunk`` rows pads with ``_PAD_SENTINEL_DEG`` rows to
+    ``pow2_bucket(ceil(rows / D), floor=64) * D`` slots; the rows take
+    their slots from :func:`.placement.placement_slots` (arrival order
+    until the :class:`.placement.SkewRebalancer` arms), and rank ``r``
+    runs slot block ``r`` through ``perf.pipeline.stream`` on its device.
+    Each rank rechecks its own flagged rows on the host, then one
+    ``all_gather`` per chunk brings every rank's (device zone, final
+    zone) block back.  Every rank feeds the same gathered chunk to its
+    rebalancer (which bins the rows with a matched device zone, as the
+    JAX package's does), so all ranks place the next chunks alike; every
+    ``refresh`` chunks (``mosaic.shard.skew.refresh``) the bins are
+    re-packed.  Placement moves only where a row is computed: the zones
+    are those of the single-device streamed join.
+
+    ``polys`` is required for a sorted :class:`PIPIndex`.  Returns
+    ``run(points64_abs) -> (zone [N] int32, rechecked)``, ``rechecked``
+    summed over the ranks; ``run.rebalancer`` is the placement pass and
+    ``run.shard_counts`` the last chunk's matched rows per shard."""
+    dev = _check_device(idx, device)
+    chunk = _resolve_chunk(chunk)
+    fn = make_pip_join_fn(idx, grid, eps, margin_eps)
+    recheck = host_recheck_fn(idx, polys)
+    origin = np.asarray(idx.origin, np.float64)
+    D, r = coll.group_size(group), coll.group_rank(group)
+    if refresh is None:
+        refresh = default_config().shard_skew_refresh
+    rebalancer = SkewRebalancer(D, refresh=refresh, nbins=nbins)
+
+    def run(points64: np.ndarray):
+        points64 = np.asarray(points64, np.float64)[:, :2]
+        n = len(points64)
+        zone_out = np.empty(n, np.int32)
+        state = {"rechecked": 0, "slots": {}}
+        # stream() sees rank r's slot block of each chunk: a slice as long
+        # as the block, starting where the chunk does
+        real = {}
+        blocks = []
+        for sl in chunk_rows(n, chunk):
+            per = pow2_bucket(-(-(sl.stop - sl.start) // D), floor=64)
+            real[sl.start] = sl
+            blocks.append(slice(sl.start, sl.start + per))
+
+        def stage(blk, out):
+            sl = real[blk.start]
+            per = blk.stop - blk.start
+            pts = points64[sl]
+            slots = placement_slots(rebalancer.preferred(pts), len(pts),
+                                    D, per)
+            # this rank's rows of the chunk and their places in its block
+            mine = np.nonzero(slots // per == r)[0]
+            at = slots[mine] - r * per
+            state["slots"][sl.start] = slots, mine, at
+            out[...] = _PAD_SENTINEL_DEG
+            # f64 origin shift BEFORE the f32 cast (= localize())
+            out[at] = pts[mine] - origin[None]
+
+        def consume(i, blk, host):
+            z, unc = host
+            sl = real[blk.start]
+            per = blk.stop - blk.start
+            slots, mine, at = state["slots"].pop(sl.start)
+            both = np.full((per, 2), -1, np.int32)
+            both[:, 0] = z
+            both[at, 1] = recheck(points64[sl][mine], z[at], unc[at])
+            state["rechecked"] += int(unc[at].sum())
+            full = coll.all_gather(torch.from_numpy(both).to(dev),
+                                   group).cpu().numpy()
+            zone_out[sl] = full[slots, 1]
+            run.shard_counts = _shard_skew_readback(full[:, 0], D)
+            rebalancer.observe(points64[sl], full[slots, 0] >= 0)
+
+        stream(blocks, stage, 2, lambda i, x: fn(x), consume, dev)
+        total = torch.tensor(state["rechecked"], dtype=torch.int64,
+                             device=dev)
+        return zone_out, int(coll.all_reduce(total, group))
+
+    run.rebalancer = rebalancer
+    run.shard_counts = None
     return run
 
 
@@ -950,15 +1112,23 @@ def _overlap_frac(points64: np.ndarray, poly_ext) -> Optional[float]:
 def make_planned_pip_join(idx, grid=None,
                           polys: Optional[GeometryArray] = None,
                           eps: Optional[float] = None,
-                          margin_eps: Optional[float] = None):
-    """Cost-based entry point over the single-device PIP join family, on
-    the index's device.
+                          margin_eps: Optional[float] = None,
+                          group=None):
+    """Cost-based entry point over the PIP join family, on the index's
+    device.
 
     Per call the planner (``sql/planner.py``) picks one monolithic call
     of :func:`make_pip_join_fn` on the whole batch (on a dense index one
-    K2 launch), or :func:`make_streamed_pip_join` in one of two chunk
-    classes, from its learned per-(strategy, size-class) cost
-    coefficients; cold it falls back to the batch-vs-chunk threshold.
+    K2 launch), :func:`make_streamed_pip_join` in one of two chunk
+    classes, or, over a ``group`` of more than one rank,
+    :func:`make_sharded_streamed_pip_join`, from its learned
+    per-(strategy, size-class) cost coefficients; cold it falls back to
+    the batch-vs-chunk threshold.  A ``sharded`` pin with no group, or a
+    group of one rank, runs the streamed join.  Over a group rank 0's
+    decision is broadcast and every time fed to the planners is the
+    slowest rank's (``all_reduce`` MAX, the wall time of the JAX
+    package's mesh call), so all ranks run the same variant and learn
+    the same coefficients.
     Every candidate localizes the same way (f64 origin shift before the
     f32 cast), runs the same join body and the same f64 recheck, so the
     zones are the same whichever path runs.  A bbox-overlap sketch of the
@@ -974,6 +1144,7 @@ def make_planned_pip_join(idx, grid=None,
     its host seconds in the sketch, the decision, the chosen variant's
     call and the planner's feedback."""
     dev = idx.device
+    D = coll.group_size(group)
     variants: dict = {}
     poly_ext = None
     if polys is not None and len(polys):
@@ -996,23 +1167,52 @@ def make_planned_pip_join(idx, grid=None,
                 return _join_once(fn, idx, recheck, points64, dev)
 
             variants[key] = mono
+        elif strategy == "sharded":
+            variants[key] = make_sharded_streamed_pip_join(
+                idx, grid, group, polys=polys, chunk=chunk, eps=eps,
+                margin_eps=margin_eps, device=dev)
         else:
             variants[key] = make_streamed_pip_join(
                 idx, grid, polys=polys, chunk=chunk, eps=eps,
                 margin_eps=margin_eps, device=dev)
         return variants[key]
 
+    def slowest(seconds: float) -> float:
+        """The group's largest ``seconds`` (this rank's alone without a
+        group)."""
+        t = torch.tensor([seconds], dtype=torch.float64, device=dev)
+        return float(coll.all_reduce(t, group, "max"))
+
+    def agreed(d: Decision) -> Decision:
+        """``d`` carrying rank 0's strategy and chunk."""
+        if group is None:
+            return d
+        names = FORCE_CHOICES["pip_join"]
+        mine = (d.strategy, getattr(d, "chunk", planner.chunk_rows()))
+        pick = torch.tensor([names.index(mine[0]), mine[1]],
+                            dtype=torch.int64, device=dev)
+        s, chunk = coll.broadcast(pick, group).tolist()
+        if (names[s], chunk) != mine:
+            d.reason = f"rank 0's decision ({d.reason} here)"
+            d.strategy, d.chunk = names[s], chunk
+            d.cost_key = planner.pip_cost_key(d.strategy, chunk)
+        return d
+
     def run(points64: np.ndarray):
         t = [time.perf_counter()]
         points64 = np.asarray(points64, np.float64)[:, :2]
         frac = _overlap_frac(points64, poly_ext)
         t.append(time.perf_counter())
-        d = planner.decide_pip_join(len(points64), in_extent_frac=frac)
+        d = agreed(planner.decide_pip_join(len(points64), D,
+                                           in_extent_frac=frac))
         chunk = getattr(d, "chunk", planner.chunk_rows())
+        strategy = d.strategy
+        if strategy == "sharded" and D == 1:
+            strategy = "streamed"   # a sharded pin without a group
         t.append(time.perf_counter())
-        zone, rechecked = _variant(d.strategy, chunk)(points64)
+        zone, rechecked = _variant(strategy, chunk)(points64)
         t.append(time.perf_counter())
-        planner.observe_decision(d, t[3] - t[2],
+        planner.observe_decision(d, slowest(t[3] - t[2]),
                                  rows_out=int(np.count_nonzero(zone >= 0)))
         t.append(time.perf_counter())
         run.last_decision = d
@@ -1026,12 +1226,12 @@ def make_planned_pip_join(idx, grid=None,
         points64 = np.asarray(points64, np.float64)[:, :2]
         n = len(points64)
         ref = None
-        for strategy, chunk in planner.pip_join_candidates(n):
+        for strategy, chunk in planner.pip_join_candidates(n, D):
             fn = _variant(strategy, chunk)
             fn(points64)                # warm: builds stay out of the
             t0 = time.perf_counter()    # learned coefficients
             zone, _ = fn(points64)
-            wall = time.perf_counter() - t0
+            wall = slowest(time.perf_counter() - t0)
             planner.observe_op(planner.pip_cost_key(strategy, chunk), n,
                                wall, rows_out=int(np.count_nonzero(zone >= 0)))
             if ref is None:

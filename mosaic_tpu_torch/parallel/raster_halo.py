@@ -1,14 +1,19 @@
-"""Raster stencils in row slabs with halo rows: the single-device form.
+"""Raster stencils in row slabs with halo rows.
 
 Port of ``mosaic_tpu.parallel.raster_halo``.  The JAX package shards a
 tile's rows over a mesh axis and widens each slab by two ``ppermute``
-halo shifts before an f32 stencil.  The port runs a world of one: the
-``mesh, axis`` arguments become an optional ``torch.distributed``
-process group, ``None`` meaning one device, and a group of more than one
-rank raises ``NotImplementedError`` until the multi-chip slice (ROADMAP
-§A4).  On one device the slab is the whole tile and both halos are zero
-rows, so the body is the f32 instance of the stencil kernel
-(``ops/raster_convolve.py``) on the tile, SAME-padded with zeros.
+halo shifts before an f32 stencil.  Here the ``mesh, axis`` arguments
+become an optional ``torch.distributed`` process group, ``None`` meaning
+one device.  Over a group of D ranks, every rank holding the same tile,
+rank r uploads rows [r H / D, (r + 1) H / D), receives the ``halo``
+rows above and below its slab from its neighbours in one
+``batch_isend_irecv`` (zero rows past the first and last rank, the
+single-device operator's zero padding), runs the f32 instance of the
+stencil kernel (``ops/raster_convolve.py``) on the widened slab, SAME in
+columns, crops the halo rows and gathers every rank's slab.  An interior
+pixel's taps read the same values in the same order as on the whole
+tile, so the result equals the one-device call bit for bit.  On one
+device the slab is the whole tile and both halos are zero rows.
 
 Reference counterpart: the GDALBlock + Padding machinery
 (core/raster/gdal/GDALBlock.scala) that the reference uses to run
@@ -25,44 +30,42 @@ from .._device import DeviceLike, resolve_device
 from ..core.raster.tile import RasterTile
 from ..ops.raster_convolve import raster_convolve
 from ..perf.pipeline import stream
+from . import collectives as coll
 
 __all__ = ["sharded_convolve", "sharded_convolve_stream"]
 
 
-def _group_size(group) -> int:
-    """Ranks of ``group`` (None: one device); more than one raises."""
-    if group is None:
-        return 1
-    import torch.distributed as dist
-    size = dist.get_world_size(group)
-    if size > 1:
-        raise NotImplementedError(
-            f"raster_halo over {size} ranks: the multi-slab halo exchange "
-            "comes with the multi-chip slice (ROADMAP §A4); pass "
-            "group=None (one device)")
-    return size
-
-
 def _convolve_fn(kernel: np.ndarray, group, shape, device: torch.device):
-    """Validate and return the f32 stencil for tiles of ``shape`` =
-    (bands, H, W): a function of a [bands, H, W] f32 tensor on
-    ``device``."""
+    """Validate and return (the f32 stencil, this rank's rows) for tiles
+    of ``shape`` = (bands, H, W): the stencil takes this rank's [bands,
+    H / D, W] f32 slab on ``device`` and returns the whole [bands, H, W]
+    output."""
     k = np.asarray(kernel, np.float64)
     kh, kw = k.shape
     if kh % 2 == 0 or kw % 2 == 0:
         raise ValueError("sharded_convolve requires odd kernel dims "
                          "(same-shape output)")
     halo = kh // 2
-    D = _group_size(group)
+    D, r = coll.group_size(group), coll.group_rank(group)
     bands, H, W = shape
     if H % D != 0:
         raise ValueError(f"the group size {D} must divide the "
                          f"tile height {H} (retile or pad first)")
-    if H // D < halo:
-        raise ValueError(f"slab height {H // D} smaller than the "
+    S = H // D
+    if S < halo:
+        raise ValueError(f"slab height {S} smaller than the "
                          f"kernel halo {halo}")
     w = torch.from_numpy(k.astype(np.float32)).to(device)
-    return lambda x: raster_convolve(x, w)
+    if D == 1:
+        return (lambda x: raster_convolve(x, w)), slice(0, H)
+
+    def fn(slab: torch.Tensor) -> torch.Tensor:
+        above, below = coll.exchange_halo(slab, halo, group)
+        out = raster_convolve(torch.cat([above, slab, below], dim=1), w)
+        mine = out[:, halo:halo + S].transpose(0, 1).contiguous()
+        return coll.all_gather(mine, group).transpose(0, 1)
+
+    return fn, slice(r * S, (r + 1) * S)
 
 
 def _masked_f32(tile: RasterTile) -> np.ndarray:
@@ -73,15 +76,16 @@ def _masked_f32(tile: RasterTile) -> np.ndarray:
 
 def sharded_convolve(tile: RasterTile, kernel: np.ndarray, group=None,
                      device: DeviceLike = None) -> RasterTile:
-    """``rops.convolve`` in f32 over row slabs with halo rows; on one
-    device (``group`` None or of one rank) the whole tile with zero
-    halos, on ``device`` (CUDA unless ``device="cpu"``).
+    """``rops.convolve`` in f32 over row slabs with halo rows, on
+    ``device`` (CUDA unless ``device="cpu"``): over a ``group`` each rank
+    convolves its slab, on one device (``group`` None or of one rank) the
+    whole tile with zero halos.  Every rank returns the whole tile.
 
     The group size must divide the tile's height (callers can retile or
     pad; keeping the constraint explicit avoids silently uneven slabs)."""
     dev = resolve_device(device)
-    fn = _convolve_fn(kernel, group, tile.data.shape, dev)
-    out = fn(torch.from_numpy(_masked_f32(tile)).to(dev))
+    fn, rows = _convolve_fn(kernel, group, tile.data.shape, dev)
+    out = fn(torch.from_numpy(_masked_f32(tile)[:, rows]).to(dev))
     return RasterTile(out.cpu().numpy(), tile.gt, nodata=None,
                       srid=tile.srid, meta={"op": "convolve",
                                             "sharded": "halo"})
@@ -106,16 +110,17 @@ def sharded_convolve_stream(tiles, kernel: np.ndarray, group=None,
                 f"sharded_convolve_stream needs same-shaped tiles "
                 f"(got {t.data.shape} after {shape}); group by shape "
                 "first")
-    fn = _convolve_fn(kernel, group, shape, dev)
+    fn, rows = _convolve_fn(kernel, group, shape, dev)
+    slab = (shape[0], rows.stop - rows.start, shape[2])
     width = int(np.prod(shape))
     out = [None] * len(tiles)
 
     def stage(sl, buf):
-        # one tile a chunk, flattened into one row
-        buf[0] = _masked_f32(tiles[sl.start]).ravel()
+        # one tile a chunk: this rank's slab, flattened into one row
+        buf[0] = _masked_f32(tiles[sl.start])[:, rows].ravel()
 
     def compute(i, x):
-        return (fn(x.view(shape)).view(1, width),)
+        return (fn(x.view(slab)).reshape(1, width),)
 
     def consume(i, sl, host):
         t = tiles[i]
@@ -123,6 +128,6 @@ def sharded_convolve_stream(tiles, kernel: np.ndarray, group=None,
                             nodata=None, srid=t.srid,
                             meta={"op": "convolve", "sharded": "halo"})
 
-    stream([slice(i, i + 1) for i in range(len(tiles))], stage, width,
-           compute, consume, dev)
+    stream([slice(i, i + 1) for i in range(len(tiles))], stage,
+           int(np.prod(slab)), compute, consume, dev)
     return out

@@ -2,9 +2,9 @@
 
 Port of the decision half of ``mosaic_tpu.sql.planner``: the cost model
 and the three decisions the port runs — brute vs. ring KNN
-(:meth:`Planner.decide_knn`), monolithic vs. streamed PIP join per chunk
-class (:meth:`Planner.decide_pip_join`) and the refined vs. flat PIP join
-(:meth:`Planner.decide_refine`).  Each decision comes from a cheap
+(:meth:`Planner.decide_knn`), monolithic vs. streamed (per chunk class)
+vs. sharded PIP join (:meth:`Planner.decide_pip_join`) and the refined
+vs. flat PIP join (:meth:`Planner.decide_refine`).  Each decision comes from a cheap
 pre-pass (row counts, bbox overlap fraction) plus **observed**
 per-(operator, pow2 size-class) cost coefficients; after a run the
 observed wall time and rows feed back into the bounded EWMA store
@@ -41,7 +41,7 @@ MISPREDICT_FACTOR = 2.0
 #: ``mosaic.planner.force.<op>`` accepts ("auto" clears the pin)
 FORCE_CHOICES = {
     "knn": ("auto", "brute", "ring"),
-    "pip_join": ("auto", "monolithic", "streamed"),
+    "pip_join": ("auto", "monolithic", "streamed", "sharded"),
     "refine": ("auto", "refined", "flat"),
 }
 
@@ -205,10 +205,12 @@ class Planner:
         return self.record_decision(Decision(
             "knn", s, why, n_left, cost_key=f"knn/{s}", key_n=n_left))
 
-    def pip_join_candidates(self, n: int) -> List[Tuple[str, int]]:
-        """(strategy, chunk) candidates for an ``n``-point join on one
-        device — every one gives the same zones.  Streamed appears in
-        two chunk classes (the configured one and one 8x smaller)."""
+    def pip_join_candidates(self, n: int, mesh_devices: int = 1
+                            ) -> List[Tuple[str, int]]:
+        """(strategy, chunk) candidates for an ``n``-point join — every
+        one gives the same zones.  Streamed appears in two chunk classes
+        (the configured one and one 8x smaller); sharded only over more
+        than one device (``mesh_devices``: the process group's size)."""
         chunk = self.chunk_rows()
         cands: List[Tuple[str, int]] = []
         if n <= chunk:
@@ -216,6 +218,8 @@ class Planner:
         cands.append(("streamed", chunk))
         if chunk >= (1 << 17) and n > chunk // 8:
             cands.append(("streamed", chunk // 8))
+        if mesh_devices > 1:
+            cands.append(("sharded", chunk))
         return cands
 
     @staticmethod
@@ -224,10 +228,10 @@ class Planner:
             return f"pip_join/streamed/c{int(chunk).bit_length()}"
         return f"pip_join/{strategy}"
 
-    def decide_pip_join(self, n: int,
+    def decide_pip_join(self, n: int, mesh_devices: int = 1,
                         in_extent_frac: Optional[float] = None
                         ) -> Decision:
-        """Monolithic vs. streamed (per chunk class).
+        """Monolithic vs. streamed (per chunk class) vs. sharded.
 
         ``in_extent_frac`` is the cheap bbox-overlap sketch: the fraction
         of the point batch's bbox that intersects the polygons' extent
@@ -241,7 +245,7 @@ class Planner:
                 "pip_join", forced, "forced by conf", est,
                 cost_key=self.pip_cost_key(forced, chunk), key_n=n,
                 forced=True))
-        cands = self.pip_join_candidates(n)
+        cands = self.pip_join_candidates(n, mesh_devices)
         costs = [(self.est_cost_ms(self.pip_cost_key(s, c), n), s, c)
                  for s, c in cands]
         known = [(ms, s, c) for ms, s, c in costs if ms is not None]

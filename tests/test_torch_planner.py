@@ -2,14 +2,16 @@
 
 * Each conf key the port carries (``mosaic.planner.enabled``,
   ``mosaic.planner.force.<op>``, ``mosaic.stream.chunk.rows``,
-  ``mosaic.knn.strategy`` and the five ``mosaic.join.refine.*`` keys;
+  ``mosaic.knn.strategy``, ``mosaic.shard.skew.refresh`` and the five
+  ``mosaic.join.refine.*`` keys;
   the raster and ``mosaic.io.on.error`` keys are held in
   tests/test_torch_raster.py) accepts and rejects the same values as the
   JAX package's, with the same defaults and the same error class.  The stated exception: the pins this
-  port leaves out (the ``sharded`` PIP strategy, the ``equi_join`` and
-  ``fusion`` ops) and the keys of later slices raise ``ConfigError``.
+  port leaves out (the ``equi_join`` and ``fusion`` ops) and the keys of
+  later slices raise ``ConfigError``.
 * Pins give the same Decision fields (strategy, reason, est_rows,
-  cost_key, key_n, forced, chunk, depth) in both planners.
+  cost_key, key_n, forced, chunk, depth) in both planners, the PIP join's
+  on one device and over four (the ``sharded`` candidate).
 * Cold heuristics, and decisions learned after the same ``observe_op``
   sequence fed into both planners, are equal on a seeded grid of
   ``(n, m, frac, max_dup)``.
@@ -55,7 +57,8 @@ KEY_VALUES = {
     "mosaic.planner.force.knn": ["auto", "brute", "ring", "RING",
                                  "warp_drive", ""],
     "mosaic.planner.force.pip_join": ["auto", "monolithic", "streamed",
-                                      "Streamed", "bogus"],
+                                      "Streamed", "sharded", "bogus"],
+    "mosaic.shard.skew.refresh": ["16", "2", "1", "0", "-1", "x", 8],
     "mosaic.planner.force.refine": ["auto", "refined", "flat", "deep"],
     "mosaic.planner.force.bogus_op": ["loop"],
 }
@@ -66,7 +69,7 @@ FIELDS_PORTED = ("planner_enabled", "planner_force", "stream_chunk_rows",
                  "join_refine_dup_threshold", "join_refine_max_cells",
                  "join_refine_sample_rows", "raster_checkpoint",
                  "raster_use_checkpoint", "raster_tmp_prefix",
-                 "raster_blocksize", "io_on_error")
+                 "raster_blocksize", "io_on_error", "shard_skew_refresh")
 
 
 @pytest.fixture(autouse=True)
@@ -128,7 +131,7 @@ def test_force_pins_stack_and_clear_alike():
 
 
 @pytest.mark.parametrize("key,val", [
-    ("mosaic.planner.force.pip_join", "sharded"),
+    ("mosaic.jit.cache.dir", "/tmp/jc"),
     ("mosaic.planner.force.equi_join", "loop"),
     ("mosaic.planner.force.fusion", "on"),
     ("mosaic.planner.stats.path", "/tmp/ps.json"),
@@ -136,8 +139,7 @@ def test_force_pins_stack_and_clear_alike():
 ])
 def test_left_out_pins_and_keys_raise(key, val):
     """The stated divergence: what the JAX package takes for a later
-    slice (the sharded strategy, the SQL ops, other keys), the port
-    refuses."""
+    slice (the SQL ops, other keys), the port refuses."""
     jconfig.apply_conf(jconfig.MosaicConfig(), key, val)
     with pytest.raises(tconfig.ConfigError):
         tconfig.apply_conf(tconfig.MosaicConfig(), key, val)
@@ -157,6 +159,8 @@ def _decide_all(pl_t, pl_j, n, m, frac, max_dup, thr=128):
     pairs = [(pl_t.decide_knn(n, m, thr), pl_j.decide_knn(n, m, thr)),
              (pl_t.decide_pip_join(n, in_extent_frac=frac),
               pl_j.decide_pip_join(n, 1, in_extent_frac=frac)),
+             (pl_t.decide_pip_join(n, 4, in_extent_frac=frac),
+              pl_j.decide_pip_join(n, 4, in_extent_frac=frac)),
              (pl_t.decide_refine(n, pf, max_dup),
               pl_j.decide_refine(n, pf, max_dup)),
              (pl_t.decide_refine(n, 0.9, max_dup, depth=2),
@@ -179,6 +183,7 @@ GRID = [(n, m, frac, dup)
     {"mosaic.planner.force.pip_join": "monolithic"},
     {"mosaic.planner.force.pip_join": "streamed",
      "mosaic.stream.chunk.rows": "4096"},
+    {"mosaic.planner.force.pip_join": "sharded"},
     {"mosaic.planner.force.refine": "refined",
      "mosaic.join.refine.depth": "3"},
     {"mosaic.planner.force.refine": "flat"},
@@ -236,6 +241,25 @@ def test_cold_and_learned_decisions_equal(seed):
     assert strategies >= {"brute", "ring", "monolithic", "streamed",
                           "refined", "flat"}
     assert pl_t.report() == pl_j.report()
+
+
+@pytest.mark.parametrize("mesh_devices", [1, 4])
+def test_sharded_candidate_learned_alike(mesh_devices):
+    """The sharded candidate exists over more than one device only; once
+    its learned cost is the lowest, both planners pick it there."""
+    pl_t, pl_j = TPlanner(), JPlanner()
+    chunk = tconfig.default_config().stream_chunk_rows
+    for n in (100, chunk, 3_000_000):
+        assert pl_t.pip_join_candidates(n, mesh_devices) == \
+            pl_j.pip_join_candidates(n, mesh_devices)
+    for pl in (pl_t, pl_j):
+        for s, c in pl.pip_join_candidates(3_000_000, 4):
+            pl.observe_op(pl.pip_cost_key(s, c), 3_000_000,
+                          0.1 if s == "sharded" else 2.0)
+    t = pl_t.decide_pip_join(3_000_000, mesh_devices, in_extent_frac=0.5)
+    _same(t, pl_j.decide_pip_join(3_000_000, mesh_devices,
+                                  in_extent_frac=0.5))
+    assert t.strategy == ("sharded" if mesh_devices > 1 else "streamed")
 
 
 def test_knn_memory_guard_past_four_thresholds():

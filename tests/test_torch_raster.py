@@ -23,7 +23,8 @@ which the port has not yet).
   same keys for every combiner, values bit-equal where no tile overlap
   ran ``combine``, within 4 ulp where it did; ``kring_interpolate=1``.
 * The world-of-one halo form within the JAX test's own rtol=2e-6,
-  atol=1e-4; its guards; a group of more than one rank raises.
+  atol=1e-4; its guards; a group given with no process group initialised
+  raises (more ranks: tests/test_torch_sharded.py).
 * ``warp`` and ``dtm_from_geoms`` raise (ROADMAP §A6), and so does
   ``raster_to_grid`` on a tile in another CRS.
 * The five ``mosaic.raster.*`` and ``mosaic.io.on.error`` keys accept and
@@ -687,10 +688,13 @@ def test_halo_guards(monkeypatch):
     with pytest.raises(ValueError, match="halo"):
         sharded_convolve(flat, np.ones((5, 5)), device=DEV)
     import torch.distributed as dist
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="§A4"):
+    # a group given while no process group is initialised raises; the
+    # guards over more ranks are held in tests/test_torch_sharded.py
+    with pytest.raises(RuntimeError, match="not initialised"):
         sharded_convolve(t, np.ones((3, 3)), group=object(), device=DEV)
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 1)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
     assert sharded_convolve(t, np.ones((3, 3)), group=object(),
                             device=DEV).data.shape == t.data.shape
 
