@@ -218,12 +218,31 @@ Phases (any failure exits non-zero and prints no result):
     tile's first 3,600 rows bit-equal to K9 on those rows whole (the seams
     a multi-rank halo cuts); each path's collectives' calls, bytes and
     host seconds (each ended at a synchronize), the phase's seconds;
-17. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
-    ``raster``, ``sharded`` and ``tess_kernels`` (K7 and K8 by input set)
-    summary lines, the card, the ``kernels`` JSON line (K1-K10 with
-    launches per path, the tessellations of phases 5 and 11, the
-    strategies', the raster and the sharded paths among them), then the
-    last line ``{"ok": true, "device": {...}}``.
+17. the store-fed flagship (bench.py:634-760 in full mode): 1e8 rows of
+    ``nyc_points`` in blocks of 2^22 (seeds 500 on) ingested through
+    ``StoreWriter`` at grid_res 1024 and 2^22 rows a shard into a
+    temporary directory (the writer timed, the generation not); the whole
+    store queried out of core through ``make_store_sharded_pip_join``
+    with ``group=None`` over phase 5's dense index in 2^18-row chunks (one
+    K2 launch per chunk, 382), its zones and ``rechecked`` equal to the
+    streamed join over ``read_columns()`` in store order, the device's
+    peak allocated bytes over the query below the store's ``nbytes()``,
+    the staging ledger summing to the staged ``pipeline/h2d_bytes``; one
+    partition's chunks profiled by stage (``stream/pull``: shard reads
+    and chunk assembly; ``stream/stage``; K2; ``store_join/recheck``,
+    ``/gather``, ``/observe``) and the device's idle share; a side store
+    (2^17 points, seed 901, grid_res 8192, 2^14 rows a shard) queried
+    over the lower-left 45% of its bbox with ``group=None``, over a NCCL
+    world of one and heat-primed (``mosaic.heat.prior``): partitions
+    pruned, none of them staged or heated, each answer bit-equal to the
+    streamed join over ``read_columns(bbox)``; ingest rows/s, query
+    points/s and each query's host seconds;
+18. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+    ``raster``, ``sharded``, ``store`` and ``tess_kernels`` (K7 and K8 by
+    input set) summary lines, the card, the ``kernels`` JSON line (K1-K10
+    with launches per path, the tessellations of phases 5 and 11, the
+    strategies', the raster, the sharded and the ``store fed`` paths
+    among them), then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -390,6 +409,19 @@ SHARD_FOOTPRINTS = 4096
 SHARD_PINGS = 1 << 15
 SHARD_SLABS = 4
 SHARD_HALO_ROWS = 3600
+#: phase 17, the store-fed flagship as bench.py:634-760 runs it in full
+#: mode: the big store's rows, ingested in blocks of nyc_points(2^22,
+#: seed=500+i) at grid_res 1024 and 2^22 rows a shard; the side store's
+#: rows (nyc_points seed 901) at grid_res 8192 and 2^14 rows a shard,
+#: queried over the lower-left STORE_SIDE_FRAC of its bbox
+STORE_ROWS = 100_000_000
+STORE_BLOCK = 1 << 22
+STORE_RES = 1024
+STORE_SHARD = 1 << 22
+STORE_SIDE_ROWS = 1 << 17
+STORE_SIDE_RES = 8192
+STORE_SIDE_SHARD = 1 << 14
+STORE_SIDE_FRAC = 0.45
 #: NVIDIA H100 SXM data sheet: 34 TFLOP/s in f64 outside the tensor cores,
 #: an FMA as two flops, so 17e12 f64 instructions a second (an add,
 #: multiply, compare or min/max each one)
@@ -1045,23 +1077,31 @@ def phase_join_kernel(idx, grid, polys, batches, rechecked: int,
 
 
 def profile_batch(run, pts, plain_wall_ms, chunk: int = CHUNK):
-    """Where one batch's time goes: torch.profiler over a streamed run
-    (not counted): host time per ``stream/*`` phase (per ``chunk`` rows),
-    device time by op,
-    and the device's idle share.  Busy time is the union of the device
-    intervals over both streams, so a copy that overlaps a kernel counts
-    once.  The idle share is given against the profiled wall time and
-    against ``plain_wall_ms``, the fastest unprofiled warm batch: the
+    """Where one batch's time goes: :func:`profile_run` over a streamed
+    run of ``pts`` in ``chunk``-row chunks."""
+    return profile_run(lambda: run(pts), -(-len(pts) // chunk),
+                       plain_wall_ms, f"one batch of {len(pts)} points")
+
+
+def profile_run(call, chunks: int, plain_wall_ms, what: str,
+                labels=("stream/",)):
+    """torch.profiler over ``call()`` (not counted): host time per phase
+    label (those starting with one of ``labels``) per chunk, device time
+    by op, and the device's idle share.  Busy time is the union of the
+    device intervals over both streams, so a copy that overlaps a kernel
+    counts once.  The idle share is given against the profiled wall time
+    and against ``plain_wall_ms``, the fastest unprofiled warm run: the
     profiler slows the host, not the device.  ``plain_wall_ms`` None: the
     profiled run is the only one, and the profiled wall stands in."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    labels = tuple(labels)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run(pts)
+            call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     except RuntimeError as e:         # no CUPTI tracing available
@@ -1070,14 +1110,13 @@ def profile_batch(run, pts, plain_wall_ms, chunk: int = CHUNK):
     if plain_wall_ms is None:
         plain_wall_ms = wall_ms
     events = prof.key_averages()
-    chunks = -(-len(pts) // chunk)
     out = {"host_ms_per_chunk": {}}
     for e in events:
-        # the stream/* labels appear twice: as host ranges and as device
-        # ranges mirroring the kernels they enclose; only the host side
-        # is a phase time.  Device busy counts device-side events only
+        # the labels appear twice: as host ranges and as device ranges
+        # mirroring the kernels they enclose; only the host side is a
+        # phase time.  Device busy counts device-side events only
         # (kernels, copies): a host op's device time repeats its kernels
-        if e.key.startswith("stream/") and e.cpu_time_total > 0:
+        if e.key.startswith(labels) and e.cpu_time_total > 0:
             out["host_ms_per_chunk"][e.key] = e.cpu_time_total / 1e3 / chunks
             log(f"[profile] host {e.key}: {e.cpu_time_total / 1e3:.3f} ms "
                 f"total, {e.cpu_time_total / 1e3 / chunks:.4f} ms per chunk "
@@ -1085,13 +1124,13 @@ def profile_batch(run, pts, plain_wall_ms, chunk: int = CHUNK):
     dev = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
                   for e in events if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0
-                  and not e.key.startswith("stream/")), reverse=True)
+                  and not e.key.startswith(labels)), reverse=True)
     if not dev:
         log("[profile] no device-side events recorded")
         return out
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith("stream/")
+                   and not e.name.startswith(labels)
                    and e.time_range.end > e.time_range.start)
     busy_us, lo, hi = 0.0, None, None
     for s, e in spans:
@@ -1101,7 +1140,7 @@ def profile_batch(run, pts, plain_wall_ms, chunk: int = CHUNK):
         else:
             hi = max(hi, e)
     busy_ms = (busy_us + (0.0 if hi is None else hi - lo)) / 1e3
-    log(f"[profile] one batch of {len(pts)} points: wall {wall_ms:.3f} ms "
+    log(f"[profile] {what}: wall {wall_ms:.3f} ms "
         f"under the profiler, {plain_wall_ms:.3f} ms unprofiled; device "
         f"busy {busy_ms:.3f} ms (union over both streams; the op times "
         f"sum to {sum(d[0] for d in dev):.3f} ms); idle share "
@@ -3941,6 +3980,242 @@ def phase_sharded(idx, grid, polys, batches, dense_zones, h3s, over, knn,
             "phase_s": t_phase, "counts": paths}
 
 
+def phase_store(idx, grid, polys):
+    """The store-fed flagship: a STORE_ROWS-row chip store on the card
+    machine's disk queried out of core through
+    ``make_store_sharded_pip_join`` over phase 5's dense index (K2), held
+    to the streamed join over the same rows; a side store's pruned query
+    with ``group=None`` and over a NCCL world of one, and heat-primed."""
+    import os
+    import shutil
+    import tempfile
+    from datetime import timedelta
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch import config
+    from mosaic_tpu_torch.obs import metrics
+    from mosaic_tpu_torch.obs.heat import heat
+    from mosaic_tpu_torch.parallel import pip_join as pj
+    from mosaic_tpu_torch.store import ChipStore, StoreWriter, write_store
+
+    t_phase = time.perf_counter()
+    metrics.enable()
+    out, paths, times = {}, {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+
+    def counted(path, fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after, its host seconds (ended at a synchronize) and the
+        bytes it staged."""
+        reset_counts()
+        h0 = metrics.counter_value("pipeline/h2d_bytes")
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[path] = time.perf_counter() - t0
+        paths[path] = launch_counts()
+        return res, metrics.counter_value("pipeline/h2d_bytes") - h0
+
+    def ledger_ok(label, run, scanned, staged, D=1):
+        led = run.staged_bytes_by_partition
+        cells = {p.cell for p in scanned}
+        check(set(led) == cells, f"{label}: the ledger names "
+              f"{len(set(led) - cells)} unscanned and misses "
+              f"{len(cells - set(led))} scanned partitions")
+        check(sum(led.values()) == D * staged > 0, f"{label}: ledger "
+              f"{sum(led.values())} B against {D} x {staged} B staged")
+
+    try:
+        # ---- a. ingest: generation outside the clock, the writer inside
+        w = StoreWriter(os.path.join(root, "big"), grid_res=STORE_RES,
+                        shard_rows=STORE_SHARD)
+        t_ingest, done, i = 0.0, 0, 0
+        while done < STORE_ROWS:
+            blk = mt.nyc_points(min(STORE_BLOCK, STORE_ROWS - done),
+                                seed=500 + i)
+            t0 = time.perf_counter()
+            w.append(blk)
+            t_ingest += time.perf_counter() - t0
+            done += len(blk)
+            i += 1
+        del blk
+        t0 = time.perf_counter()
+        w.finalize()
+        t_ingest += time.perf_counter() - t0
+        big = ChipStore(os.path.join(root, "big"))
+        disk = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(os.path.join(root, "big"))
+                   for f in fs)
+        out["ingest"] = {"rows": STORE_ROWS, "blocks": i,
+                         "partitions": len(big.partitions),
+                         "disk_bytes": disk, "nbytes": big.nbytes(),
+                         "s": t_ingest, "rows_per_s": STORE_ROWS / t_ingest}
+        log(f"[store] ingest: {STORE_ROWS} rows in {i} blocks -> "
+            f"{len(big.partitions)} partitions, {disk} B on disk "
+            f"(nbytes {big.nbytes()}) in {t_ingest:.3f} s = "
+            f"{STORE_ROWS / t_ingest:.4e} rows/s (host clock, generation "
+            "excluded)")
+        check(big.total_rows == STORE_ROWS and
+              big.nbytes() == 16 * STORE_ROWS, "big store: rows or nbytes")
+
+        # ---- b. the big store queried out of core, one device
+        n_chunks = -(-STORE_ROWS // CHUNK)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = pj.make_store_sharded_pip_join(big, idx, grid, polys=polys,
+                                             chunk=CHUNK, device=DEV)
+        (zone, rechecked), staged = counted("store fed big", run)
+        peak = torch.cuda.max_memory_allocated()
+        t = times["store fed big"]
+        out["query"] = {"rows": len(zone), "s": t, "pps": len(zone) / t,
+                        "rechecked": rechecked, "chunks": n_chunks,
+                        "peak_allocated_bytes": peak,
+                        "allocated_before_bytes": base,
+                        "staged_bytes": staged}
+        log(f"[store] query: {len(zone)} rows in {t:.3f} s = "
+            f"{len(zone) / t:.4e} points/s (host clock); {rechecked} "
+            f"rechecked; device peak allocated {peak} B ({base} B before "
+            f"the query) against the store's {big.nbytes()} B; launches "
+            f"{ {k: v for k, v in paths['store fed big'].items() if v} }")
+        check(len(zone) == STORE_ROWS, "big store: rows returned")
+        check(paths["store fed big"]["h3_dense_join"] == n_chunks,
+              f"big store: {paths['store fed big']['h3_dense_join']} K2 "
+              f"launches for {n_chunks} chunks")
+        check(paths["store fed big"]["h3_project_lattice"] == 0 and
+              paths["store fed big"]["h3_latlng_to_cell"] == 0,
+              "big store: K1 or K3 launched on the dense path")
+        check(peak < big.nbytes(), f"big store: device peak {peak} B not "
+              f"below the store's {big.nbytes()} B")
+        check(run.rebalancer.observations == n_chunks,
+              "big store: one rebalancer observation a chunk")
+        ledger_ok("big store", run, big.partitions, staged)
+
+        # ---- c. the same rows through the one-device streamed join
+        t0 = time.perf_counter()
+        cols = big.read_columns(cols=big.point_cols)
+        pts = np.column_stack([cols.pop("x"), cols.pop("y")])
+        times["big read_columns"] = time.perf_counter() - t0
+        streamed = pj.make_streamed_pip_join(idx, grid, polys, chunk=CHUNK,
+                                             device=DEV)
+        (want, want_re), _ = counted("store big streamed reference",
+                                     lambda: streamed(pts))
+        del pts
+        check(np.array_equal(zone, want) and rechecked == want_re,
+              f"big store: {int(np.sum(zone != want))} zones differ from "
+              f"the streamed join ({rechecked} against {want_re} "
+              "rechecked)")
+        log(f"[store] the streamed join over read_columns(): "
+            f"{times['store big streamed reference']:.3f} s (read "
+            f"{times['big read_columns']:.3f} s); zones bit-equal, "
+            "rechecked equal")
+        del want, zone
+
+        # ---- d. one partition's chunks profiled by stage
+        part = min([p for p in big.partitions if p.rows >= 8 * CHUNK] or
+                   big.partitions, key=lambda p: p.rows)
+        p_chunks = -(-part.rows // CHUNK)
+        run(bbox=part.bbox)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z_part, _ = run(bbox=part.bbox)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(len(z_part) == part.rows, "profiled partition: rows")
+        out["profile"] = profile_run(
+            lambda: run(bbox=part.bbox), p_chunks, plain_ms,
+            f"partition {part.cell} ({part.rows} rows, {p_chunks} chunks)",
+            labels=("stream/", "store_join/"))
+        out["profile"]["rows"] = part.rows
+
+        # ---- e. the side store, pruned, one device and a NCCL world of
+        # one, then heat-primed
+        side_pts = mt.nyc_points(STORE_SIDE_ROWS, seed=901)
+        write_store(os.path.join(root, "side"), side_pts,
+                    grid_res=STORE_SIDE_RES, shard_rows=STORE_SIDE_SHARD)
+        side = ChipStore(os.path.join(root, "side"))
+        x0, y0, x1, y1 = side.bbox
+        qbox = (x0, y0, x0 + (x1 - x0) * STORE_SIDE_FRAC,
+                y0 + (y1 - y0) * STORE_SIDE_FRAC)
+        scanned = side.prune(qbox, record=False)
+        cold = {p.cell for p in side.partitions} - {p.cell for p in scanned}
+        sc = side.read_columns(cols=side.point_cols, bbox=qbox)
+        (ref, ref_re), _ = counted("store side streamed reference",
+                                   lambda: streamed(np.column_stack(
+                                       [sc["x"], sc["y"]])))
+        rows_before = {c["cell"]: c["rows"] for c in
+                       heat.report(top=1 << 20)["cells"]}
+        pr0 = metrics.counter_value("store/partitions_pruned")
+        srun = pj.make_store_sharded_pip_join(side, idx, grid, polys=polys,
+                                              chunk=CHUNK, device=DEV)
+        (z_side, re_side), staged = counted("store fed side",
+                                            lambda: srun(bbox=qbox))
+        pruned = int(metrics.counter_value("store/partitions_pruned") - pr0)
+        rows_after = {c["cell"]: c["rows"] for c in
+                      heat.report(top=1 << 20)["cells"]}
+        check(pruned == len(cold) > 0, f"side store: {pruned} partitions "
+              f"pruned, {len(cold)} outside the box")
+        check(all(rows_after.get(c, 0.0) <= rows_before.get(c, 0.0)
+                  for c in cold), "side store: a pruned partition gained "
+              "heat")
+        ledger_ok("side store", srun, scanned, staged)
+        check(np.array_equal(z_side, ref) and re_side == ref_re,
+              "side store: zones differ from the streamed join")
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1, timeout=timedelta(seconds=60))
+            try:
+                G = dist.group.WORLD
+                grun = pj.make_store_sharded_pip_join(
+                    side, idx, grid, G, polys=polys, chunk=CHUNK,
+                    device=DEV)
+                (z_g, re_g), staged_g = counted("store fed side nccl",
+                                                lambda: grun(bbox=qbox))
+            finally:
+                dist.destroy_process_group()
+        ledger_ok("side store over NCCL", grun, scanned, staged_g)
+        check(np.array_equal(z_g, ref) and re_g == ref_re,
+              "side store over NCCL: zones differ from the streamed join")
+        prev = config.default_config()
+        config.set_default_config(config.apply_conf(
+            prev, "mosaic.heat.prior", "true"))
+        try:
+            p0 = metrics.counter_value("heat/prior_primes")
+            hrun = pj.make_store_sharded_pip_join(
+                side, idx, grid, polys=polys, chunk=CHUNK, device=DEV)
+            primes = metrics.counter_value("heat/prior_primes") - p0
+            (z_hot, re_hot), _ = counted("store fed side primed",
+                                         lambda: hrun(bbox=qbox))
+        finally:
+            config.set_default_config(prev)
+        check(primes == 1 and hrun.rebalancer.armed,
+              "side store: the heat prior did not prime the rebalancer")
+        check(np.array_equal(z_hot, z_side) and re_hot == re_side,
+              "side store: the heat-primed query differs")
+        out["side"] = {"rows": len(z_side), "partitions": len(side.partitions),
+                       "pruned": pruned, "scanned_rows": len(z_side),
+                       "rechecked": re_side, "staged_bytes": staged}
+        for p in ("store fed side", "store fed side nccl",
+                  "store fed side primed"):
+            check(paths[p]["h3_dense_join"] == -(-len(z_side) // CHUNK),
+                  f"{p}: K2 launches")
+        log(f"[store] side store: {len(side.partitions)} partitions, "
+            f"{pruned} pruned by the {STORE_SIDE_FRAC} box, "
+            f"{len(z_side)} rows scanned; one device, NCCL world of one "
+            "and heat-primed bit-equal to the streamed join")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        metrics.disable()
+    out["host_s"] = times
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[store] query host seconds {json.dumps(times)}; the phase took "
+        f"{out['phase_s']:.1f} s (host clock)")
+    out["counts"] = paths
+    return out
+
+
 def halo_seams(tile, w) -> dict:
     """K9 on SHARD_SLABS row slabs of the tile's first SHARD_HALO_ROWS
     rows, each widened by the halo rows a rank would receive (zero rows
@@ -4013,6 +4288,7 @@ def main() -> int:
         raster = phase_raster(grid)
         shard = phase_sharded(idx, grid, polys, batches, dense_zones, h3s,
                               over, knn, raster)
+        store = phase_store(idx, grid, polys)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4023,7 +4299,8 @@ def main() -> int:
              "knn brute": knn["paths"]["brute"]["counts"],
              "knn ring": knn["paths"]["ring"]["counts"],
              **chip["tess_counts"], **strat["paths"], **raster["paths"],
-             **shard["counts"]}
+             **shard["counts"], **{p: c for p, c in store["counts"].items()
+                                   if p.startswith("store fed")}}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -4047,7 +4324,9 @@ def main() -> int:
                                if k not in ("paths", "halo_inputs")}}))
     log(json.dumps({"sharded": {k: v for k, v in shard.items()
                                 if k != "counts"}}))
-    log(f"[chip_smoke] phases 1-16 took {time.perf_counter() - t_start:.1f} "
+    log(json.dumps({"store": {k: v for k, v in store.items()
+                              if k != "counts"}}))
+    log(f"[chip_smoke] phases 1-17 took {time.perf_counter() - t_start:.1f} "
         "s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}

@@ -16,17 +16,22 @@ strategies over them: the cost planner (``sql/planner.py``, read from
 join (``parallel/pip_join.py``); and the sharded paths over a
 ``torch.distributed`` process group (``parallel/collectives.py``): the
 sharded and sharded-streamed join, the overlay's cell-hash exchange,
-SpatialKNN's sharded ring and the raster halo in row slabs.  The
+SpatialKNN's sharded ring and the raster halo in row slabs; and the
+out-of-core chip store (``store/``: grid-partitioned columnar shards on
+disk, interchangeable with the JAX package's) with the store-fed join
+over it, its WHERE pushdown over ``sql/parser.py``, the layout advisor
+``sql/layout.py``, and the metrics registry and partition heat they
+record into (``obs/``).  The
 package imports torch and numpy, never jax and nothing of
 ``mosaic_tpu``; its module layout and names follow ``mosaic_tpu`` so
 each module's counterpart is easy to find.
 
 Entry points that create device state (``build_pip_index``,
 ``build_dense_pip_index``, ``make_streamed_pip_join``,
-``make_refined_pip_join``, ``tessellate``, ``tessellate_subset``, the
-``overlay_*`` entry points, ``SpatialKNN``, ``raster_to_grid`` and the
-raster operators that compute on a device) run on CUDA unless the caller
-passes ``device="cpu"``, and
+``make_store_sharded_pip_join``, ``make_refined_pip_join``,
+``tessellate``, ``tessellate_subset``, the ``overlay_*`` entry points,
+``SpatialKNN``, ``raster_to_grid`` and the raster operators that compute
+on a device) run on CUDA unless the caller passes ``device="cpu"``, and
 raise RuntimeError when no CUDA device exists and none was asked for.
 
     import mosaic_tpu_torch as mt
@@ -61,6 +66,7 @@ from .parallel.pip_join import (DensePIPIndex, PIPIndex,
                                 localize, make_pip_join_fn,
                                 make_planned_pip_join,
                                 make_refined_pip_join,
+                                make_store_sharded_pip_join,
                                 make_streamed_pip_join, pip_host_truth,
                                 sorted_index_from_arrays, zone_histogram)
 from .types import ChipSet
@@ -74,7 +80,8 @@ __all__ = [
     "build_dense_pip_index", "build_pip_index", "dense_index_from_arrays",
     "sorted_index_from_arrays", "host_recheck_fn", "localize",
     "make_pip_join_fn", "make_planned_pip_join", "make_refined_pip_join",
-    "make_streamed_pip_join", "pip_host_truth",
+    "make_store_sharded_pip_join", "make_streamed_pip_join",
+    "pip_host_truth",
     "zone_histogram", "ChipSet", "overlay_host_truth",
     "overlay_intersection_area", "overlay_intersects", "overlay_row_pairs",
     "overlay_rows_from_arrays", "pack_chip_rows", "ais_pings_ports",

@@ -3,7 +3,8 @@ raster layer read.
 
 Port copy of the part of ``mosaic_tpu.config`` that the planner, the
 planned and refined PIP joins, the stream chunk, SpatialKNN's engine
-choice, the raster checkpoint and the codecs' error policy read.  Keys
+choice, the raster checkpoint, the codecs' error policy, the chip store,
+partition heat and the layout advisor read.  Keys
 keep the JAX package's names, defaults, validators and error class, so a
 setting carries over 1:1:
 
@@ -23,7 +24,17 @@ setting carries over 1:1:
   policy for a malformed record (``resilience/ingest``);
 * ``mosaic.shard.skew.refresh`` — every how many chunks the sharded
   streamed join re-packs its skew-aware placement
-  (``parallel/placement.py``).
+  (``parallel/placement.py``);
+* ``mosaic.store.{dir,grid.res,shard.rows,mmap}`` — the chip store's
+  default root ("" = none), the world-grid resolution new stores
+  partition on, the rows per shard file and whether the reader
+  memory-maps shards (``store/``);
+* ``mosaic.heat.{halflife.ms,prior}`` — the half-life of the partition
+  heat accumulators (0 = no decay) and whether the store-fed join primes
+  its placement from that heat (``obs/heat.py``);
+* ``mosaic.layout.{rows.per.cell,min.res,max.res}`` — the layout
+  advisor's target rows per occupied cell and its resolution clamp
+  (``sql/layout.py``).
 
 The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
 any other one, and for the pins of ops it does not run (the
@@ -49,6 +60,15 @@ MOSAIC_RASTER_TMP_PREFIX = "mosaic.raster.tmp.prefix"
 MOSAIC_RASTER_BLOCKSIZE = "mosaic.raster.blocksize"
 MOSAIC_IO_ON_ERROR = "mosaic.io.on.error"
 MOSAIC_SHARD_SKEW_REFRESH = "mosaic.shard.skew.refresh"
+MOSAIC_STORE_DIR = "mosaic.store.dir"
+MOSAIC_STORE_GRID_RES = "mosaic.store.grid.res"
+MOSAIC_STORE_SHARD_ROWS = "mosaic.store.shard.rows"
+MOSAIC_STORE_MMAP = "mosaic.store.mmap"
+MOSAIC_HEAT_HALFLIFE_MS = "mosaic.heat.halflife.ms"
+MOSAIC_HEAT_PRIOR = "mosaic.heat.prior"
+MOSAIC_LAYOUT_ROWS_PER_CELL = "mosaic.layout.rows.per.cell"
+MOSAIC_LAYOUT_MIN_RES = "mosaic.layout.min.res"
+MOSAIC_LAYOUT_MAX_RES = "mosaic.layout.max.res"
 
 MOSAIC_RASTER_CHECKPOINT_DEFAULT = "/tmp/mosaic_tpu/checkpoint"
 MOSAIC_RASTER_TMP_PREFIX_DEFAULT = "/tmp"
@@ -92,6 +112,21 @@ class MosaicConfig:
     # every K-th chunk of the sharded streamed join re-packs the
     # skew-aware placement (parallel/placement.py)
     shard_skew_refresh: int = 16
+    # out-of-core chip store (store/): default root ("" = none), the
+    # world-grid resolution, rows per shard file, mmap'd shard reads
+    store_dir: str = ""
+    store_grid_res: int = 1_024
+    store_shard_rows: int = 4_194_304
+    store_mmap: bool = True
+    # partition heat (obs/heat.py): accumulator half-life (0 = never
+    # decay) and the opt-in placement prior for the skew rebalancer
+    heat_halflife_ms: float = 300_000.0
+    heat_prior: bool = False
+    # layout advisor (sql/layout.py): target rows per occupied cell and
+    # the inclusive resolution clamp
+    layout_rows_per_cell: int = 65_536
+    layout_min_res: int = 64
+    layout_max_res: int = 16_384
 
 
 def _as_flag(key: str, value) -> bool:
@@ -134,6 +169,17 @@ def _as_on_error(key: str, value) -> str:
     return s
 
 
+def _as_millis(key: str, value) -> float:
+    try:
+        ms = float(str(value).strip())
+    except (TypeError, ValueError):
+        raise ConfigError(
+            f"{key}={value!r} is not a number of milliseconds") from None
+    if ms < 0:
+        raise ConfigError(f"{key}={ms} must be >= 0 (0 disables)")
+    return ms
+
+
 def _as_str(key: str, value) -> str:
     return str(value)
 
@@ -172,6 +218,15 @@ _CONF_FIELDS = {
     MOSAIC_RASTER_BLOCKSIZE: ("raster_blocksize", _as_blocksize),
     MOSAIC_IO_ON_ERROR: ("io_on_error", _as_on_error),
     MOSAIC_SHARD_SKEW_REFRESH: ("shard_skew_refresh", _as_blocksize),
+    MOSAIC_STORE_DIR: ("store_dir", _as_str),
+    MOSAIC_STORE_GRID_RES: ("store_grid_res", _as_blocksize),
+    MOSAIC_STORE_SHARD_ROWS: ("store_shard_rows", _as_blocksize),
+    MOSAIC_STORE_MMAP: ("store_mmap", _as_flag),
+    MOSAIC_HEAT_HALFLIFE_MS: ("heat_halflife_ms", _as_millis),
+    MOSAIC_HEAT_PRIOR: ("heat_prior", _as_flag),
+    MOSAIC_LAYOUT_ROWS_PER_CELL: ("layout_rows_per_cell", _as_blocksize),
+    MOSAIC_LAYOUT_MIN_RES: ("layout_min_res", _as_blocksize),
+    MOSAIC_LAYOUT_MAX_RES: ("layout_max_res", _as_blocksize),
 }
 
 

@@ -46,7 +46,9 @@ a level deeper, each point routed to its level by its cell).  Over a
 ``make_sharded_pip_join`` and ``make_sharded_streamed_pip_join`` split
 the points over the ranks, each running the same join on its own device
 with the index replicated, and gather the zones; ``zone_histogram`` sums
-its counts over the group.
+its counts over the group.  ``make_store_sharded_pip_join`` feeds the
+sharded streamed join from an out-of-core chip store (``store/``), one
+chunk off disk at a time.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import native
 from .._device import DeviceLike, resolve_device
@@ -71,6 +74,8 @@ from ..core.index.h3.torchkernel import (FACEGAP_EPS, MAX_LOCAL_DEG,
                                          err_lattice_bound)
 from ..core.tessellate import (_pip, _poly_edges, tessellate,
                                tessellate_subset)
+from ..obs import metrics
+from ..obs.heat import heat
 from ..ops.dense_join import CORE_FLAG as _CORE_FLAG
 from ..ops.dense_join import JoinConsts, dense_join, join_tables, prepare
 from ..ops.lookup import lookup
@@ -1081,6 +1086,166 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
     return run
 
 
+def _own_block(pref: Optional[np.ndarray], n: int, D: int, r: int,
+               per: int):
+    """(slots, mine, at) of one chunk of ``n`` rows padded to ``D`` blocks
+    of ``per`` slots: each row's slot (:func:`.placement.placement_slots`
+    on the preferred shards ``pref``), this rank's rows and their places
+    in its block.  Identity placement (no preference, or one rank) gives
+    each as a slice, so the rows move without fancy indexing."""
+    if pref is None or D == 1:
+        lo, hi = min(r * per, n), min((r + 1) * per, n)
+        return slice(0, n), slice(lo, hi), slice(0, hi - lo)
+    slots = placement_slots(pref, n, D, per)
+    mine = np.nonzero(slots // per == r)[0]
+    return slots, mine, slots[mine] - r * per
+
+
+def make_store_sharded_pip_join(store, idx, grid=None, group=None,
+                                polys: Optional[GeometryArray] = None,
+                                chunk: Optional[int] = None,
+                                eps: Optional[float] = None,
+                                margin_eps: Optional[float] = None,
+                                refresh: Optional[int] = None,
+                                nbins: int = 16,
+                                device: DeviceLike = None):
+    """:func:`make_sharded_streamed_pip_join` fed from an out-of-core chip
+    store (``store.ChipStore``).
+
+    The chunk source is :meth:`~..store.reader.ChipStore.iter_chunks`, a
+    generator that prunes partitions against the query bbox from the
+    manifest alone and then reads one shard at a time off disk;
+    ``perf.pipeline.stream`` pulls it one chunk ahead of the compute, so
+    the host holds at most the double buffer's chunks, and the store may
+    be larger than RAM.  Every rank reads the same chunks, stages only
+    its own block of each (``pow2_bucket(ceil(rows / D), floor=64)``
+    slots, padded with ``_PAD_SENTINEL_DEG`` rows), rechecks its own
+    flagged rows and gets every rank's (device zone, final zone) block
+    back by one ``all_gather`` a chunk; every rank feeds the same
+    gathered chunk to its rebalancer.
+
+    Placement is by partition: once the :class:`.placement.SkewRebalancer`
+    is armed, every row of a chunk's span takes the shard it prefers for
+    that partition's bbox centroid.  Under ``mosaic.heat.prior`` the
+    partition heat (``obs.heat``) primes the rebalancer when the join is
+    made (``heat/prior_primes``).  Placement moves only where a row is
+    computed: the zones are those of the single-device streamed join over
+    the same rows in store order.
+
+    Returns ``run(bbox=None) -> (zone [rows] int32, rechecked)`` over the
+    scanned rows in store order (manifest partition order, ingest order
+    within a partition), ``rechecked`` summed over the ranks.
+    ``run.rebalancer`` is the placement pass; after each call
+    ``run.staged_bytes_by_partition`` maps cell -> the bytes its rows
+    staged: each chunk's whole padded buffer, ``per * D * 2 * 4`` bytes,
+    split over its spans by cumulative row share (the JAX package's
+    ledger, whose buffer holds every rank's block; so its sum is ``D``
+    times this rank's ``pipeline/h2d_bytes``).  A pruned partition never
+    appears in it, and each staged partition's bytes are charged to its
+    heat.  ``group=None`` is one device; ``polys`` is required for a
+    sorted :class:`PIPIndex`.  Beside the stream's labels (the shard
+    reads and chunk assembly run under ``stream/pull``), the host pass
+    carries ``torch.profiler`` labels ``store_join/recheck``,
+    ``store_join/gather`` and ``store_join/observe``."""
+    dev = _check_device(idx, device)
+    chunk = _resolve_chunk(chunk)
+    fn = make_pip_join_fn(idx, grid, eps, margin_eps)
+    recheck = host_recheck_fn(idx, polys)
+    origin = np.asarray(idx.origin, np.float64)
+    D, r = coll.group_size(group), coll.group_rank(group)
+    if refresh is None:
+        refresh = default_config().shard_skew_refresh
+    rebalancer = SkewRebalancer(D, refresh=refresh, nbins=nbins)
+    # partition bbox centroids: the placement key, one query per span
+    cent = {p.cell: ((p.bbox[0] + p.bbox[2]) / 2.0,
+                     (p.bbox[1] + p.bbox[3]) / 2.0)
+            for p in store.partitions}
+    if default_config().heat_prior:
+        # a pure hint: placement moves rows between ranks, never zones
+        hp = heat.prior(nbins, store.bbox, cent)
+        if hp is not None:
+            rebalancer.prime(np.asarray(store.bbox, np.float64), hp)
+            if metrics.enabled:
+                metrics.count("heat/prior_primes")
+    # the stream's row bound: the block of a full (pow2-bucketed) chunk
+    bound = pow2_bucket(-(-pow2_bucket(chunk, floor=64) // D), floor=64)
+
+    def run(bbox=None):
+        state = {"rechecked": 0}
+        chunks, zones = {}, []
+        staged_by_part: dict = {}
+
+        def blocks():
+            # rank r's block of each chunk, keyed by the chunk's offset
+            for ck in store.iter_chunks(bbox=bbox, chunk_rows=chunk):
+                per = pow2_bucket(-(-ck.rows // D), floor=64)
+                chunks[ck.offset] = ck
+                yield slice(ck.offset, ck.offset + per)
+
+        def stage(blk, out):
+            ck = chunks[blk.start]
+            per = blk.stop - blk.start
+            pref = None
+            if rebalancer.armed:
+                cpts = np.asarray([cent[c] for c, _ in ck.parts],
+                                  np.float64)
+                pref = np.repeat(rebalancer.preferred(cpts),
+                                 [n for _, n in ck.parts])
+            slots, mine, at = _own_block(pref, ck.rows, D, r, per)
+            chunks[blk.start] = ck, slots, mine, at
+            # f64 origin shift BEFORE the f32 cast (= localize())
+            if isinstance(at, slice):
+                out[at] = ck.points[mine] - origin[None]
+                out[at.stop:] = _PAD_SENTINEL_DEG
+            else:
+                out[...] = _PAD_SENTINEL_DEG
+                out[at] = ck.points[mine] - origin[None]
+            # the ledger: the whole padded buffer split over the spans by
+            # cumulative row share, so the shares sum to it exactly
+            nbytes = per * D * 2 * 4
+            seen = acc = 0
+            for c, n in ck.parts:
+                seen += n
+                share = nbytes * seen // ck.rows - acc
+                acc += share
+                staged_by_part[c] = staged_by_part.get(c, 0) + share
+
+        def consume(i, blk, host):
+            z, unc = host
+            ck, slots, mine, at = chunks.pop(blk.start)
+            per = blk.stop - blk.start
+            both = np.full((per, 2), -1, np.int32)
+            both[:, 0] = z
+            with record_function("store_join/recheck"):
+                both[at, 1] = recheck(ck.points[mine], z[at], unc[at])
+            state["rechecked"] += int(unc[at].sum())
+            with record_function("store_join/gather"):
+                full = both if group is None else coll.all_gather(
+                    torch.from_numpy(both).to(dev), group).cpu().numpy()
+                zones.append(full[slots, 1])
+            with record_function("store_join/observe"):
+                # density feedback stays row-level, on the gathered chunk
+                rebalancer.observe(ck.points, full[slots, 0] >= 0)
+
+        stream(blocks(), stage, 2, lambda i, x: fn(x), consume, dev,
+               rows=bound)
+        zone_out = np.concatenate(zones) if zones \
+            else np.empty(0, np.int32)
+        run.staged_bytes_by_partition = staged_by_part
+        for c, b in staged_by_part.items():
+            heat.touch(c, nbytes=b, scans=0)
+        if metrics.enabled:
+            metrics.count("pip_join/store_points", float(len(zone_out)))
+            metrics.count("pip_join/store_chunks", float(len(zones)))
+        total = torch.tensor(state["rechecked"], dtype=torch.int64,
+                             device=dev)
+        return zone_out, int(coll.all_reduce(total, group))
+
+    run.rebalancer = rebalancer
+    run.staged_bytes_by_partition = {}
+    return run
+
+
 # ------------------------------------------------------ the planned join
 
 def _join_once(fn, idx, recheck, points64: np.ndarray, dev):
@@ -1137,7 +1302,12 @@ def make_planned_pip_join(idx, grid=None,
     After each call the wall time and matched rows flow back into the
     planner.  ``run.calibrate(points64)`` runs every candidate warm,
     feeds its time to the planner and raises AssertionError on any zone
-    difference.
+    difference; over more than one rank, under ``mosaic.heat.prior``,
+    when the partition heat (``obs.heat``) is skewed (rank 0's report:
+    ``skew >= 2``) it runs the ``sharded`` candidate first
+    (``heat/calibrate_hints``), an ordering hint that changes no zone.
+    ``run.calibrate_order`` is the last calibration's candidates in the
+    order they ran.
 
     Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``;
     ``run.last_decision`` is the most recent pick and ``run.last_times``
@@ -1226,7 +1396,21 @@ def make_planned_pip_join(idx, grid=None,
         points64 = np.asarray(points64, np.float64)[:, :2]
         n = len(points64)
         ref = None
-        for strategy, chunk in planner.pip_join_candidates(n, D):
+        cands = planner.pip_join_candidates(n, D)
+        if D > 1 and default_config().heat_prior:
+            # a hot, skewed workload warms the skew-aware sharded path
+            # first; rank 0's heat decides, so every rank runs one order
+            rep = heat.report(top=1)
+            hint = torch.tensor([int(bool(rep["tracked"]) and
+                                     rep["skew"] >= 2.0)],
+                                dtype=torch.int64, device=dev)
+            if int(coll.broadcast(hint, group)):
+                cands = sorted(cands, key=lambda sc:
+                               0 if sc[0] == "sharded" else 1)
+                if metrics.enabled:
+                    metrics.count("heat/calibrate_hints")
+        run.calibrate_order = list(cands)
+        for strategy, chunk in cands:
             fn = _variant(strategy, chunk)
             fn(points64)                # warm: builds stay out of the
             t0 = time.perf_counter()    # learned coefficients
@@ -1243,6 +1427,7 @@ def make_planned_pip_join(idx, grid=None,
         return ref
 
     run.calibrate = calibrate
+    run.calibrate_order = None
     run.last_decision = None
     run.last_times = None
     return run

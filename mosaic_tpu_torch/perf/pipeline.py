@@ -1,11 +1,14 @@
 """Double-buffered host<->device chunk streaming on CUDA streams.
 
 Port of ``mosaic_tpu.perf.pipeline.stream``, lean: the JAX version's
-observability, memory-ledger and cancellation planes are left out.  A big
-host batch is cut into row chunks; for each chunk the host stages its
-input in pinned memory, a side CUDA stream copies it to the device, the
-compute runs on the current stream, and its outputs come back to pinned
-host buffers for a host pass.  Three things overlap:
+memory-ledger, profiler-ledger and cancellation planes are left out; it
+counts the bytes it stages in ``obs.metrics`` (``pipeline/h2d_bytes``),
+as the JAX version does.  A big host batch is cut into row chunks, or a
+lazy source (the chip store's scan) makes them one at a time; for each
+chunk the host stages its input in pinned memory, a side CUDA stream
+copies it to the device, the compute runs on the current stream, and its
+outputs come back to pinned host buffers for a host pass.  Three things
+overlap:
 
 * the host staging and host->device copy of chunk k+1 (side stream) with
   the device compute of chunk k;
@@ -16,9 +19,11 @@ host buffers for a host pass.  Three things overlap:
 
 CUDA events order the two streams; two pinned buffers per direction are
 reused alternately, and a buffer is refilled only after the copy that read
-it finished.  On a CPU device the same calls run in order, without
-streams.  Host phases carry ``torch.profiler`` labels (``stream/stage``,
-``stream/compute``, ``stream/wait``, ``stream/consume``) for a
+it finished.  The source is pulled one chunk ahead of the running
+compute, never more.  On a CPU device the same calls run in order,
+without streams.  Host phases carry ``torch.profiler`` labels
+(``stream/pull``, ``stream/stage``, ``stream/compute``, ``stream/wait``,
+``stream/consume``) for a
 ``torch.profiler`` breakdown; with no profiler running each label costs
 ~14 µs of host time (measured on a CPU host), under 1% of a 2^18-row
 chunk.
@@ -26,11 +31,13 @@ chunk.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+from ..obs import metrics
 
 __all__ = ["stream", "chunk_rows"]
 
@@ -42,14 +49,23 @@ def chunk_rows(n: int, chunk: int) -> List[slice]:
     return [slice(s, min(s + chunk, n)) for s in range(0, n, chunk)]
 
 
-def stream(chunks: Sequence[slice], stage: Callable[[slice, np.ndarray],
+def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
                                                     None],
            width: int, compute: Callable[[int, torch.Tensor],
                                          Tuple[torch.Tensor, ...]],
            consume: Callable[[int, slice, Tuple[np.ndarray, ...]], None],
-           device: torch.device) -> None:
-    """Run row ``chunks`` through stage -> upload -> compute -> download
-    -> consume.
+           device: torch.device, rows: Optional[int] = None) -> None:
+    """Run the row slices of ``chunks`` through stage -> upload -> compute
+    -> download -> consume.
+
+    ``chunks`` is any iterable of row slices: a list, or a lazy source
+    that makes each slice when it is pulled (the chip store's scan,
+    ``parallel.pip_join.make_store_sharded_pip_join``).  Slice k+1 is
+    pulled only once slice k has been launched, so at most two slices'
+    inputs and outputs are live, however long the source.  ``rows``
+    bounds every slice's row count and sizes the pinned buffers; a
+    ``Sequence`` may leave it None (its longest slice), a lazy source
+    must give it, and a longer slice raises ``ValueError``.
 
     ``stage(sl, out)`` fills ``out`` ([rows, width] f32 numpy, pinned
     when on CUDA) with the chunk's device input; ``compute(i, x)`` takes
@@ -57,21 +73,47 @@ def stream(chunks: Sequence[slice], stage: Callable[[slice, np.ndarray],
     tensor (so per-chunk parameters, such as a block's center, can be
     looked up) and returns a tuple of device tensors, enqueued on the
     current stream; ``consume(i, sl, host)`` receives those outputs as
-    numpy arrays, in chunk order."""
-    if not chunks:
-        return
+    numpy arrays, in chunk order.  Each chunk's staged bytes are counted
+    in ``pipeline/h2d_bytes``."""
+    if rows is None:
+        if not isinstance(chunks, Sequence):
+            raise ValueError("a lazy chunk source needs its row bound: "
+                             "pass rows=")
+        if not chunks:
+            return
+        rows = max(sl.stop - sl.start for sl in chunks)
+    rows = int(rows)
+    source = iter(chunks)
+
+    def pull() -> Optional[slice]:
+        with record_function("stream/pull"):
+            sl = next(source, None)
+        if sl is not None and sl.stop - sl.start > rows:
+            raise ValueError(f"chunk of {sl.stop - sl.start} rows exceeds "
+                             f"the stream's bound of {rows}")
+        return sl
+
+    def staged(n: int) -> None:
+        if metrics.enabled:
+            metrics.count("pipeline/h2d_bytes", 4 * n * width)
+
     if device.type != "cuda":
-        for i, sl in enumerate(chunks):
+        i, sl = 0, pull()
+        while sl is not None:
             buf = np.empty((sl.stop - sl.start, width), np.float32)
             with record_function("stream/stage"):
                 stage(sl, buf)
+            staged(len(buf))
             with record_function("stream/compute"):
                 out = compute(i, torch.from_numpy(buf))
             with record_function("stream/consume"):
                 consume(i, sl, tuple(o.numpy() for o in out))
+            i, sl = i + 1, pull()
         return
 
-    rows = max(sl.stop - sl.start for sl in chunks)
+    first = pull()
+    if first is None:
+        return
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     h2d = [torch.empty((rows, width), dtype=torch.float32,
@@ -79,14 +121,14 @@ def stream(chunks: Sequence[slice], stage: Callable[[slice, np.ndarray],
     h2d_free = [None, None]            # event: last copy out of h2d[j]
     d2h: list = [None, None]           # pinned output buffers per parity
 
-    def upload(k: int):
+    def upload(k: int, sl: slice):
         j = k % 2
-        sl = chunks[k]
         n = sl.stop - sl.start
         if h2d_free[j] is not None:
             h2d_free[j].synchronize()
         with record_function("stream/stage"):
             stage(sl, h2d[j].numpy()[:n])
+        staged(n)
         with torch.cuda.stream(side):
             x = torch.empty((n, width), dtype=torch.float32, device=device)
             x.copy_(h2d[j][:n], non_blocking=True)
@@ -116,17 +158,20 @@ def stream(chunks: Sequence[slice], stage: Callable[[slice, np.ndarray],
             consume(i, sl, tuple(t.numpy() for t in host))
 
     pending = None                     # (i, slice, host, done) awaiting consume
-    x, ready = upload(0)
-    for k in range(len(chunks)):
+    k, sl = 0, first
+    x, ready = upload(0, sl)
+    while sl is not None:
         main.wait_event(ready)
         with record_function("stream/compute"):
             out = compute(k, x)
         # x was allocated on the side stream and read on the main one
         x.record_stream(main)
         host, done = download(k, out)
-        if k + 1 < len(chunks):
-            x, ready = upload(k + 1)
+        nxt = pull()
+        if nxt is not None:
+            x, ready = upload(k + 1, nxt)
         if pending is not None:
             finish(*pending)
-        pending = (k, chunks[k], host, done)
+        pending = (k, sl, host, done)
+        k, sl = k + 1, nxt
     finish(*pending)

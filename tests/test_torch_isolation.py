@@ -5,7 +5,8 @@ default.
   the port imports and runs a small dense PIP join on the CPU, exact
   against its own oracle.
   So does the raster layer: a small DEM through ``raster_to_grid``,
-  equal to per-cell means of the host cell ids.
+  equal to per-cell means of the host cell ids; and the chip store: a
+  small store written, read back and fed to the store-fed join.
 * No file of the port, nor chip_smoke.py, imports ``jax`` or
   ``mosaic_tpu`` (an ``ast`` scan over every subpackage, ``core/raster``,
   ``io`` and ``resilience`` among them; the root module name must match
@@ -84,6 +85,20 @@ cx, cy = dem.pixel_centers()
 own = grid.point_to_cell(np.stack([cx.ravel(), cy.ravel()], -1), 8)
 assert cells == {int(c): float(dem.data[0].ravel()[own == c].mean())
                  for c in np.unique(own)}
+import tempfile
+from mosaic_tpu_torch.store import ChipStore, write_store
+with tempfile.TemporaryDirectory() as root:
+    write_store(root, pts, columns={"i": np.arange(len(pts))},
+                grid_res=4096, shard_rows=256)
+    st = ChipStore(root)
+    back = st.read_columns()
+    order = back["i"]
+    assert np.array_equal(np.stack([back["x"], back["y"]], -1), pts[order])
+    sj = mt.make_store_sharded_pip_join(st, idx, grid, polys=polys,
+                                        chunk=1000, device="cpu")
+    szone, _ = sj()
+    assert np.array_equal(szone, zone[order])
+    assert sum(sj.staged_bytes_by_partition.values()) > 0
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("SLICE_OK", int((zone >= 0).sum()), rechecked, len(cells))
 """
@@ -122,14 +137,24 @@ def test_no_file_imports_jax_or_mosaic_tpu():
             "mosaic_tpu_torch/resilience/ingest.py",
             "mosaic_tpu_torch/parallel/raster_halo.py",
             "mosaic_tpu_torch/ops/raster_convolve.py",
-            "mosaic_tpu_torch/ops/raster_combine.py"} <= names
+            "mosaic_tpu_torch/ops/raster_combine.py",
+            "mosaic_tpu_torch/obs/__init__.py",
+            "mosaic_tpu_torch/obs/metrics.py",
+            "mosaic_tpu_torch/obs/heat.py",
+            "mosaic_tpu_torch/store/__init__.py",
+            "mosaic_tpu_torch/store/manifest.py",
+            "mosaic_tpu_torch/store/writer.py",
+            "mosaic_tpu_torch/store/reader.py",
+            "mosaic_tpu_torch/store/pushdown.py",
+            "mosaic_tpu_torch/sql/parser.py",
+            "mosaic_tpu_torch/sql/layout.py"} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) &
                                             FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid")
     polys = mt.read_wkt(["POLYGON ((-74.02 40.70, -73.95 40.70, "
@@ -154,6 +179,11 @@ def test_entry_points_default_to_cuda():
         mt.make_streamed_pip_join(idx, grid, polys)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mt.make_refined_pip_join(polys, grid, 9)
+    from mosaic_tpu_torch.store import ChipStore, write_store
+    write_store(str(tmp_path), np.array([[-74.0, 40.73], [-73.0, 40.0]]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.make_store_sharded_pip_join(ChipStore(str(tmp_path)), idx, grid,
+                                       polys)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mt.tessellate_subset(polys, [0], 9, grid)
     sub, chips = mt.tessellate_subset(polys, [0], 9, grid, device="cpu")

@@ -61,6 +61,15 @@ KEY_VALUES = {
     "mosaic.shard.skew.refresh": ["16", "2", "1", "0", "-1", "x", 8],
     "mosaic.planner.force.refine": ["auto", "refined", "flat", "deep"],
     "mosaic.planner.force.bogus_op": ["loop"],
+    "mosaic.store.dir": ["/tmp/s", "", " x "],
+    "mosaic.store.grid.res": ["2048", "1", "0", "-8", "x", 1024],
+    "mosaic.store.shard.rows": ["65536", "1", "0", "x"],
+    "mosaic.store.mmap": ["true", "false", "maybe"],
+    "mosaic.heat.halflife.ms": ["0", "1000", "2.5", "-1", "x"],
+    "mosaic.heat.prior": ["true", "false", "on", "perhaps"],
+    "mosaic.layout.rows.per.cell": ["65536", "1", "0", "x"],
+    "mosaic.layout.min.res": ["64", "128", "0", "x"],
+    "mosaic.layout.max.res": ["16384", "512", "-2", "x"],
 }
 
 #: the config fields those keys set, with the JAX package's defaults
@@ -69,7 +78,11 @@ FIELDS_PORTED = ("planner_enabled", "planner_force", "stream_chunk_rows",
                  "join_refine_dup_threshold", "join_refine_max_cells",
                  "join_refine_sample_rows", "raster_checkpoint",
                  "raster_use_checkpoint", "raster_tmp_prefix",
-                 "raster_blocksize", "io_on_error", "shard_skew_refresh")
+                 "raster_blocksize", "io_on_error", "shard_skew_refresh",
+                 "store_dir", "store_grid_res", "store_shard_rows",
+                 "store_mmap", "heat_halflife_ms", "heat_prior",
+                 "layout_rows_per_cell", "layout_min_res",
+                 "layout_max_res")
 
 
 @pytest.fixture(autouse=True)

@@ -35,6 +35,13 @@ the JAX package's sharded tests at their own sizes:
 * the raster halo (ksize 3 and 5, nodata): within JAX's rtol=2e-6,
   atol=1e-4 of its sharded form and ``rops.convolve``, and bit-equal to
   the port's ``group=None``; its guards;
+* the store-fed join over a chip store the JAX package wrote (20,000
+  points, chunk 4096, refresh 2, with and without tests/test_store.py's
+  bbox): zones, ``rechecked`` and the staging ledger equal to JAX's on
+  the mesh, the ledger's sum four times the rank's staged bytes, no
+  pruned cell staged; the heat-primed run bit-equal to the cold one; the
+  planned join's ``calibrate`` running ``sharded`` first under a skewed
+  heat prior, zones unchanged (exact);
 * each entry over a one-rank gloo group equals ``group=None`` (exact).
 
 Limits: each collective times out after 60 s, the world is killed and
@@ -64,13 +71,15 @@ from mosaic_tpu.models import knn_host_truth as jknn_truth
 from mosaic_tpu.parallel import overlay as jov
 from mosaic_tpu.parallel import pip_join as jpj
 from mosaic_tpu.parallel.raster_halo import sharded_convolve as jhalo
+from mosaic_tpu.store import ChipStore as JChipStore
+from mosaic_tpu.store import write_store as jwrite_store
 from mosaic_tpu_torch.bench.workloads import build_workload
 from mosaic_tpu_torch.parallel import collectives as coll
 from mosaic_tpu_torch.parallel import pip_join as tpj
 from mosaic_tpu_torch.parallel.overlay import _hash_dest_np
 
-from torch_sharded_worker import (KNN_BBOX, OVERLAY_BBOX, join_world,
-                                  start_world)
+from torch_sharded_worker import (KNN_BBOX, OVERLAY_BBOX, STORE_BBOX,
+                                  join_world, start_world)
 
 WORLD = 4
 #: seconds the spawned world may take before it is killed
@@ -125,6 +134,13 @@ def _jax_tile(h=64, w=40, bands=2, seed=0, nodata_block=False):
                  nodata=nodata, srid=4326)
 
 
+def _store_points(n, seed):
+    """tests/test_store.py's ``_pts``: uniform over NYC."""
+    rng = np.random.default_rng(seed)
+    return np.column_stack([rng.uniform(-74.3, -73.7, n),
+                            rng.uniform(40.5, 40.95, n)])
+
+
 def _jax_refs(inp) -> dict:
     """The JAX package's answers on the 4-device mesh (and one device
     where the case compares with it)."""
@@ -150,6 +166,14 @@ def _jax_refs(inp) -> dict:
     ref["skew_planned"] = shj.rebalancer.planned_skew()
     ref["skew_zone"], _ = jpj.make_streamed_pip_join(
         idx, grid, polys=polys, chunk=len(cloud))(cloud)
+    st = JChipStore(inp["store_root"])
+    for tag, bbox in (("store", None), ("store_bbox", STORE_BBOX)):
+        run = jpj.make_store_sharded_pip_join(st, idx, grid, mesh,
+                                              polys=polys, chunk=4096,
+                                              refresh=2)
+        ref[tag] = run(bbox=bbox) + (run.staged_bytes_by_partition,)
+    ref["store_pruned"] = {p.cell for p in st.partitions} - \
+        {p.cell for p in st.prune(STORE_BBOX, record=False)}
 
     h3 = jget("H3")
     a = _jax_footprints(150, 1)
@@ -183,7 +207,11 @@ def world(tmp_path_factory):
     inp = {"pip_pts": jnyc_points(8 * 512, seed=5),
            "stream_pts": jnyc_points(10_037, seed=9),
            "skew_pts": _skewed_cloud(jpolys),
-           "h3_pts": jnyc_points(4096, seed=17)}
+           "h3_pts": jnyc_points(4096, seed=17),
+           "store_root": str(path / "chipstore")}
+    # tests/test_store.py's store, written by the JAX package
+    jwrite_store(inp["store_root"], _store_points(20_000, 11),
+                 grid_res=4096, shard_rows=2048)
     np.savez(path / "inputs.npz", **inp)
     procs = start_world(path, WORLD)
     try:
@@ -423,6 +451,50 @@ def test_halo_guards(world):
     assert "smaller than the kernel halo" in str(out["halo_guard_slab"])
 
 
+# ------------------------------------------------------ the store-fed join
+
+@pytest.mark.parametrize("tag", ["store", "store_bbox"])
+def test_store_fed_join_over_four_ranks(world, tag):
+    """Every rank: zones, ``rechecked`` and the staging ledger equal to
+    JAX's ``make_store_sharded_pip_join`` on the 4-device mesh; the
+    ledger's sum four times the rank's staged ``pipeline/h2d_bytes``; one
+    rebalancer observation a chunk; no pruned cell staged (exact)."""
+    ref = world[2]
+    zone, rechecked, ledger = ref[tag]
+    for o in world[0]:
+        assert np.array_equal(o[f"{tag}_zone"], np.asarray(zone))
+        assert int(o[f"{tag}_rechecked"]) == rechecked
+        mine = dict(zip(o[f"{tag}_ledger_cells"].tolist(),
+                        o[f"{tag}_ledger_bytes"].tolist()))
+        assert mine == ledger
+        assert sum(mine.values()) == WORLD * int(o[f"{tag}_h2d"]) > 0
+        assert int(o[f"{tag}_observations"]) == -(-len(zone) // 4096)
+        if tag == "store_bbox":
+            assert ref["store_pruned"] and \
+                not set(mine) & ref["store_pruned"]
+    assert len(world[0][0]["store_zone"]) == 20_000
+
+
+def test_store_fed_heat_prior_is_a_pure_hint(world):
+    for o in world[0]:
+        assert int(o["store_hot_primes"]) == 1 and bool(o["store_hot_armed"])
+        assert np.array_equal(o["store_hot_zone"], o["store_zone"])
+        assert int(o["store_hot_rechecked"]) == int(o["store_rechecked"])
+
+
+def test_calibrate_runs_sharded_first_under_skewed_heat(world):
+    """Under ``mosaic.heat.prior`` a skewed heat plane puts the sharded
+    candidate first; a cold plane keeps the planner's order; the zones are
+    the streamed join's either way."""
+    ref = world[2]
+    for o in world[0]:
+        order = o["hint_order"].tolist()
+        assert order[0] == "sharded" and int(o["hint_count"]) == 1
+        assert sorted(order) == sorted(o["cold_order"].tolist())
+        assert o["cold_order"].tolist()[-1] == "sharded"
+        assert np.array_equal(o["hint_zone"], ref["streamed"][0])
+
+
 # ------------------------------------------------------- one-rank groups
 
 ONE_RANK_KEYS = {
@@ -438,6 +510,7 @@ ONE_RANK_KEYS = {
     "knn": ("knn_right_id", "knn_distance", "knn_iterations"),
     "halo": ("halo_k3", "halo_k5", "halo_nodata"),
     "halo_stream": ("halo_stream",),
+    "store": ("store_zone", "store_rechecked"),
 }
 
 

@@ -4,7 +4,8 @@ runs every sharded entry point of the port.
 This module imports torch, numpy and the port only, never ``jax`` or
 ``mosaic_tpu``: ``multiprocessing``'s spawn imports it in every rank, so a
 rank loads nothing else.  The parent test writes the inputs that come
-from the JAX package's generators to ``inputs.npz`` in a directory,
+from the JAX package's generators to ``inputs.npz`` in a directory (and
+a chip store under ``chipstore``, written by the JAX package's writer),
 starts the world with :func:`start_world`, computes its JAX references
 while the ranks work, and reads each rank's ``out<rank>.npz`` after
 :func:`join_world`.
@@ -78,7 +79,7 @@ def rank_main(rank: int, world: int, path: str) -> None:
         inp = dict(np.load(os.path.join(path, "inputs.npz")))
         out = {}
         for case in (pip_cases, h3_cases, overlay_cases, knn_cases,
-                     raster_cases):
+                     raster_cases, store_cases):
             out.update(case(G, solo, rank, inp))
         out["foreign_modules"] = np.array(sorted(
             m for m in ("jax", "mosaic_tpu") if m in sys.modules))
@@ -340,4 +341,80 @@ def raster_cases(G, solo, rank, inp) -> dict:
         t, np.ones((2, 2)), G, device="cpu")))
     out["halo_guard_slab"] = np.array(_raises(lambda: sharded_convolve(
         halo_tile(h=4), np.ones((5, 5)), G, device="cpu")))
+    return out
+
+
+# ------------------------------------------------------ the store-fed join
+
+#: tests/test_store.py's pruning query box
+STORE_BBOX = (-74.05, 40.6, -73.9, 40.75)
+
+
+def _ledger(out: dict, key: str, ledger: dict) -> None:
+    cells = sorted(ledger)
+    out[f"{key}_cells"] = np.array(cells, np.int64)
+    out[f"{key}_bytes"] = np.array([ledger[c] for c in cells], np.int64)
+
+
+def store_cases(G, solo, rank, inp) -> dict:
+    """tests/test_store.py's store-fed join over the chip store the parent
+    wrote: a cold run with and without a bbox, a heat-primed run, and the
+    planned join's calibration under a skewed heat prior."""
+    from mosaic_tpu_torch import config
+    from mosaic_tpu_torch.bench.workloads import build_workload
+    from mosaic_tpu_torch.obs import metrics
+    from mosaic_tpu_torch.obs.heat import heat
+    from mosaic_tpu_torch.parallel import pip_join as pj
+    from mosaic_tpu_torch.sql.planner import planner
+    from mosaic_tpu_torch.store import ChipStore
+    polys, grid, res = build_workload(n_side=6, res_cells=64)
+    idx = pj.build_pip_index(polys, res, grid, device="cpu")
+    st = ChipStore(str(inp["store_root"]))
+    prev = config.default_config()
+    _set_conf("mosaic.heat.halflife.ms", "0")
+    metrics.enable()
+    heat.reset()
+    out = {}
+    for tag, bbox in (("store", None), ("store_bbox", STORE_BBOX)):
+        run = pj.make_store_sharded_pip_join(st, idx, grid, G, polys=polys,
+                                             chunk=4096, refresh=2,
+                                             device="cpu")
+        h0 = metrics.counter_value("pipeline/h2d_bytes")
+        out[f"{tag}_zone"], out[f"{tag}_rechecked"] = run(bbox=bbox)
+        out[f"{tag}_h2d"] = np.array(
+            metrics.counter_value("pipeline/h2d_bytes") - h0)
+        out[f"{tag}_observations"] = np.array(run.rebalancer.observations)
+        _ledger(out, f"{tag}_ledger", run.staged_bytes_by_partition)
+    # the cold runs fed heat alike on every rank: prime from it
+    _set_conf("mosaic.heat.prior", "true")
+    p0 = metrics.counter_value("heat/prior_primes")
+    hot = pj.make_store_sharded_pip_join(st, idx, grid, G, polys=polys,
+                                         chunk=4096, refresh=2,
+                                         device="cpu")
+    out["store_hot_armed"] = np.array(hot.rebalancer.armed)
+    out["store_hot_zone"], out["store_hot_rechecked"] = hot()
+    out["store_hot_primes"] = np.array(
+        metrics.counter_value("heat/prior_primes") - p0)
+    # a skewed heat plane puts the sharded candidate first in calibrate
+    heat.touch(1, rows=1_000_000)
+    _set_conf("mosaic.stream.chunk.rows", "4096")
+    planner.reset()
+    h0 = metrics.counter_value("heat/calibrate_hints")
+    planned = pj.make_planned_pip_join(idx, grid, polys, group=G)
+    out["hint_zone"] = planned.calibrate(inp["stream_pts"])
+    out["hint_order"] = np.array([s for s, _ in planned.calibrate_order])
+    out["hint_count"] = np.array(
+        metrics.counter_value("heat/calibrate_hints") - h0)
+    heat.reset()
+    planned.calibrate(inp["stream_pts"])
+    out["cold_order"] = np.array([s for s, _ in planned.calibrate_order])
+    planner.reset()
+    config.set_default_config(prev)
+    if rank == 1:
+        for pre, g in (("solo_", solo), ("none_", None)):
+            z, rc = pj.make_store_sharded_pip_join(
+                st, idx, grid, g, polys=polys, chunk=4096, refresh=2,
+                device="cpu")()
+            out[f"{pre}store_zone"], out[f"{pre}store_rechecked"] = z, rc
+    metrics.disable()
     return out
