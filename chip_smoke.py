@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. device — name and power limit (nvidia-smi); exits if CUDA is absent;
-2. build — compiles the ten kernels from ``csrc/`` with ``nvcc``, one
+2. build — compiles the thirteen kernels from ``csrc/`` with ``nvcc``, one
    process per source, and the native host library from
    ``native/geokernels.cpp`` with ``g++``, all started together:
    ``h3_projection`` (K1, the projection alone), ``h3_dense_join`` (K2,
@@ -17,7 +17,11 @@ Phases (any failure exits non-zero and prints no result):
    ``knn_ring_step`` (K6, SpatialKNN's ring step), ``tess_classify`` (K7,
    tessellation's cell classification), ``tess_clip`` (K8, its
    border-chip clip), ``raster_convolve`` (K9, the raster stencil, f64
-   and f32) and ``raster_combine`` (K10, the NaN-aware tile combine);
+   and f32), ``raster_combine`` (K10, the NaN-aware tile combine),
+   ``edge_measures`` (K11, area, length, centroid and bounds of edge
+   blocks), ``edge_point_query`` (K12, crossing counts and boundary
+   distances of points against edge blocks) and ``edges_cross`` (K13, the
+   edge-crossing matrix of two edge blocks), each f32 and f64;
 3. K1 vs plain — the projection kernel against its plain PyTorch
    version on the card, 2^22 localized NYC points (seed 100) at res 9
    around the flagship index's origin: all five outputs bit-equal; timed
@@ -237,12 +241,42 @@ Phases (any failure exits non-zero and prints no result):
     pruned, none of them staged or heated, each answer bit-equal to the
     streamed join over ``read_columns(bbox)``; ingest rows/s, query
     points/s and each query's host seconds;
-18. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
-    ``raster``, ``sharded``, ``store`` and ``tess_kernels`` (K7 and K8 by
-    input set) summary lines, the card, the ``kernels`` JSON line (K1-K10
-    with launches per path, the tessellations of phases 5 and 11, the
-    strategies', the raster, the sharded and the ``store fed`` paths
-    among them), then the last line ``{"ok": true, "device": {...}}``.
+18. the geometry surface: a. K11's area, length, centroid and bounds
+    (``core/geometry/measures.py``) in f64 and f32 on 2^20 footprint
+    boxes (``footprints``, seed 41, 8 edge slots) and on
+    ``conus_counties()`` (3,136 polygons, 32 slots), one launch a call,
+    bit-equal to the plain version on every row, within 1e-12 (f64) or
+    1e-5 (f32) of the row's sum of |terms| of a numpy f64 shoelace on the
+    block's coordinates, the bounds equal to numpy's; b. K12 through
+    ``points_in_polygons(..., with_boundary_dist=True)`` and
+    ``distance_points_to_geoms`` on 2^20 ``nyc_points`` (seed 100) x the
+    281 taxi zones (64 slots) in f64 and f32: bit-equal to the plain
+    version on a seeded 2^16-row sample in 2^14-row chunks, each row's
+    first zone equal to ``pip_host_truth`` wherever the point's f64
+    boundary distance is above 1e-9 degrees (f64) or 1e-5 (f32), the
+    points within each band printed; c. K13 with K12:
+    ``polygons_intersect`` and ``polygon_contains_polygon`` on the
+    counties' 3,136^2 pairs (symmetric, every county adjacent to one,
+    none containing another) and ``polygons_intersect`` on 2^14 footprints
+    x the zones against ``overlay_host_truth`` (every differing pair
+    printed, each a boundary touch within 1e-9 degrees); K13 bit-equal to
+    its plain version on 512 sampled rows of each G1 in f64 and f32, and
+    ``polygons_intersect`` to its plain composition; d. ``raster_to_grid``
+    on config 5's DEM values in EPSG:32618 (50 m pixels from the UTM
+    projection of (-74.25, 40.92)): ``warp`` on the host, then K3, the
+    cells bit-equal to ``device="cpu"``'s, one K3 launch; e. K11 (centroid,
+    f64 footprints; every measure's events time), K12 (count and
+    distance on the 2^16-row sample, f64; the full 2^20 points in f64 and
+    f32) and K13 (512 sampled counties x 3,136, f64; all pairs) timed in
+    turns against their plain versions beside their bounds, counted from
+    the run's own data;
+19. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+    ``raster``, ``sharded``, ``store``, ``geometry`` and ``tess_kernels``
+    (K7 and K8 by input set) summary lines, the card, the ``kernels`` JSON
+    line (K1-K13 with launches per path, the tessellations of phases 5
+    and 11, the strategies', the raster, the sharded, the ``store fed``
+    and the ``geometry`` paths among them), then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -294,7 +328,8 @@ EDGE_FLOPS = 4
 STRADDLE_FLOPS = 16
 KERNELS = ("h3_projection", "h3_dense_join", "h3_cell", "overlay_pairs",
            "knn_brute_topk", "knn_ring_step", "tess_classify", "tess_clip",
-           "raster_convolve", "raster_combine")
+           "raster_convolve", "raster_combine", "edge_measures",
+           "edge_point_query", "edges_cross")
 #: points of each K3 set held against the f64 host ids (numpy, ~9 s per
 #: 2^20 points on one core)
 HOST_SAMPLE = 1 << 20
@@ -422,6 +457,39 @@ STORE_SIDE_ROWS = 1 << 17
 STORE_SIDE_RES = 8192
 STORE_SIDE_SHARD = 1 << 14
 STORE_SIDE_FRAC = 0.45
+#: phase 18, the geometry surface: K11's four measures on 2^20 footprint
+#: boxes (seed 41, 8 edge slots) and on conus_counties() (3,136, 32
+#: slots); K12 on GEOM_POINTS flagship points (seed 100) x the 281 taxi
+#: zones (64 slots), held to the plain version on a seeded GEOM_SAMPLE-row
+#: sample in GEOM_CHUNK-row chunks and to pip_host_truth outside
+#: GEOM_BAND degrees of a boundary; K13 on the counties' 3,136^2 pairs and
+#: on GEOM_PRED_FOOTPRINTS footprints x the zones, held to the plain
+#: version on GEOM_PLAIN_ROWS sampled rows and to overlay_host_truth, a
+#: differing pair allowed where the boundaries lie within GEOM_TOUCH_DEG
+GEOM_MEASURES = ("area", "length", "centroid", "bounds")
+GEOM_FOOTPRINTS = 1 << 20
+GEOM_POINTS = 1 << 20
+GEOM_POINT_SEED = 100
+GEOM_SAMPLE = 1 << 16
+GEOM_CHUNK = 1 << 14
+GEOM_PRED_FOOTPRINTS = 1 << 14
+GEOM_PLAIN_ROWS = 512
+GEOM_SEED = 18
+#: conus_counties()' side: 56 gives its 3,136 polygons
+GEOM_COUNTY_SIDE = 56
+#: pairwise_point_distance's timed call: this many points x as many
+GEOM_PAIRWISE = 4096
+#: K11 against the numpy f64 shoelace: this many times the row's sum of
+#: |terms|, by the blocks' type
+GEOM_REL = {"float64": 1e-12, "float32": 1e-5}
+#: K12's first zone must equal pip_host_truth for every point whose f64
+#: boundary distance (degrees) is above this, by the blocks' type
+GEOM_BAND = {"float64": 1e-9, "float32": 1e-5}
+GEOM_TOUCH_DEG = 1e-9
+#: config 5's DEM values on a UTM 18N grid (NYC's zone) of 50 m pixels
+#: from the UTM projection of (-74.25, 40.92)
+UTM_EPSG = 32618
+UTM_PIXEL = 50.0
 #: NVIDIA H100 SXM data sheet: 34 TFLOP/s in f64 outside the tensor cores,
 #: an FMA as two flops, so 17e12 f64 instructions a second (an add,
 #: multiply, compare or min/max each one)
@@ -473,6 +541,26 @@ K7_PER_CELL_VERTEX = 4 + 2
 K8_PER_CELL_SIDE = 2
 K8_PER_VERTEX = 5 + 1
 K8_PER_CROSSING = 2 + F64_DIV_OPS + 6
+#: f32 instructions a second at PEAK_F32_FLOPS with an FMA as two flops
+#: (an add, multiply, compare or min/max each one)
+PEAK_F32_OPS = PEAK_F32_FLOPS / 2
+#: an f32 IEEE divide counted as one operation (it issues more), so the
+#: f32 bounds are lower bounds
+F32_DIV_OPS = 1
+#: K12's operations (csrc/edge_point_query.cu): per valid (point, edge)
+#: pair the straddle's two compares; per straddling pair py - ay, by -
+#: ay, bx - ax, a multiply, an add and px < xi beside the divide; per
+#: valid pair of the distance ap (2), the dot product (3), the guard's
+#: add (1), the clip (2), the projection (4), d (2), d2 (3) and the min
+#: (1), 18, beside the divide (ab and its squared length are once an
+#: edge and not counted); a sqrt a (point, geometry)
+K12_PER_EDGE = 2
+K12_PER_STRADDLE = 6
+K12_PER_DIST_EDGE = 18
+#: K13's operations a tested edge pair (csrc/edges_cross.cu): three
+#: coordinate differences (6), four orientations of two multiplies and a
+#: subtract (12), eight sign and zero tests (8)
+K13_PER_EDGE_PAIR = 26
 
 
 class PhaseError(RuntimeError):
@@ -1277,6 +1365,9 @@ def launch_counts():
     from mosaic_tpu_torch import native
     from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin
     from mosaic_tpu_torch.ops.dense_join import dense_join
+    from mosaic_tpu_torch.ops.edge_measures import edge_measures
+    from mosaic_tpu_torch.ops.edge_point import edge_point_query
+    from mosaic_tpu_torch.ops.edges_cross import edges_cross
     from mosaic_tpu_torch.ops.knn_brute import brute_topk
     from mosaic_tpu_torch.ops.knn_ring import ring_step
     from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
@@ -1306,13 +1397,19 @@ def launch_counts():
             "sample_points": SAMPLE_COUNTS["points"],
             "sample_host_points": SAMPLE_COUNTS["host_points"],
             "raster_convolve": raster_convolve.launches,
-            "raster_combine": raster_combine.launches}
+            "raster_combine": raster_combine.launches,
+            "edge_measures": edge_measures.launches,
+            "edge_point_query": edge_point_query.launches,
+            "edges_cross": edges_cross.launches}
 
 
 def reset_counts() -> None:
     from mosaic_tpu_torch import native
     from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin
     from mosaic_tpu_torch.ops.dense_join import dense_join
+    from mosaic_tpu_torch.ops.edge_measures import edge_measures
+    from mosaic_tpu_torch.ops.edge_point import edge_point_query
+    from mosaic_tpu_torch.ops.edges_cross import edges_cross
     from mosaic_tpu_torch.ops.knn_brute import brute_topk
     from mosaic_tpu_torch.ops.knn_ring import ring_step
     from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
@@ -1340,6 +1437,9 @@ def reset_counts() -> None:
     SAMPLE_COUNTS.update(points=0, host_points=0)
     raster_convolve.launches = 0
     raster_combine.launches = 0
+    edge_measures.launches = 0
+    edge_point_query.launches = 0
+    edges_cross.launches = 0
 
 
 def sorted_join(label: str, polys, grid, res: int, batches, chips=None,
@@ -4216,6 +4316,527 @@ def phase_store(idx, grid, polys):
     return out
 
 
+def geom_host_measures(A, B, M):
+    """(area, length, centroid, bounds) and the sums of |terms| of the
+    first three, per row, in numpy f64 (pairwise sums) from a block's own
+    coordinates: the reference K11 is held to."""
+    import numpy as np
+    cross = np.where(M, A[..., 0] * B[..., 1] - A[..., 1] * B[..., 0], 0.0)
+    # the shoelace's terms are its products: |ax by| + |ay bx| an edge
+    prod = np.where(M, np.abs(A[..., 0] * B[..., 1]) +
+                    np.abs(A[..., 1] * B[..., 0]), 0.0)
+    d = B - A
+    ln = np.where(M, np.sqrt(np.sum(d * d, -1)), 0.0)
+    Asum, L = cross.sum(-1), ln.sum(-1)
+    mid = A + B
+    with np.errstate(divide="ignore", invalid="ignore"):
+        poly = (mid * cross[..., None]).sum(1) / (3 * Asum[:, None] + 1e-300)
+        line = (0.5 * mid * ln[..., None]).sum(1) / (L[:, None] + 1e-300)
+        n = M.sum(-1)[:, None]
+        vert = np.where(M[..., None], A, 0.0).sum(1) / (n + 1e-300)
+        top = np.abs(mid).max(1)
+        s_poly = (np.abs(mid * prod[..., None]).sum(1) +
+                  top * prod.sum(-1)[:, None]) / np.abs(3 * Asum[:, None])
+        s_line = (np.abs(0.5 * mid * ln[..., None]).sum(1) +
+                  top * L[:, None]) / L[:, None]
+    is_poly = (np.abs(Asum) > 1e-30)[:, None]
+    is_line = (L > 1e-30)[:, None]
+    cen = np.where(is_poly, poly, np.where(is_line, line, vert))
+    s_cen = np.where(is_poly, s_poly, np.where(is_line, s_line,
+                                               np.abs(vert)))
+    inf = np.inf
+    lo = np.minimum(np.where(M[..., None], A, inf).min(1),
+                    np.where(M[..., None], B, inf).min(1))
+    hi = np.maximum(np.where(M[..., None], A, -inf).max(1),
+                    np.where(M[..., None], B, -inf).max(1))
+    bounds = np.concatenate([lo, hi], -1)
+    return ({"area": np.maximum(0.5 * Asum, 0.0), "length": L,
+             "centroid": cen, "bounds": bounds},
+            {"area": 0.5 * prod.sum(-1), "length": L,
+             "centroid": s_cen})
+
+
+def geom_measures(label: str, arr, path: str, paths: dict) -> dict:
+    """K11 on ``arr``'s edge blocks in f64 and f32 through the four
+    measures (one launch each, counted under ``path``): bit-equal to the
+    plain version on every row, and within GEOM_REL of the type x the row's
+    sum of |terms| of a numpy f64 shoelace on the block's own
+    coordinates; the bounds equal to numpy's min and max exactly."""
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch.core.geometry import measures
+    from mosaic_tpu_torch.core.geometry.padded import build_edges
+    from mosaic_tpu_torch.ops.edge_measures import edge_measures_ref
+    out = {"rows": len(arr)}
+    blocks = {dt: build_edges(arr, dtype=dt, device=DEV)
+              for dt in (torch.float64, torch.float32)}
+    reset_counts()
+    got = {dt: {w: getattr(measures, w)(e) for w in GEOM_MEASURES}
+           for dt, e in blocks.items()}
+    torch.cuda.synchronize()
+    paths[path] = launch_counts()
+    check(paths[path]["edge_measures"] == 2 * len(GEOM_MEASURES),
+          f"{label}: {paths[path]['edge_measures']} K11 launches for "
+          f"{2 * len(GEOM_MEASURES)} calls")
+    for dt, e in blocks.items():
+        name = str(dt).split(".")[-1]
+        A = e.a.double().cpu().numpy()
+        B = e.b.double().cpu().numpy()
+        M = e.mask.cpu().numpy()
+        host, scale = geom_host_measures(A, B, M)
+        row = {"edge_slots": int(e.capacity)}
+        for w in GEOM_MEASURES:
+            k = got[dt][w]
+            plain = edge_measures_ref(e.a, e.b, e.mask, w)
+            check(same_bits(k, plain), f"{label} {name} {w}: K11 differs "
+                  "from its plain version")
+            kh = k.double().cpu().numpy()
+            if w == "bounds":
+                check(np.array_equal(kh, host[w]), f"{label} {name} bounds "
+                      "differ from numpy's min and max")
+                row[w] = "equal"
+                continue
+            tol = GEOM_REL[name] * scale[w] + 1e-300
+            err = np.abs(kh - host[w])
+            rel = float((err / np.maximum(scale[w], 1e-300)).max())
+            check(bool((err <= tol).all()), f"{label} {name} {w}: "
+                  f"{int((err > tol).sum())} rows beyond {GEOM_REL[name]} x "
+                  "the sum of |terms| of the f64 shoelace")
+            row[w] = rel
+        out[name] = row
+        log(f"[geometry] {label} {name}: {len(arr)} rows x "
+            f"{e.capacity} edge slots; area, length, centroid, bounds "
+            "bit-equal to the plain version; worst error / sum of |terms| "
+            f"against the numpy f64 shoelace: {row}")
+    out["blocks"] = blocks
+    return out
+
+
+def straddle_count(py, e) -> int:
+    """Valid (point, edge) pairs of the block ``e`` (all its geometries)
+    whose edge straddles the point's y by the half-open rule, counted
+    from sorted edge y-ranges: lo <= py < hi."""
+    import torch
+    ay, by = e.a[..., 1][e.mask], e.b[..., 1][e.mask]
+    lo = torch.sort(torch.minimum(ay, by)).values
+    hi = torch.sort(torch.maximum(ay, by)).values
+    n = torch.searchsorted(lo, py.contiguous(), right=True) - \
+        torch.searchsorted(hi, py.contiguous(), right=True)
+    return int(n.sum())
+
+
+def k12_bound(pts, e) -> dict:
+    """K12's bound for count and distance on ``pts`` against ``e``: the
+    operations its data needs (K12_PER_EDGE compares a valid (point,
+    edge) pair, K12_PER_STRADDLE and a divide a straddling one,
+    K12_PER_DIST_EDGE and a divide a valid pair's distance, a sqrt a
+    pair) and its bytes (points, edges and mask read once; counts and
+    distances written once)."""
+    import torch
+    f64 = pts.dtype == torch.float64
+    size = 8 if f64 else 4
+    div = F64_DIV_OPS if f64 else F32_DIV_OPS
+    N, G = int(pts.shape[0]), int(e.a.shape[0])
+    valid = int(e.mask.sum())
+    strad = straddle_count(pts[:, 1], e)
+    ops = N * valid * (K12_PER_EDGE + K12_PER_DIST_EDGE + div) + \
+        strad * (K12_PER_STRADDLE + div) + N * G
+    byts = pts.numel() * size + 2 * e.a.numel() * size + e.mask.numel() + \
+        N * G * (4 + size)
+    t_ops = ops / (PEAK_F64_OPS if f64 else PEAK_F32_OPS) * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    return {"ops": ops, "bytes": byts, "straddles": strad,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k13_bound(e1, e2, cross) -> dict:
+    """K13's bound from its own answer ``cross``: every valid edge pair of
+    a pair that does not cross, one of a pair that does, at
+    K13_PER_EDGE_PAIR operations each; bytes: both blocks read once and
+    the matrix written once."""
+    import torch
+    f64 = e1.a.dtype == torch.float64
+    size = 8 if f64 else 4
+    v1 = e1.mask.sum(1).double()
+    v2 = e2.mask.sum(1).double()
+    false_pairs = float((v1[:, None] * v2[None, :] *
+                         (~cross).double()).sum())
+    tests = false_pairs + float(cross.sum())
+    ops = tests * K13_PER_EDGE_PAIR
+    byts = 2 * (e1.a.numel() + e2.a.numel()) * size + e1.mask.numel() + \
+        e2.mask.numel() + cross.numel()
+    t_ops = ops / (PEAK_F64_OPS if f64 else PEAK_F32_OPS) * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    return {"edge_pair_tests": tests, "ops": ops, "bytes": byts,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def first_zone(inside):
+    """[N] the first set column of each row of ``inside``, -1 where none
+    (the oracle's first-match rule)."""
+    import torch
+    hit = inside.any(1)
+    return torch.where(hit, inside.to(torch.int8).argmax(1),
+                       torch.full_like(hit, -1, dtype=torch.int64))
+
+
+def boundary_gap(arr_a, ia: int, arr_b, ib: int) -> float:
+    """The f64 distance between the boundaries of two polygons: the least
+    vertex-to-edge distance either way."""
+    import numpy as np
+    from mosaic_tpu_torch.core.geometry.clip import (_edges_of,
+                                                     _seg_point_dist,
+                                                     geometry_rings)
+    ra, rb = geometry_rings(arr_a, ia), geometry_rings(arr_b, ib)
+    va, vb = np.concatenate(ra), np.concatenate(rb)
+    return float(min(_seg_point_dist(va, _edges_of(rb)).min(),
+                     _seg_point_dist(vb, _edges_of(ra)).min()))
+
+
+def phase_geometry(zones, grid):
+    """The geometry surface on the card: K11 on footprints and counties,
+    K12 on the flagship's points against its zones, K13 with K12 on the
+    counties' adjacency and the footprints against the zones, each held to
+    its plain version and to the host's f64 answer; ``raster_to_grid`` on
+    a UTM tile through ``warp``; the three kernels timed."""
+    import numpy as np
+    import torch
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.bench.workloads import conus_counties, footprints
+    from mosaic_tpu_torch.core.geometry import measures, predicates
+    from mosaic_tpu_torch.core.geometry.crs import transform_xy
+    from mosaic_tpu_torch.core.geometry.padded import build_edges
+    from mosaic_tpu_torch.ops.edge_measures import edge_measures_ref
+    from mosaic_tpu_torch.ops.edge_point import (edge_point_query,
+                                                 edge_point_query_ref)
+    from mosaic_tpu_torch.ops.edges_cross import edges_cross, edges_cross_ref
+    from mosaic_tpu_torch.parallel.overlay import overlay_host_truth
+    t_phase = time.perf_counter()
+    paths = {}
+    out = {}
+    rng = np.random.default_rng(GEOM_SEED)
+    f64, f32 = torch.float64, torch.float32
+
+    # 1. measures (K11)
+    foot = footprints(GEOM_FOOTPRINTS, seed=41)
+    counties = conus_counties(n_side=GEOM_COUNTY_SIDE)
+    meas_f = geom_measures("footprints", foot, "geometry measures "
+                           "footprints", paths)
+    meas_c = geom_measures("counties", counties, "geometry measures "
+                           "counties", paths)
+    out["measures"] = {"footprints": {k: v for k, v in meas_f.items()
+                                      if k != "blocks"},
+                       "counties": {k: v for k, v in meas_c.items()
+                                    if k != "blocks"}}
+
+    # 2. point queries (K12): the flagship's points x its zones
+    pts64 = mt.nyc_points(GEOM_POINTS, seed=GEOM_POINT_SEED)
+    ez = {dt: build_edges(zones, dtype=dt, device=DEV) for dt in (f64, f32)}
+    t0 = time.perf_counter()
+    oracle = mt.pip_host_truth(pts64, zones)
+    oracle_s = time.perf_counter() - t0
+    sample = np.sort(rng.choice(GEOM_POINTS, GEOM_SAMPLE, replace=False))
+    sample_t = torch.from_numpy(sample).to(DEV)
+    gap64 = None
+    out["points"] = {"points": GEOM_POINTS, "zones": len(zones),
+                     "edge_slots": int(ez[f64].capacity),
+                     "oracle_s": round(oracle_s, 3)}
+    for dt in (f64, f32):
+        name = str(dt).split(".")[-1]
+        e = ez[dt]
+        p = torch.from_numpy(pts64).to(dt).to(DEV)
+        path = f"geometry points {name}"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inside, bdist = predicates.points_in_polygons(
+            p, e, with_boundary_dist=True)
+        dist = measures.distance_points_to_geoms(p, e)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        paths[path] = launch_counts()
+        check(paths[path]["edge_point_query"] == 2,
+              f"{path}: {paths[path]['edge_point_query']} K12 launches for "
+              "points_in_polygons and distance_points_to_geoms")
+        check(same_bits(bdist, dist), f"{path}: the boundary distance of "
+              "points_in_polygons differs from distance_points_to_geoms")
+        # the plain version on a seeded sample, in row chunks
+        for s0 in range(0, GEOM_SAMPLE, GEOM_CHUNK):
+            rows = sample_t[s0:s0 + GEOM_CHUNK]
+            pc, pd = edge_point_query_ref(p[rows], e.a, e.b, e.mask, True,
+                                          True)
+            kc, _ = edge_point_query(p[rows], e.a, e.b, e.mask, True, False)
+            check(torch.equal(kc, pc), f"{path}: K12's counts differ from "
+                  "the plain version's")
+            check(torch.equal(inside[rows], (pc & 1).to(torch.bool)),
+                  f"{path}: containment differs from the plain version's")
+            check(same_bits(bdist[rows], pd), f"{path}: K12's distances "
+                  "differ from the plain version's")
+        first = first_zone(inside).cpu().numpy()
+        if dt == f64:
+            gap64 = bdist.min(1).values.cpu().numpy()
+        band = GEOM_BAND[name]
+        far = gap64 > band
+        wrong = first != oracle
+        check(not (wrong & far).any(), f"{path}: {int((wrong & far).sum())} "
+              f"points beyond {band} degrees of a zone boundary differ "
+              "from pip_host_truth")
+        row = {"seconds": round(call_s, 4), "band_deg": band,
+               "in_band": int((~far).sum()),
+               "in_band_differing": int((wrong & ~far).sum()),
+               "matched": int((first >= 0).sum())}
+        out["points"][name] = row
+        log(f"[geometry] {path}: {GEOM_POINTS} points x {len(zones)} zones "
+            f"({e.capacity} edge slots) in {call_s:.3f} s (host clock, "
+            f"two K12 launches); {GEOM_SAMPLE} sampled rows bit-equal to "
+            f"the plain version; first zone equal to pip_host_truth on all "
+            f"{int(far.sum())} points beyond {band} degrees of a boundary, "
+            f"{row['in_band']} within it ({row['in_band_differing']} of "
+            f"them differing); pip_host_truth {oracle_s:.2f} s")
+        del inside, bdist, dist
+
+    # 3. polygon predicates (K13 with K12)
+    ec = {dt: build_edges(counties, dtype=dt, device=DEV)
+          for dt in (f64, f32)}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inter = predicates.polygons_intersect(ec[f64], ec[f64])
+    contains = predicates.polygon_contains_polygon(ec[f64], ec[f64])
+    torch.cuda.synchronize()
+    county_s = time.perf_counter() - t0
+    path = "geometry counties"
+    paths[path] = launch_counts()
+    check(paths[path]["edges_cross"] == 2 and
+          paths[path]["edge_point_query"] == 3,
+          f"{path}: {paths[path]['edges_cross']} K13 and "
+          f"{paths[path]['edge_point_query']} K12 launches, expected 2 "
+          "and 3")
+    n_c = len(counties)
+    degree = inter.sum(1) - 1
+    check(torch.equal(inter, inter.T) and bool(inter.diagonal().all()),
+          "counties: polygons_intersect is not symmetric with a true "
+          "diagonal")
+    check(int(degree.min()) >= 1, "counties: a county touches no other")
+    check(int(contains.sum()) == 0, f"counties: {int(contains.sum())} "
+          "pairs of a partition contain one another")
+    out["counties"] = {"polygons": n_c, "edge_slots": int(ec[f64].capacity),
+                       "seconds": round(county_s, 4),
+                       "adjacent_pairs": int((inter.sum() - n_c) // 2),
+                       "degree_mean": float(degree.double().mean()),
+                       "degree_max": int(degree.max())}
+    log(f"[geometry] counties: polygons_intersect and "
+        f"polygon_contains_polygon on {n_c}^2 pairs in {county_s:.3f} s "
+        f"(host clock; 2 K13, 3 K12 launches): "
+        f"{out['counties']['adjacent_pairs']} adjacent pairs, degree mean "
+        f"{out['counties']['degree_mean']:.2f} max "
+        f"{out['counties']['degree_max']}; no county contains another")
+
+    foot14 = footprints(GEOM_PRED_FOOTPRINTS, seed=41)
+    ef = {dt: build_edges(foot14, dtype=dt, device=DEV) for dt in (f64, f32)}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fz = predicates.polygons_intersect(ef[f64], ez[f64])
+    torch.cuda.synchronize()
+    fz_s = time.perf_counter() - t0
+    path = "geometry footprints x zones"
+    paths[path] = launch_counts()
+    check(paths[path]["edges_cross"] == 1 and
+          paths[path]["edge_point_query"] == 2,
+          f"{path}: {paths[path]['edges_cross']} K13 and "
+          f"{paths[path]['edge_point_query']} K12 launches, expected 1 "
+          "and 2")
+    t0 = time.perf_counter()
+    truth = overlay_host_truth(foot14, zones)
+    truth_s = time.perf_counter() - t0
+    diff = np.argwhere(fz.cpu().numpy() != truth)
+    for i, j in diff:
+        gap = boundary_gap(foot14, int(i), zones, int(j))
+        log(f"[geometry] footprints x zones: pair ({i}, {j}) card "
+            f"{bool(fz[i, j])} host {bool(truth[i, j])}; boundary gap "
+            f"{gap:.3e}")
+        check(gap <= GEOM_TOUCH_DEG, f"footprints x zones: pair ({i}, {j}) "
+              "differs from overlay_host_truth and is no boundary touch")
+    out["footprints_x_zones"] = {
+        "pairs": int(fz.numel()), "intersecting": int(fz.sum()),
+        "differing": len(diff), "seconds": round(fz_s, 4),
+        "host_truth_s": round(truth_s, 3)}
+    log(f"[geometry] footprints x zones: {GEOM_PRED_FOOTPRINTS} x "
+        f"{len(zones)} in {fz_s:.3f} s (host clock; 1 K13, 2 K12 "
+        f"launches), {int(fz.sum())} intersecting; {len(diff)} pairs "
+        f"differ from overlay_host_truth ({truth_s:.2f} s), each a "
+        "boundary touch")
+
+    # K13 and the composed predicate against the plain versions on a
+    # seeded GEOM_PLAIN_ROWS-row sample of G1, f64 and f32
+    for label, e1, e2, main in (("counties", ec, ec, inter),
+                                ("footprints x zones", ef, ez, fz)):
+        rows = torch.from_numpy(np.sort(rng.choice(
+            e1[f64].a.shape[0], GEOM_PLAIN_ROWS, replace=False))).to(DEV)
+        for dt in (f64, f32):
+            a1, b1, m1 = e1[dt].a[rows], e1[dt].b[rows], e1[dt].mask[rows]
+            a2, b2, m2 = e2[dt].a, e2[dt].b, e2[dt].mask
+            k = edges_cross(a1, b1, m1, a2, b2, m2)
+            plain = edges_cross_ref(a1, b1, m1, a2, b2, m2)
+            check(torch.equal(k, plain), f"{label} {dt}: K13 differs from "
+                  "its plain version")
+            if dt == f64:
+                v1 = predicates.first_vertex(e1[dt])[rows]
+                v2 = predicates.first_vertex(e2[dt])
+                c12, _ = edge_point_query_ref(v1, a2, b2, m2)
+                c21, _ = edge_point_query_ref(v2, a1, b1, m1)
+                composed = plain | (c12 & 1).bool() | (c21 & 1).bool().T
+                check(torch.equal(composed, main[rows]), f"{label}: "
+                      "polygons_intersect differs from its plain "
+                      "composition")
+    log(f"[geometry] K13 bit-equal to its plain version on {GEOM_PLAIN_ROWS} "
+        "sampled rows of each G1 in f64 and f32, and polygons_intersect to "
+        "the plain composition in f64")
+
+    # 4. an entry point through the new modules: config 5's DEM in UTM
+    x0, y0 = transform_xy(np.array([[DEM_GT[0], DEM_GT[3]]]), 4326,
+                          UTM_EPSG)[0]
+    yy, xx = np.mgrid[0:DEM_SHAPE[0], 0:DEM_SHAPE[1]]
+    utm = mt.RasterTile((np.sin(xx / 60.0) * 50 + yy * 0.1)[None],
+                        mt.GeoTransform(float(x0), UTM_PIXEL, 0.0, float(y0),
+                                        0.0, -UTM_PIXEL), srid=UTM_EPSG)
+    cells, utm_s, utm_stages, paths["raster utm"], _ = raster_run(
+        "utm", [utm], grid)
+    t0 = time.perf_counter()
+    cpu = mt.raster_to_grid([utm], R2G_RES, grid, combiner="avg",
+                            device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(same_values(cells, cpu), "utm: the card's cells differ from the "
+          "device='cpu' call's")
+    out["raster_utm"] = {"cells": len(cells), "seconds": round(utm_s, 4),
+                         "cpu_seconds": round(cpu_s, 3),
+                         "k3_launches": paths["raster utm"][
+                             "h3_latlng_to_cell"]}
+    log(f"[geometry] utm: config 5's DEM in EPSG:{UTM_EPSG} ({UTM_PIXEL} m "
+        f"pixels) warped on the host and tessellated on the card: "
+        f"{len(cells)} cells in {utm_s:.3f} s, bit-equal to the "
+        f"device='cpu' call ({cpu_s:.3f} s)")
+
+    # 5. timing, each kernel in turns against its plain version
+    ef64 = meas_f["blocks"][f64]
+    ms, source, events_ms, host_ms, plain_ms = timed_kernel(
+        "K11 centroid f64 footprints",
+        lambda: measures.centroid(ef64),
+        lambda: edge_measures_ref(ef64.a, ef64.b, ef64.mask, "centroid"),
+        "measures_kernel", 5)
+    k11_bytes = (2 * ef64.a.numel() * 8 + ef64.mask.numel() +
+                 ef64.a.shape[0] * 2 * 8)
+    out["k11"] = {"max_abs_err": 0.0, "ms": ms, "ms_source": source,
+                  "host_ms": host_ms, "plain_ms": plain_ms,
+                  "bound_ms": k11_bytes / PEAK_BYTES * 1e3,
+                  "bound_by": "bytes", "library_ms": None,
+                  "shape": f"centroid, {GEOM_FOOTPRINTS} footprints x "
+                           f"{ef64.capacity} slots, f64"}
+    k11_more = {}
+    for dt in (f64, f32):
+        e = meas_f["blocks"][dt]
+        for w in GEOM_MEASURES:
+            k11_more[f"{w} {str(dt).split('.')[-1]}"] = time_ms(
+                lambda e=e, w=w: getattr(measures, w)(e), 20)
+    out["k11"]["ms_by_measure"] = k11_more
+    log(f"[geometry] K11 {out['k11']['shape']}: {ms:.4f} ms against its "
+        f"byte bound {out['k11']['bound_ms']:.4f} ms; every measure "
+        f"(events, 20 launches): {k11_more}")
+
+    p64 = torch.from_numpy(pts64).to(DEV)
+    ps = p64[sample_t]
+    e = ez[f64]
+    ms, source, events_ms, host_ms, plain_ms = timed_kernel(
+        "K12 count+dist f64 sample",
+        lambda: edge_point_query(ps, e.a, e.b, e.mask, True, True),
+        lambda: edge_point_query_ref(ps, e.a, e.b, e.mask, True, True),
+        "query_kernel", 1)
+    b_s = k12_bound(ps, e)
+    full_ms = time_ms(lambda: edge_point_query(p64, e.a, e.b, e.mask, True,
+                                               True), 3)
+    b_full = k12_bound(p64, e)
+    p32 = p64.to(f32)
+    full32_ms = time_ms(lambda: edge_point_query(
+        p32, ez[f32].a, ez[f32].b, ez[f32].mask, True, True), 3)
+    b_full32 = k12_bound(p32, ez[f32])
+    out["k12"] = {"max_abs_err": 0.0, "ms": ms, "ms_source": source,
+                  "host_ms": host_ms, "plain_ms": plain_ms,
+                  "bound_ms": b_s["bound_ms"], "bound_by": b_s["bound_by"],
+                  "library_ms": None,
+                  "shape": f"count and distance, {GEOM_SAMPLE} points x "
+                           f"{len(zones)} zones x {e.capacity} slots, f64",
+                  "work": {k: b_s[k] for k in ("ops", "bytes",
+                                               "straddles")},
+                  "full_f64": {"ms": full_ms, "bound_ms": b_full["bound_ms"],
+                               "ops": b_full["ops"]},
+                  "full_f32": {"ms": full32_ms,
+                               "bound_ms": b_full32["bound_ms"],
+                               "ops": b_full32["ops"]}}
+    log(f"[geometry] K12 {out['k12']['shape']}: {ms:.4f} ms, bound "
+        f"{b_s['bound_ms']:.4f} ms ({b_s['bound_by']}; {b_s['straddles']} "
+        f"straddling pairs); at all {GEOM_POINTS} points (events, 3 "
+        f"launches): f64 {full_ms:.3f} ms (bound "
+        f"{b_full['bound_ms']:.3f}), f32 {full32_ms:.3f} ms (bound "
+        f"{b_full32['bound_ms']:.3f})")
+
+    rows = torch.from_numpy(np.sort(rng.choice(
+        len(counties), GEOM_PLAIN_ROWS, replace=False))).to(DEV)
+    e1 = ec[f64]
+    a1, b1, m1 = e1.a[rows], e1.b[rows], e1.mask[rows]
+    ms, source, events_ms, host_ms, plain_ms = timed_kernel(
+        "K13 counties f64 sample",
+        lambda: edges_cross(a1, b1, m1, e1.a, e1.b, e1.mask),
+        lambda: edges_cross_ref(a1, b1, m1, e1.a, e1.b, e1.mask),
+        "cross_kernel", 1)
+    cross_s = edges_cross(a1, b1, m1, e1.a, e1.b, e1.mask)
+    b_s = k13_bound(type(e1)(a1, b1, m1), e1, cross_s)
+    full_ms = time_ms(lambda: predicates.edges_cross_matrix(e1, e1), 5)
+    b_full = k13_bound(e1, e1, predicates.edges_cross_matrix(e1, e1))
+    out["k13"] = {"max_abs_err": 0.0, "ms": ms, "ms_source": source,
+                  "host_ms": host_ms, "plain_ms": plain_ms,
+                  "bound_ms": b_s["bound_ms"], "bound_by": b_s["bound_by"],
+                  "library_ms": None,
+                  "shape": f"{GEOM_PLAIN_ROWS} sampled counties x "
+                           f"{len(counties)} x {e1.capacity}^2 slots, f64",
+                  "work": {k: b_s[k] for k in ("edge_pair_tests", "ops",
+                                               "bytes")},
+                  "full_f64": {"ms": full_ms, "bound_ms": b_full["bound_ms"],
+                               "edge_pair_tests": b_full["edge_pair_tests"]}}
+    log(f"[geometry] K13 {out['k13']['shape']}: {ms:.4f} ms, bound "
+        f"{b_s['bound_ms']:.4f} ms ({b_s['bound_by']}); all {n_c}^2 pairs "
+        f"(events, 5 launches): {full_ms:.3f} ms, bound "
+        f"{b_full['bound_ms']:.3f} ms ({b_full['edge_pair_tests']:.4g} "
+        "edge-pair tests)")
+    # the torch-op helpers (no kernels): their device time beside the
+    # bytes they must move
+    ops = {}
+    fv_bytes = e1.mask.numel() + e1.a.shape[0] * 2 * 8 * 2
+    ops["first_vertex"] = (time_ms(lambda: predicates.first_vertex(e1), 20),
+                           fv_bytes, f"{n_c} counties x {e1.capacity} slots")
+    pa, pb = p64[:GEOM_PAIRWISE], p64[GEOM_PAIRWISE:2 * GEOM_PAIRWISE]
+    ops["pairwise_point_distance"] = (
+        time_ms(lambda: measures.pairwise_point_distance(pa, pb), 20),
+        2 * GEOM_PAIRWISE * 16 + GEOM_PAIRWISE ** 2 * 8,
+        f"{GEOM_PAIRWISE} x {GEOM_PAIRWISE} points")
+    lat1, lng1 = p64[:, 1], p64[:, 0]
+    lat2, lng2 = p64.flip(0)[:, 1], p64.flip(0)[:, 0]
+    ops["haversine"] = (
+        time_ms(lambda: measures.haversine(lat1, lng1, lat2, lng2), 20),
+        5 * GEOM_POINTS * 8, f"{GEOM_POINTS} point pairs")
+    out["torch_ops"] = {k: {"ms": v[0], "bound_ms": v[1] / PEAK_BYTES * 1e3,
+                            "bound_by": "bytes", "shape": v[2]}
+                        for k, v in ops.items()}
+    log(f"[geometry] torch ops, f64 (events, 20 calls): "
+        f"{out['torch_ops']}")
+    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    out["paths"] = paths
+    log(f"[geometry] phase 18 took {out['phase_s']} s (host clock)")
+    return out
+
+
 def halo_seams(tile, w) -> dict:
     """K9 on SHARD_SLABS row slabs of the tile's first SHARD_HALO_ROWS
     rows, each widened by the halo rows a rank would receive (zero rows
@@ -4289,6 +4910,7 @@ def main() -> int:
         shard = phase_sharded(idx, grid, polys, batches, dense_zones, h3s,
                               over, knn, raster)
         store = phase_store(idx, grid, polys)
+        geom = phase_geometry(polys, grid)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4300,7 +4922,8 @@ def main() -> int:
              "knn ring": knn["paths"]["ring"]["counts"],
              **chip["tess_counts"], **strat["paths"], **raster["paths"],
              **shard["counts"], **{p: c for p, c in store["counts"].items()
-                                   if p.startswith("store fed")}}
+                                   if p.startswith("store fed")},
+             **geom["paths"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -4326,7 +4949,10 @@ def main() -> int:
                                 if k != "counts"}}))
     log(json.dumps({"store": {k: v for k, v in store.items()
                               if k != "counts"}}))
-    log(f"[chip_smoke] phases 1-17 took {time.perf_counter() - t_start:.1f} "
+    log(json.dumps({"geometry": {k: v for k, v in geom.items()
+                                 if k not in ("paths", "k11", "k12",
+                                              "k13")}}))
+    log(f"[chip_smoke] phases 1-18 took {time.perf_counter() - t_start:.1f} "
         "s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
@@ -4396,7 +5022,27 @@ def main() -> int:
                     "mosaic_tpu_torch/csrc/raster_combine.cu",
                     "mosaic_tpu/core/raster/rops.py:188 (combine)",
                     raster["paths"]["raster srtm"]["raster_combine"],
-                    raster["k10"]["avg"], by_path("raster_combine"))]}))
+                    raster["k10"]["avg"], by_path("raster_combine")),
+        kernel_line("edge_measures",
+                    "mosaic_tpu_torch/csrc/edge_measures.cu",
+                    "mosaic_tpu/core/geometry/measures.py:27 (area), :37 "
+                    "(length), :43 (centroid), :64 (bounds)",
+                    sum(c["edge_measures"] for p, c in geom["paths"].items()),
+                    geom["k11"], by_path("edge_measures")),
+        kernel_line("edge_point_query",
+                    "mosaic_tpu_torch/csrc/edge_point_query.cu",
+                    "mosaic_tpu/core/geometry/predicates.py:26 "
+                    "(crossing_number), :42 (points_in_polygons) + "
+                    "mosaic_tpu/core/geometry/measures.py:94 "
+                    "(distance_points_to_geoms)",
+                    sum(c["edge_point_query"]
+                        for p, c in geom["paths"].items()),
+                    geom["k12"], by_path("edge_point_query")),
+        kernel_line("edges_cross", "mosaic_tpu_torch/csrc/edges_cross.cu",
+                    "mosaic_tpu/core/geometry/predicates.py:84 "
+                    "(edges_cross_matrix over :63 segments_intersect)",
+                    sum(c["edges_cross"] for p, c in geom["paths"].items()),
+                    geom["k13"], by_path("edges_cross"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

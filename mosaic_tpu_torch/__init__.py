@@ -21,7 +21,13 @@ out-of-core chip store (``store/``: grid-partitioned columnar shards on
 disk, interchangeable with the JAX package's) with the store-fed join
 over it, its WHERE pushdown over ``sql/parser.py``, the layout advisor
 ``sql/layout.py``, and the metrics registry and partition heat they
-record into (``obs/``).  The
+record into (``obs/``); and the rest of the geometry surface
+(``core/geometry/``): the WKB and GeoJSON codecs, buffer, simplify, hulls
+and validity, the boolean engine and dissolve, triangulation, CRS
+transforms, the resolution analyzer (``analyzer.py``), and the
+measures and predicates over padded edge blocks, on three more
+hand-written kernels (``ops/edge_measures.py``, ``ops/edge_point.py``,
+``ops/edges_cross.py``).  The
 package imports torch and numpy, never jax and nothing of
 ``mosaic_tpu``; its module layout and names follow ``mosaic_tpu`` so
 each module's counterpart is easy to find.
@@ -30,8 +36,8 @@ Entry points that create device state (``build_pip_index``,
 ``build_dense_pip_index``, ``make_streamed_pip_join``,
 ``make_store_sharded_pip_join``, ``make_refined_pip_join``,
 ``tessellate``, ``tessellate_subset``, the ``overlay_*`` entry points,
-``SpatialKNN``, ``raster_to_grid`` and the raster operators that compute
-on a device) run on CUDA unless the caller passes ``device="cpu"``, and
+``SpatialKNN``, ``raster_to_grid``, the raster operators that compute
+on a device, ``build_edges`` and ``points_block``) run on CUDA unless the caller passes ``device="cpu"``, and
 raise RuntimeError when no CUDA device exists and none was asked for.
 
     import mosaic_tpu_torch as mt
@@ -48,6 +54,8 @@ from ._device import resolve_device
 from .bench.workloads import (ais_pings_ports, build_workload, nyc_points,
                               taxi_zones)
 from .core.geometry.array import GeometryArray, GeometryBuilder, GeometryType
+from .core.geometry.geojson import read_geojson, write_geojson
+from .core.geometry.wkb import read_wkb, write_wkb
 from .core.geometry.wkt import read_wkt, write_wkt
 from .core.index.factory import get_index_system
 from .core.raster import GeoTransform, RasterTile, read_gtiff, write_gtiff
@@ -74,7 +82,7 @@ from .types import ChipSet
 __all__ = [
     "resolve_device", "build_workload", "nyc_points", "taxi_zones",
     "GeometryArray", "GeometryBuilder", "GeometryType", "read_wkt",
-    "write_wkt", "get_index_system", "point_chips", "polyfill", "tessellate",
+    "write_wkt", "read_wkb", "write_wkb", "read_geojson", "write_geojson", "get_index_system", "point_chips", "polyfill", "tessellate",
     "tessellate_subset",
     "project_lattice", "project_lattice_ref", "DensePIPIndex", "PIPIndex",
     "build_dense_pip_index", "build_pip_index", "dense_index_from_arrays",

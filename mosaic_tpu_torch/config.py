@@ -4,7 +4,7 @@ raster layer read.
 Port copy of the part of ``mosaic_tpu.config`` that the planner, the
 planned and refined PIP joins, the stream chunk, SpatialKNN's engine
 choice, the raster checkpoint, the codecs' error policy, the chip store,
-partition heat and the layout advisor read.  Keys
+partition heat, the layout advisor and the CRS transforms read.  Keys
 keep the JAX package's names, defaults, validators and error class, so a
 setting carries over 1:1:
 
@@ -22,6 +22,9 @@ setting carries over 1:1:
   the temp prefix and the block size;
 * ``mosaic.io.on.error`` — "raise", "skip" or "null", the codecs'
   policy for a malformed record (``resilience/ingest``);
+* ``mosaic.crs.strict.datum`` — raise instead of warn where a CRS
+  transform would apply an identity datum shift
+  (``core/geometry/crs.py``);
 * ``mosaic.shard.skew.refresh`` — every how many chunks the sharded
   streamed join re-packs its skew-aware placement
   (``parallel/placement.py``);
@@ -59,6 +62,7 @@ MOSAIC_RASTER_USE_CHECKPOINT = "mosaic.raster.use.checkpoint"
 MOSAIC_RASTER_TMP_PREFIX = "mosaic.raster.tmp.prefix"
 MOSAIC_RASTER_BLOCKSIZE = "mosaic.raster.blocksize"
 MOSAIC_IO_ON_ERROR = "mosaic.io.on.error"
+MOSAIC_CRS_STRICT_DATUM = "mosaic.crs.strict.datum"
 MOSAIC_SHARD_SKEW_REFRESH = "mosaic.shard.skew.refresh"
 MOSAIC_STORE_DIR = "mosaic.store.dir"
 MOSAIC_STORE_GRID_RES = "mosaic.store.grid.res"
@@ -109,6 +113,10 @@ class MosaicConfig:
     # ingestion error policy (resilience/ingest.py): "raise" fails fast,
     # "skip" drops malformed records, "null" fills them
     io_on_error: str = "raise"
+    # raise (instead of warn) when a CRS transform would apply an
+    # identity datum shift: the EPSG registry has no Helmert parameters
+    # for the code (core/geometry/crs.py)
+    crs_strict_datum: bool = False
     # every K-th chunk of the sharded streamed join re-packs the
     # skew-aware placement (parallel/placement.py)
     shard_skew_refresh: int = 16
@@ -217,6 +225,7 @@ _CONF_FIELDS = {
     MOSAIC_RASTER_TMP_PREFIX: ("raster_tmp_prefix", _as_str),
     MOSAIC_RASTER_BLOCKSIZE: ("raster_blocksize", _as_blocksize),
     MOSAIC_IO_ON_ERROR: ("io_on_error", _as_on_error),
+    MOSAIC_CRS_STRICT_DATUM: ("crs_strict_datum", _as_flag),
     MOSAIC_SHARD_SKEW_REFRESH: ("shard_skew_refresh", _as_blocksize),
     MOSAIC_STORE_DIR: ("store_dir", _as_str),
     MOSAIC_STORE_GRID_RES: ("store_grid_res", _as_blocksize),

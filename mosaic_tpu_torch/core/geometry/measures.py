@@ -1,17 +1,124 @@
-"""Exact f64 geometry distance (numpy).
+"""Vectorized geometry measures on padded edge blocks, and the exact f64
+geometry distance.
 
-The port's own copy of ``pairwise_geometry_distance`` from
-``mosaic_tpu.core.geometry.measures`` (that module imports jax), and
-nothing else of it: SpatialKNN's geometry rows rank candidates by it.
-Planar (Cartesian) semantics in the geometry's own CRS, matching JTS.
+Port of ``mosaic_tpu.core.geometry.measures``.  ``area``, ``length``,
+``centroid`` and ``bounds`` are one launch each of the edge-measures
+kernel (``ops/edge_measures.py``), ``distance_points_to_geoms`` one
+launch of the point-query kernel (``ops/edge_point.py``), on the edge
+blocks' device; ``point_segment_dist2``, ``pairwise_point_distance`` and
+``haversine`` are torch ops, elementwise and broadcasting.  On CPU
+tensors the kernels' plain versions run.  ``pairwise_geometry_distance``
+is the numpy host path SpatialKNN's geometry rows rank candidates by.
+
+Reference counterpart: the measure methods on
+core/geometry/MosaicGeometry.scala (getArea, getLength, getCentroid,
+minMaxCoord, distance) executed row-at-a-time through JTS.  Planar
+(Cartesian) semantics in the geometry's own CRS, matching JTS.
+Spherical helpers (haversine) live at the bottom.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..._device import DeviceLike, resolve_device
+from ...ops.edge_measures import edge_measures, guards
+from ...ops.edge_point import edge_point_query
 from .array import GeometryType
-from .padded import build_edges_np
+from .padded import EdgeBlocks, build_edges_np
+
+EARTH_RADIUS_M = 6_371_008.8  # mean Earth radius (IUGG)
+
+
+def area(e: EdgeBlocks) -> torch.Tensor:
+    """Signed shoelace area per geometry. [G].
+
+    Winding was normalized on build (shells CCW, holes CW) so the signed sum
+    equals shell area minus hole area; clamp at 0 for degenerate inputs.
+    """
+    return edge_measures(e.a, e.b, e.mask, "area")
+
+
+def length(e: EdgeBlocks) -> torch.Tensor:
+    """Sum of edge lengths per geometry (perimeter for polygons). [G]."""
+    return edge_measures(e.a, e.b, e.mask, "length")
+
+
+def centroid(e: EdgeBlocks) -> torch.Tensor:
+    """Area-weighted centroid per geometry; falls back to the
+    length-weighted edge midpoints (lines), then the vertex mean
+    (degenerate). [G, 2]."""
+    return edge_measures(e.a, e.b, e.mask, "centroid")
+
+
+def bounds(e: EdgeBlocks) -> torch.Tensor:
+    """[G, 4] (xmin, ymin, xmax, ymax) over valid edges."""
+    return edge_measures(e.a, e.b, e.mask, "bounds")
+
+
+def point_segment_dist2(p: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """Squared distance from points to segments, broadcasting."""
+    eps, _ = guards(a.dtype)
+    ab = b - a
+    ap = p - a
+    denom = torch.sum(ab * ab, dim=-1)
+    t = torch.clamp(torch.sum(ap * ab, dim=-1) / (denom + eps), 0.0, 1.0)
+    proj = a + t[..., None] * ab
+    d = p - proj
+    return torch.sum(d * d, dim=-1)
+
+
+def as_points(points, e: EdgeBlocks) -> torch.Tensor:
+    """[N, 2] points on the blocks' device, in the blocks' type: a tensor
+    as it is, anything else through ``torch.as_tensor``; ValueError when
+    the types differ."""
+    p = points if isinstance(points, torch.Tensor) else \
+        torch.as_tensor(np.asarray(points), device=e.a.device)
+    if p.dtype != e.a.dtype:
+        raise ValueError(f"points are {p.dtype}, the edge blocks "
+                         f"{e.a.dtype}: give both one type")
+    return p
+
+
+def distance_points_to_geoms(points, e: EdgeBlocks) -> torch.Tensor:
+    """[N, G] planar distance from each point to each geometry's edges.
+
+    Distance 0 is NOT shortcut for containment here; use
+    predicates.contains for inside tests (JTS distance to a polygon
+    interior is 0 — callers combine the two, see functions.st.st_distance).
+    """
+    return edge_point_query(as_points(points, e), e.a, e.b, e.mask,
+                            count=False, dist=True)[1]
+
+
+def pairwise_point_distance(a: torch.Tensor,
+                            b: torch.Tensor) -> torch.Tensor:
+    """[N, M] Euclidean distances between two point sets."""
+    diff = a[:, None, :] - b[None, :, :]
+    return torch.sqrt(torch.sum(diff * diff, dim=-1))
+
+
+def haversine(lat1, lng1, lat2, lng2,
+              radius: float = EARTH_RADIUS_M / 1000.0,
+              device: DeviceLike = None) -> torch.Tensor:
+    """Great-circle distance (default km — matches reference ST_Haversine,
+    expressions/geometry/ST_Haversine.scala which returns km).  Tensors
+    stay where they are; anything else becomes float64 on ``device``
+    (CUDA unless the caller passes ``device="cpu"``)."""
+    args = [lat1, lng1, lat2, lng2]
+    if not all(isinstance(v, torch.Tensor) for v in args):
+        dev = resolve_device(device)
+        args = [v if isinstance(v, torch.Tensor) else
+                torch.as_tensor(v, dtype=torch.float64, device=dev)
+                for v in args]
+    lat1, lng1, lat2, lng2 = map(torch.deg2rad, args)
+    dlat = lat2 - lat1
+    dlng = lng2 - lng1
+    h = torch.sin(dlat / 2) ** 2 + torch.cos(lat1) * torch.cos(lat2) * \
+        torch.sin(dlng / 2) ** 2
+    return 2 * radius * torch.arcsin(torch.sqrt(torch.clamp(h, 0.0, 1.0)))
 
 
 def pairwise_geometry_distance(a, b) -> np.ndarray:

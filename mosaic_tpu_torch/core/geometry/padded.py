@@ -1,19 +1,49 @@
 """Padded edge blocks: ragged geometry batches as dense [G, E, 2] edges.
 
-Port copy of the numpy half of ``mosaic_tpu.core.geometry.padded``
-(``build_edges_np``), which ``build_dense_pip_index`` calls, and
-``points_block``, which SpatialKNN reads POINT batches through.  Edge
-capacity is the next power of two >= the max edge count (min 8);
-winding is normalized so shells are CCW and holes CW.
+Port of ``mosaic_tpu.core.geometry.padded``.  The numpy half
+(``build_edges_np``, which ``build_dense_pip_index`` and the overlay call,
+and ``points_block_np``, which SpatialKNN reads POINT batches through) is
+a copy; the device half holds the blocks as tensors: :class:`EdgeBlocks`
+(a, b [G, E, 2] and mask [G, E] bool), :func:`build_edges` and
+:func:`points_block`, on CUDA unless the caller passes ``device="cpu"``.
+Edge capacity is the next power of two >= the max edge count (min 8);
+winding is normalized so shells are CCW and holes CW.  Float64
+coordinates cast to float32 round to nearest, as ``jnp.asarray`` does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
+from ..._device import DeviceLike, resolve_device
 from .array import GeometryArray, GeometryType
+
+
+@dataclasses.dataclass
+class EdgeBlocks:
+    """Dense per-geometry edge soup.
+
+    a, b: [G, E, 2] edge endpoints (directed a->b).
+    mask: [G, E] bool validity.
+    Winding: shell rings CCW, holes CW (normalized on build), so
+    0.5 * sum(cross(a, b)) is the polygon area with holes subtracted.
+    """
+
+    a: torch.Tensor
+    b: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def num_geoms(self) -> int:
+        return self.a.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.a.shape[1]
 
 
 def _pad_cap(n: int, minimum: int = 8) -> int:
@@ -27,6 +57,25 @@ def build_edges_np(arr: GeometryArray, capacity: Optional[int] = None,
                    normalize: bool = True):
     """Numpy-f64 core of build_edges: (A, B, M) padded edge blocks."""
     return _build_edges_np(arr, capacity, normalize)
+
+
+def build_edges(arr: GeometryArray, capacity: Optional[int] = None,
+                dtype: torch.dtype = torch.float32, normalize: bool = True,
+                device: DeviceLike = None) -> EdgeBlocks:
+    """Build padded edge blocks from a GeometryArray on ``device`` (CUDA
+    unless the caller passes ``device="cpu"``).
+
+    Rings are closed implicitly (last->first edge added if not closed).
+    For polygon parts, the first ring of each part is the shell (forced CCW),
+    subsequent rings are holes (forced CW) — matching OGC ring semantics.
+    Points and linestrings yield their segments (open; no closing edge),
+    letting length/distance kernels reuse the same layout.
+    """
+    dev = resolve_device(device)
+    A, B, M = _build_edges_np(arr, capacity, normalize)
+    return EdgeBlocks(torch.from_numpy(A).to(dtype).to(dev),
+                      torch.from_numpy(B).to(dtype).to(dev),
+                      torch.from_numpy(M).to(dev))
 
 
 def _build_edges_np(arr: GeometryArray, capacity: Optional[int],
@@ -138,9 +187,19 @@ def _build_edges_np(arr: GeometryArray, capacity: Optional[int],
     return A, B, M
 
 
-def points_block(arr: GeometryArray, dtype=np.float32) -> np.ndarray:
-    """[G, 2] first vertex per geometry (for POINT batches); NaN rows for
-    empty geometries."""
+def points_block(arr: GeometryArray, dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None) -> torch.Tensor:
+    """[G, 2] first vertex per geometry (for POINT batches) on ``device``
+    (CUDA unless the caller passes ``device="cpu"``); NaN rows for empty
+    geometries."""
+    dev = resolve_device(device)
+    return torch.from_numpy(points_block_np(arr, np.float64)).to(
+        dtype).to(dev)
+
+
+def points_block_np(arr: GeometryArray, dtype=np.float32) -> np.ndarray:
+    """[G, 2] first vertex per geometry as numpy; NaN rows for empty
+    geometries."""
     starts = arr.vertex_starts()[:-1]
     counts = arr.vertex_counts()
     safe = np.where(counts > 0, starts, 0)

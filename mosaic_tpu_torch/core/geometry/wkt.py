@@ -233,30 +233,12 @@ def _write_one(gtype: GeometryType, parts, ndim: int,
         inner = ", ".join(ring_set(p) for p in parts)
         return f"{tag} ({inner})"
     if gtype == GeometryType.GEOMETRYCOLLECTION:
+        from .wkb import _member_type
         inner = ", ".join(
             _write_one(_member_type(p, part_types, j), [p], ndim)
             for j, p in enumerate(parts))
         return f"{tag} ({inner})"
     raise ValueError(gtype)
-
-
-def _member_type(rings, part_types, j) -> GeometryType:
-    """Member type for a collection part: the recorded type when the
-    array carries one (and it isn't the unknown-member sentinel), else
-    shape inference (legacy arrays built without part types).  A copy
-    of ``mosaic_tpu.core.geometry.wkb._member_type``; the port has no
-    WKB codec yet."""
-    if part_types is not None:
-        t = GeometryType(int(part_types[j]))
-        if t != GeometryType.GEOMETRYCOLLECTION:
-            return t
-    if len(rings) == 1:
-        r = rings[0]
-        if len(r) == 1:
-            return GeometryType.POINT
-        if len(r) >= 2 and not np.array_equal(r[0], r[-1]):
-            return GeometryType.LINESTRING
-    return GeometryType.POLYGON
 
 
 def write_wkt(arr: GeometryArray) -> List[str]:

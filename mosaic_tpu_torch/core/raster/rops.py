@@ -18,9 +18,10 @@ as in the JAX package: ``clip_to_geometry``, ``merge``, ``retile``,
 through the grid's ``point_to_cell_device`` (on H3 one launch of the cell
 kernel, low-margin points re-assigned by the exact host path, so the
 ids equal ``point_to_cell``'s); the grouping and the per-cell window loop
-stay on the host, as in the JAX package.  ``warp`` and ``dtm_from_geoms``
-need the CRS and triangulation modules, which the port does not have
-yet: they raise ``NotImplementedError`` (ROADMAP §A6).
+stay on the host, as in the JAX package.  ``warp`` (an inverse mapping
+through ``crs.transform_xy`` in f64, nearest or bilinear) and
+``dtm_from_geoms`` (Delaunay, then barycentric z) are host numpy, as in
+the JAX package.
 
 Reference counterpart: core/raster/operator/* (clip/RasterClipByVector,
 merge/MergeRasters, pixel/PixelCombineRasters, retile/RasterTessellate,
@@ -37,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -453,12 +454,91 @@ def resample(tile: RasterTile, factor_x: float,
 
 def warp(tile: RasterTile, to_epsg: int,
          method: str = "bilinear") -> RasterTile:
-    """Reproject a tile to another CRS (reference:
-    core/raster/operator/proj/RasterProject.scala:45).  Not ported yet:
-    it needs ``core/geometry/crs.py``."""
-    raise NotImplementedError(
-        "rops.warp needs the CRS module (core/geometry/crs.py), which the "
-        "port does not have yet (ROADMAP §A6)")
+    """Reproject a tile to another CRS by inverse mapping.
+
+    Reference: core/raster/operator/proj/RasterProject.scala:45
+    (GDALWarp with target SRS).  Target grid: the source extent's
+    projected bbox at a pixel size that preserves the source pixel
+    count along each axis; every target pixel center inverse-maps
+    through crs.transform_xy (exact f64 host math) and samples the
+    source with bilinear (nodata-aware) or nearest interpolation — the
+    gather/lerp runs as one vectorized pass.
+    """
+    from ..geometry.crs import transform_xy
+
+    if to_epsg == tile.srid:
+        return tile
+    h, w = tile.height, tile.width
+    # project a boundary sampling of the source extent for the bbox
+    cs = np.linspace(0, w, 17)
+    rs = np.linspace(0, h, 17)
+    edge = np.concatenate([
+        np.stack([cs, np.zeros_like(cs)], -1),
+        np.stack([cs, np.full_like(cs, h)], -1),
+        np.stack([np.zeros_like(rs), rs], -1),
+        np.stack([np.full_like(rs, w), rs], -1)])
+    ex, ey = tile.gt.to_world(edge[:, 0], edge[:, 1])
+    proj = transform_xy(np.stack([ex, ey], -1), tile.srid, to_epsg)
+    x0, x1 = proj[:, 0].min(), proj[:, 0].max()
+    y0, y1 = proj[:, 1].min(), proj[:, 1].max()
+    px = (x1 - x0) / w
+    py = (y1 - y0) / h
+    gt = GeoTransform(float(x0), float(px), 0.0, float(y1), 0.0,
+                      float(-py))
+
+    cols = np.arange(w) + 0.5
+    rows = np.arange(h) + 0.5
+    gx, gy = np.meshgrid(cols, rows)              # [h, w] target pixels
+    tx, ty = gt.to_world(gx.ravel(), gy.ravel())
+    src = transform_xy(np.stack([tx, ty], -1), to_epsg, tile.srid)
+    sc, sr = tile.gt.to_raster(src[:, 0], src[:, 1])
+    sc = sc.reshape(h, w) - 0.5                   # to pixel-center frame
+    sr = sr.reshape(h, w) - 0.5
+
+    data = np.asarray(tile.data, np.float64)
+    fill = np.nan if tile.nodata is None else float(
+        np.atleast_1d(tile.nodata)[0])
+    inb = (sc > -0.5) & (sc < w - 0.5) & (sr > -0.5) & (sr < h - 0.5)
+
+    if method == "nearest":
+        ci = np.clip(np.round(sc).astype(int), 0, w - 1)
+        ri = np.clip(np.round(sr).astype(int), 0, h - 1)
+        out = data[:, ri, ci]
+        out = np.where(inb[None], out, fill)
+    elif method == "bilinear":
+        c0 = np.clip(np.floor(sc).astype(int), 0, w - 1)
+        r0 = np.clip(np.floor(sr).astype(int), 0, h - 1)
+        c1 = np.clip(c0 + 1, 0, w - 1)
+        r1 = np.clip(r0 + 1, 0, h - 1)
+        fc = np.clip(sc - c0, 0.0, 1.0)
+        fr = np.clip(sr - r0, 0.0, 1.0)
+        v00 = data[:, r0, c0]
+        v01 = data[:, r0, c1]
+        v10 = data[:, r1, c0]
+        v11 = data[:, r1, c1]
+        if tile.nodata is not None:
+            nd = float(np.atleast_1d(tile.nodata)[0])
+            if np.isnan(nd):
+                bad = (np.isnan(v00) | np.isnan(v01) | np.isnan(v10) |
+                       np.isnan(v11))
+            else:
+                bad = ((v00 == nd) | (v01 == nd) | (v10 == nd) |
+                       (v11 == nd))
+        else:
+            bad = np.zeros_like(v00, bool)
+        out = (v00 * (1 - fc) * (1 - fr) + v01 * fc * (1 - fr) +
+               v10 * (1 - fc) * fr + v11 * fc * fr)
+        # any-nodata corner: fall back to nearest so nodata never bleeds
+        ci = np.clip(np.round(sc).astype(int), 0, w - 1)
+        ri = np.clip(np.round(sr).astype(int), 0, h - 1)
+        out = np.where(bad, data[:, ri, ci], out)
+        out = np.where(inb[None], out, fill)
+    else:
+        raise ValueError(f"unknown resample method {method!r}")
+    meta = dict(tile.meta, warped_from=str(tile.srid),
+                last_command=f"warp(to_epsg={to_epsg}, method={method})")
+    return RasterTile(out, gt, nodata=tile.nodata if tile.nodata is not
+                      None else np.nan, srid=to_epsg, meta=meta)
 
 
 # ------------------------------------------------------------ rasterize
@@ -508,13 +588,66 @@ def rasterize(geoms: GeometryArray, values: np.ndarray,
 
 # ------------------------------------------------------- DTM from geoms
 
+def _interpolate_z_grid(verts_xy: np.ndarray, verts_z: np.ndarray,
+                        tri: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    """Vectorized barycentric z for many query points (NaN outside)."""
+    out = np.full(len(pts), np.nan)
+    if len(tri) == 0:
+        return out
+    a = verts_xy[tri[:, 0]]
+    b = verts_xy[tri[:, 1]]
+    c = verts_xy[tri[:, 2]]
+    det = ((b[:, 1] - c[:, 1]) * (a[:, 0] - c[:, 0]) +
+           (c[:, 0] - b[:, 0]) * (a[:, 1] - c[:, 1]))
+    det = np.where(det == 0, 1e-300, det)
+    eps = 1e-12
+    block = max(1, 8_000_000 // max(len(tri), 1))
+    for s in range(0, len(pts), block):
+        p = pts[s:s + block]
+        w1 = ((b[:, 1] - c[:, 1])[None] * (p[:, 0:1] - c[:, 0][None]) +
+              (c[:, 0] - b[:, 0])[None] * (p[:, 1:2] - c[:, 1][None])) \
+            / det[None]
+        w2 = ((c[:, 1] - a[:, 1])[None] * (p[:, 0:1] - c[:, 0][None]) +
+              (a[:, 0] - c[:, 0])[None] * (p[:, 1:2] - c[:, 1][None])) \
+            / det[None]
+        w3 = 1.0 - w1 - w2
+        hit = (w1 >= -eps) & (w2 >= -eps) & (w3 >= -eps)
+        first = hit.argmax(axis=1)
+        any_hit = hit.any(axis=1)
+        idx = np.arange(len(p))
+        t = first
+        z = (w1[idx, t] * verts_z[tri[t, 0]] +
+             w2[idx, t] * verts_z[tri[t, 1]] +
+             w3[idx, t] * verts_z[tri[t, 2]])
+        out[s:s + block] = np.where(any_hit, z, np.nan)
+    return out
+
+
 def dtm_from_geoms(points_xyz: np.ndarray, gt: GeoTransform,
-                   width: int, height: int, constraints=None
+                   width: int, height: int,
+                   constraints: Optional[np.ndarray] = None
                    ) -> RasterTile:
-    """Digital terrain model from elevation points (reference:
-    expressions/raster/RST_DTMFromGeoms.scala).  Not ported yet: it needs
-    ``core/geometry/triangulate.py``."""
-    raise NotImplementedError(
-        "rops.dtm_from_geoms needs the triangulation module "
-        "(core/geometry/triangulate.py), which the port does not have yet "
-        "(ROADMAP §A6)")
+    """Digital terrain model: Delaunay-triangulate elevation points and
+    rasterize barycentric-interpolated z (reference:
+    expressions/raster/RST_DTMFromGeoms.scala — triangulate + GDAL
+    rasterize of the TIN).  NaN outside the convex hull."""
+    from ..geometry.triangulate import conforming_delaunay, delaunay
+
+    pts = np.asarray(points_xyz, np.float64)
+    if constraints is not None and len(constraints):
+        verts, tri = conforming_delaunay(pts[:, :2], constraints)
+    else:
+        verts, tri = delaunay(pts[:, :2])
+    # triangulation dedupes/reorders vertices (and conforming adds
+    # Steiner points): z of each output vertex = z of the nearest input
+    # point (exact for true vertices)
+    d2 = np.sum((verts[:, None, :] - pts[None, :, :2]) ** 2, axis=-1)
+    z = pts[np.argmin(d2, axis=1), 2]
+    cols = np.arange(width) + 0.5
+    rows = np.arange(height) + 0.5
+    gx, gy = np.meshgrid(cols, rows)
+    wx, wy = gt.to_world(gx.ravel(), gy.ravel())
+    q = np.stack([wx, wy], -1)
+    zz = _interpolate_z_grid(verts, z, tri, q)
+    return RasterTile(zz.reshape(1, height, width), gt, nodata=np.nan,
+                      meta={"op": "dtm_from_geoms"})

@@ -6,8 +6,8 @@ ownership pass through the grid's ``point_to_cell_device`` (on H3 one
 launch of the cell kernel) and the combine of overlapping tiles on the
 tile combine kernel; the grouping, the per-cell windows and the per-cell
 reduce stay on the host, as in the JAX package.  A tile whose srid is not
-the grid's CRS needs ``rops.warp``, which raises until the CRS module is
-ported (ROADMAP §A6).
+the grid's CRS is first warped into it on the host (``rops.warp``,
+bilinear), as in the JAX package.
 
 Reference counterpart: datasource/multiread/RasterAsGridReader.scala:36-110
 — spark.read.format("gdal") with retile_on_read → rst_asformat →

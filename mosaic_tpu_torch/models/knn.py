@@ -61,7 +61,7 @@ from .._device import DeviceLike, resolve_device
 from ..config import default_config
 from ..core.geometry.array import GeometryArray, GeometryType
 from ..core.geometry.measures import pairwise_geometry_distance
-from ..core.geometry.padded import points_block
+from ..core.geometry.padded import points_block_np
 from ..core.index.base import IndexSystem
 from ..core.index.h3.constants import face_center_xyz
 from ..core.index.h3.hexmath import geo_to_xyz
@@ -424,7 +424,7 @@ class SpatialKNN(IterativeTransformer):
         def as_points(x):
             if isinstance(x, GeometryArray):
                 if len(x) and np.all(x.types == GeometryType.POINT):
-                    return points_block(x, dtype=np.float64)
+                    return points_block_np(x, dtype=np.float64)
                 return None
             return np.asarray(x, np.float64)
 

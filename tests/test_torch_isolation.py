@@ -5,19 +5,28 @@ default.
   the port imports and runs a small dense PIP join on the CPU, exact
   against its own oracle.
   So does the raster layer: a small DEM through ``raster_to_grid``,
-  equal to per-cell means of the host cell ids; and the chip store: a
-  small store written, read back and fed to the store-fed join.
+  equal to per-cell means of the host cell ids; the chip store: a
+  small store written, read back and fed to the store-fed join; and the
+  geometry surface: the WKB and GeoJSON codecs, edge blocks with their
+  measures and predicates (containment equal to the oracle), a hull, a
+  triangulation, a buffer, a UTM round trip, the analyzer and a warp.
 * No file of the port, nor chip_smoke.py, imports ``jax`` or
   ``mosaic_tpu`` (an ``ast`` scan over every subpackage, ``core/raster``,
   ``io`` and ``resilience`` among them; the root module name must match
   exactly, so ``mosaic_tpu_torch`` itself does not count).
-* Entry points that create device state, called without ``device`` on a
-  host without CUDA, raise RuntimeError instead of running on the CPU;
-  the planned join runs on its index's device.
+* pyproject.toml's package data covers every file under ``csrc/`` and
+  the ``.npz`` tables ``crs.py`` reads.
+* Entry points that create device state (``build_edges`` and
+  ``points_block`` among them), called without ``device`` on a host
+  without CUDA, raise RuntimeError instead of running on the CPU; the
+  planned join runs on its index's device.
 """
 
 import ast
+import fnmatch
+import re
 import subprocess
+import tomllib
 import sys
 from pathlib import Path
 
@@ -99,6 +108,40 @@ with tempfile.TemporaryDirectory() as root:
     szone, _ = sj()
     assert np.array_equal(szone, zone[order])
     assert sum(sj.staged_bytes_by_partition.values()) > 0
+from mosaic_tpu_torch import analyzer
+from mosaic_tpu_torch.core.geometry import (crs, geojson, measures, ops,
+                                            predicates, triangulate, wkb)
+from mosaic_tpu_torch.core.geometry.padded import build_edges, points_block
+assert mt.write_wkt(wkb.read_wkb(wkb.write_wkb(polys))) == \
+    mt.write_wkt(polys)
+assert geojson.read_geojson(geojson.write_geojson(polys)).coords.tolist() \
+    == polys.coords.tolist()
+from mosaic_tpu_torch.core.geometry.clip import (_normalize_rings,
+                                                 geometry_rings,
+                                                 ring_signed_area)
+e = build_edges(polys, dtype=torch.float64, device="cpu")
+want = [sum(ring_signed_area(r) for r in
+            _normalize_rings(geometry_rings(polys, i))) for i in range(2)]
+assert np.allclose(measures.area(e).numpy(), want, rtol=1e-12)
+inside, dist = predicates.points_in_polygons(
+    torch.from_numpy(pts), e, with_boundary_dist=True)
+first = np.where(inside.numpy().any(1), inside.numpy().argmax(1), -1)
+assert np.array_equal(first, mt.pip_host_truth(pts, polys))
+assert predicates.polygons_intersect(e, e).numpy().all()
+hull = ops.convex_hull_points(pts)
+verts, tri = triangulate.delaunay(pts[:50])
+assert len(tri) > 0 and len(hull) >= 3
+buf = ops.buffer_geometry(polys, 0.001)
+assert len(buf) == 2
+utm = crs.transform_xy(pts[:10], 4326, 32618)
+assert np.abs(crs.transform_xy(utm, 32618, 4326) - pts[:10]).max() < 1e-9
+assert analyzer.get_optimal_resolution(polys, grid) > 0
+from mosaic_tpu_torch.core.raster import rops
+warped = rops.warp(mt.RasterTile(dem.data, mt.GeoTransform(
+    float(utm[0, 0]), 50.0, 0.0, float(utm[0, 1]), 0.0, -50.0),
+    srid=32618), 4326)
+assert warped.srid == 4326 and np.isfinite(warped.data).mean() > 0.9
+assert len(points_block(polys, device="cpu")) == 2
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("SLICE_OK", int((zone >= 0).sum()), rechecked, len(cells))
 """
@@ -147,11 +190,44 @@ def test_no_file_imports_jax_or_mosaic_tpu():
             "mosaic_tpu_torch/store/reader.py",
             "mosaic_tpu_torch/store/pushdown.py",
             "mosaic_tpu_torch/sql/parser.py",
-            "mosaic_tpu_torch/sql/layout.py"} <= names
+            "mosaic_tpu_torch/sql/layout.py",
+            "mosaic_tpu_torch/analyzer.py",
+            "mosaic_tpu_torch/core/geometry/wkb.py",
+            "mosaic_tpu_torch/core/geometry/geojson.py",
+            "mosaic_tpu_torch/core/geometry/ops.py",
+            "mosaic_tpu_torch/core/geometry/triangulate.py",
+            "mosaic_tpu_torch/core/geometry/crs.py",
+            "mosaic_tpu_torch/core/geometry/clip.py",
+            "mosaic_tpu_torch/core/geometry/padded.py",
+            "mosaic_tpu_torch/core/geometry/measures.py",
+            "mosaic_tpu_torch/core/geometry/predicates.py",
+            "mosaic_tpu_torch/ops/edge_measures.py",
+            "mosaic_tpu_torch/ops/edge_point.py",
+            "mosaic_tpu_torch/ops/edges_cross.py"} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) &
                                             FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_package_data_covers_kernel_sources_and_tables():
+    """An installed copy of the port carries what it builds and reads at
+    run time: every file under ``csrc/`` (the kernels and the headers
+    they include) and every ``.npz`` table ``crs.py`` opens matches a
+    ``package-data`` glob of pyproject.toml."""
+    conf = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = conf["tool"]["setuptools"]["package-data"]["mosaic_tpu_torch"]
+    pkg = REPO / "mosaic_tpu_torch"
+    needed = [p.relative_to(pkg).as_posix()
+              for p in sorted((pkg / "csrc").iterdir()) if p.is_file()]
+    crs = (pkg / "core" / "geometry" / "crs.py").read_text()
+    tables = sorted(set(re.findall(r'"(\w+\.npz)"', crs)))
+    assert tables == ["epsg_bounds.npz", "epsg_params.npz"]
+    needed += [f"core/geometry/{t}" for t in tables]
+    assert "csrc/h3_df.cuh" in needed
+    for rel in needed:
+        assert (pkg / rel).is_file(), rel
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
 
 
 def test_entry_points_default_to_cuda(tmp_path):
@@ -199,6 +275,16 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mt.raster_to_grid([dem], 8, grid)
     assert len(mt.raster_to_grid([dem], 8, grid, device="cpu")) > 0
+    from mosaic_tpu_torch.core.geometry import measures
+    from mosaic_tpu_torch.core.geometry.padded import (build_edges,
+                                                       points_block)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_edges(polys)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        points_block(polys)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        measures.haversine(51.5, -0.13, 48.9, 2.35)
+    assert build_edges(polys, device="cpu").a.device.type == "cpu"
     with pytest.raises(RuntimeError):
         mt.resolve_device("cuda")
     assert np.array_equal(mt.localize(idx, np.zeros((1, 2))),

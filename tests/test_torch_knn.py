@@ -276,7 +276,7 @@ def test_knn_geometry_point_rows(grids):
         for p in right:
             br.add_point(p)
         arrays[name] = (bl.finish(), br.finish())
-    assert np.array_equal(tknn.points_block(arrays["t"][0], np.float64),
+    assert np.array_equal(tknn.points_block_np(arrays["t"][0], np.float64),
                           left)
     ref = JKNN(jg, k=3, index_resolution=7,
                max_iterations=32).transform(*arrays["j"])

@@ -2,7 +2,8 @@
 
 * Each conf key the port carries (``mosaic.planner.enabled``,
   ``mosaic.planner.force.<op>``, ``mosaic.stream.chunk.rows``,
-  ``mosaic.knn.strategy``, ``mosaic.shard.skew.refresh`` and the five
+  ``mosaic.knn.strategy``, ``mosaic.shard.skew.refresh``,
+  ``mosaic.crs.strict.datum`` and the five
   ``mosaic.join.refine.*`` keys;
   the raster and ``mosaic.io.on.error`` keys are held in
   tests/test_torch_raster.py) accepts and rejects the same values as the
@@ -70,6 +71,7 @@ KEY_VALUES = {
     "mosaic.layout.rows.per.cell": ["65536", "1", "0", "x"],
     "mosaic.layout.min.res": ["64", "128", "0", "x"],
     "mosaic.layout.max.res": ["16384", "512", "-2", "x"],
+    "mosaic.crs.strict.datum": ["true", "false", "1", "maybe"],
 }
 
 #: the config fields those keys set, with the JAX package's defaults
@@ -82,7 +84,7 @@ FIELDS_PORTED = ("planner_enabled", "planner_force", "stream_chunk_rows",
                  "store_dir", "store_grid_res", "store_shard_rows",
                  "store_mmap", "heat_halflife_ms", "heat_prior",
                  "layout_rows_per_cell", "layout_min_res",
-                 "layout_max_res")
+                 "layout_max_res", "crs_strict_datum")
 
 
 @pytest.fixture(autouse=True)

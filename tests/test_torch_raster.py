@@ -25,8 +25,9 @@ which the port has not yet).
 * The world-of-one halo form within the JAX test's own rtol=2e-6,
   atol=1e-4; its guards; a group given with no process group initialised
   raises (more ranks: tests/test_torch_sharded.py).
-* ``warp`` and ``dtm_from_geoms`` raise (ROADMAP §A6), and so does
-  ``raster_to_grid`` on a tile in another CRS.
+* ``warp`` and ``dtm_from_geoms`` (PR 15) raise where the JAX package's
+  raise and equal it otherwise, and ``raster_to_grid`` on a tile in
+  another CRS equals JAX's (tests/test_torch_warp.py holds the rest).
 * The five ``mosaic.raster.*`` and ``mosaic.io.on.error`` keys accept and
   reject what the JAX config does.
 """
@@ -614,14 +615,25 @@ def test_map_algebra_on_device_tensors():
 
 
 def test_warp_and_dtm_raise(h3):
-    _, t = pair(bench_dem(8, 8), DEM_GT, srid=4326)
-    with pytest.raises(NotImplementedError, match="§A6"):
-        rops.warp(t, 3857)
-    with pytest.raises(NotImplementedError, match="§A6"):
-        rops.dtm_from_geoms(np.zeros((3, 3)), t.gt, 4, 4)
-    other = dataclasses.replace(t, srid=3857)
-    with pytest.raises(NotImplementedError, match="§A6"):
-        mt.raster_to_grid([other], 8, h3[1], device=DEV)
+    """Since the CRS and triangulation modules are ported (PR 15),
+    ``warp`` and ``dtm_from_geoms`` raise only where the JAX package's
+    do (an unknown EPSG or resample method) and otherwise equal it, and
+    ``raster_to_grid`` warps a tile in another CRS first, as JAX does
+    (tests/test_torch_warp.py holds the rest)."""
+    jt, t = pair(bench_dem(8, 8), DEM_GT, srid=4326)
+    for args in ((999999,), (3857, "cubic")):
+        with pytest.raises(ValueError):
+            jrops.warp(jt, *args)
+        with pytest.raises(ValueError):
+            rops.warp(t, *args)
+    same_tile(jrops.warp(jt, 3857), rops.warp(t, 3857))
+    pts = np.array([[0.0, 0.0, 1.0], [1.0, 0.0, 2.0], [0.0, 1.0, 3.0],
+                    [1.0, 1.0, 4.0]])
+    same_tile(jrops.dtm_from_geoms(pts, jt.gt, 4, 4),
+              rops.dtm_from_geoms(pts, t.gt, 4, 4))
+    jo, other = jrops.warp(jt, 3857), rops.warp(t, 3857)
+    assert mt.raster_to_grid([other], 8, h3[1], device=DEV) == \
+        jraster_to_grid([jo], 8, h3[0])
 
 
 def test_entry_points_default_to_cuda(h3):
