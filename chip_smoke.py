@@ -251,7 +251,8 @@ Phases (any failure exits non-zero and prints no result):
     ``points_in_polygons(..., with_boundary_dist=True)`` and
     ``distance_points_to_geoms`` on 2^20 ``nyc_points`` (seed 100) x the
     281 taxi zones (64 slots) in f64 and f32: bit-equal to the plain
-    version on a seeded 2^16-row sample in 2^14-row chunks, each row's
+    version on all 2^20 rows in 2^14-row chunks (the count and distance
+    launch, the distance launch and the count instance), each row's
     first zone equal to ``pip_host_truth`` wherever the point's f64
     boundary distance is above 1e-9 degrees (f64) or 1e-5 (f32), the
     points within each band printed; c. K13 with K12:
@@ -260,8 +261,15 @@ Phases (any failure exits non-zero and prints no result):
     none containing another) and ``polygons_intersect`` on 2^14 footprints
     x the zones against ``overlay_host_truth`` (every differing pair
     printed, each a boundary touch within 1e-9 degrees); K13 bit-equal to
-    its plain version on 512 sampled rows of each G1 in f64 and f32, and
-    ``polygons_intersect`` to its plain composition; d. ``raster_to_grid``
+    its plain version on every row of each G1 (one whole-matrix launch,
+    512-row chunks) and on 512 sampled rows launched alone, in f64 and
+    f32, and ``polygons_intersect`` to its plain composition; K12 (its
+    three instances) and K13 bit-equal to their plain versions in f64
+    and f32 on a seeded adversarial set (non-prefix and empty masks, NaN
+    ends, zero-length and horizontal edges, points on vertices and
+    edges, shared, reversed and collinear edges, nearly collinear
+    disjoint segments, capacities 1 to 1,500, sizes 1 and one past a
+    tile); d. ``raster_to_grid``
     on config 5's DEM values in EPSG:32618 (50 m pixels from the UTM
     projection of (-74.25, 40.92)): ``warp`` on the host, then K3, the
     cells bit-equal to ``device="cpu"``'s, one K3 launch; e. K11 (centroid,
@@ -460,12 +468,14 @@ STORE_SIDE_FRAC = 0.45
 #: phase 18, the geometry surface: K11's four measures on 2^20 footprint
 #: boxes (seed 41, 8 edge slots) and on conus_counties() (3,136, 32
 #: slots); K12 on GEOM_POINTS flagship points (seed 100) x the 281 taxi
-#: zones (64 slots), held to the plain version on a seeded GEOM_SAMPLE-row
-#: sample in GEOM_CHUNK-row chunks and to pip_host_truth outside
-#: GEOM_BAND degrees of a boundary; K13 on the counties' 3,136^2 pairs and
-#: on GEOM_PRED_FOOTPRINTS footprints x the zones, held to the plain
-#: version on GEOM_PLAIN_ROWS sampled rows and to overlay_host_truth, a
-#: differing pair allowed where the boundaries lie within GEOM_TOUCH_DEG
+#: zones (64 slots), held to the plain version on every row in
+#: GEOM_CHUNK-row chunks and to pip_host_truth outside GEOM_BAND degrees
+#: of a boundary, timed on a seeded GEOM_SAMPLE-row sample; K13 on the
+#: counties' 3,136^2 pairs and on GEOM_PRED_FOOTPRINTS footprints x the
+#: zones, held to the plain version on every row in GEOM_PLAIN_ROWS-row
+#: chunks and on GEOM_PLAIN_ROWS sampled rows launched alone, and to
+#: overlay_host_truth, a differing pair allowed where the boundaries lie
+#: within GEOM_TOUCH_DEG
 GEOM_MEASURES = ("area", "length", "centroid", "bounds")
 GEOM_FOOTPRINTS = 1 << 20
 GEOM_POINTS = 1 << 20
@@ -486,6 +496,18 @@ GEOM_REL = {"float64": 1e-12, "float32": 1e-5}
 #: boundary distance (degrees) is above this, by the blocks' type
 GEOM_BAND = {"float64": 1e-9, "float32": 1e-5}
 GEOM_TOUCH_DEG = 1e-9
+#: phase 18's adversarial set for K12 and K13, seeded (adv_blocks,
+#: adv_points): K12 on (N points, G geometries, E slots), K13 on (G1, E1,
+#: G2, E2): sizes of 1 and one past a tile (64 points x 32 geometries;
+#: cross_tile's 64, 16 and 8 geometries at 8, 32 and 64 slots), E1 != E2,
+#: capacities from 1 to past one staging pass (K13's 512 slots); and
+#: GEOM_ADV_COLLINEAR nearly collinear disjoint segment pairs
+GEOM_ADV_SEED = 1618
+GEOM_ADV_K12 = ((1, 1, 1), (65, 33, 8), (64, 32, 8), (129, 3, 512),
+                (65, 2, 1100), (200, 9, 64))
+GEOM_ADV_K13 = ((1, 1, 1, 1), (65, 8, 17, 32), (33, 32, 9, 64),
+                (3, 512, 2, 512), (2, 1100, 3, 1500), (40, 8, 40, 8))
+GEOM_ADV_COLLINEAR = 2048
 #: config 5's DEM values on a UTM 18N grid (NYC's zone) of 50 m pixels
 #: from the UTM projection of (-74.25, 40.92)
 UTM_EPSG = 32618
@@ -4473,6 +4495,128 @@ def k13_bound(e1, e2, cross) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def adv_blocks(rng, G: int, E: int):
+    """Seeded edge blocks (numpy f64 A, B [G, E, 2], M [G, E]) on the
+    kernels' corner cases: small integer coordinates (exact zero
+    orientations: shared, reversed, collinear overlapping and touching
+    edges), horizontal and zero-length edges, a third of the rows
+    jittered off the grid, each row shifted by whole units (so that rows
+    meet and miss), non-prefix masks of three densities with all-masked
+    rows, NaN ends in one slot of every other row (valid or masked)."""
+    import numpy as np
+    A = rng.integers(-6, 7, (G, E, 2)).astype(np.float64)
+    B = A + rng.integers(-3, 4, (G, E, 2))
+    kind = rng.random((G, E))
+    B[..., 1] = np.where(kind < 0.2, A[..., 1], B[..., 1])
+    B = np.where((kind > 0.92)[..., None], A, B)
+    if G * E > 1:                      # copies of other edges, some reversed
+        dst = rng.integers(0, G * E, G * E // 4)
+        src = rng.integers(0, G * E, dst.size)
+        flip = rng.random(dst.size) < 0.5
+        fa, fb = A.reshape(-1, 2), B.reshape(-1, 2)
+        sa, sb = fa[src].copy(), fb[src].copy()
+        fa[dst] = np.where(flip[:, None], sb, sa)
+        fb[dst] = np.where(flip[:, None], sa, sb)
+    jitter = rng.random(G) < 0.3
+    A[jitter] += rng.uniform(-0.5, 0.5, A[jitter].shape)
+    B[jitter] += rng.uniform(-0.5, 0.5, B[jitter].shape)
+    shift = rng.integers(-12, 13, (G, 1, 2))      # rows apart and together
+    A += shift
+    B += shift
+    M = rng.random((G, E)) < rng.choice([0.05, 0.4, 0.9], G)[:, None]
+    M[rng.random(G) < 0.15] = False
+    rows, slot = np.arange(G), rng.integers(0, E, G)
+    A[rows[1::4], slot[1::4], 0] = np.nan
+    B[rows[3::4], slot[3::4], 1] = np.nan
+    return A, B, M
+
+
+def adv_points(rng, N: int, A, B):
+    """Seeded points [N, 2] against adv_blocks' edges: their vertices, the
+    integer grid (on horizontal edges and vertices), half-integers, reals
+    and NaN."""
+    import numpy as np
+    ends = np.concatenate([A.reshape(-1, 2), B.reshape(-1, 2)])
+    pick = rng.integers(0, ends.shape[0], N)
+    P = np.where((rng.random(N) < 0.3)[:, None], ends[pick],
+                 rng.integers(-7, 8, (N, 2)).astype(np.float64))
+    half = rng.random(N) < 0.2
+    P[half] += 0.5
+    real = rng.random(N) < 0.2
+    P[real] = rng.uniform(-7, 7, (int(real.sum()), 2))
+    P[rng.random(N) < 0.02] = np.nan
+    return P
+
+
+def collinear_pairs(rng, n: int):
+    """n pairs of segments on one line through the origin, one on each
+    side of it (disjoint, their bboxes too), the inner ends within 1e-9
+    to 1e-3 of it: their orientations are rounding noise, and the plain
+    version calls some pairs crossing.  (a1, b1, a2, b2) [n, 2] each."""
+    import numpy as np
+    v = rng.normal(0.0, 1.0, (n, 2))
+    s = np.stack([-rng.uniform(1, 10, n), -10 ** rng.uniform(-9, -3, n),
+                  10 ** rng.uniform(-9, -3, n), rng.uniform(1, 10, n)], 1)
+    p = s[..., None] * v[:, None, :]
+    return p[:, 0], p[:, 1], p[:, 2], p[:, 3]
+
+
+def geom_adversarial() -> dict:
+    """K12 (all three instances) and K13 bit-equal to their plain versions
+    on the adversarial set, in f64 and f32; the K13 hazards the plain
+    version answers true on collinear disjoint pairs, by type."""
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch.ops.edge_point import (edge_point_query,
+                                                 edge_point_query_ref)
+    from mosaic_tpu_torch.ops.edges_cross import edges_cross, edges_cross_ref
+    rng = np.random.default_rng(GEOM_ADV_SEED)
+    types = ((torch.float64, np.float64), (torch.float32, np.float32))
+
+    def dev(x, npdt):
+        return torch.from_numpy(np.ascontiguousarray(
+            x.astype(npdt) if x.dtype != bool else x)).to(DEV)
+
+    for N, G, E in GEOM_ADV_K12:
+        A, B, M = adv_blocks(rng, G, E)
+        P = adv_points(rng, N, A, B)
+        for dt, npdt in types:
+            p, a, b, m = (dev(x, npdt) for x in (P, A, B, M))
+            pc, pd = edge_point_query_ref(p, a, b, m, True, True)
+            for cnt, dst in ((True, True), (True, False), (False, True)):
+                kc, kd = edge_point_query(p, a, b, m, cnt, dst)
+                check((not cnt or torch.equal(kc, pc)) and
+                      (not dst or same_bits(kd, pd)),
+                      f"K12 (count {cnt}, dist {dst}) differs from its plain "
+                      f"version on the adversarial {N} x {G} x {E} {dt}")
+    for G1, E1, G2, E2 in GEOM_ADV_K13:
+        blocks = adv_blocks(rng, G1, E1) + adv_blocks(rng, G2, E2)
+        for dt, npdt in types:
+            t = [dev(x, npdt) for x in blocks]
+            check(torch.equal(edges_cross(*t), edges_cross_ref(*t)),
+                  f"K13 differs from its plain version on the adversarial "
+                  f"{G1} x {E1}, {G2} x {E2} {dt}")
+    a1, b1, a2, b2 = collinear_pairs(rng, GEOM_ADV_COLLINEAR)
+    one = np.ones((GEOM_ADV_COLLINEAR, 1), bool)
+    hazards = {}
+    for dt, npdt in types:
+        t = [dev(x, npdt) for x in (a1[:, None], b1[:, None], one,
+                                    a2[:, None], b2[:, None], one)]
+        k = edges_cross(*t)
+        check(torch.equal(k, edges_cross_ref(*t)), f"K13 differs from its "
+              f"plain version on the collinear disjoint pairs {dt}")
+        hazards[str(dt).split(".")[-1]] = int(k.diagonal().sum())
+    out = {"k12_shapes": len(GEOM_ADV_K12), "k13_shapes": len(GEOM_ADV_K13),
+           "collinear_pairs": GEOM_ADV_COLLINEAR,
+           "collinear_true": hazards}
+    log(f"[geometry] adversarial set: K12 (three instances) on "
+        f"{GEOM_ADV_K12} (N, G, E) and K13 on {GEOM_ADV_K13} (G1, E1, G2, "
+        f"E2) and {GEOM_ADV_COLLINEAR} collinear disjoint pairs, f64 and "
+        f"f32, bit-equal to the plain versions; the plain version calls "
+        f"{hazards} of the disjoint pairs crossing")
+    return out
+
+
 def first_zone(inside):
     """[N] the first set column of each row of ``inside``, -1 where none
     (the oracle's first-match rule)."""
@@ -4562,9 +4706,11 @@ def phase_geometry(zones, grid):
               "points_in_polygons and distance_points_to_geoms")
         check(same_bits(bdist, dist), f"{path}: the boundary distance of "
               "points_in_polygons differs from distance_points_to_geoms")
-        # the plain version on a seeded sample, in row chunks
-        for s0 in range(0, GEOM_SAMPLE, GEOM_CHUNK):
-            rows = sample_t[s0:s0 + GEOM_CHUNK]
+        # the plain version on every row, in row chunks: the main path's
+        # count and distance launch, its distance launch (same_bits above)
+        # and K12's count instance on each chunk
+        for s0 in range(0, GEOM_POINTS, GEOM_CHUNK):
+            rows = slice(s0, s0 + GEOM_CHUNK)
             pc, pd = edge_point_query_ref(p[rows], e.a, e.b, e.mask, True,
                                           True)
             kc, _ = edge_point_query(p[rows], e.a, e.b, e.mask, True, False)
@@ -4590,7 +4736,7 @@ def phase_geometry(zones, grid):
         out["points"][name] = row
         log(f"[geometry] {path}: {GEOM_POINTS} points x {len(zones)} zones "
             f"({e.capacity} edge slots) in {call_s:.3f} s (host clock, "
-            f"two K12 launches); {GEOM_SAMPLE} sampled rows bit-equal to "
+            f"two K12 launches); all {GEOM_POINTS} rows bit-equal to "
             f"the plain version; first zone equal to pip_host_truth on all "
             f"{int(far.sum())} points beyond {band} degrees of a boundary, "
             f"{row['in_band']} within it ({row['in_band_differing']} of "
@@ -4670,10 +4816,22 @@ def phase_geometry(zones, grid):
         f"differ from overlay_host_truth ({truth_s:.2f} s), each a "
         "boundary touch")
 
-    # K13 and the composed predicate against the plain versions on a
-    # seeded GEOM_PLAIN_ROWS-row sample of G1, f64 and f32
+    # K13 against its plain version on every row of each G1, in
+    # GEOM_PLAIN_ROWS-row chunks of one whole-matrix launch; and on a
+    # seeded GEOM_PLAIN_ROWS-row sample of G1 launched alone, with the
+    # composed predicate, f64 and f32
     for label, e1, e2, main in (("counties", ec, ec, inter),
                                 ("footprints x zones", ef, ez, fz)):
+        for dt in (f64, f32):
+            x1, x2 = e1[dt], e2[dt]
+            whole = edges_cross(x1.a, x1.b, x1.mask, x2.a, x2.b, x2.mask)
+            for s0 in range(0, x1.a.shape[0], GEOM_PLAIN_ROWS):
+                r = slice(s0, s0 + GEOM_PLAIN_ROWS)
+                check(torch.equal(whole[r], edges_cross_ref(
+                    x1.a[r], x1.b[r], x1.mask[r], x2.a, x2.b, x2.mask)),
+                      f"{label} {dt}: K13 differs from its plain version "
+                      f"in rows {s0}-")
+            del whole
         rows = torch.from_numpy(np.sort(rng.choice(
             e1[f64].a.shape[0], GEOM_PLAIN_ROWS, replace=False))).to(DEV)
         for dt in (f64, f32):
@@ -4692,9 +4850,11 @@ def phase_geometry(zones, grid):
                 check(torch.equal(composed, main[rows]), f"{label}: "
                       "polygons_intersect differs from its plain "
                       "composition")
-    log(f"[geometry] K13 bit-equal to its plain version on {GEOM_PLAIN_ROWS} "
-        "sampled rows of each G1 in f64 and f32, and polygons_intersect to "
-        "the plain composition in f64")
+    log(f"[geometry] K13 bit-equal to its plain version on every row of "
+        f"the counties ({n_c}) and the footprints ({GEOM_PRED_FOOTPRINTS}) "
+        f"and on {GEOM_PLAIN_ROWS} sampled rows launched alone, in f64 and "
+        "f32, and polygons_intersect to the plain composition in f64")
+    out["adversarial"] = geom_adversarial()
 
     # 4. an entry point through the new modules: config 5's DEM in UTM
     x0, y0 = transform_xy(np.array([[DEM_GT[0], DEM_GT[3]]]), 4326,
@@ -4753,7 +4913,7 @@ def phase_geometry(zones, grid):
         "K12 count+dist f64 sample",
         lambda: edge_point_query(ps, e.a, e.b, e.mask, True, True),
         lambda: edge_point_query_ref(ps, e.a, e.b, e.mask, True, True),
-        "query_kernel", 1)
+        "query_tile_kernel", 1)
     b_s = k12_bound(ps, e)
     full_ms = time_ms(lambda: edge_point_query(p64, e.a, e.b, e.mask, True,
                                                True), 3)
@@ -4790,7 +4950,7 @@ def phase_geometry(zones, grid):
         "K13 counties f64 sample",
         lambda: edges_cross(a1, b1, m1, e1.a, e1.b, e1.mask),
         lambda: edges_cross_ref(a1, b1, m1, e1.a, e1.b, e1.mask),
-        "cross_kernel", 1)
+        "cross_tile_kernel", 1)
     cross_s = edges_cross(a1, b1, m1, e1.a, e1.b, e1.mask)
     b_s = k13_bound(type(e1)(a1, b1, m1), e1, cross_s)
     full_ms = time_ms(lambda: predicates.edges_cross_matrix(e1, e1), 5)

@@ -26,21 +26,38 @@
 // and subtract is rounded on its own (-fmad=false), divides and the sqrt
 // are IEEE, so the outputs are bit-equal to the plain version's.
 //
+// Why the design below keeps that: a masked slot adds 0 to the count and
+// +inf to the minimum, which changes neither (inf < m is false, and inf
+// is no NaN), so walking only the valid slots, in slot order, gives the
+// same values.  The count is an integer sum and the NaN-sticky minimum
+// does not depend on the order either.  The terms that depend on the
+// edge alone (ab, denom + eps, the straddle divisor) are rounded once
+// per edge by the same operations as the plain version's, and py - ay is
+// the same rounded value in both branches.
+//
 // What bounds it on an H100: operations.  Per (point, geometry, valid
 // edge) two compares; per straddling one py - ay, by - ay, the divide,
 // bx - ax, a multiply, an add and the compare; per (point, geometry,
 // valid edge) of the distance 18 operations and the divide (ap, the dot
 // product, the guard, the clip, the projection, d and d2, the min), and
 // a sqrt per pair.  chip_smoke.py counts the straddling edges from the
-// run's own points and edges.  At 2^20 points x the 281 taxi zones of 64
-// slots that is some 4e11 float64 operations, 24 ms at 17e12 a second.
+// run's own points and edges.  At 2^20 points x the 281 taxi zones
+// (4,456 valid edges) that is some 1.3e11 float64 operations, 7.8 ms at
+// 17e12 a second; the 3.5 GB of outputs take about 1.1 ms at 3.35 TB/s.
 //
-// Design: a block per (tile of 256 points, geometry), one thread a
-// point; the block stages the geometry's edges in shared memory, 256 at
-// a time, and every thread walks them in slot order from there (one
-// broadcast read per edge).  Neighbouring threads write neighbouring
-// points' outputs, G apart: a write is one sector, and the writes are a
-// few percent of the time at these widths.
+// Design: a block owns an output tile of kTilePts points x kTileGeoms
+// consecutive geometries (grid: the geometry tiles of one point tile
+// next to each other, so a row of the outputs is written by neighbouring
+// blocks at about one time).  A warp takes one geometry of the tile at a
+// time (the next one from a counter in shared memory, as geometries
+// differ in their valid edges) and its lanes kPts points each, so every
+// edge read from shared memory serves 32 x kPts points by broadcast.
+// The warp stages the geometry's slots 32 at a time: each lane reads one
+// mask byte, a ballot compacts the valid slots, and their lanes read the
+// coordinates and store the edge's terms (struct of 8, 16-byte loads) in
+// the warp's part of shared memory.  The results go to a shared tile
+// and leave as whole rows: 32 consecutive geometries of a point, 128
+// bytes of counts and 256 of float64 distances, each written once.
 
 #include <cuda_runtime.h>
 
@@ -48,8 +65,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPts = 2;                  // points a lane
+constexpr int kTilePts = 32 * kPts;      // points a block
+constexpr int kTileGeoms = 32;           // geometries a block
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
 struct Eps;
@@ -67,84 +88,162 @@ struct Eps<double> {
 __device__ __forceinline__ float root(float x) { return sqrtf(x); }
 __device__ __forceinline__ double root(double x) { return sqrt(x); }
 
+// An edge's terms, each rounded once as the plain version rounds it:
+// a, by, ab = b - a, den = abx*abx + aby*aby + eps and the straddle's
+// divisor sdiv = (by == ay ? 1 : by - ay).  Eight values, so a lane
+// reads it in 16-byte pieces.
+template <typename T>
+struct alignas(16) EdgeTerms {
+  T ax, ay, by, abx, aby, den, sdiv, pad;
+};
+
+template <typename T>
+__device__ __forceinline__ void load_terms(const EdgeTerms<T>* s, T& ax,
+                                           T& ay, T& by, T& abx, T& aby,
+                                           T& den, T& sdiv);
+
+template <>
+__device__ __forceinline__ void load_terms<double>(
+    const EdgeTerms<double>* s, double& ax, double& ay, double& by,
+    double& abx, double& aby, double& den, double& sdiv) {
+  const double2* v = reinterpret_cast<const double2*>(s);
+  const double2 v0 = v[0], v1 = v[1], v2 = v[2], v3 = v[3];
+  ax = v0.x, ay = v0.y, by = v1.x, abx = v1.y, aby = v2.x, den = v2.y;
+  sdiv = v3.x;
+}
+
+template <>
+__device__ __forceinline__ void load_terms<float>(
+    const EdgeTerms<float>* s, float& ax, float& ay, float& by, float& abx,
+    float& aby, float& den, float& sdiv) {
+  const float4* v = reinterpret_cast<const float4*>(s);
+  const float4 v0 = v[0], v1 = v[1];
+  ax = v0.x, ay = v0.y, by = v0.z, abx = v0.w, aby = v1.x, den = v1.y;
+  sdiv = v1.z;
+}
+
 template <typename T, bool COUNT, bool DIST>
 __global__ void __launch_bounds__(kThreads)
-    query_kernel(const T* __restrict__ pts, const T* __restrict__ a,
-                 const T* __restrict__ b, const bool* __restrict__ mask,
-                 long long N, long long G, int E, long long tiles,
-                 int* __restrict__ count, T* __restrict__ dist) {
-  __shared__ T sax[kChunk], say[kChunk], sbx[kChunk], sby[kChunk];
-  __shared__ bool sm[kChunk];
-  const long long tile = blockIdx.x % tiles;
-  const long long g = blockIdx.x / tiles;
-  const long long n = tile * kThreads + threadIdx.x;
-  const bool active = n < N;
-  const T px = active ? __ldg(pts + 2 * n) : T(0);
-  const T py = active ? __ldg(pts + 2 * n + 1) : T(0);
-  const T* ag = a + g * E * 2;
-  const T* bg = b + g * E * 2;
-  const bool* mg = mask + g * E;
+    query_tile_kernel(const T* __restrict__ pts, const T* __restrict__ a,
+                      const T* __restrict__ b, const bool* __restrict__ mask,
+                      long long N, long long G, int E, int gtiles,
+                      int* __restrict__ count, T* __restrict__ dist) {
+  __shared__ EdgeTerms<T> sedge[kWarps][32];
+  __shared__ int scount[COUNT ? kTilePts : 1][kTileGeoms + 1];
+  __shared__ T sdist[DIST ? kTilePts : 1][kTileGeoms + 1];
+  __shared__ int next_geom;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long g0 = (long long)(blockIdx.x % gtiles) * kTileGeoms;
+  const long long n0 = (long long)(blockIdx.x / gtiles) * kTilePts;
+  const int ng = (int)min((long long)kTileGeoms, G - g0);
   const T zero = T(0), one = T(1), eps = Eps<T>::value();
-  int cnt = 0;
-  T dmin = T(INFINITY);
-  for (int c0 = 0; c0 < E; c0 += kChunk) {
-    const int len = min(kChunk, E - c0);
-    __syncthreads();
-    if (threadIdx.x < len) {
-      const int e = c0 + threadIdx.x;
-      sax[threadIdx.x] = __ldg(ag + 2 * e);
-      say[threadIdx.x] = __ldg(ag + 2 * e + 1);
-      sbx[threadIdx.x] = __ldg(bg + 2 * e);
-      sby[threadIdx.x] = __ldg(bg + 2 * e + 1);
-      sm[threadIdx.x] = mg[e];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int k = 0; k < len; ++k) {
-      if (!sm[k]) continue;
-      const T ax = sax[k], ay = say[k], bx = sbx[k], by = sby[k];
-      if (COUNT && ((ay <= py) != (by <= py))) {
-        const T t = (py - ay) / (by == ay ? one : by - ay);
-        const T xi = ax + t * (bx - ax);
-        cnt += px < xi;
-      }
-      if (DIST) {
-        const T abx = bx - ax, aby = by - ay;
-        const T apx = px - ax, apy = py - ay;
-        const T denom = abx * abx + aby * aby;
-        T t = (apx * abx + apy * aby) / (denom + eps);
-        if (t == t) t = t < zero ? zero : (t > one ? one : t);
-        const T dx = px - (ax + t * abx);
-        const T dy = py - (ay + t * aby);
-        const T d2 = dx * dx + dy * dy;
-        if (d2 < dmin || d2 != d2) dmin = d2;
-      }
-    }
+  T px[kPts], py[kPts];
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    const long long n = n0 + lane + 32 * k;
+    px[k] = n < N ? __ldg(pts + 2 * n) : zero;
+    py[k] = n < N ? __ldg(pts + 2 * n + 1) : zero;
   }
-  if (!active) return;
-  if (COUNT) count[n * G + g] = cnt;
-  if (DIST) dist[n * G + g] = root(dmin);
+  if (threadIdx.x == 0) next_geom = kWarps;
+  __syncthreads();
+  EdgeTerms<T>* mine = sedge[warp];
+  for (int gi = warp; gi < ng;) {
+    const long long g = g0 + gi;
+    const T* ag = a + g * E * 2;
+    const T* bg = b + g * E * 2;
+    const bool* mg = mask + g * E;
+    int cnt[kPts];
+    T dmin[kPts];
+#pragma unroll
+    for (int k = 0; k < kPts; ++k) cnt[k] = 0, dmin[k] = T(INFINITY);
+    for (int s0 = 0; s0 < E; s0 += 32) {
+      const int e = s0 + lane;
+      const bool valid = e < E && mg[e];
+      const unsigned ballot = __ballot_sync(kFull, valid);
+      if (valid) {
+        EdgeTerms<T> t;
+        const T ax = __ldg(ag + 2 * e), ay = __ldg(ag + 2 * e + 1);
+        const T bx = __ldg(bg + 2 * e), by = __ldg(bg + 2 * e + 1);
+        t.ax = ax, t.ay = ay, t.by = by;
+        t.abx = bx - ax, t.aby = by - ay;
+        t.den = (t.abx * t.abx + t.aby * t.aby) + eps;
+        t.sdiv = by == ay ? one : t.aby;
+        t.pad = zero;
+        mine[__popc(ballot & ((1u << lane) - 1u))] = t;
+      }
+      __syncwarp();
+      const int nv = __popc(ballot);
+      for (int j = 0; j < nv; ++j) {
+        T ax, ay, by, abx, aby, den, sdiv;
+        load_terms(mine + j, ax, ay, by, abx, aby, den, sdiv);
+#pragma unroll
+        for (int k = 0; k < kPts; ++k) {
+          const T apy = py[k] - ay;
+          if (COUNT && ((ay <= py[k]) != (by <= py[k]))) {
+            const T t = apy / sdiv;
+            const T xi = ax + t * abx;
+            cnt[k] += px[k] < xi;
+          }
+          if constexpr (DIST) {
+            const T apx = px[k] - ax;
+            T t = (apx * abx + apy * aby) / den;
+            if (t == t) t = t < zero ? zero : (t > one ? one : t);
+            const T dx = px[k] - (ax + t * abx);
+            const T dy = py[k] - (ay + t * aby);
+            const T d2 = dx * dx + dy * dy;
+            if (d2 < dmin[k] || d2 != d2) dmin[k] = d2;
+          }
+        }
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int k = 0; k < kPts; ++k) {
+      if constexpr (COUNT) scount[lane + 32 * k][gi] = cnt[k];
+      if constexpr (DIST) sdist[lane + 32 * k][gi] = root(dmin[k]);
+    }
+    int nxt = 0;
+    if (lane == 0) nxt = atomicAdd(&next_geom, 1);
+    gi = __shfl_sync(kFull, nxt, 0);
+  }
+  __syncthreads();
+  // whole rows: a warp writes one point's run of ng geometries
+  for (int i = threadIdx.x; i < kTilePts * kTileGeoms; i += kThreads) {
+    const int r = i / kTileGeoms, c = i % kTileGeoms;
+    const long long n = n0 + r;
+    if (c >= ng || n >= N) continue;
+    if constexpr (COUNT) count[n * G + g0 + c] = scount[r][c];
+    if constexpr (DIST) dist[n * G + g0 + c] = sdist[r][c];
+  }
+}
+
+template <typename T, bool COUNT, bool DIST>
+int launch_one(const T* pts, const T* a, const T* b, const bool* mask,
+               long long N, long long G, int E, int* count, T* dist,
+               cudaStream_t stream) {
+  const long long gtiles = (G + kTileGeoms - 1) / kTileGeoms;
+  const long long blocks = (N + kTilePts - 1) / kTilePts * gtiles;
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidConfiguration;
+  query_tile_kernel<T, COUNT, DIST><<<(unsigned)blocks, kThreads, 0,
+                                      stream>>>(
+      pts, a, b, mask, N, G, E, (int)gtiles, count, dist);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* pts, const T* a, const T* b, const bool* mask,
            long long N, long long G, int E, int* count, T* dist,
            cudaStream_t stream) {
-  const long long tiles = (N + kThreads - 1) / kThreads;
-  const long long blocks = tiles * G;
-  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidConfiguration;
   if (count && dist)
-    query_kernel<T, true, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        pts, a, b, mask, N, G, E, tiles, count, dist);
-  else if (count)
-    query_kernel<T, true, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        pts, a, b, mask, N, G, E, tiles, count, dist);
-  else if (dist)
-    query_kernel<T, false, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        pts, a, b, mask, N, G, E, tiles, count, dist);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_one<T, true, true>(pts, a, b, mask, N, G, E, count, dist,
+                                     stream);
+  if (count)
+    return launch_one<T, true, false>(pts, a, b, mask, N, G, E, count, dist,
+                                      stream);
+  if (dist)
+    return launch_one<T, false, true>(pts, a, b, mask, N, G, E, count, dist,
+                                      stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -153,9 +252,9 @@ extern "C" {
 
 // points [N, 2], a and b [G, E, 2] and dist [N, G] of one type, mask
 // [G, E] bool, count [N, G] int32, all contiguous on the device; count or
-// dist may be null (not both); ceil(N / 256) * G below 2^31 (the wrapper
-// checks them).  Launches on `stream` and returns the launch's CUDA
-// error.
+// dist may be null (not both); ceil(N / 64) * ceil(G / 32) below 2^31
+// (the wrapper checks them).  Launches on `stream` and returns the
+// launch's CUDA error.
 int edge_point_query_f32_launch(const float* pts, const float* a,
                                 const float* b, const bool* mask,
                                 long long N, long long G, int E, int* count,

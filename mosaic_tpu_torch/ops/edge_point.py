@@ -29,6 +29,11 @@ from .. import _kernels
 from .edge_measures import check_blocks, guards, keep_min
 from .projection import check_rc
 
+#: the output tile a block of ``csrc/edge_point_query.cu`` owns: points
+#: and geometries (its kTilePts and kTileGeoms)
+TILE_POINTS = 64
+TILE_GEOMS = 32
+
 
 def edge_point_query_ref(points: torch.Tensor, a: torch.Tensor,
                          b: torch.Tensor, mask: torch.Tensor,
@@ -110,7 +115,8 @@ def edge_point_query(points: torch.Tensor, a: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"edge_point_query: unsupported device {dev}")
     N, G, E = points.shape[0], mask.shape[0], mask.shape[1]
-    if -(-N // 256) * G >= 1 << 31 or E >= 1 << 31:
+    if -(-N // TILE_POINTS) * -(-G // TILE_GEOMS) >= 1 << 31 or \
+            E >= 1 << 31:
         raise ValueError(f"edge_point_query: {N} points x {G} geometries "
                          "is past the kernel's grid")
     points, a, b, mask = (t.contiguous() for t in (points, a, b, mask))

@@ -26,6 +26,23 @@ from .. import _kernels
 from .edge_measures import check_blocks
 from .projection import check_rc
 
+#: the slots a block of ``csrc/edges_cross.cu`` stages in one pass, for
+#: the g1 side and the g2 side, and the most geometries of a side's tile
+#: (its kSlots1, kSlots2 and kMaxTile; the kernel refuses tiles past them)
+SLOTS = (512, 512)
+MAX_TILE = 64
+
+
+def cross_tile(E: int, slots: int) -> int:
+    """Geometries of capacity E a tile holds, so that one pass of
+    ``slots`` slots stages them all: the largest power of two with
+    tile * E <= slots, at least 1 (a geometry past the slots takes
+    several passes) and at most MAX_TILE."""
+    tile = 1
+    while tile * 2 <= MAX_TILE and tile * 2 * E <= slots:
+        tile *= 2
+    return tile
+
 
 def orient(px, py, qx, qy, rx, ry):
     """(q - p) x (r - p), each step rounded once."""
@@ -76,7 +93,8 @@ def _lib() -> ctypes.CDLL:
     lib = _kernels.load("edges_cross")
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for fn in (lib.edges_cross_f32_launch, lib.edges_cross_f64_launch):
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i, i, vp, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i, i, i, i, vp,
+                       vp]
         fn.restype = i
     lib.edges_cross_error_string.argtypes = [i]
     lib.edges_cross_error_string.restype = ctypes.c_char_p
@@ -105,7 +123,9 @@ def edges_cross(a1: torch.Tensor, b1: torch.Tensor, m1: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"edges_cross: unsupported device {dev}")
     (G1, E1), (G2, E2) = m1.shape, m2.shape
-    if -(-G2 // 8) * G1 >= 1 << 31 or E1 * E2 >= 1 << 62:
+    T1, T2 = cross_tile(E1, SLOTS[0]), cross_tile(E2, SLOTS[1])
+    if -(-G1 // T1) * -(-G2 // T2) >= 1 << 31 or \
+            max(E1 * T1, E2 * T2) >= 1 << 31:
         raise ValueError(f"edges_cross: {G1} x {G2} geometries is past the "
                          "kernel's grid")
     a1, b1, m1, a2, b2, m2 = (t.contiguous()
@@ -116,7 +136,7 @@ def edges_cross(a1: torch.Tensor, b1: torch.Tensor, m1: torch.Tensor,
         lib.edges_cross_f32_launch
     with torch.cuda.device(dev):
         rc = fn(a1.data_ptr(), b1.data_ptr(), m1.data_ptr(), a2.data_ptr(),
-                b2.data_ptr(), m2.data_ptr(), G1, G2, E1, E2,
+                b2.data_ptr(), m2.data_ptr(), G1, G2, E1, E2, T1, T2,
                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check_rc(lib, "edges_cross", rc, "launch")
     edges_cross.launches += 1
