@@ -245,9 +245,18 @@ Phases (any failure exits non-zero and prints no result):
     (``core/geometry/measures.py``) in f64 and f32 on 2^20 footprint
     boxes (``footprints``, seed 41, 8 edge slots) and on
     ``conus_counties()`` (3,136 polygons, 32 slots), one launch a call,
-    bit-equal to the plain version on every row, within 1e-12 (f64) or
-    1e-5 (f32) of the row's sum of |terms| of a numpy f64 shoelace on the
-    block's coordinates, the bounds equal to numpy's; b. K12 through
+    bit-equal to the plain version on every row through the mapping the
+    wrapper picks and through each of its two mappings forced (staged
+    tiles, a warp a geometry), within 1e-12 (f64) or 1e-5 (f32) of the
+    row's sum of |terms| of a numpy f64 shoelace on the block's
+    coordinates, the bounds equal to numpy's; K11 also bit-equal to its
+    plain version, by either mapping and the wrapper's pick, on every row
+    of ``bench.workloads.measures_adversarial``'s seeded set in f64 and
+    f32 (empty rows, NaN and infinity in valid and masked slots,
+    zero-length and collinear edges, coordinates near 1e+-300 and
+    1e+-38, -0.0, 1 to 4,096 slots) through every view of
+    ``MEASURES_ADV_VIEWS`` (a row offset, a slot offset, an unaligned
+    coordinate offset, a non-contiguous slice); b. K12 through
     ``points_in_polygons(..., with_boundary_dist=True)`` and
     ``distance_points_to_geoms`` on 2^20 ``nyc_points`` (seed 100) x the
     281 taxi zones (64 slots) in f64 and f32: bit-equal to the plain
@@ -273,7 +282,9 @@ Phases (any failure exits non-zero and prints no result):
     on config 5's DEM values in EPSG:32618 (50 m pixels from the UTM
     projection of (-74.25, 40.92)): ``warp`` on the host, then K3, the
     cells bit-equal to ``device="cpu"``'s, one K3 launch; e. K11 (centroid,
-    f64 footprints; every measure's events time), K12 (count and
+    f64 footprints, against its plain version; every measure in f64 and
+    f32 on the footprints and the counties by the profiler, with its
+    byte bound and host enqueue), K12 (count and
     distance on the 2^16-row sample, f64; the full 2^20 points in f64 and
     f32) and K13 (512 sampled counties x 3,136, f64; all pairs) timed in
     turns against their plain versions beside their bounds, counted from
@@ -496,6 +507,13 @@ GEOM_REL = {"float64": 1e-12, "float32": 1e-5}
 #: boundary distance (degrees) is above this, by the blocks' type
 GEOM_BAND = {"float64": 1e-9, "float32": 1e-5}
 GEOM_TOUCH_DEG = 1e-9
+#: K11's operations a slot, the least each measure needs (an add,
+#: subtract, multiply, compare, min or max, and the sqrt, one each):
+#: area's cross product and sum over the valid slots; length's
+#: difference, squares, sum, sqrt and sum; the centroid's 25 over every
+#: slot (a masked slot's products still enter it); the bounds' pair and
+#: running min and max of x and y
+K11_OPS = {"area": 4, "length": 7, "centroid": 25, "bounds": 8}
 #: phase 18's adversarial set for K12 and K13, seeded (adv_blocks,
 #: adv_points): K12 on (N points, G geometries, E slots), K13 on (G1, E1,
 #: G2, E2): sizes of 1 and one past a tile (64 points x 32 geometries;
@@ -4381,14 +4399,17 @@ def geom_host_measures(A, B, M):
 def geom_measures(label: str, arr, path: str, paths: dict) -> dict:
     """K11 on ``arr``'s edge blocks in f64 and f32 through the four
     measures (one launch each, counted under ``path``): bit-equal to the
-    plain version on every row, and within GEOM_REL of the type x the row's
-    sum of |terms| of a numpy f64 shoelace on the block's own
-    coordinates; the bounds equal to numpy's min and max exactly."""
+    plain version on every row, also through each mapping forced, and
+    within GEOM_REL of the type x the row's sum of |terms| of a numpy f64
+    shoelace on the block's own coordinates; the bounds equal to numpy's
+    min and max exactly."""
     import numpy as np
     import torch
     from mosaic_tpu_torch.core.geometry import measures
     from mosaic_tpu_torch.core.geometry.padded import build_edges
-    from mosaic_tpu_torch.ops.edge_measures import edge_measures_ref
+    from mosaic_tpu_torch.ops.edge_measures import (PATHS, edge_measures,
+                                                    edge_measures_ref,
+                                                    launch_plan)
     out = {"rows": len(arr)}
     blocks = {dt: build_edges(arr, dtype=dt, device=DEV)
               for dt in (torch.float64, torch.float32)}
@@ -4406,12 +4427,18 @@ def geom_measures(label: str, arr, path: str, paths: dict) -> dict:
         B = e.b.double().cpu().numpy()
         M = e.mask.cpu().numpy()
         host, scale = geom_host_measures(A, B, M)
-        row = {"edge_slots": int(e.capacity)}
+        row = {"edge_slots": int(e.capacity),
+               "path": launch_plan(*e.mask.shape)}
         for w in GEOM_MEASURES:
             k = got[dt][w]
             plain = edge_measures_ref(e.a, e.b, e.mask, w)
             check(same_bits(k, plain), f"{label} {name} {w}: K11 differs "
                   "from its plain version")
+            for forced in PATHS:
+                check(same_bits(edge_measures(e.a, e.b, e.mask, w,
+                                              path=forced), plain),
+                      f"{label} {name} {w}: K11 by the {forced} mapping "
+                      "differs from its plain version")
             kh = k.double().cpu().numpy()
             if w == "bounds":
                 check(np.array_equal(kh, host[w]), f"{label} {name} bounds "
@@ -4427,11 +4454,84 @@ def geom_measures(label: str, arr, path: str, paths: dict) -> dict:
             row[w] = rel
         out[name] = row
         log(f"[geometry] {label} {name}: {len(arr)} rows x "
-            f"{e.capacity} edge slots; area, length, centroid, bounds "
-            "bit-equal to the plain version; worst error / sum of |terms| "
-            f"against the numpy f64 shoelace: {row}")
+            f"{e.capacity} edge slots ({row['path']} mapping); area, "
+            "length, centroid, bounds bit-equal to the plain version, by "
+            "either mapping too; worst error / sum of |terms| against the "
+            f"numpy f64 shoelace: {row}")
     out["blocks"] = blocks
     return out
+
+
+def k11_adversarial() -> dict:
+    """K11 bit-equal to its plain version on every row of
+    ``measures_adversarial``'s set in f64 and f32, for the four measures,
+    through each view of MEASURES_ADV_VIEWS and by the wrapper's mapping
+    and each one forced; the plain version once a block and measure, on
+    the block as built."""
+    import torch
+    from mosaic_tpu_torch.bench.workloads import (MEASURES_ADV_VIEWS,
+                                                  measures_adversarial,
+                                                  measures_view)
+    from mosaic_tpu_torch.ops.edge_measures import (PATHS, edge_measures,
+                                                    edge_measures_ref)
+    t0 = time.perf_counter()
+    shapes, calls = [], 0
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).split(".")[-1]
+        for label, A, B, M in measures_adversarial(name):
+            if dt == torch.float64:
+                shapes.append(label)
+            views = {v: (measures_view(A, v, dt, DEV),
+                         measures_view(B, v, dt, DEV),
+                         measures_view(M, v, None, DEV))
+                     for v in MEASURES_ADV_VIEWS}
+            for w in GEOM_MEASURES:
+                plain = edge_measures_ref(*views["whole"], w)
+                for v, (a, b, m) in views.items():
+                    for path in (None, *PATHS):
+                        check(same_bits(edge_measures(a, b, m, w, path=path),
+                                        plain),
+                              f"K11 {w} differs from its plain version on "
+                              f"the adversarial {label} {name} ({v} view, "
+                              f"{path or 'planned'} mapping)")
+                        calls += 1
+    torch.cuda.synchronize()
+    out = {"shapes": shapes, "views": list(MEASURES_ADV_VIEWS),
+           "calls": calls, "seconds": round(time.perf_counter() - t0, 1)}
+    log(f"[geometry] K11 adversarial set: {shapes} (G x E) in f64 and f32, "
+        f"views {list(MEASURES_ADV_VIEWS)}, the four measures by the "
+        f"wrapper's mapping and each forced: {calls} calls bit-equal to "
+        f"the plain version ({out['seconds']} s)")
+    return out
+
+
+def k11_bound(e, what: str) -> dict:
+    """K11's bound on the blocks ``e`` for one measure.  Bytes: the
+    centroid reads every endpoint; area, length and bounds the 32-byte
+    sectors of a and b that hold a valid slot's endpoints, counted from
+    the mask and the arrays' addresses; each reads the whole mask and
+    writes its output once.  Operations: K11_OPS a valid slot (every slot
+    for the centroid)."""
+    import torch
+    from mosaic_tpu_torch.ops.edge_measures import WIDTH
+    G, E = e.mask.shape
+    item = e.a.element_size()
+    f64 = e.a.dtype == torch.float64
+    if what == "centroid":
+        ends = 2 * e.a.numel() * item
+        slots = G * E
+    else:
+        valid = torch.nonzero(e.mask.reshape(-1)).squeeze(1)
+        slots = int(valid.numel())
+        ends = sum(32 * int(torch.unique(
+            (x.data_ptr() % 32 + valid * 2 * item) // 32).numel())
+            for x in (e.a, e.b))
+    byts = ends + e.mask.numel() + G * max(1, WIDTH[what]) * item
+    ops = slots * K11_OPS[what]
+    t_ops = ops / (PEAK_F64_OPS if f64 else PEAK_F32_OPS) * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    return {"bytes": byts, "ops": ops, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def straddle_count(py, e) -> int:
@@ -4855,6 +4955,7 @@ def phase_geometry(zones, grid):
         f"and on {GEOM_PLAIN_ROWS} sampled rows launched alone, in f64 and "
         "f32, and polygons_intersect to the plain composition in f64")
     out["adversarial"] = geom_adversarial()
+    out["k11_adversarial"] = k11_adversarial()
 
     # 4. an entry point through the new modules: config 5's DEM in UTM
     x0, y0 = transform_xy(np.array([[DEM_GT[0], DEM_GT[3]]]), 4326,
@@ -4886,25 +4987,39 @@ def phase_geometry(zones, grid):
         "K11 centroid f64 footprints",
         lambda: measures.centroid(ef64),
         lambda: edge_measures_ref(ef64.a, ef64.b, ef64.mask, "centroid"),
-        "measures_kernel", 5)
-    k11_bytes = (2 * ef64.a.numel() * 8 + ef64.mask.numel() +
-                 ef64.a.shape[0] * 2 * 8)
+        "measures_", 5)
+    b_cen = k11_bound(ef64, "centroid")
     out["k11"] = {"max_abs_err": 0.0, "ms": ms, "ms_source": source,
                   "host_ms": host_ms, "plain_ms": plain_ms,
-                  "bound_ms": k11_bytes / PEAK_BYTES * 1e3,
-                  "bound_by": "bytes", "library_ms": None,
+                  "bound_ms": b_cen["bound_ms"],
+                  "bound_by": b_cen["bound_by"], "library_ms": None,
                   "shape": f"centroid, {GEOM_FOOTPRINTS} footprints x "
                            f"{ef64.capacity} slots, f64"}
-    k11_more = {}
-    for dt in (f64, f32):
-        e = meas_f["blocks"][dt]
-        for w in GEOM_MEASURES:
-            k11_more[f"{w} {str(dt).split('.')[-1]}"] = time_ms(
-                lambda e=e, w=w: getattr(measures, w)(e), 20)
-    out["k11"]["ms_by_measure"] = k11_more
+    # every measure, type and set: the profiler's device time, its bound
+    # from this run's blocks, the share and the wrapper's host enqueue
+    cases = {}
+    for set_label, meas in (("footprints", meas_f), ("counties", meas_c)):
+        for dt in (f64, f32):
+            e = meas["blocks"][dt]
+            for w in GEOM_MEASURES:
+                fn = lambda e=e, w=w: getattr(measures, w)(e)  # noqa: E731
+                k_ms, k_src = kernel_device_ms(fn, 50, "measures_")
+                bound = k11_bound(e, w)
+                key = f"{w} {str(dt).split('.')[-1]} {set_label}"
+                cases[key] = {"ms": k_ms, "ms_source": k_src,
+                              "host_ms": host_ms_per_launch(fn, 200),
+                              "bound_ms": bound["bound_ms"],
+                              "bound_by": bound["bound_by"],
+                              "bytes": bound["bytes"],
+                              "share": bound["bound_ms"] / k_ms}
+                log(f"[geometry] K11 {key}: {k_ms:.4f} ms ({k_src}), bound "
+                    f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+                    f"{bound['bytes']} bytes), share "
+                    f"{cases[key]['share']:.3f}, host enqueue "
+                    f"{cases[key]['host_ms']:.4f} ms a call")
+    out["k11"]["cases"] = cases
     log(f"[geometry] K11 {out['k11']['shape']}: {ms:.4f} ms against its "
-        f"byte bound {out['k11']['bound_ms']:.4f} ms; every measure "
-        f"(events, 20 launches): {k11_more}")
+        f"byte bound {out['k11']['bound_ms']:.4f} ms")
 
     p64 = torch.from_numpy(pts64).to(DEV)
     ps = p64[sample_t]

@@ -559,3 +559,108 @@ def tess_adversarial(grid: IndexSystem, res: int = 5, n_random: int = 24,
             "ring_off": ring_off.astype(np.int64),
             "task_ring": task_ring.astype(np.int64),
             "task_cell": task_cell.astype(np.int64), "rings": geoms}
+
+
+#: (G, E) shapes of :func:`measures_adversarial`: G a multiple of no tile,
+#: E one slot, odd, the main path's 8 and 32, one past a warp's 32, and
+#: thousands; the two with G >= 32768 reach the edge-measures kernel's
+#: staged tiles by its own plan, the rest a warp a geometry
+MEASURES_ADV_SHAPES = ((257, 1), (131, 3), (1031, 8), (32771, 8),
+                       (333, 33), (32797, 32), (17, 1024), (5, 4096))
+#: the views :func:`measures_view` takes of each block: as built, ``x[1:]``
+#: of one more row, ``x[:, 1:]`` of one more slot (not contiguous: the
+#: wrapper copies it), and contiguous views whose data pointer is offset
+#: by one slot or by one coordinate (the mask by one byte in both)
+MEASURES_ADV_VIEWS = ("whole", "rows", "cols", "slot", "coord")
+
+
+def measures_adversarial(dtype: str = "float64", seed: int = 1729):
+    """Edge blocks where the edge-measures kernel (``ops/edge_measures.py``)
+    and its plain version meet their corner cases, as numpy arrays of
+    ``dtype`` ("float64" or "float32"): a list of (label, A, B [G, E, 2],
+    M [G, E] bool), one a :data:`MEASURES_ADV_SHAPES` shape.  Row r is of
+    kind r % 12: seeded reals under a mask of density 0.05, 0.4 or 0.9
+    (non-prefix); small integers (exact zeros, shared and collinear
+    edges); every slot masked; a NaN in a valid slot; a NaN in a masked
+    slot; +inf in a valid slot and -inf in a masked one; zero-length
+    edges; collinear edges on one line; coordinates near 1e300 (1e38 in
+    float32); near 1e-300 (1e-38); x near 1e300 and y near 1e-300; and a
+    closed regular polygon in its first slots with -0.0 among its
+    coordinates and the rest masked."""
+    dt = np.dtype(dtype)
+    big, tiny = (1e300, 1e-300) if dt == np.float64 else (1e38, 1e-38)
+    rng = np.random.default_rng(seed)
+    cases = []
+    for G, E in MEASURES_ADV_SHAPES:
+        A = rng.uniform(-5, 5, (G, E, 2))
+        B = rng.uniform(-5, 5, (G, E, 2))
+        M = rng.random((G, E)) < rng.choice([0.05, 0.4, 0.9], G)[:, None]
+        slot = rng.integers(0, E, G)
+        for r in range(G):
+            kind, e = r % 12, slot[r]
+            if kind == 1:
+                A[r] = rng.integers(-6, 7, (E, 2))
+                B[r] = np.where(rng.random((E, 1)) < 0.3, A[r],
+                                rng.integers(-6, 7, (E, 2)))
+                if E > 1:
+                    B[r, 0], A[r, 1] = A[r, 1], B[r, 0]
+            elif kind == 2:
+                M[r] = False
+            elif kind == 3:
+                A[r, e, 0], M[r, e] = np.nan, True
+            elif kind == 4:
+                B[r, e, 1], M[r, e] = np.nan, False
+            elif kind == 5:
+                A[r, e, 1], M[r, e] = np.inf, True
+                f = (e + 1) % E
+                if f != e:
+                    B[r, f, 0], M[r, f] = -np.inf, False
+            elif kind == 6:
+                B[r], M[r] = A[r], True
+            elif kind == 7:
+                t = rng.uniform(-5, 5, (E, 2))
+                A[r] = np.stack([t[:, 0], 2 * t[:, 0] + 1], -1)
+                B[r] = np.stack([t[:, 1], 2 * t[:, 1] + 1], -1)
+                M[r] = True
+            elif kind == 8:
+                A[r] *= big / 5
+                B[r] *= big / 5
+            elif kind == 9:
+                A[r] *= tiny * 4
+                B[r] *= tiny * 4
+            elif kind == 10:
+                A[r, :, 0] *= big / 5
+                B[r, :, 0] *= big / 5
+                A[r, :, 1] *= tiny
+                B[r, :, 1] *= tiny
+            elif kind == 11:
+                k = min(E, int(rng.integers(3, 9)))
+                th = 2 * np.pi * np.arange(k) / k
+                ring = np.stack([np.cos(th), np.sin(th)], -1) * 3
+                ring[np.abs(ring) < 1e-12] = -0.0
+                A[r, :k], B[r, :k] = ring, np.roll(ring, -1, 0)
+                M[r] = np.arange(E) < k
+        cases.append((f"{G}x{E}", A.astype(dt), B.astype(dt), M))
+    return cases
+
+
+def measures_view(x: np.ndarray, view: str, dtype, device):
+    """``x`` (an A or B block [G, E, 2], or a mask [G, E]) as a torch
+    tensor of ``dtype`` (the mask stays bool) on ``device``, through the
+    view ``view`` of :data:`MEASURES_ADV_VIEWS`."""
+    import torch
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if t.dtype != torch.bool:
+        t = t.to(dtype)
+    if view == "whole":
+        return t.to(device)
+    if view == "rows":
+        return torch.cat([t[:1], t]).to(device)[1:]
+    if view == "cols":
+        return torch.cat([t[:, :1], t], 1).to(device)[:, 1:]
+    if view not in ("slot", "coord"):
+        raise ValueError(f"unknown view {view!r}")
+    shift = 2 if view == "slot" and t.dtype != torch.bool else 1
+    flat = torch.zeros(t.numel() + shift, dtype=t.dtype, device=device)
+    flat[shift:] = t.reshape(-1).to(device)
+    return flat[shift:].view(t.shape)

@@ -9,10 +9,11 @@ over each geometry's padded edges (a, b [G, E, 2] and mask [G, E] of an
 rules are in ``csrc/edge_measures.cu``.
 
 :func:`edge_measures` is the entry point.  On CUDA tensors it launches
-``csrc/edge_measures.cu`` (built at first use), one launch a call, or
-raises; on CPU tensors it runs :func:`edge_measures_ref`.  Both sum over
-the edge slots left to right and round every step once, so they agree
-bit for bit.
+``csrc/edge_measures.cu`` (built at first use), one launch a call, by
+the mapping :func:`launch_plan` picks (staged tiles of whole rows, or a
+warp a geometry), or raises; on CPU tensors it runs
+:func:`edge_measures_ref`.  Both add each quantity over the edge slots
+left to right and round every step once, so they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +30,21 @@ from .projection import check_rc
 MEASURES = {"area": 0, "length": 1, "centroid": 2, "bounds": 3}
 #: output columns of each measure (0: a [G] vector)
 WIDTH = {"area": 0, "length": 0, "centroid": 2, "bounds": 4}
+#: the kernel's mappings: staged tiles of 128 whole rows (a thread a row,
+#: 8 slots a copy stage), or a warp a geometry over 32 slots at a time
+PATHS = {"staged": 0, "warp": 1}
+#: the staged tiles take E <= STAGED_SLOTS slots and G >= STAGED_ROWS rows
+#: (``kStagedSlots``, ``kStagedRows`` in the source)
+STAGED_SLOTS = 32
+STAGED_ROWS = 32768
+
+
+def launch_plan(G: int, E: int) -> str:
+    """The mapping a launch takes for G rows of E slots: "staged" where
+    the slots are few and the rows fill the card's tiles, else "warp"
+    (few rows, or many slots a row: a warp a geometry keeps every lane
+    busy)."""
+    return "staged" if E <= STAGED_SLOTS and G >= STAGED_ROWS else "warp"
 
 
 def guards(dtype: torch.dtype):
@@ -122,29 +138,47 @@ def edge_measures_ref(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its C signatures."""
+    """The kernel's library, built at first use, with its C signatures;
+    raises if its mapping rule is not :func:`launch_plan`'s."""
     lib = _kernels.load("edge_measures")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.edge_measures_f32_launch, lib.edge_measures_f64_launch):
+    for t in ("f32", "f64"):
+        fn = getattr(lib, f"edge_measures_{t}_launch")
         fn.argtypes = [vp, vp, vp, ctypes.c_int64, i, i, vp, vp]
         fn.restype = i
+        fn = getattr(lib, f"edge_measures_{t}_launch_path")
+        fn.argtypes = [vp, vp, vp, ctypes.c_int64, i, i, i, vp, vp]
+        fn.restype = i
+    lib.edge_measures_plan.argtypes = [ctypes.c_int64, i]
+    lib.edge_measures_plan.restype = i
     lib.edge_measures_error_string.argtypes = [i]
     lib.edge_measures_error_string.restype = ctypes.c_char_p
+    for G in (1, STAGED_ROWS - 1, STAGED_ROWS, 1 << 20):
+        for E in (0, 1, 8, STAGED_SLOTS, STAGED_SLOTS + 1, 4096):
+            if lib.edge_measures_plan(G, E) != PATHS[launch_plan(G, E)]:
+                raise RuntimeError(
+                    f"edge_measures: the library maps {G} rows of {E} "
+                    f"slots to path {lib.edge_measures_plan(G, E)}, "
+                    f"launch_plan to {launch_plan(G, E)!r}")
     return lib
 
 
 def edge_measures(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
-                  what: str) -> torch.Tensor:
+                  what: str, path=None) -> torch.Tensor:
     """``what`` (area [G], length [G], centroid [G, 2] or bounds [G, 4])
     of each geometry of the edge blocks a, b [G, E, 2] and mask [G, E],
     in the blocks' type.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel
-    on the current stream and raise on anything it does not take or on
-    a CUDA error; there is no fallback.  ``edge_measures.launches``
-    counts kernel launches."""
+    on the current stream, by the mapping ``path`` ("staged" or "warp";
+    None: :func:`launch_plan`'s), and raise on anything it does not take
+    or on a CUDA error; there is no fallback.  Any contiguous view is
+    taken, whatever the alignment of its data.
+    ``edge_measures.launches`` counts kernel launches."""
     if what not in MEASURES:
         raise ValueError(f"unknown measure {what!r}")
+    if path is not None and path not in PATHS:
+        raise ValueError(f"edge_measures: unknown path {path!r}")
     check_blocks("edge_measures", a, b, mask)
     dev = a.device
     if dev.type == "cpu":
@@ -158,12 +192,12 @@ def edge_measures(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((G, WIDTH[what]) if WIDTH[what] else (G,),
                       dtype=a.dtype, device=dev)
     lib = _lib()
-    fn = lib.edge_measures_f64_launch if a.dtype == torch.float64 else \
-        lib.edge_measures_f32_launch
+    fn = lib.edge_measures_f64_launch_path if a.dtype == torch.float64 \
+        else lib.edge_measures_f32_launch_path
     with torch.cuda.device(dev):
         rc = fn(a.data_ptr(), b.data_ptr(), mask.data_ptr(), G, E,
-                MEASURES[what], out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                MEASURES[what], PATHS[path or launch_plan(G, E)],
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check_rc(lib, "edge_measures", rc, "launch")
     edge_measures.launches += 1
     return out

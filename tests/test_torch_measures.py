@@ -26,10 +26,14 @@ Tolerances:
   valid edge, whose 1e-300 guard rounds to 0 (0/0, as XLA gives).
 
 The plain versions sum over the edge slots left to right, as the kernels
-do: ``area`` and ``length`` are held bit for bit to a numpy loop in slot
-order (its lengths through torch's sqrt: on this host torch's CPU sqrt
-is not always correctly rounded, while on the card both the kernel and
-the plain version take CUDA's IEEE sqrt).
+do: ``area``, ``length``, ``centroid`` and ``bounds`` are held bit for
+bit to a numpy loop in slot order (its lengths through torch's sqrt: on
+this host torch's CPU sqrt is not always correctly rounded, while on the
+card both the kernel and the plain version take CUDA's IEEE sqrt).  The
+edge-measures adversarial set (``bench.workloads.measures_adversarial``,
+which ``chip_smoke.py`` holds the kernel to on the card) goes through
+both packages too, and the wrapper's launch plan is checked for every
+class of slot count against the kernel source's constants.
 """
 
 import jax.numpy as jnp
@@ -49,7 +53,14 @@ from mosaic_tpu_torch.core.geometry import predicates as tp
 from mosaic_tpu_torch.core.geometry.padded import EdgeBlocks as TBlocks
 from mosaic_tpu_torch.core.geometry.padded import build_edges as tbuild
 from mosaic_tpu_torch.core.geometry.padded import points_block as tpoints
-from mosaic_tpu_torch.ops.edge_measures import edge_measures, guards
+from mosaic_tpu_torch.bench.workloads import (MEASURES_ADV_SHAPES,
+                                              MEASURES_ADV_VIEWS,
+                                              measures_adversarial,
+                                              measures_view)
+from mosaic_tpu_torch.ops import edge_measures as em
+from mosaic_tpu_torch.ops.edge_measures import (edge_measures,
+                                                edge_measures_ref, guards,
+                                                launch_plan)
 from mosaic_tpu_torch.ops.edge_point import edge_point_query
 from mosaic_tpu_torch.ops.edges_cross import edges_cross
 
@@ -408,6 +419,156 @@ def test_plain_sums_run_left_to_right(npdt, tdt):
     assert np.float32(tiny) == np.float32(1e-30)
 
 
+def _centroid_bounds_model(A, B, M, what, npdt):
+    """The centroid or the bounds by a numpy loop over the slots in order,
+    every step rounded once in ``npdt`` (lengths through torch's sqrt)."""
+    A, B = A.astype(npdt), B.astype(npdt)
+    G, E = M.shape
+    z = np.zeros(G, npdt)
+    if what == "bounds":
+        lo = [np.full(G, np.inf, npdt), np.full(G, np.inf, npdt)]
+        hi = [np.full(G, -np.inf, npdt), np.full(G, -np.inf, npdt)]
+        for e in range(E):
+            for k in range(2):
+                for v in (A[:, e, k], B[:, e, k]):
+                    take = M[:, e] & ((v < lo[k]) | np.isnan(v))
+                    lo[k] = np.where(take, v, lo[k])
+                    take = M[:, e] & ((v > hi[k]) | np.isnan(v))
+                    hi[k] = np.where(take, v, hi[k])
+        return np.stack([lo[0], lo[1], hi[0], hi[1]], -1)
+    S = {k: z for k in ("A", "L", "sx", "sy", "lx", "ly", "vx", "vy")}
+    half = npdt(0.5)
+    for e in range(E):
+        m = M[:, e]
+        ax, ay, bx, by = A[:, e, 0], A[:, e, 1], B[:, e, 0], B[:, e, 1]
+        w = np.where(m, ax * by - ay * bx, z)
+        dx, dy = bx - ax, by - ay
+        ln = np.where(m, torch.sqrt(torch.from_numpy(dx * dx + dy * dy))
+                      .numpy(), z)
+        S["A"] = S["A"] + w
+        S["L"] = S["L"] + ln
+        S["sx"] = S["sx"] + (ax + bx) * w
+        S["sy"] = S["sy"] + (ay + by) * w
+        S["lx"] = S["lx"] + half * (ax + bx) * ln
+        S["ly"] = S["ly"] + half * (ay + by) * ln
+        S["vx"] = S["vx"] + np.where(m, ax, z)
+        S["vy"] = S["vy"] + np.where(m, ay, z)
+    eps = npdt(1e-300) if npdt == np.float64 else npdt(0)
+    tiny = npdt(1e-30)
+    n = M.sum(-1).astype(npdt)
+    poly = np.stack([S["sx"], S["sy"]], -1) / (npdt(3) * S["A"] + eps)[:, None]
+    line = np.stack([S["lx"], S["ly"]], -1) / (S["L"] + eps)[:, None]
+    vert = np.stack([S["vx"], S["vy"]], -1) / (n + eps)[:, None]
+    return np.where((np.abs(S["A"]) > tiny)[:, None], poly,
+                    np.where((S["L"] > tiny)[:, None], line, vert))
+
+
+@pytest.mark.parametrize("what", ["centroid", "bounds"])
+@pytest.mark.parametrize("npdt,tdt", [(np.float64, torch.float64),
+                                      (np.float32, torch.float32)])
+def test_plain_centroid_bounds_run_left_to_right(what, npdt, tdt):
+    """The plain version's centroid and bounds equal a numpy loop over the
+    slots in order, bit for bit, on the random blocks of the sums' test
+    and on the adversarial set's blocks of up to 33 slots (NaN, infinity,
+    overflow, underflow, -0.0, every slot masked)."""
+    r = np.random.default_rng(31)
+    G, E = 64, 64
+    A = r.uniform(-1e3, 1e3, (G, E, 2)) * r.uniform(0, 1, (G, E, 1)) ** 8
+    B = r.uniform(-1e3, 1e3, (G, E, 2))
+    M = r.random((G, E)) < 0.9
+    sets = [(A.astype(npdt), B.astype(npdt), M)] + [
+        (a, b, m) for _, a, b, m in
+        measures_adversarial(np.dtype(npdt).name) if m.shape[1] <= 33]
+    for a, b, m in sets:
+        got = edge_measures(torch.from_numpy(a), torch.from_numpy(b),
+                            torch.from_numpy(m), what).numpy()
+        with np.errstate(all="ignore"):
+            want = _centroid_bounds_model(a, b, m, what, npdt)
+        assert got.dtype == want.dtype
+        assert np.array_equal(got.view(np.uint8), want.view(np.uint8)) or (
+            np.array_equal(np.isnan(got), np.isnan(want)) and
+            np.array_equal(got[~np.isnan(got)].view(np.uint8),
+                           want[~np.isnan(want)].view(np.uint8)))
+
+
+def _flush_subnormals(x):
+    """x with its subnormal values replaced by zeros of their sign, as
+    XLA's CPU backend reads them."""
+    small = np.abs(x) < np.finfo(x.dtype).tiny
+    return np.where(small, np.copysign(np.zeros_like(x), x), x)
+
+
+@pytest.mark.parametrize("jdt,tdt,npdt", DTYPES)
+def test_adversarial_plain_against_jax(jdt, tdt, npdt):
+    """The edge-measures adversarial set through both packages: bounds bit
+    equal; area, length and centroid within the file's tolerances (their
+    scales from the valid slots: a masked slot adds +0 to every sum), NaN
+    and infinity placed alike; a NaN in a masked slot gives a NaN
+    centroid in both.  XLA's CPU backend flushes float32 subnormals to
+    zero, the port keeps them (test_f32_subnormals_kept_where_xla_flushes):
+    here both packages take the set with its subnormals flushed, and in
+    float32 the rows of coordinates near 1e-38 (kinds 9 and 10, whose sums
+    and quotients pass through the subnormal range) are held to JAX by
+    their bounds alone; the plain version is held bit for bit to the
+    numpy loop on them (test_plain_centroid_bounds_run_left_to_right)."""
+    kinds = 0
+    for label, A, B, M in measures_adversarial(np.dtype(npdt).name):
+        A, B = _flush_subnormals(A), _flush_subnormals(B)
+        je, te = _pair(A, B, M, jdt, tdt)
+        _same(jm.bounds(je), tm.bounds(te))
+        keep = np.ones(len(M), bool) if npdt == np.float64 else \
+            ~np.isin(np.arange(len(M)) % 12, (9, 10))
+        valid = M[..., None]
+        with np.errstate(all="ignore"):
+            s_area, s_len, s_cen = _term_scales(
+                np.where(valid, A, 0).astype(np.float64),
+                np.where(valid, B, 0).astype(np.float64), M)
+        for f, scale in (("area", s_area), ("length", s_len),
+                         ("centroid", s_cen)):
+            _close(_np(getattr(jm, f)(je))[keep],
+                   getattr(tm, f)(te)[torch.from_numpy(keep)],
+                   _tol(np.nan_to_num(scale, nan=np.inf)[keep], npdt))
+        # a NaN end in a masked slot, in a row whose length picks the
+        # area's or the length's branch, both of which multiply it by +0
+        nan_masked = ((np.isnan(A) | np.isnan(B)).any(-1) & ~M).any(1)
+        L = tm.length(te).numpy()
+        rows = np.flatnonzero(nan_masked & np.isfinite(L) & (L > 1e-30))
+        if rows.size:
+            kinds += 1
+            assert np.isnan(_np(jm.centroid(je))[rows]).any(1).all()
+            assert np.isnan(tm.centroid(te).numpy()[rows]).any(1).all()
+    # every shape but the one-slot rows, whose NaN slot is their only one
+    assert kinds == len(MEASURES_ADV_SHAPES) - 1
+
+
+def test_f32_subnormals_kept_where_xla_flushes():
+    """A float32 subnormal coordinate: the port's bounds keep it, as IEEE
+    arithmetic and the card do; XLA's CPU backend reads it as 0."""
+    sub = np.float32(-3e-39)
+    A = np.array([[[1.0, sub]]], np.float32)
+    B = np.array([[[2.0, 1.0]]], np.float32)
+    M = np.array([[True]])
+    je, te = _pair(A, B, M, jnp.float32, torch.float32)
+    assert tm.bounds(te).numpy()[0, 1] == sub
+    assert _np(jm.bounds(je))[0, 1] == 0.0
+
+
+def test_launch_plan_by_slot_class():
+    """Staged tiles for the slot counts up to 32 at 32,768 rows and more,
+    a warp a geometry for every other class; the constants are the
+    kernel source's."""
+    src = (em._kernels.CSRC / "edge_measures.cu").read_text()
+    assert f"kStagedSlots = {em.STAGED_SLOTS};" in src
+    assert f"kStagedRows = {em.STAGED_ROWS};" in src
+    for E in (0, 1, 3, 8, 16, 32, 33, 64, 1024, 4096):
+        for G in (1, 3136, 16384, em.STAGED_ROWS - 1, em.STAGED_ROWS,
+                  1 << 20):
+            want = "staged" if E <= 32 and G >= 32768 else "warp"
+            assert launch_plan(G, E) == want, (G, E)
+    assert launch_plan(1 << 20, 8) == "staged"       # the footprints
+    assert launch_plan(3136, 32) == "warp"           # the counties
+
+
 def test_wrappers_launch_nothing_on_cpu_and_check_inputs():
     A, B, M = _blocks_random()
     a, b, m = (torch.from_numpy(x) for x in (A, B, M))
@@ -416,8 +577,23 @@ def test_wrappers_launch_nothing_on_cpu_and_check_inputs():
     edge_measures(a, b, m, "centroid")
     edge_point_query(a[:, 0], a, b, m, count=True, dist=True)
     edges_cross(a, b, m, a, b, m)
+    # any contiguous view, an unaligned one too, any slot count and either
+    # mapping: the plain version, with no launch and no error
+    for _, A3, B3, M3 in measures_adversarial()[:2]:      # E = 1 and 3
+        for view in MEASURES_ADV_VIEWS:
+            a3, b3 = (measures_view(x, view, torch.float64, "cpu")
+                      for x in (A3, B3))
+            m3 = measures_view(M3, view, None, "cpu")
+            want = edge_measures_ref(*(torch.from_numpy(x)
+                                       for x in (A3, B3, M3)), "centroid")
+            for path in (None, "staged", "warp"):
+                got = edge_measures(a3, b3, m3, "centroid", path=path)
+                assert torch.equal(got.isnan(), want.isnan())
+                assert torch.equal(got.nan_to_num(), want.nan_to_num())
     assert (edge_measures.launches, edge_point_query.launches,
             edges_cross.launches) == before
+    with pytest.raises(ValueError):
+        edge_measures(a, b, m, "area", path="tiles")
     with pytest.raises(ValueError):
         edge_measures(a, b, m, "volume")
     with pytest.raises(ValueError):
