@@ -289,12 +289,46 @@ Phases (any failure exits non-zero and prints no result):
     f32) and K13 (512 sampled counties x 3,136, f64; all pairs) timed in
     turns against their plain versions beside their bounds, counted from
     the run's own data;
-19. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
-    ``raster``, ``sharded``, ``store``, ``geometry`` and ``tess_kernels``
-    (K7 and K8 by input set) summary lines, the card, the ``kernels`` JSON
-    line (K1-K13 with launches per path, the tessellations of phases 5
-    and 11, the strategies', the raster, the sharded, the ``store fed``
-    and the ``geometry`` paths among them), then the last line
+19. the host planes (``obs/``, ``resilience/``), each path counted
+    under its own ``host planes ...`` name: a. the streamed flagship on
+    phase 5's first 2^20 points (2^18-row chunks) untraced and traced
+    (tracer, metrics and recorder on, under ``root_trace``) in turns,
+    zones bit-equal, the host wall clock of each; then, in a child
+    process (``chip_smoke.py --trace-child``, handed the index and the
+    points), once traced inside ``device_trace``, zones bit-equal:
+    ``pip_join/streamed`` one call, every span event of one trace id,
+    the ``h3_dense_join`` records linked to the body's launches in the
+    Chrome trace printed beside the wrapper's count (none is a
+    failure), with each one's start less its launch's, and beside the
+    records a trace taken in this process kept; b. a ticket
+    over phase 5's four batches cancelled from another thread once the
+    first chunk is fetched: ``QueryCancelled`` at the next chunk
+    boundary, at most one K2 launch after the cancel, device memory back
+    to its value before the call, a clean rerun bit-equal to phase 5;
+    c. ``pipeline.fetch`` failing once: the injected ``OSError`` reaches
+    the caller with the stream idle, a clean rerun bit-equal; d. phase
+    14's refine A/B workload pinned ``refined`` under ``join.refine``
+    failing once: one ``refine_bailout`` event,
+    ``pip_join/refine_bailouts`` up by one, zones equal to
+    ``pip_host_truth``; e. phase 16's sharded ``overlay_intersects`` in a
+    NCCL world of one under ``overlay.*`` degraded by 4: only
+    ``overlay.bucket_cap`` injected, the exchange run again until it fits
+    (its rounds printed), hits bit-equal to the undegraded sharded call;
+    f. tests/test_store.py's fault plans on phase 17's side store, built
+    again: a torn shard under ``skip``, ``null`` and ``raise``,
+    ``store.read`` and ``store.write``, then the side query bit-equal to
+    the streamed join; g. config 5's DEM as a GeoTIFF with strip 0
+    truncated, under ``skip`` and ``null``, through ``raster_to_grid`` on
+    the card and on the CPU, bit-equal, and a raster checkpoint riding
+    out two write faults; h. the native library built into a fresh
+    directory, its first load failing: rebuilt and loaded;
+20. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+    ``raster``, ``sharded``, ``store``, ``geometry``, ``host_planes`` and
+    ``tess_kernels`` (K7 and K8 by input set) summary lines, the card,
+    the ``kernels`` JSON line (K1-K13 with launches per path, the
+    tessellations of phases 5 and 11, the strategies', the raster, the
+    sharded, the ``store fed``, the ``geometry`` and the ``host planes``
+    paths among them), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
@@ -5139,6 +5173,538 @@ def halo_seams(tile, w) -> dict:
             "bit_equal": ok}
 
 
+#: phase 19, the host planes: the traced flagship's batch and timing
+#: turns, the cancel's poll interval, and the plans each step arms (the
+#: store's are tests/test_store.py's, the others tests/test_chaos.py's
+#: and tests/test_refine.py's)
+HP_TRACE_N = 1 << 20
+HP_TURNS = 7
+HP_CANCEL_POLL_S = 2e-4
+HP_FETCH_PLAN = "seed=5;site=pipeline.fetch,fails=1"
+HP_REFINE_PLAN = "seed=17;site=join.refine,fails=1"
+HP_OVERLAY_PLAN = "seed=35;site=overlay.*,mode=degrade,rate=1.0,factor=4"
+HP_TORN_PLAN = "seed=21;site=store.shard,fails=1,mode=truncate"
+HP_STORE_READ_PLAN = "seed=23;site=store.read,fails=1"
+HP_STORE_WRITE_PLAN = "seed=24;site=store.write,fails=1"
+HP_STRIP_PLAN = "seed=21;site=gtiff.read_strip,fails=1,mode=truncate"
+HP_CKPT_PLAN = "seed=31;site=checkpoint.write,fails=2"
+HP_NATIVE_PLAN = "seed=33;site=native.cdll,fails=1"
+
+
+def k2_in(logdir):
+    """(doc, K2 records, offsets ms) of the Chrome trace in ``logdir``:
+    the K2 kernel records linked by correlation id to a launch in the
+    trace (the body's: the host records of its window), and each one's
+    start less its launch's on the trace's clock."""
+    import glob
+    import os
+    (trace_path,) = glob.glob(os.path.join(logdir, "*.json"))
+    with open(trace_path) as f:
+        doc = json.load(f)
+    evs = doc.get("traceEvents", [])
+    launched = {e["args"]["correlation"]: e["ts"] for e in evs
+                if e.get("cat") == "cuda_runtime" and
+                "correlation" in e.get("args", {})}
+    offs = [(e["ts"] - launched[e["args"]["correlation"]]) / 1e3
+            for e in evs if e.get("cat") == "kernel" and
+            "dense_join_kernel" in e.get("name", "") and
+            e.get("args", {}).get("correlation") in launched]
+    return doc, len(offs), offs
+
+
+def trace_child(logdir: str) -> int:
+    """``chip_smoke.py --trace-child LOGDIR``, started by phase 19: the
+    flagship join of ``LOGDIR/flagship.pt`` (index, grid, zones and
+    points) once to warm it, then once with the tracer on under
+    ``root_trace`` inside ``device_trace(LOGDIR/trace)``, counted.  Its
+    zones go to ``LOGDIR/zones.npy``; the counts, the tracer's report
+    and the span events' trace ids to the last line of stdout."""
+    import os
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.obs import device_trace, recorder, root_trace, \
+        tracer
+    d = torch.load(os.path.join(logdir, "flagship.pt"), weights_only=False)
+    run = mt.make_streamed_pip_join(d["idx"], d["grid"], d["polys"],
+                                    chunk=CHUNK, device=DEV)
+    run(d["pts"])
+    torch.cuda.synchronize()
+    tracer.reset()
+    recorder.reset()
+    recorder.enable()
+    tracer.enable()
+    reset_counts()
+    with device_trace(os.path.join(logdir, "trace")):
+        with root_trace("host planes flagship") as ctx:
+            zones = run(d["pts"])[0]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    report = tracer.report()
+    tracer.disable()
+    np.save(os.path.join(logdir, "zones.npy"), zones)
+    print(json.dumps({
+        "counts": counts, "trace_id": ctx.trace_id,
+        "span_traces": sorted({str(e.get("trace"))
+                               for e in recorder.events("span")}),
+        "report": {"spans": report["spans"],
+                   "counters": report["counters"]}}, default=str))
+    return 0
+
+
+def phase_host_planes(idx, grid, polys, batches, dense_zones, over):
+    """The host planes on the card: the traced flagship (K2) with a
+    device trace, a cancel mid-stream, a fetch fault, the refined join's
+    bailout (K3 on its route), the degraded sharded exchange (K4, a NCCL
+    world of one), the store's fault plans (K2 on the side store),
+    the raster under a damaged strip and a retried checkpoint (K3), and
+    the native library's rebuild.  Each step is held bit-equal to its
+    clean run or to the f64 oracle; each path's launches are counted."""
+    import dataclasses
+    import gc
+    import os
+    import tempfile
+    import threading
+    from datetime import timedelta
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch import config, native
+    from mosaic_tpu_torch.core.raster import checkpoint as ckpt
+    from mosaic_tpu_torch.core.raster.gtiff import read_gtiff, write_gtiff
+    from mosaic_tpu_torch.obs import (QueryCancelled, device_trace,
+                                      inflight, metrics, new_trace,
+                                      recorder, root_trace, tracer)
+    from mosaic_tpu_torch.ops.dense_join import dense_join
+    from mosaic_tpu_torch.parallel import overlay as ov
+    from mosaic_tpu_torch.parallel import pip_join as pj
+    from mosaic_tpu_torch.resilience import faults
+    from mosaic_tpu_torch.resilience.faults import InjectedFault
+    from mosaic_tpu_torch.resilience.ingest import CodecError
+    from mosaic_tpu_torch.sql.planner import planner
+    from mosaic_tpu_torch.store import ChipStore, StoreWriter, write_store
+
+    t_phase = time.perf_counter()
+    paths, out = {}, {}
+    prev_cfg = config.default_config()
+
+    def counted(path, fn):
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        paths[path] = launch_counts()
+        return res
+
+    def set_conf(key, val):
+        config.set_default_config(config.apply_conf(
+            config.default_config(), key, val))
+
+    run = mt.make_streamed_pip_join(idx, grid, polys, chunk=CHUNK,
+                                    device=DEV)
+    pts = batches[0][:HP_TRACE_N]
+    chunks = -(-HP_TRACE_N // CHUNK)
+    try:
+        # ---- 1. the traced flagship, against its untraced run
+        recorder.reset()
+        recorder.enable()
+        tracer.reset()
+        z_plain, _ = run(pts)
+        walls = {"untraced": [], "traced": []}
+
+        def one(traced: bool):
+            if traced:
+                tracer.enable()
+                t0 = time.perf_counter()
+                with root_trace("host planes flagship") as ctx:
+                    z, _ = run(pts)
+            else:
+                tracer.disable()
+                t0 = time.perf_counter()
+                z, ctx = run(pts)[0], None
+            walls["traced" if traced else "untraced"].append(
+                time.perf_counter() - t0)
+            return z, ctx
+
+        for turn in range(HP_TURNS):   # in turns: u t, t u, u t, ...
+            for traced in ((False, True) if turn % 2 == 0
+                           else (True, False)):
+                z, _ = one(traced)
+                check(np.array_equal(z, z_plain), "traced flagship: "
+                      "zones differ from the untraced run")
+        tracer.disable()
+        with tempfile.TemporaryDirectory() as logdir:
+            # this process has run hundreds of profiler sessions by now,
+            # and such a process loses a trace's device records at
+            # random: its trace is printed, not checked
+            with device_trace(logdir):
+                run(pts)
+            _, here_in_trace, _ = k2_in(logdir)
+        with tempfile.TemporaryDirectory() as logdir:
+            torch.save({"idx": idx, "grid": grid, "polys": polys,
+                        "pts": pts}, os.path.join(logdir, "flagship.pt"))
+            child = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--trace-child", logdir], capture_output=True, text=True,
+                timeout=600)
+            check(child.returncode == 0, "the device trace's child "
+                  f"process failed: {child.stderr[-3000:]}")
+            got = json.loads(child.stdout.strip().splitlines()[-1])
+            z_traced = np.load(os.path.join(logdir, "zones.npy"))
+            doc, in_trace, offsets = k2_in(os.path.join(logdir, "trace"))
+        paths["host planes traced flagship"] = got["counts"]
+        rep = got["report"]
+        check(np.array_equal(z_traced, z_plain), "traced flagship under "
+              "the device trace: zones differ from the untraced run")
+        check(rep["spans"].get("pip_join/streamed", {}).get("calls") == 1,
+              f"traced flagship: spans {rep['spans']}")
+        check(got["span_traces"] == [got["trace_id"]], "traced flagship: "
+              f"the span events carry trace ids {got['span_traces']}, not "
+              f"{got['trace_id']}")
+        k2_traced = paths["host planes traced flagship"]["h3_dense_join"]
+        check(k2_traced == chunks, f"traced flagship: {k2_traced} K2 "
+              f"launches for {chunks} chunks")
+        check(in_trace > 0, "the device trace holds no h3_dense_join "
+              "launch")
+        out["traced"] = {
+            "points": HP_TRACE_N, "chunks": chunks,
+            "untraced_s": walls["untraced"], "traced_s": walls["traced"],
+            "untraced_median_s": float(np.median(walls["untraced"])),
+            "traced_median_s": float(np.median(walls["traced"])),
+            "k2_launches": k2_traced, "k2_in_device_trace": in_trace,
+            "k2_in_trace_this_process": here_in_trace,
+            "k2_start_less_launch_ms": offsets,
+            "spans": {n: s["calls"] for n, s in rep["spans"].items()},
+            "d2h_bytes": rep["counters"].get("pipeline/d2h_bytes"),
+            "h2d_bytes": rep["counters"].get("pipeline/h2d_bytes"),
+            "trace_events": len(doc.get("traceEvents", []))}
+        log(f"[host planes] traced flagship: {HP_TRACE_N} points in "
+            f"{chunks} chunks, zones bit-equal traced and untraced; host "
+            f"wall clock in turns, untraced {walls['untraced']} s, traced "
+            f"{walls['traced']} s; {in_trace} h3_dense_join launches in the "
+            f"device trace, {k2_traced} counted by the wrapper "
+            f"(the trace taken in a child process; {here_in_trace} in one "
+            f"taken in this process); "
+            f"each kernel's start less its launch's in the trace {offsets} "
+            f"ms; spans "
+            f"{out['traced']['spans']}, one trace id")
+
+        # ---- 2. a cancel mid-stream over phase 5's four batches
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        seen = {}
+        reset_counts()
+        with new_trace("host planes cancel"):
+            ticket = inflight.register("flagship 4 x 2^22",
+                                       principal="chip_smoke")
+
+            def canceller():
+                while ticket.d2h_bytes == 0 and not seen.get("done"):
+                    time.sleep(HP_CANCEL_POLL_S)
+                seen["t"] = time.perf_counter()
+                inflight.cancel(ticket.query_id)
+                seen["k2"] = dense_join.launches
+
+            th = threading.Thread(target=canceller, daemon=True)
+            th.start()
+            raised = None
+            try:
+                for b in batches:
+                    run(b)
+            except QueryCancelled as e:
+                raised = (time.perf_counter(), e.outcome)
+            finally:
+                seen["done"] = True
+                th.join(30)
+                inflight.finish(ticket, "cancelled")
+        torch.cuda.synchronize()
+        paths["host planes cancel"] = launch_counts()
+        k2_cancel = paths["host planes cancel"]["h3_dense_join"]
+        check(raised is not None and raised[1] == "cancelled",
+              "cancel: QueryCancelled never rose")
+        check(k2_cancel - seen["k2"] <= 1, f"cancel: {k2_cancel} K2 "
+              f"launches, {seen['k2']} at the cancel")
+        gc.collect()
+        mem1 = torch.cuda.memory_allocated()
+        check(mem1 == mem0, f"cancel: {mem1} bytes allocated after, "
+              f"{mem0} before")
+        rerun = counted("host planes cancel rerun",
+                        lambda: [run(b)[0] for b in batches])
+        check(all(np.array_equal(a, b) for a, b in zip(rerun, dense_zones)),
+              "cancel: the clean rerun differs from phase 5's zones")
+        out["cancel"] = {
+            "k2_at_cancel": seen["k2"], "k2_total": k2_cancel,
+            "latency_ms": (raised[0] - seen["t"]) * 1e3,
+            "d2h_bytes_charged": ticket.d2h_bytes,
+            "mem_before": mem0, "mem_after": mem1}
+        log(f"[host planes] cancel: QueryCancelled {out['cancel']['latency_ms']:.3f} "
+            f"ms after the cancel (host clock), K2 launches {seen['k2']} at "
+            f"the cancel and {k2_cancel} in all; device memory "
+            f"{mem0} -> {mem1} bytes; the clean rerun of the 4 batches "
+            "bit-equal to phase 5")
+
+        # ---- 3. a fetch fault on phase 5's first batch
+        plan = faults.arm(HP_FETCH_PLAN)
+        try:
+            reset_counts()
+            try:
+                run(batches[0])
+                surfaced = None
+            except OSError as e:
+                surfaced = e
+            idle = torch.cuda.current_stream().query()
+            paths["host planes fetch fault"] = launch_counts()
+        finally:
+            faults.disarm()
+        check(isinstance(surfaced, InjectedFault), "fetch fault: the "
+              f"injected OSError did not reach the caller ({surfaced!r})")
+        check(idle, "fetch fault: work still queued on the stream after "
+              "the error")
+        z_fetch = counted("host planes fetch rerun",
+                          lambda: run(batches[0])[0])
+        check(np.array_equal(z_fetch, dense_zones[0]), "fetch fault: the "
+              "clean rerun differs from phase 5's zones")
+        out["fetch"] = {"injected": plan.injected,
+                        "k2_before_error": paths["host planes fetch fault"]
+                        ["h3_dense_join"]}
+        log(f"[host planes] fetch fault: {type(surfaced).__name__} reached "
+            f"the caller after {out['fetch']['k2_before_error']} K2 "
+            "launches, the stream idle; the clean rerun bit-equal")
+
+        # ---- 4. the refined join's bailout on phase 14's workload
+        metrics.enable()
+        rpolys, rpts = refine_workload()
+        set_conf("mosaic.planner.force.refine", "refined")
+        rjoin = mt.make_refined_pip_join(rpolys, mt.get_index_system("H3"),
+                                         REFINE_RES, chunk=CHUNK,
+                                         device=DEV)
+        recorder.reset()
+        b0 = metrics.counter_value("pip_join/refine_bailouts")
+        faults.arm(HP_REFINE_PLAN)
+        try:
+            z_bail, _ = counted("host planes refine bailout",
+                                lambda: rjoin(rpts))
+        finally:
+            faults.disarm()
+        bails = recorder.events("refine_bailout")
+        truth = mt.pip_host_truth(rpts, rpolys)
+        check(len(bails) == 1 and
+              metrics.counter_value("pip_join/refine_bailouts") == b0 + 1,
+              f"refine bailout: events {bails}")
+        check(np.array_equal(z_bail, truth), "refine bailout: zones differ "
+              "from pip_host_truth")
+        check(rjoin.stats["strategy"] == "flat", "refine bailout: the run "
+              f"reports {rjoin.stats}")
+        out["refine"] = {"event": {k: v for k, v in bails[0].items()
+                                   if k not in ("ts", "seq")},
+                         "stats": rjoin.stats}
+        log(f"[host planes] refine bailout: {bails[0]['error']} re-ran "
+            f"{bails[0]['rows']} rows flat, zones equal to pip_host_truth; "
+            f"launches {paths['host planes refine bailout']}")
+        config.set_default_config(prev_cfg)
+        planner.reset()
+
+        # ---- 5. the degraded exchange (K4) in a NCCL world of one; the
+        # registry, on since step 4, counts the exchange rounds
+        foot, chips_b = over["shard_inputs"]
+        sub = foot.take(list(range(SHARD_FOOTPRINTS)))
+        chips_a = mt.tessellate(sub, RES, grid, keep_core_geom=True,
+                                device=DEV)
+        kw = dict(device=DEV, chips_a=chips_a, chips_b=chips_b)
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1, timeout=timedelta(seconds=60))
+            try:
+                G = dist.group.WORLD
+                rounds = lambda: int(  # noqa: E731
+                    metrics.counter_value("overlay/exchange_rounds"))
+                r0 = rounds()
+                clean = counted("host planes overlay sharded",
+                                lambda: ov.overlay_intersects(
+                                    sub, polys, RES, grid, group=G, **kw))
+                r1 = rounds()
+                plan = faults.arm(HP_OVERLAY_PLAN)
+                try:
+                    degraded = counted("host planes overlay degraded",
+                                       lambda: ov.overlay_intersects(
+                                           sub, polys, RES, grid, group=G,
+                                           **kw))
+                finally:
+                    faults.disarm()
+                r2 = rounds()
+            finally:
+                dist.destroy_process_group()
+        check([s for s, _, _ in plan.injected] == ["overlay.bucket_cap"],
+              f"degraded exchange: injected {plan.injected}")
+        check(r1 - r0 == 1 and r2 - r1 > 1, f"degraded exchange: rounds "
+              f"{r1 - r0} clean, {r2 - r1} degraded")
+        check(np.array_equal(degraded, clean), "degraded exchange: hits "
+              "differ from the undegraded sharded call")
+        check(paths["host planes overlay degraded"]["overlay_pairs"] == 1,
+              "degraded exchange: K4 launches")
+        out["overlay"] = {"rounds_clean": r1 - r0,
+                          "rounds_degraded": r2 - r1,
+                          "injected": plan.injected}
+        log(f"[host planes] degraded exchange: {plan.injected}, "
+            f"{r2 - r1} exchange rounds (clean {r1 - r0}), hits bit-equal "
+            "to the undegraded sharded call")
+
+        # ---- 6. the store's fault plans on phase 17's side store
+        with tempfile.TemporaryDirectory() as root:
+            side_root = os.path.join(root, "side")
+            side_pts = mt.nyc_points(STORE_SIDE_ROWS, seed=901)
+            write_store(side_root, side_pts, grid_res=STORE_SIDE_RES,
+                        shard_rows=STORE_SIDE_SHARD)
+            full = ChipStore(side_root).read_columns()
+            recorder.reset()
+            faults.arm(HP_TORN_PLAN)
+            skip = ChipStore(side_root, on_error="skip").read_columns()
+            faults.arm(HP_TORN_PLAN)
+            null = ChipStore(side_root, on_error="null").read_columns()
+            faults.arm(HP_TORN_PLAN)
+            try:
+                ChipStore(side_root, on_error="raise").read_columns()
+                torn_raised = False
+            except CodecError as e:
+                torn_raised = "torn shard" in str(e)
+            faults.arm(HP_STORE_READ_PLAN)
+            try:
+                ChipStore(side_root)
+                read_raised = False
+            except InjectedFault:
+                read_raised = True
+            faults.arm(HP_STORE_WRITE_PLAN)
+            dead = os.path.join(root, "dead")
+            try:
+                StoreWriter(dead, grid_res=64).append(side_pts[:500])
+                write_raised = False
+            except InjectedFault:
+                write_raised = True
+            faults.disarm()
+            try:
+                ChipStore(dead)
+                left = True
+            except CodecError:
+                left = False
+            torn = recorder.events("store_shard_torn")
+            lost = len(full["x"]) - len(skip["x"])
+            check(0 < lost < len(full["x"]) and
+                  [e["mode"] for e in torn] == ["skip", "null"],
+                  f"torn shard: {lost} rows lost, events {torn}")
+            check(len(null["x"]) == len(full["x"]), "torn shard: null mode "
+                  "changed the row count")
+            check(torn_raised and read_raised and write_raised and not left,
+                  f"store faults: torn raise {torn_raised}, read "
+                  f"{read_raised}, write {write_raised}, store left {left}")
+            side = ChipStore(side_root)
+            x0, y0, x1, y1 = side.bbox
+            qbox = (x0, y0, x0 + (x1 - x0) * STORE_SIDE_FRAC,
+                    y0 + (y1 - y0) * STORE_SIDE_FRAC)
+            sc = side.read_columns(cols=side.point_cols, bbox=qbox)
+            ref, ref_re = run(np.column_stack([sc["x"], sc["y"]]))
+            srun = pj.make_store_sharded_pip_join(side, idx, grid,
+                                                  polys=polys, chunk=CHUNK,
+                                                  device=DEV)
+            z_side, re_side = counted("host planes store side",
+                                      lambda: srun(bbox=qbox))
+        check(np.array_equal(z_side, ref) and re_side == ref_re,
+              "store faults: the side query differs from the streamed "
+              "join")
+        out["store"] = {"torn_rows_lost": lost, "torn_events": len(torn),
+                        "side_rows": len(z_side)}
+        log(f"[host planes] store faults: a torn shard dropped {lost} rows "
+            "under skip and kept the count under null, each a "
+            "store_shard_torn event, raised under raise; store.read "
+            "surfaced; store.write left no store; the side query "
+            f"({len(z_side)} rows) bit-equal to the streamed join")
+
+        # ---- 7. the raster under a damaged strip, and a retried
+        # checkpoint
+        gtr = mt.GeoTransform(*DEM_GT)
+        yy, xx = np.mgrid[0:DEM_SHAPE[0], 0:DEM_SHAPE[1]]
+        dem = mt.RasterTile((np.sin(xx / 60.0) * 50 + yy * 0.1)[None], gtr,
+                            srid=4326)
+        blob = write_gtiff(dem)
+        ras = {}
+        for mode in ("skip", "null"):
+            plan = faults.arm(HP_STRIP_PLAN)
+            try:
+                tile = read_gtiff(blob, on_error=mode, path="dem.tif")
+            finally:
+                faults.disarm()
+            check(plan.injected == [("gtiff.read_strip", 0, "truncate")] and
+                  len(tile.meta.get("decode_errors", ())) == 1,
+                  f"raster {mode}: injected {plan.injected}")
+            got = counted(f"host planes raster {mode}",
+                          lambda: mt.raster_to_grid(
+                              [tile], R2G_RES, grid, combiner="avg",
+                              device=DEV))
+            cpu = mt.raster_to_grid([tile], R2G_RES, grid, combiner="avg",
+                                    device="cpu")
+            check(same_values(got, cpu), f"raster {mode}: the card's cells "
+                  "differ from the CPU path's on the damaged tile")
+            check(paths[f"host planes raster {mode}"]["h3_latlng_to_cell"]
+                  >= 1, f"raster {mode}: no K3 launch")
+            ras[mode] = len(got)
+        with tempfile.TemporaryDirectory() as cdir:
+            cfg = dataclasses.replace(prev_cfg, raster_use_checkpoint=True,
+                                      raster_checkpoint=cdir)
+            recorder.reset()
+            plan = faults.arm(HP_CKPT_PLAN)
+            try:
+                rec = ckpt.serialize_tile(dem, cfg)
+            finally:
+                faults.disarm()
+            back = ckpt.deserialize_tile(rec)
+        check(len(plan.injected) == 2 and
+              len(recorder.events("retry_recovered")) == 1 and
+              np.array_equal(np.asarray(back.data), np.asarray(dem.data)),
+              f"checkpoint: injected {plan.injected}")
+        out["raster"] = {"cells": ras, "checkpoint_injected": plan.injected}
+        log(f"[host planes] raster: config 5's DEM with strip 0 truncated, "
+            f"cells {ras} bit-equal to the CPU path under skip and null; "
+            "the checkpoint write rode out 2 faults (CHECKPOINT_RETRY)")
+
+        # ---- 8. the native library rebuilt from a fresh directory
+        build_dir, lib_fn = native.BUILD_DIR, native.get_lib
+        with tempfile.TemporaryDirectory() as ndir:
+            native.BUILD_DIR = Path(ndir)
+            lib_fn.cache_clear()
+            plan = faults.arm(HP_NATIVE_PLAN)
+            try:
+                t0 = time.perf_counter()
+                lib = native.get_lib()
+                t_native = time.perf_counter() - t0
+                probe = native.pip_first_match(
+                    np.array([[0.5, 0.5], [2.0, 2.0]]),
+                    np.array([[0, 0, 1, 0], [1, 0, 1, 1], [1, 1, 0, 1],
+                              [0, 1, 0, 0]], np.float64), np.array([0, 4]))
+                built = native.lib_path().exists()
+            finally:
+                faults.disarm()
+                native.BUILD_DIR = build_dir
+                lib_fn.cache_clear()
+        check(plan.injected == [("native.cdll", 0, "OSError")] and
+              lib is not None and built and probe.tolist() == [0, -1],
+              f"native rebuild: injected {plan.injected}, probe {probe}")
+        out["native"] = {"s": t_native, "injected": plan.injected}
+        log(f"[host planes] native: the load failed once, the library was "
+            f"rebuilt and loaded in {t_native:.2f} s")
+    finally:
+        faults.disarm()
+        tracer.disable()
+        metrics.disable()
+        config.set_default_config(prev_cfg)
+        planner.reset()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[host planes] the phase took {out['phase_s']:.1f} s (host clock)")
+    out["counts"] = paths
+    return out
+
+
 def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5186,6 +5752,8 @@ def main() -> int:
                               over, knn, raster)
         store = phase_store(idx, grid, polys)
         geom = phase_geometry(polys, grid)
+        t_18 = time.perf_counter() - t_start
+        hp = phase_host_planes(idx, grid, polys, batches, dense_zones, over)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5198,7 +5766,7 @@ def main() -> int:
              **chip["tess_counts"], **strat["paths"], **raster["paths"],
              **shard["counts"], **{p: c for p, c in store["counts"].items()
                                    if p.startswith("store fed")},
-             **geom["paths"]}
+             **geom["paths"], **hp["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -5227,8 +5795,11 @@ def main() -> int:
     log(json.dumps({"geometry": {k: v for k, v in geom.items()
                                  if k not in ("paths", "k11", "k12",
                                               "k13")}}))
-    log(f"[chip_smoke] phases 1-18 took {time.perf_counter() - t_start:.1f} "
-        "s (host clock)")
+    log(json.dumps({"host_planes": {k: v for k, v in hp.items()
+                                    if k != "counts"}}, default=str))
+    log(f"[chip_smoke] phases 1-18 took {t_18:.1f} s, phase 19 "
+        f"{hp['phase_s']:.1f} s, phases 1-19 "
+        f"{time.perf_counter() - t_start:.1f} s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
                for label, row in chip[key]["shapes"].items()}
@@ -5325,4 +5896,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trace-child"]:
+        sys.exit(trace_child(sys.argv[2]))
     sys.exit(main())

@@ -8,6 +8,11 @@ kernel is built at its first CUDA use, or ahead of time by :func:`build`
 (several at once: :func:`build_all`).  ``-fmad=false`` keeps every multiply
 and add separately rounded, which the double-single arithmetic of the
 kernels needs.
+
+A kernel that does not build, load or launch raises :class:`KernelError`,
+a ``RuntimeError``: no fallback path catches it (the refined join's flat
+bailout lets it through), so a broken kernel never hides behind a plain
+version.
 """
 
 from __future__ import annotations
@@ -32,15 +37,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand kernel failed to build, load, match its wrapper or launch."""
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and (Path(cand) / "bin" / "nvcc").exists():
             return str(Path(cand) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels of "
-                           "mosaic_tpu_torch build on a machine with the "
-                           "CUDA toolkit")
+        raise KernelError("nvcc not found: the CUDA kernels of "
+                          "mosaic_tpu_torch build on a machine with the "
+                          "CUDA toolkit")
     return found
 
 
@@ -56,8 +65,8 @@ def lib_path(name: str) -> Path:
 def build(name: str) -> float:
     """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the
     seconds ``nvcc`` took (0.0 when already built); the ptxas report
-    lands in ``<lib>.log``.  Raises RuntimeError naming the source when
-    the compile fails."""
+    lands in ``<lib>.log``.  Raises :class:`KernelError` naming the source
+    when the compile fails."""
     out = lib_path(name)
     if out.exists():
         return 0.0
@@ -70,8 +79,8 @@ def build(name: str) -> float:
     seconds = time.perf_counter() - t0
     out.with_suffix(".log").write_bytes(proc.stdout)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n"
-                           f"{proc.stdout.decode(errors='replace')}")
+        raise KernelError(f"nvcc failed on csrc/{name}.cu:\n"
+                          f"{proc.stdout.decode(errors='replace')}")
     os.replace(tmp, out)
     return seconds
 
@@ -88,6 +97,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build(name)
-        lib = ctypes.CDLL(str(lib_path(name)))
+        try:
+            lib = ctypes.CDLL(str(lib_path(name)))
+        except OSError as e:
+            raise KernelError(f"csrc/{name}.cu's library does not load: "
+                              f"{e}") from e
         _loaded[name] = lib
     return lib

@@ -37,7 +37,14 @@ setting carries over 1:1:
   its placement from that heat (``obs/heat.py``);
 * ``mosaic.layout.{rows.per.cell,min.res,max.res}`` — the layout
   advisor's target rows per occupied cell and its resolution clamp
-  (``sql/layout.py``).
+  (``sql/layout.py``);
+* ``mosaic.trace.enabled``, ``mosaic.metrics.enabled`` — turn the span
+  tracer (and with it the metrics registry) or the registry alone on
+  when the config is set (``obs/``; they never turn an instrument off);
+* ``mosaic.obs.dump.cooldown.ms`` — the spacing of automatic
+  flight-recorder dumps (``obs/recorder.py``).
+
+A successful ``apply_conf`` records a ``config`` flight-recorder event.
 
 The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
 any other one, and for the pins of ops it does not run (the
@@ -73,6 +80,9 @@ MOSAIC_HEAT_PRIOR = "mosaic.heat.prior"
 MOSAIC_LAYOUT_ROWS_PER_CELL = "mosaic.layout.rows.per.cell"
 MOSAIC_LAYOUT_MIN_RES = "mosaic.layout.min.res"
 MOSAIC_LAYOUT_MAX_RES = "mosaic.layout.max.res"
+MOSAIC_TRACE_ENABLED = "mosaic.trace.enabled"
+MOSAIC_METRICS_ENABLED = "mosaic.metrics.enabled"
+MOSAIC_OBS_DUMP_COOLDOWN_MS = "mosaic.obs.dump.cooldown.ms"
 
 MOSAIC_RASTER_CHECKPOINT_DEFAULT = "/tmp/mosaic_tpu/checkpoint"
 MOSAIC_RASTER_TMP_PREFIX_DEFAULT = "/tmp"
@@ -135,6 +145,13 @@ class MosaicConfig:
     layout_rows_per_cell: int = 65_536
     layout_min_res: int = 64
     layout_max_res: int = 16_384
+    # observability switches (obs/): the span tracer and the metrics
+    # registry; env vars MOSAIC_TPU_TRACE / MOSAIC_TPU_METRICS turn them
+    # on too, and conf keys only ever turn instruments on
+    trace_enabled: bool = False
+    metrics_enabled: bool = False
+    # minimum spacing of automatic dump bundles (0 disables the gate)
+    obs_dump_cooldown_ms: float = 30_000.0
 
 
 def _as_flag(key: str, value) -> bool:
@@ -236,6 +253,9 @@ _CONF_FIELDS = {
     MOSAIC_LAYOUT_ROWS_PER_CELL: ("layout_rows_per_cell", _as_blocksize),
     MOSAIC_LAYOUT_MIN_RES: ("layout_min_res", _as_blocksize),
     MOSAIC_LAYOUT_MAX_RES: ("layout_max_res", _as_blocksize),
+    MOSAIC_TRACE_ENABLED: ("trace_enabled", _as_flag),
+    MOSAIC_METRICS_ENABLED: ("metrics_enabled", _as_flag),
+    MOSAIC_OBS_DUMP_COOLDOWN_MS: ("obs_dump_cooldown_ms", _as_millis),
 }
 
 
@@ -270,16 +290,24 @@ def planner_force_for(cfg: MosaicConfig, op: str) -> str:
 
 def apply_conf(cfg: MosaicConfig, key: str, value) -> MosaicConfig:
     """One validated conf assignment -> a new config; a key the port
-    does not know raises ``ConfigError``."""
+    does not know raises ``ConfigError``.  The assignment is a ``config``
+    flight-recorder event, so a dump shows which setting preceded a
+    failure."""
+    # lazy import: obs reads this module back for bundle snapshots
+    from .obs.recorder import recorder
     if key.startswith(MOSAIC_PLANNER_FORCE_PREFIX):
-        return _apply_planner_force(cfg, key, value)
+        new = _apply_planner_force(cfg, key, value)
+        recorder.record("config", key=key, value=str(value))
+        return new
     if key not in _CONF_FIELDS:
         raise ConfigError(
             f"unknown conf key {key!r} (known: "
             f"{', '.join(sorted(_CONF_FIELDS))} and "
             f"{MOSAIC_PLANNER_FORCE_PREFIX}<op>)")
     field, coerce = _CONF_FIELDS[key]
-    return dataclasses.replace(cfg, **{field: coerce(key, value)})
+    coerced = coerce(key, value)
+    recorder.record("config", key=key, value=str(value))
+    return dataclasses.replace(cfg, **{field: coerced})
 
 
 _default_config: MosaicConfig = MosaicConfig()
@@ -288,6 +316,11 @@ _default_config: MosaicConfig = MosaicConfig()
 def set_default_config(cfg: MosaicConfig) -> None:
     global _default_config
     _default_config = cfg
+    # conf-driven observability (one-way: never disables an instrument
+    # the env or an explicit enable() turned on)
+    if cfg.trace_enabled or cfg.metrics_enabled:
+        from .obs import configure
+        configure(cfg)
 
 
 def default_config() -> MosaicConfig:

@@ -1,9 +1,10 @@
 """Raster tile serialization: bytes through the wire, or checkpoint paths.
 
-Port copy of ``mosaic_tpu.core.raster.checkpoint``, lean: the JAX
-package's ``CHECKPOINT_RETRY`` policy and its ``faults`` probes
-(``checkpoint.write``, ``checkpoint.read``) are left out, so a failed
-write or read raises at once.
+Port copy of ``mosaic_tpu.core.raster.checkpoint``, with its host
+planes: the checkpoint file's write and read are the ``checkpoint.write``
+and ``checkpoint.read`` fault sites and run under ``CHECKPOINT_RETRY``,
+so a transient volume hiccup retries with backoff instead of failing
+the batch.
 
 Reference counterparts: core/types/RasterTileType.scala:31-37 (the tile
 struct's raster field switches BinaryType <-> StringType path depending
@@ -27,6 +28,8 @@ import tempfile
 from typing import Optional
 
 from ... import config as _config
+from ...resilience import faults
+from ...resilience.retry import CHECKPOINT_RETRY
 from .gtiff import read_gtiff, write_gtiff
 from .tile import RasterTile
 
@@ -86,15 +89,19 @@ def serialize_tile(tile: RasterTile,
     name = hashlib.sha256(payload).hexdigest()[:24] + ".tif"
     path = os.path.join(cfg.raster_checkpoint, name)
     if not os.path.exists(path):
-        fd, tmp = tempfile.mkstemp(dir=cfg.raster_checkpoint, suffix=".tmp")
-        os.close(fd)
-        try:
-            with open(tmp, "wb") as f:
-                f.write(payload)
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        def _write():
+            faults.maybe_fail("checkpoint.write")
+            fd, tmp = tempfile.mkstemp(dir=cfg.raster_checkpoint,
+                                       suffix=".tmp")
+            os.close(fd)
+            try:
+                with open(tmp, "wb") as f:
+                    f.write(payload)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        CHECKPOINT_RETRY.call(_write)
     meta["checkpoint_path"] = path
     return {"cell_id": tile.cell_id, "raster": path, "metadata": meta}
 
@@ -106,8 +113,11 @@ def deserialize_tile(rec: dict) -> RasterTile:
     if isinstance(raster, (bytes, bytearray)):
         tile = read_gtiff(bytes(raster))
     else:
-        with open(raster, "rb") as f:
-            tile = read_gtiff(f.read(), path=raster)
+        def _read():
+            faults.maybe_fail("checkpoint.read")
+            with open(raster, "rb") as f:
+                return f.read()
+        tile = read_gtiff(CHECKPOINT_RETRY.call(_read), path=raster)
     return dataclasses.replace(
         tile, cell_id=rec.get("cell_id"),
         meta=dict(tile.meta, **rec.get("metadata", {})))

@@ -1,9 +1,10 @@
 """Pure-numpy GeoTIFF codec — the raster ingest/egress path.
 
 Port copy of ``mosaic_tpu.core.raster.gtiff``: the same bytes out and
-the same tiles in, with the same ``on_error`` contract.  Left out: the
-JAX package's ``@traced`` span and its ``faults`` probes (``gtiff.read``,
-``gtiff.read_strip``), which come with the port's host planes.
+the same tiles in, with the same ``on_error`` contract, the same
+``ingest:gtiff`` trace and ``ingest/gtiff`` span, and the same fault
+sites: ``gtiff.read`` before decoding, ``gtiff.read_strip`` on every
+strip's and tile's bytes.
 
 Reference counterpart: the GDAL GTiff driver reached through
 core/raster/api/GDAL.scala:117 (readRaster) / :172 (writeRasters) and
@@ -26,6 +27,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ...obs.context import traced
+from ...resilience import faults
 from ...resilience.ingest import ErrorSink, decode_guard
 from .tile import GeoTransform, RasterTile
 
@@ -143,6 +146,7 @@ def _epsg_from_geokeys(entry, bo: str) -> Optional[int]:
     return projected if projected is not None else geographic
 
 
+@traced("ingest:gtiff", "ingest/gtiff")
 def read_gtiff(data: bytes, on_error: Optional[str] = None,
                path: Optional[str] = None) -> RasterTile:
     """Decode GeoTIFF bytes into a RasterTile (reference entry:
@@ -155,6 +159,7 @@ def read_gtiff(data: bytes, on_error: Optional[str] = None,
     without one).  Dropped regions are stamped into
     ``tile.meta["decode_errors"]``.  ``path`` is advisory error
     context only (the payload always arrives as bytes)."""
+    faults.maybe_fail("gtiff.read")
     sink = ErrorSink(on_error, driver="gtiff", path=path)
     if len(data) < 8:
         raise ValueError("not a TIFF: truncated header")
@@ -235,7 +240,7 @@ def read_gtiff(data: bytes, on_error: Optional[str] = None,
             hh = min(th, height - y0)
             ww = min(tw, width - x0)
             nb = tw * th * dt.itemsize * (spp if planar == 1 else 1)
-            chunk = data[o:o + c]
+            chunk = faults.corrupt("gtiff.read_strip", data[o:o + c])
             try:
                 with decode_guard(path=path, feature=f"tile {ti}",
                                   offset=o):
@@ -278,7 +283,7 @@ def read_gtiff(data: bytes, on_error: Optional[str] = None,
             y0 = idx * rps
             nrows = min(rps, height - y0)
             nb = nrows * width * dt.itemsize * (spp if planar == 1 else 1)
-            chunk = data[o:o + c]
+            chunk = faults.corrupt("gtiff.read_strip", data[o:o + c])
             try:
                 with decode_guard(path=path, feature=f"strip {si}",
                                   offset=o):

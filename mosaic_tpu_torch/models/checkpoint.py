@@ -1,8 +1,10 @@
 """Iteration-boundary checkpointing for models.
 
-Port of ``mosaic_tpu.models.checkpoint``, lean: the JAX package's fault
-injection, metrics counter and write retry are left out.  Reference
-counterpart: models/util/{CheckpointManager, DeltaFileCheckpoint,
+Port of ``mosaic_tpu.models.checkpoint``, with its host planes: a save
+is the ``checkpoint.model_write`` fault site under ``CHECKPOINT_RETRY``,
+and each checkpoint a resume tries is the ``checkpoint.model_read`` site
+(an unreadable one counts ``checkpoint/unreadable`` and the resume falls
+back to the one before).  Reference counterpart: models/util/{CheckpointManager, DeltaFileCheckpoint,
 DeltaTableCheckpoint}.scala — interim KNN matches written between
 iterations so a failed job resumes mid-algorithm.  Here state is a flat
 dict of arrays; checkpoints are npz files in a directory with a monotonic
@@ -20,6 +22,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..obs import metrics
+from ..resilience import faults
+from ..resilience.retry import CHECKPOINT_RETRY
 from .core import IterationState
 
 
@@ -52,15 +57,19 @@ class CheckpointManager:
         arrays = {k: _host(v) for k, v in state.payload.items()}
         arrays["__iteration"] = np.int64(state.iteration)
         arrays["__converged"] = np.bool_(state.converged)
-        fd, tmp = tempfile.mkstemp(dir=self.path, suffix=".tmp")
-        os.close(fd)
-        try:
-            with open(tmp, "wb") as f:
-                np.savez(f, **arrays)
-            os.replace(tmp, self._file(state.iteration))
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+
+        def _write():
+            faults.maybe_fail("checkpoint.model_write")
+            fd, tmp = tempfile.mkstemp(dir=self.path, suffix=".tmp")
+            os.close(fd)
+            try:
+                with open(tmp, "wb") as f:
+                    np.savez(f, **arrays)
+                os.replace(tmp, self._file(state.iteration))
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        CHECKPOINT_RETRY.call(_write)
         self._gc()
         return self._file(state.iteration)
 
@@ -86,6 +95,7 @@ class CheckpointManager:
         last_err: Optional[BaseException] = None
         for it in reversed(self._iterations()):
             try:
+                faults.maybe_fail("checkpoint.model_read")
                 with np.load(self._file(it)) as z:
                     payload = {k: z[k] for k in z.files
                                if not k.startswith("__")}
@@ -96,6 +106,7 @@ class CheckpointManager:
             except (OSError, ValueError, KeyError, zipfile.BadZipFile
                     ) as e:
                 last_err = e
+                metrics.count("checkpoint/unreadable")
                 continue
         if last_err is not None:
             raise last_err

@@ -8,8 +8,12 @@ whole-polygon PIP oracle :func:`pip_first_match`, the chip-parity
 recheck :func:`recheck_zones` and the overlay's exact pair areas
 :func:`intersect_area_pairs`.
 
-Unlike the JAX package's loader there is no silent fallback: a failed
-build raises RuntimeError.  The numpy versions of the first two stay in
+The compile is the ``native.compile`` fault site under
+``NATIVE_COMPILE_RETRY`` and the load the ``native.cdll`` site under
+``NATIVE_LOAD_RETRY``, whose retry hook deletes the library and builds it
+again (the JAX package's loader).  Unlike the JAX package's loader there
+is no silent fallback: once the retries are spent, a failed build raises
+RuntimeError and a failed load raises its ``OSError``.  The numpy versions of the first two stay in
 ``parallel/pip_join.py`` as the plain versions the tests compare
 against, and run only when a caller asks for them; the pair areas'
 exact host engine is ``core.geometry.clip.rings_intersection``.  Each wrapper
@@ -28,6 +32,9 @@ from typing import Tuple
 
 import numpy as np
 
+from ..resilience import faults
+from ..resilience.retry import NATIVE_COMPILE_RETRY, NATIVE_LOAD_RETRY
+
 SOURCE = Path(__file__).resolve().parent / "geokernels.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
@@ -42,38 +49,62 @@ def lib_path() -> Path:
     return BUILD_DIR / f"geokernels-{h.hexdigest()[:16]}.so"
 
 
+def _compile_once(out: Path) -> None:
+    """One ``g++`` run into ``out`` (the ``native.compile`` fault site);
+    a failed run raises ``CalledProcessError`` with the compiler's
+    output."""
+    faults.maybe_fail("native.compile")
+    # a private temporary name, then an atomic rename: concurrent
+    # processes never load a half-written library
+    tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       timeout=300, check=True)
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
 def build() -> float:
     """Compile the library unless it is built already; the seconds ``g++``
     took (0.0 when built).  Raises RuntimeError with the compiler's
-    output when the compile fails."""
+    output when the compile fails after ``NATIVE_COMPILE_RETRY``."""
     import time
     out = lib_path()
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a private temporary name, then an atomic rename: concurrent
-    # processes never load a half-written library
-    tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, timeout=300)
+        NATIVE_COMPILE_RETRY.call(_compile_once, out)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"g++ failed on {SOURCE.name}:\n"
+                           f"{e.output.decode(errors='replace')}") from e
     except (OSError, subprocess.SubprocessError) as e:
         raise RuntimeError(f"g++ could not build {SOURCE.name}: {e}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed on {SOURCE.name}:\n"
-                           f"{proc.stdout.decode(errors='replace')}")
-    os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def _load() -> ctypes.CDLL:
+    faults.maybe_fail("native.cdll")
+    return ctypes.CDLL(str(lib_path()))
+
+
+def _rebuild(exc: BaseException, attempt: int) -> None:
+    # the library existed but would not load (a truncated build, a
+    # concurrent sweep): build it again before the re-attempt
+    lib_path().unlink(missing_ok=True)
+    build()
 
 
 @functools.cache
 def get_lib() -> ctypes.CDLL:
-    """The loaded library, built on first use, with its C signatures."""
+    """The loaded library, built on first use, with its C signatures.
+    A load that fails rebuilds the library and loads it again
+    (``NATIVE_LOAD_RETRY``)."""
     build()
-    lib = ctypes.CDLL(str(lib_path()))
+    lib = NATIVE_LOAD_RETRY.call(_load, on_retry=_rebuild)
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.pip_first_match.argtypes = [vp, i64, vp, vp, i64, vp]
     lib.pip_first_match.restype = None

@@ -156,7 +156,7 @@ def _lib() -> ctypes.CDLL:
     for G in (1, STAGED_ROWS - 1, STAGED_ROWS, 1 << 20):
         for E in (0, 1, 8, STAGED_SLOTS, STAGED_SLOTS + 1, 4096):
             if lib.edge_measures_plan(G, E) != PATHS[launch_plan(G, E)]:
-                raise RuntimeError(
+                raise _kernels.KernelError(
                     f"edge_measures: the library maps {G} rows of {E} "
                     f"slots to path {lib.edge_measures_plan(G, E)}, "
                     f"launch_plan to {launch_plan(G, E)!r}")

@@ -201,11 +201,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def check_rc(lib: ctypes.CDLL, prefix: str, rc: int, what: str) -> None:
-    """Raise on a CUDA error code returned by a kernel library's entry
-    point; ``prefix`` names its ``<prefix>_error_string``."""
+    """Raise :class:`~.._kernels.KernelError` on a CUDA error code
+    returned by a kernel library's entry point; ``prefix`` names its
+    ``<prefix>_error_string``."""
     if rc != 0:
         msg = getattr(lib, f"{prefix}_error_string")(rc).decode()
-        raise RuntimeError(f"{prefix} {what}: CUDA error {rc} ({msg})")
+        raise _kernels.KernelError(f"{prefix} {what}: CUDA error {rc} "
+                                   f"({msg})")
 
 
 _faces_set = set()              # (library, device) pairs whose faces are set

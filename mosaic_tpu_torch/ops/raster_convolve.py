@@ -140,9 +140,9 @@ def _lib() -> ctypes.CDLL:
     got = [tuple(table[5 * k:5 * k + 5]) for k in range(len(INSTANCES))]
     if n != len(INSTANCES) or \
             got != [(*inst, ROWS_PER_THREAD) for inst in INSTANCES]:
-        raise RuntimeError(f"raster_convolve: the library's {n} instances "
-                           f"{got} are not INSTANCES {INSTANCES} with "
-                           f"{ROWS_PER_THREAD} rows a thread")
+        raise _kernels.KernelError(
+            f"raster_convolve: the library's {n} instances {got} are not "
+            f"INSTANCES {INSTANCES} with {ROWS_PER_THREAD} rows a thread")
     return lib
 
 

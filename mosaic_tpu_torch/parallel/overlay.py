@@ -42,6 +42,15 @@ form gathers each rank's keys.  Every rank returns the whole answer.
 Each entry point runs on CUDA unless the caller passes ``device="cpu"``.
 The JAX package's probe-width cap (``_exact_dup_cap``) has no counterpart:
 the kernel walks each B row's whole range.
+
+Host planes, as the JAX package's: the three entry points run under
+``root_trace("overlay")`` and the ``overlay/row_pairs``,
+``overlay/intersection_area`` and ``overlay/intersects`` spans; the
+sharded exchange's starting capacity is the ``overlay.bucket_cap``
+degrade site, whose doubling loop restores the exact answer (each
+exchange run counts one ``overlay/exchange_rounds`` in ``obs.metrics``).  The JAX
+package's ``overlay.dup_cap`` site has no place here, since there is no
+probe-width cap: a plan that names it injects nothing.
 """
 
 from __future__ import annotations
@@ -56,7 +65,10 @@ from ..core.geometry.array import GeometryArray
 from ..core.geometry.padded import build_edges_np
 from ..core.index.base import IndexSystem
 from ..core.tessellate import _pip, _poly_edges, _seg_cross, tessellate
+from ..obs import metrics
+from ..obs.context import traced
 from ..ops.overlay_pairs import ChipRows, overlay_dense, overlay_pairs
+from ..resilience import faults
 from ..types import ChipSet
 from . import collectives as coll
 
@@ -215,12 +227,18 @@ def _exchanged(a: tuple, b: tuple, group, dev: torch.device,
     """``join`` on the rows this rank receives from both sides' exchange,
     with the buckets sized exactly; a bucket overflow on any rank (only
     a wrong size could cause one) doubles the capacity and runs the
-    exchange again on every rank."""
+    exchange again on every rank.  The starting capacity is the
+    ``overlay.bucket_cap`` degrade site (a chaos plan shrinks it on
+    purpose to drive the doubling loop); each exchange run counts one
+    ``overlay/exchange_rounds``."""
     D = coll.group_size(group)
-    cap = max(_exact_bucket_cap(a[0], a[3], D),
-              _exact_bucket_cap(b[0], b[3], D))
+    cap = faults.degrade("overlay.bucket_cap",
+                         max(_exact_bucket_cap(a[0], a[3], D),
+                             _exact_bucket_cap(b[0], b[3], D)))
     ra, rb = _sharded_rows(a, group, dev), _sharded_rows(b, group, dev)
     while True:
+        if metrics.enabled:
+            metrics.count("overlay/exchange_rounds")
         xa, ofa = _exchange_rows(ra, cap, group)
         xb, ofb = _exchange_rows(rb, cap, group)
         over = torch.tensor([ofa + ofb], dtype=torch.int64, device=dev)
@@ -231,6 +249,7 @@ def _exchanged(a: tuple, b: tuple, group, dev: torch.device,
 
 # ----------------------------------------------------------- device logic
 
+@traced("overlay", "overlay/row_pairs")
 def overlay_row_pairs(chips_a: ChipSet, chips_b: ChipSet,
                       polys_a: GeometryArray, polys_b: GeometryArray,
                       res: int, grid: IndexSystem,
@@ -266,6 +285,7 @@ def overlay_row_pairs(chips_a: ChipSet, chips_b: ChipSet,
     return keys // row_mult, keys % row_mult
 
 
+@traced("overlay", "overlay/intersection_area")
 def overlay_intersection_area(polys_a: GeometryArray,
                               polys_b: GeometryArray, res: int,
                               grid: IndexSystem, device: DeviceLike = None,
@@ -353,6 +373,7 @@ def resolve_hazards(hits: np.ndarray, hazards: np.ndarray,
 
 # -------------------------------------------------------------- end2end
 
+@traced("overlay", "overlay/intersects")
 def overlay_intersects(polys_a: GeometryArray, polys_b: GeometryArray,
                        res: int, grid: IndexSystem,
                        device: DeviceLike = None,

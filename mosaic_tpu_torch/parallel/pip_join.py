@@ -64,6 +64,7 @@ from torch.profiler import record_function
 
 from .. import native
 from .._device import DeviceLike, resolve_device
+from .._kernels import KernelError
 from ..config import default_config
 from ..core.geometry.array import GeometryArray
 from ..core.geometry.padded import build_edges_np
@@ -74,13 +75,17 @@ from ..core.index.h3.torchkernel import (FACEGAP_EPS, MAX_LOCAL_DEG,
                                          err_lattice_bound)
 from ..core.tessellate import (_pip, _poly_edges, tessellate,
                                tessellate_subset)
-from ..obs import metrics
+from ..obs import metrics, recorder, tracer
+from ..obs.context import root_trace
 from ..obs.heat import heat
+from ..obs.inflight import (QueryCancelled, checkpoint, note_partition_bytes,
+                            note_refine, note_strategies)
 from ..ops.dense_join import CORE_FLAG as _CORE_FLAG
 from ..ops.dense_join import JoinConsts, dense_join, join_tables, prepare
 from ..ops.lookup import lookup
 from ..perf.bucketing import pow2_bucket
 from ..perf.pipeline import chunk_rows, stream
+from ..resilience import faults
 from ..sql.planner import FORCE_CHOICES, Decision, planner
 from . import collectives as coll
 from .placement import SkewRebalancer, placement_slots
@@ -206,6 +211,7 @@ LAST_DENSE_REJECT: Optional[str] = None
 def _dense_reject(reason: str) -> None:
     global LAST_DENSE_REJECT
     LAST_DENSE_REJECT = reason
+    tracer.count(f"dense_reject/{reason}")
 
 
 def build_dense_pip_index(polys: GeometryArray, res: int, grid,
@@ -913,6 +919,10 @@ def make_streamed_pip_join(idx, grid=None,
     recheck authority (``grid`` and ``polys`` are required for a sorted
     :class:`PIPIndex`).
 
+    The call is an in-flight checkpoint (``pip_join/streamed``; the
+    stream checks again at every chunk boundary) and runs under
+    ``root_trace("pip_join")`` and the ``pip_join/streamed`` span.
+
     Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``;
     ``run.recheck`` is its :func:`host_recheck_fn`."""
     dev = _check_device(idx, device)
@@ -922,6 +932,7 @@ def make_streamed_pip_join(idx, grid=None,
     origin = np.asarray(idx.origin, np.float64)
 
     def run(points64: np.ndarray):
+        checkpoint("pip_join/streamed")   # cancel before the first chunk
         points64 = np.asarray(points64, np.float64)[:, :2]
         n = len(points64)
         zone_out = np.empty(n, np.int32)
@@ -936,8 +947,13 @@ def make_streamed_pip_join(idx, grid=None,
             zone_out[sl] = recheck(points64[sl], z, unc)
             state["rechecked"] += int(unc.sum())
 
-        stream(chunk_rows(n, chunk), stage, 2, lambda i, x: fn(x), consume,
-               dev)
+        with root_trace("pip_join"), tracer.span("pip_join/streamed"):
+            stream(chunk_rows(n, chunk), stage, 2, lambda i, x: fn(x),
+                   consume, dev)
+        if metrics.enabled:
+            metrics.count("pip_join/streamed_points", float(n))
+            metrics.count("pip_join/streamed_chunks",
+                          float(-(-n // chunk) if n else 0))
         return zone_out, state["rechecked"]
 
     #: the bound host recheck (a dense index's counts its fallbacks)
@@ -982,8 +998,10 @@ def make_sharded_pip_join(idx, grid=None, group=None,
         if n % D:
             raise ValueError(f"{n} points do not split evenly over {D} "
                              "ranks")
-        zone, unc = fn(points[coll.row_block(n, D, r)].to(dev))
-        return coll.all_gather(zone, group), coll.all_gather(unc, group)
+        with root_trace("pip_join"), tracer.span("pip_join/sharded"):
+            zone, unc = fn(points[coll.row_block(n, D, r)].to(dev))
+            return (coll.all_gather(zone, group),
+                    coll.all_gather(unc, group))
 
     return run
 
@@ -1034,6 +1052,7 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
     rebalancer = SkewRebalancer(D, refresh=refresh, nbins=nbins)
 
     def run(points64: np.ndarray):
+        checkpoint("pip_join/sharded_streamed")
         points64 = np.asarray(points64, np.float64)[:, :2]
         n = len(points64)
         zone_out = np.empty(n, np.int32)
@@ -1076,7 +1095,9 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
             run.shard_counts = _shard_skew_readback(full[:, 0], D)
             rebalancer.observe(points64[sl], full[slots, 0] >= 0)
 
-        stream(blocks, stage, 2, lambda i, x: fn(x), consume, dev)
+        with root_trace("pip_join"), \
+                tracer.span("pip_join/sharded_streamed"):
+            stream(blocks, stage, 2, lambda i, x: fn(x), consume, dev)
         total = torch.tensor(state["rechecked"], dtype=torch.int64,
                              device=dev)
         return zone_out, int(coll.all_reduce(total, group))
@@ -1171,6 +1192,7 @@ def make_store_sharded_pip_join(store, idx, grid=None, group=None,
     bound = pow2_bucket(-(-pow2_bucket(chunk, floor=64) // D), floor=64)
 
     def run(bbox=None):
+        checkpoint("pip_join/store")
         state = {"rechecked": 0}
         chunks, zones = {}, []
         staged_by_part: dict = {}
@@ -1227,13 +1249,16 @@ def make_store_sharded_pip_join(store, idx, grid=None, group=None,
                 # density feedback stays row-level, on the gathered chunk
                 rebalancer.observe(ck.points, full[slots, 0] >= 0)
 
-        stream(blocks(), stage, 2, lambda i, x: fn(x), consume, dev,
-               rows=bound)
+        with root_trace("pip_join"), \
+                tracer.span("pip_join/store_streamed"):
+            stream(blocks(), stage, 2, lambda i, x: fn(x), consume, dev,
+                   rows=bound)
         zone_out = np.concatenate(zones) if zones \
             else np.empty(0, np.int32)
         run.staged_bytes_by_partition = staged_by_part
         for c, b in staged_by_part.items():
             heat.touch(c, nbytes=b, scans=0)
+        note_partition_bytes(staged_by_part)
         if metrics.enabled:
             metrics.count("pip_join/store_points", float(len(zone_out)))
             metrics.count("pip_join/store_chunks", float(len(zones)))
@@ -1486,8 +1511,23 @@ def make_refined_pip_join(polys: GeometryArray, grid, res: int,
     mapped back), which holds every polygon that can contain a
     dense-routed point.  The planner's ``refine`` decision picks the
     path (``mosaic.planner.force.refine`` pins it,
-    ``mosaic.join.refine.enabled`` off beats any pin).  A failure in the
-    refined path raises; nothing re-runs the batch flat.
+    ``mosaic.join.refine.enabled`` off beats any pin).
+
+    The refined path runs under ``root_trace("pip_join")`` and the
+    ``pip_join/refined`` span, each chunk at an in-flight checkpoint and
+    the ``join.refine`` fault site.  A failure in it re-runs the whole
+    batch on the flat path, as the JAX package's does: a
+    ``refine_bailout`` flight-recorder event, ``pip_join/refine_bailouts``
+    counted, and the same zones.  Three failures pass through instead:
+    ``QueryCancelled`` and ``KeyboardInterrupt``, as in the JAX package,
+    and a hand kernel's build or launch failure (``_kernels.KernelError``),
+    so a flat re-run never hides a kernel that does not work.  The JAX
+    router's catch-all host fallback is not copied: the route is
+    ``IndexSystem.point_to_cell_device``, which already sends grids with
+    no device hook to the host by grid, so a failure there is a failure
+    of the refined path (bailed out flat, or raised if a kernel's).  Each
+    call notes its strategy and refinement counters on the active
+    in-flight ticket (``note_strategies``, ``note_refine``).
 
     Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``
     with ``run.last_decision``, ``run.stats`` (levels, cells_refined,
@@ -1616,30 +1656,33 @@ def make_refined_pip_join(polys: GeometryArray, grid, res: int,
         n = len(points64)
         zone = np.empty(n, np.int32)
         rechecked = refined_pts = 0
-        for sl in chunk_rows(n, chunk):
-            pts = points64[sl]
-            if len(dense) and "idx" in ref:
-                cells = _route_cells(pts)
-                pos = np.searchsorted(dense, cells)
-                posc = np.clip(pos, 0, len(dense) - 1)
-                hot = (pos < len(dense)) & (dense[posc] == cells)
-            else:
-                hot = np.zeros(len(pts), bool)
-            out = np.empty(len(pts), np.int32)
-            za, ra = _run_part("base", fn_base, idx_base, recheck_base,
-                               pts[~hot])
-            out[~hot] = za
-            if hot.any():
-                zb, rb = _run_part("refined", ref["fn"], ref["idx"],
-                                   ref["recheck"], pts[hot])
-                orig = ref["orig"]
-                out[hot] = np.where(zb >= 0,
-                                    orig[np.clip(zb, 0, len(orig) - 1)],
-                                    np.int32(-1))
-                rechecked += rb
-                refined_pts += int(hot.sum())
-            rechecked += ra
-            zone[sl] = out
+        with root_trace("pip_join"), tracer.span("pip_join/refined"):
+            for sl in chunk_rows(n, chunk):
+                checkpoint()
+                faults.maybe_fail("join.refine")
+                pts = points64[sl]
+                if len(dense) and "idx" in ref:
+                    cells = _route_cells(pts)
+                    pos = np.searchsorted(dense, cells)
+                    posc = np.clip(pos, 0, len(dense) - 1)
+                    hot = (pos < len(dense)) & (dense[posc] == cells)
+                else:
+                    hot = np.zeros(len(pts), bool)
+                out = np.empty(len(pts), np.int32)
+                za, ra = _run_part("base", fn_base, idx_base,
+                                   recheck_base, pts[~hot])
+                out[~hot] = za
+                if hot.any():
+                    zb, rb = _run_part("refined", ref["fn"], ref["idx"],
+                                       ref["recheck"], pts[hot])
+                    orig = ref["orig"]
+                    out[hot] = np.where(
+                        zb >= 0, orig[np.clip(zb, 0, len(orig) - 1)],
+                        np.int32(-1))
+                    rechecked += rb
+                    refined_pts += int(hot.sum())
+                rechecked += ra
+                zone[sl] = out
         return zone, rechecked, refined_pts
 
     def run(points64: np.ndarray):
@@ -1670,17 +1713,30 @@ def make_refined_pip_join(polys: GeometryArray, grid, res: int,
                 planner.record_decision(d)
         t0 = time.perf_counter()
         refined_pts = 0
+        bailed = False
         if d.strategy == "refined":
-            zone, rechecked, refined_pts = _refined(points64)
+            try:
+                zone, rechecked, refined_pts = _refined(points64)
+            except (QueryCancelled, KeyboardInterrupt, KernelError):
+                raise
+            except Exception as e:          # the flat path re-runs it
+                bailed = True
+                if metrics.enabled:
+                    metrics.count("pip_join/refine_bailouts")
+                recorder.record("refine_bailout", error=type(e).__name__,
+                                detail=str(e)[:200], rows=n)
+                refined_pts = 0
+                zone, rechecked = _flat()(points64)
         else:
             zone, rechecked = _flat()(points64)
         planner.observe_decision(d, time.perf_counter() - t0,
                                  rows_out=int(np.count_nonzero(zone >= 0)))
         depth = state["depth"] or int(getattr(d, "depth", 1) or 1)
-        refined_run = (d.strategy == "refined" and state["ref"] is not None
-                       and refined_pts > 0)
+        # the stats describe what ran: a bailout demotes the run to flat
+        refined_run = (d.strategy == "refined" and not bailed
+                       and state["ref"] is not None and refined_pts > 0)
         cells_refined = len(state["dense"]) if refined_run else 0
-        run.stats = {
+        run.stats = stats = {
             "levels": [res, res + depth] if refined_run else [res],
             "cells_refined": cells_refined,
             "cells_flat": len(u_cells) - cells_refined,
@@ -1688,6 +1744,19 @@ def make_refined_pip_join(polys: GeometryArray, grid, res: int,
             "flat_points": int(n - refined_pts),
             "strategy": "refined" if refined_run else "flat",
         }
+        if metrics.enabled and refined_pts:
+            metrics.count("pip_join/refined_points", float(refined_pts))
+        note_strategies({"refine": d.label + (" (bailout)" if bailed
+                                              else "")})
+        if refined_run:
+            summary = (f"L{res}+{depth}: {cells_refined} refined / "
+                       f"{stats['cells_flat']} flat cells, "
+                       f"{refined_pts}/{n} pts")
+        else:
+            summary = "flat"
+        note_refine({k: stats[k] for k in
+                     ("cells_refined", "cells_flat", "refined_points",
+                      "flat_points")}, summary=summary)
         run.last_decision = d
         return zone, rechecked
 

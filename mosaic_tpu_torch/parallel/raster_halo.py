@@ -13,7 +13,9 @@ stencil kernel (``ops/raster_convolve.py``) on the widened slab, SAME in
 columns, crops the halo rows and gathers every rank's slab.  An interior
 pixel's taps read the same values in the same order as on the whole
 tile, so the result equals the one-device call bit for bit.  On one
-device the slab is the whole tile and both halos are zero rows.
+device the slab is the whole tile and both halos are zero rows.  Both
+entry points run under ``root_trace("raster_halo")`` and the JAX
+package's ``halo/convolve`` and ``halo/convolve_stream`` spans.
 
 Reference counterpart: the GDALBlock + Padding machinery
 (core/raster/gdal/GDALBlock.scala) that the reference uses to run
@@ -28,6 +30,8 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..core.raster.tile import RasterTile
+from ..obs import tracer
+from ..obs.context import root_trace
 from ..ops.raster_convolve import raster_convolve
 from ..perf.pipeline import stream
 from . import collectives as coll
@@ -85,8 +89,10 @@ def sharded_convolve(tile: RasterTile, kernel: np.ndarray, group=None,
     pad; keeping the constraint explicit avoids silently uneven slabs)."""
     dev = resolve_device(device)
     fn, rows = _convolve_fn(kernel, group, tile.data.shape, dev)
-    out = fn(torch.from_numpy(_masked_f32(tile)[:, rows]).to(dev))
-    return RasterTile(out.cpu().numpy(), tile.gt, nodata=None,
+    x = torch.from_numpy(_masked_f32(tile)[:, rows]).to(dev)
+    with root_trace("raster_halo"), tracer.span("halo/convolve"):
+        out = fn(x).cpu().numpy()
+    return RasterTile(out, tile.gt, nodata=None,
                       srid=tile.srid, meta={"op": "convolve",
                                             "sharded": "halo"})
 
@@ -128,6 +134,7 @@ def sharded_convolve_stream(tiles, kernel: np.ndarray, group=None,
                             nodata=None, srid=t.srid,
                             meta={"op": "convolve", "sharded": "halo"})
 
-    stream([slice(i, i + 1) for i in range(len(tiles))], stage,
-           int(np.prod(slab)), compute, consume, dev)
+    with root_trace("raster_halo"), tracer.span("halo/convolve_stream"):
+        stream([slice(i, i + 1) for i in range(len(tiles))], stage,
+               int(np.prod(slab)), compute, consume, dev)
     return out

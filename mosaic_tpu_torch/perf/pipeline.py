@@ -1,14 +1,11 @@
 """Double-buffered host<->device chunk streaming on CUDA streams.
 
-Port of ``mosaic_tpu.perf.pipeline.stream``, lean: the JAX version's
-memory-ledger, profiler-ledger and cancellation planes are left out; it
-counts the bytes it stages in ``obs.metrics`` (``pipeline/h2d_bytes``),
-as the JAX version does.  A big host batch is cut into row chunks, or a
-lazy source (the chip store's scan) makes them one at a time; for each
-chunk the host stages its input in pinned memory, a side CUDA stream
-copies it to the device, the compute runs on the current stream, and its
-outputs come back to pinned host buffers for a host pass.  Three things
-overlap:
+Port of ``mosaic_tpu.perf.pipeline.stream``.  A big host batch is cut
+into row chunks, or a lazy source (the chip store's scan) makes them one
+at a time; for each chunk the host stages its input in pinned memory, a
+side CUDA stream copies it to the device, the compute runs on the
+current stream, and its outputs come back to pinned host buffers for a
+host pass.  Three things overlap:
 
 * the host staging and host->device copy of chunk k+1 (side stream) with
   the device compute of chunk k;
@@ -21,12 +18,27 @@ CUDA events order the two streams; two pinned buffers per direction are
 reused alternately, and a buffer is refilled only after the copy that read
 it finished.  The source is pulled one chunk ahead of the running
 compute, never more.  On a CPU device the same calls run in order,
-without streams.  Host phases carry ``torch.profiler`` labels
-(``stream/pull``, ``stream/stage``, ``stream/compute``, ``stream/wait``,
-``stream/consume``) for a
-``torch.profiler`` breakdown; with no profiler running each label costs
-~14 µs of host time (measured on a CPU host), under 1% of a 2^18-row
-chunk.
+without streams.
+
+The host planes are the JAX version's: the staged and fetched bytes are
+counted in ``obs.metrics`` (``pipeline/h2d_bytes``,
+``pipeline/d2h_bytes``) and the fetched ones charged to the active
+in-flight ticket; each chunk boundary is an
+``obs.inflight.checkpoint("pipeline.stream")`` (a cancelled or expired
+query raises ``QueryCancelled`` there) and a ``pipeline.chunk`` stall
+site, each chunk's fetch a ``pipeline.fetch`` fault site.  The fetch
+runs on the calling thread (the JAX version's runs on a worker), so an
+exception from any step reaches the caller directly; before it does,
+both CUDA streams are drained, so nothing the failed call queued is
+still running when the next call starts.  The JAX version's memory
+ledger, pressure shrink and profiler ledger (with its per-chunk
+observer hook and ``pipeline_observe_error`` event) are ROADMAP §A9b.
+
+Host phases carry ``torch.profiler`` labels (``stream/pull``,
+``stream/stage``, ``stream/compute``, ``stream/wait``,
+``stream/consume``) for a ``torch.profiler`` breakdown; with no profiler
+running each label costs ~14 µs of host time (measured on a CPU host),
+under 1% of a 2^18-row chunk.
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ import torch
 from torch.profiler import record_function
 
 from ..obs import metrics
+from ..obs.inflight import charge_d2h_bytes, checkpoint, inflight
+from ..resilience import faults
 
 __all__ = ["stream", "chunk_rows"]
 
@@ -74,7 +88,14 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
     looked up) and returns a tuple of device tensors, enqueued on the
     current stream; ``consume(i, sl, host)`` receives those outputs as
     numpy arrays, in chunk order.  Each chunk's staged bytes are counted
-    in ``pipeline/h2d_bytes``."""
+    in ``pipeline/h2d_bytes`` and its fetched bytes in
+    ``pipeline/d2h_bytes`` (and charged to the active ticket).
+
+    Before each chunk's compute the in-flight checkpoint runs (a
+    cancelled query raises :class:`~..obs.inflight.QueryCancelled` at
+    the chunk boundary), then the ``pipeline.chunk`` stall site; each
+    fetch starts at the ``pipeline.fetch`` fault site.  An exception
+    from any step drains both CUDA streams, then propagates."""
     if rows is None:
         if not isinstance(chunks, Sequence):
             raise ValueError("a lazy chunk source needs its row bound: "
@@ -97,6 +118,17 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
         if metrics.enabled:
             metrics.count("pipeline/h2d_bytes", 4 * n * width)
 
+    def boundary() -> None:
+        checkpoint("pipeline.stream")   # chunk-boundary cancel
+        faults.stall("pipeline.chunk")  # latency chaos
+
+    def fetched(host: Tuple[np.ndarray, ...]) -> None:
+        if metrics.enabled or inflight._by_trace:
+            nb = sum(int(h.nbytes) for h in host)
+            if metrics.enabled:
+                metrics.count("pipeline/d2h_bytes", nb)
+            charge_d2h_bytes(nb)
+
     if device.type != "cuda":
         i, sl = 0, pull()
         while sl is not None:
@@ -104,10 +136,14 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
             with record_function("stream/stage"):
                 stage(sl, buf)
             staged(len(buf))
+            boundary()
             with record_function("stream/compute"):
                 out = compute(i, torch.from_numpy(buf))
+            faults.maybe_fail("pipeline.fetch")
+            host = tuple(o.numpy() for o in out)
+            fetched(host)
             with record_function("stream/consume"):
-                consume(i, sl, tuple(o.numpy() for o in out))
+                consume(i, sl, host)
             i, sl = i + 1, pull()
         return
 
@@ -152,26 +188,37 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
         return host, done
 
     def finish(i, sl, host, done):
+        faults.maybe_fail("pipeline.fetch")
         with record_function("stream/wait"):
             done.synchronize()
+        host = tuple(t.numpy() for t in host)
+        fetched(host)
         with record_function("stream/consume"):
-            consume(i, sl, tuple(t.numpy() for t in host))
+            consume(i, sl, host)
 
     pending = None                     # (i, slice, host, done) awaiting consume
-    k, sl = 0, first
-    x, ready = upload(0, sl)
-    while sl is not None:
-        main.wait_event(ready)
-        with record_function("stream/compute"):
-            out = compute(k, x)
-        # x was allocated on the side stream and read on the main one
-        x.record_stream(main)
-        host, done = download(k, out)
-        nxt = pull()
-        if nxt is not None:
-            x, ready = upload(k + 1, nxt)
-        if pending is not None:
-            finish(*pending)
-        pending = (k, sl, host, done)
-        k, sl = k + 1, nxt
-    finish(*pending)
+    try:
+        k, sl = 0, first
+        x, ready = upload(0, sl)
+        while sl is not None:
+            boundary()
+            main.wait_event(ready)
+            with record_function("stream/compute"):
+                out = compute(k, x)
+            # x was allocated on the side stream and read on the main one
+            x.record_stream(main)
+            host, done = download(k, out)
+            nxt = pull()
+            if nxt is not None:
+                x, ready = upload(k + 1, nxt)
+            if pending is not None:
+                finish(*pending)
+            pending = (k, sl, host, done)
+            k, sl = k + 1, nxt
+        finish(*pending)
+    except BaseException:
+        # leave nothing of this call running on either stream: the
+        # pinned buffers it copies into are freed with the frame
+        side.synchronize()
+        main.synchronize()
+        raise

@@ -1,9 +1,8 @@
 """Degrade-not-die ingestion: structured decode errors + on_error policy.
 
-Port copy of ``mosaic_tpu.resilience.ingest``, lean: the JAX package's
-``obs`` counters (``io/records_dropped``) and flight-recorder events
-(``codec_error``, ``codec_record_dropped``) are left out, since the port
-has no ``obs`` plane yet; the records themselves are kept.
+Port copy of ``mosaic_tpu.resilience.ingest``, with its ``obs``
+counters (``io/records_dropped``) and flight-recorder events
+(``codec_error``, ``codec_record_dropped``).
 
 Reference counterpart: the reference's OGR/GDAL readers inherit Spark's
 per-record error semantics — ``spark.read...option("mode",
@@ -21,7 +20,8 @@ Two pieces:
   (``"raise" | "skip" | "null"``) through a codec.  ``raise`` (the
   default, from ``MosaicConfig.io_on_error``) preserves fail-fast
   behaviour; ``skip`` / ``null`` convert malformed records into
-  :class:`ErrorRecord`\\ s and keep decoding the intact remainder.
+  :class:`ErrorRecord`\\ s and ``io/records_dropped`` metrics and keep
+  decoding the intact remainder.
 """
 
 from __future__ import annotations
@@ -31,6 +31,9 @@ import dataclasses
 import struct
 import zlib
 from typing import List, Optional
+
+from ..obs import metrics
+from ..obs.recorder import recorder
 
 __all__ = ["ErrorRecord", "CodecError", "ErrorSink", "decode_guard",
            "ON_ERROR_MODES"]
@@ -103,8 +106,14 @@ def decode_guard(path: Optional[str] = None,
     except CodecError:
         raise
     except _RAW_DECODE_ERRORS as e:
-        raise CodecError(f"{type(e).__name__}: {e}", path=path,
-                         feature=feature, offset=offset) from e
+        err = CodecError(f"{type(e).__name__}: {e}", path=path,
+                         feature=feature, offset=offset)
+        # flight-recorder event regardless of on_error mode: a "raise"
+        # that escapes to the excepthook dumps with the located error
+        recorder.record("codec_error", path=path, feature=feature,
+                        offset=offset,
+                        reason=f"{type(e).__name__}: {e}"[:200])
+        raise err from e
 
 
 class ErrorSink:
@@ -148,6 +157,12 @@ class ErrorSink:
                 reason=f"{type(exc).__name__}: {exc}"[:200],
                 error_type=type(exc).__name__)
         self.records.append(rec)
+        recorder.record("codec_record_dropped", driver=self.driver,
+                        path=rec.path, feature=rec.feature,
+                        offset=rec.offset, reason=rec.reason,
+                        error_type=rec.error_type)
+        metrics.count("io/records_dropped")
+        metrics.count(f"io/records_dropped/{self.driver}")
 
     def dropped(self) -> int:
         return len(self.records)

@@ -30,10 +30,10 @@ onto the advised grid and PROVES read-back bit-parity (byte-exact
 row-multiset comparison over every column) before reporting success.
 
 Port copy of ``mosaic_tpu.sql.layout``: the same advice from the same
-heat, manifest and conf.  The workload-history evidence
-(``obs/history.py``) and the ``layout_advice`` flight-recorder event
-wait for the port's host planes (ROADMAP §A9): a ``history_dir`` raises
-``NotImplementedError``, and ``record`` records nothing.
+heat, manifest and conf, and every recommendation a ``layout_advice``
+flight-recorder event with its evidence.  The workload-history evidence
+(``obs/history.py``) waits for ROADMAP §A9c: a ``history_dir`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,8 +81,8 @@ def advise_layout(store_root: Optional[str] = None, *,
     so the workload that WILL read it is the only evidence there is).
     The heat skew always shapes the occupancy exponent.  A history
     directory raises ``NotImplementedError``: the history plane is not
-    ported (ROADMAP §A9).  ``record`` is kept for the JAX package's
-    signature; the flight recorder it feeds there is not ported either.
+    ported (ROADMAP §A9c).  With ``record`` the recommendation lands in
+    the flight recorder as a ``layout_advice`` event.
 
     With no evidence at all the configured ``mosaic.store.grid.res``
     comes back unchanged, reason ``"no evidence"`` — auto mode never
@@ -147,6 +147,12 @@ def advise_layout(store_root: Optional[str] = None, *,
             res, shard_rows,
             f"{total_rows} rows / {target} per cell at skew "
             f"{skew:.2f} (d={d:.2f}) -> res {res}", evidence)
+
+    if record:
+        from ..obs.recorder import recorder
+        recorder.record("layout_advice", grid_res=adv.grid_res,
+                        shard_rows=adv.shard_rows, reason=adv.reason,
+                        evidence=adv.evidence)
     return adv
 
 

@@ -16,10 +16,13 @@ planner changes where and how fast an answer is computed, never the
 answer.  Escape hatches: ``mosaic.planner.enabled`` and
 ``mosaic.planner.force.<op>`` (``config.py``).
 
-Left out here: the JAX package's metrics and flight-recorder hooks, the
-stats file (``load``, ``save``, ``configure_stats``) and the SQL
-decisions (``decide_equi_join``, ``decide_fusion``, ``plan_query``,
-``observe_step``).
+Every decision is a ``planner_decision`` flight-recorder event and
+every mispredict a ``planner_mispredict`` one (noted on the active
+in-flight ticket), with the JAX package's ``planner/*`` counters.  Left
+out here: the stats file (``load``, ``save``, ``configure_stats``, its
+``planner.stats.load`` fault site) and the SQL decisions
+(``decide_equi_join``, ``decide_fusion``, ``plan_query``,
+``observe_step``), ROADMAP §A7b.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ..obs import metrics
+from ..obs.recorder import recorder
 
 __all__ = ["Planner", "Decision", "planner", "FORCE_CHOICES",
            "MISPREDICT_FACTOR"]
@@ -176,6 +182,14 @@ class Planner:
     def record_decision(self, d: Decision) -> Decision:
         with self._lock:
             self.decisions += 1
+        if metrics.enabled:
+            metrics.count("planner/decisions")
+            metrics.count(f"planner/decisions/{d.op}")
+            if d.forced:
+                metrics.count("planner/forced")
+        recorder.record("planner_decision", op=d.op,
+                        strategy=d.strategy, reason=d.reason,
+                        est_rows=int(d.est_rows), forced=d.forced)
         return d
 
     def decide_knn(self, n_left: int, n_right: int,
@@ -345,8 +359,20 @@ class Planner:
         err = max(e, 1.0 / e)
         with self._lock:
             self.error_history.append(err)
-            if err > MISPREDICT_FACTOR:
+            mis = err > MISPREDICT_FACTOR
+            if mis:
                 self.mispredicts += 1
+        if metrics.enabled:
+            metrics.observe("planner/estimate_error", err, scale=1.0)
+            if mis:
+                metrics.count("planner/mispredicts")
+        if mis:
+            from ..obs.inflight import note_mispredict
+            note_mispredict()
+            recorder.record("planner_mispredict", op=op,
+                            est_rows=int(est_rows),
+                            actual_rows=int(actual_rows),
+                            error=round(err, 3))
         return err
 
     def observe_decision(self, d: Decision, wall_s: float,

@@ -19,8 +19,10 @@ here are the substrate for learned layouts (arxiv 2504.01292,
 ``sql/layout.py``).
 
 Port of ``mosaic_tpu.store``: stores are interchangeable between the two
-packages, file for file.  The fault probes and recorder events of the
-JAX package's store are not ported (ROADMAP C11).
+packages, file for file, with the JAX package's fault sites
+(``store.read``, ``store.write``, ``store.shard``), ``store_shard_torn``
+event and in-flight partition notes.  Its gauges and devicemon
+attribution are ROADMAP §A9b (C11).
 """
 
 from .manifest import Manifest, Partition, grid_cells, cell_bbox

@@ -20,8 +20,8 @@ overlaps it.
 Port copy of ``mosaic_tpu.store.manifest``: the on-disk format (manifest
 keys, dtype strings, shard file names, ``MANIFEST_VERSION``) is the JAX
 package's byte for byte, so a store written by either package reads in
-the other.  The ``store.read`` and ``store.write`` fault probes are not
-ported (ROADMAP C11).
+the other.  Its fault sites are the JAX package's: ``store.write`` before
+the manifest's rename, ``store.read`` before it is loaded.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from ..resilience import faults
 from ..resilience.ingest import CodecError, decode_guard
 
 __all__ = ["MANIFEST_VERSION", "Manifest", "Partition", "grid_cells",
@@ -160,19 +161,22 @@ class Manifest:
     def save(self, root: str) -> str:
         """Atomic write: serialize to ``manifest.json.tmp``, fsync,
         rename — a crash before the rename leaves the old manifest (or
-        none) intact."""
+        none) intact.  The ``store.write`` fault site fires before the
+        rename."""
         path = os.path.join(root, MANIFEST_NAME)
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(self.to_obj(), f, separators=(",", ":"))
             f.flush()
             os.fsync(f.fileno())
+        faults.maybe_fail("store.write")
         os.replace(tmp, path)
         return path
 
     @classmethod
     def load(cls, root: str) -> "Manifest":
         path = os.path.join(root, MANIFEST_NAME)
+        faults.maybe_fail("store.read")
         try:
             with open(path, "rb") as f:
                 raw = f.read()

@@ -10,16 +10,16 @@ for :func:`mosaic_tpu_torch.perf.pipeline.stream` — at no moment does more
 than one shard plus one chunk of carry-over live on the host, so a
 store bigger than RAM streams through a fixed-size window.
 
-Torn shards (file shorter than the manifest's row count — a crash or
-a truncation) degrade per the codec ``on_error`` convention: ``raise``
-surfaces a located :class:`~mosaic_tpu_torch.resilience.ingest.CodecError`,
-``skip`` drops the incomplete tail rows, ``null`` zero-fills them;
-either degrade path counts ``store/shards_torn``.
+Torn shards (file shorter than the manifest's row count — a crash,
+truncation, or injected ``store.shard`` corruption) degrade per the
+codec ``on_error`` convention: ``raise`` surfaces a located
+:class:`~mosaic_tpu_torch.resilience.ingest.CodecError`, ``skip`` drops
+the incomplete tail rows, ``null`` zero-fills them; either degrade path
+counts ``store/shards_torn`` and flight-records ``store_shard_torn``.
 
 Port copy of ``mosaic_tpu.store.reader``: the same rows, chunks, spans
-and torn-tail behaviour.  The ``store.read``/``store.shard`` fault
-probes, the ``store_shard_torn`` recorder event and the in-flight
-registry's partition notes are not ported (ROADMAP C11).
+and torn-tail behaviour, the same ``store.read``/``store.shard`` fault
+sites, and the same in-flight partition notes (``note_partitions``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,9 @@ import numpy as np
 
 from ..obs import metrics
 from ..obs.heat import heat
+from ..obs.inflight import note_partitions
+from ..obs.recorder import recorder
+from ..resilience import faults
 from ..resilience.ingest import CodecError, ON_ERROR_MODES
 from .manifest import Manifest, Partition, bbox_intersects, shard_path
 
@@ -111,15 +114,18 @@ class ChipStore:
     # -- shard IO ----------------------------------------------------
     def _shard_bytes(self, path: str) -> bytes:
         """Raw shard payload: a zero-copy view of the mmap'd file, or
-        the file's bytes when ``mmap`` is off."""
+        the file's bytes when ``mmap`` is off.  With a fault plan armed
+        the bytes route through ``faults.corrupt`` (a memoryview cannot
+        be truncated in place), so chaos drills always bite."""
+        faults.maybe_fail("store.read")
         try:
-            if self.mmap:
+            if self.mmap and faults.active() is None:
                 if os.path.getsize(path) == 0:
                     return b""
                 return memoryview(np.memmap(path, dtype=np.uint8,
                                             mode="r"))
             with open(path, "rb") as f:
-                return f.read()
+                return faults.corrupt("store.shard", f.read())
         except FileNotFoundError:
             raise CodecError("shard file missing", path=path) from None
 
@@ -142,6 +148,9 @@ class ChipStore:
                 raise err
             if metrics.enabled:
                 metrics.count("store/shards_torn")
+            recorder.record("store_shard_torn", path=path, cell=cell,
+                            shard=k, column=col, rows=rows,
+                            complete=complete, mode=self.on_error)
             if self.on_error == "null":
                 pad = np.zeros(rows, dtype=dtype)
                 pad[:arr.shape[0]] = arr
@@ -169,6 +178,7 @@ class ChipStore:
                 out[c].append(arrs[c][:usable])
         # partition-heat feed: this read touches exactly one cell
         heat.touch(part.cell, rows=read_rows)
+        note_partitions(((part.cell, read_rows),))
         return {c: np.concatenate(segs) if segs else
                 np.empty(0, np.dtype(self.manifest.columns[c]))
                 for c, segs in out.items()}
@@ -245,6 +255,7 @@ class ChipStore:
             # pruned partition never reaches a chunk — it stays cold)
             for cell, r in spans:
                 heat.touch(cell, rows=r)
+            note_partitions(spans)
             if metrics.enabled:
                 metrics.count("store/chunks_streamed")
                 metrics.count("store/rows_scanned", take)

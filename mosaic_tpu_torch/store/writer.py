@@ -19,8 +19,8 @@ adapts any iterable of point blocks — e.g. a loop over the io codecs'
 decoded tiles — to the incremental writer.
 
 Port copy of ``mosaic_tpu.store.writer``: the same files, byte for byte,
-from the same points.  The ``store.write`` fault probes are not ported
-(ROADMAP C11).
+from the same points, with the same ``store.write`` fault sites (each
+appended block, the finalize).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 
 from ..obs import metrics
+from ..resilience import faults
 from .manifest import (MANIFEST_VERSION, Manifest, PARTS_DIR, Partition,
                        grid_cells, shard_path)
 
@@ -104,6 +105,7 @@ class StoreWriter:
                 f"{sorted(self._columns)}")
         if n == 0:
             return 0
+        faults.maybe_fail("store.write")
         cells = grid_cells(pts[:, 0], pts[:, 1], self.grid_res)
         # stable sort: rows within a cell keep ingest order, so the
         # read-back order is a pure function of (data, grid), not of
@@ -162,6 +164,7 @@ class StoreWriter:
         manifest rename; until then it does not exist."""
         if self._done:
             raise ValueError("StoreWriter already finalized")
+        faults.maybe_fail("store.write")
         partitions = []
         for cell in sorted(self._parts):
             part = self._parts[cell]

@@ -9,10 +9,15 @@ default.
   small store written, read back and fed to the store-fed join; and the
   geometry surface: the WKB and GeoJSON codecs, edge blocks with their
   measures and predicates (containment equal to the oracle), a hull, a
-  triangulation, a buffer, a UTM round trip, the analyzer and a warp.
+  triangulation, a buffer, a UTM round trip, the analyzer and a warp;
+  and the host planes: a plan from ``MOSAIC_TPU_FAULT_PLAN`` armed at
+  import, then the dense join again with a fault plan armed (a
+  ``pipeline.chunk`` stall), the tracer on and a flight-recorder dump
+  written, equal zones, its span and the dump's events read back;
+  importing the port leaves ``threading.Thread.start`` as it was.
 * No file of the port, nor chip_smoke.py, imports ``jax`` or
   ``mosaic_tpu`` (an ``ast`` scan over every subpackage, ``core/raster``,
-  ``io`` and ``resilience`` among them; the root module name must match
+  ``io``, ``obs`` and ``resilience`` among them; the root module name must match
   exactly, so ``mosaic_tpu_torch`` itself does not count).
 * pyproject.toml's package data covers every file under ``csrc/`` and
   the ``.npz`` tables ``crs.py`` reads.
@@ -24,6 +29,7 @@ default.
 
 import ast
 import fnmatch
+import os
 import re
 import subprocess
 import tomllib
@@ -55,10 +61,13 @@ SLICE = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["mosaic_tpu"] = None
+import threading
 import numpy as np
 import torch
+start0 = threading.Thread.start
 import mosaic_tpu_torch as mt
 from mosaic_tpu_torch.core.tessellate import convex_clip_rings
+assert threading.Thread.start is start0   # the import patches no thread
 
 torch.set_num_threads(1)
 polys = mt.read_wkt([
@@ -142,13 +151,39 @@ warped = rops.warp(mt.RasterTile(dem.data, mt.GeoTransform(
     srid=32618), 4326)
 assert warped.srid == 4326 and np.isfinite(warped.data).mean() > 0.9
 assert len(points_block(polys, device="cpu")) == 2
+import json
+from mosaic_tpu_torch.obs import recorder, tracer
+from mosaic_tpu_torch.resilience import faults
+env_plan = faults.active()
+assert env_plan is not None and env_plan.seed == 4, env_plan
+try:
+    faults.maybe_fail("env.site")
+    raise AssertionError("the environment's plan did not fire")
+except OSError:
+    pass
+plan = faults.arm("seed=9;site=pipeline.chunk,mode=delay,fails=2,"
+                  "delay_ms=1")
+tracer.enable()
+try:
+    assert np.array_equal(run(pts)[0], zone)
+finally:
+    faults.disarm()
+assert [s for s, _, k in plan.injected] == ["pipeline.chunk"] * 2
+assert tracer.report()["spans"]["pip_join/streamed"]["calls"] == 1
+with tempfile.TemporaryDirectory() as d:
+    dumped = json.load(open(recorder.dump(path=d + "/flight.json")))
+kinds = {e["kind"] for e in dumped["events"]}
+assert {"fault_injected", "span", "config"} <= kinds, kinds
+assert dumped["device"] == {"initialized": False}
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("SLICE_OK", int((zone >= 0).sum()), rechecked, len(cells))
 """
 
 
 def test_slice_runs_without_jax_or_mosaic_tpu():
-    out = subprocess.run([sys.executable, "-c", SLICE], cwd=REPO,
+    env = dict(os.environ,
+               MOSAIC_TPU_FAULT_PLAN="seed=4;site=env.site,fails=1")
+    out = subprocess.run([sys.executable, "-c", SLICE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "SLICE_OK" in out.stdout
@@ -184,6 +219,14 @@ def test_no_file_imports_jax_or_mosaic_tpu():
             "mosaic_tpu_torch/obs/__init__.py",
             "mosaic_tpu_torch/obs/metrics.py",
             "mosaic_tpu_torch/obs/heat.py",
+            "mosaic_tpu_torch/obs/context.py",
+            "mosaic_tpu_torch/obs/recorder.py",
+            "mosaic_tpu_torch/obs/tracer.py",
+            "mosaic_tpu_torch/obs/inflight.py",
+            "mosaic_tpu_torch/resilience/__init__.py",
+            "mosaic_tpu_torch/resilience/faults.py",
+            "mosaic_tpu_torch/resilience/retry.py",
+            "mosaic_tpu_torch/resilience/testing.py",
             "mosaic_tpu_torch/store/__init__.py",
             "mosaic_tpu_torch/store/manifest.py",
             "mosaic_tpu_torch/store/writer.py",

@@ -3,8 +3,9 @@
 * Each conf key the port carries (``mosaic.planner.enabled``,
   ``mosaic.planner.force.<op>``, ``mosaic.stream.chunk.rows``,
   ``mosaic.knn.strategy``, ``mosaic.shard.skew.refresh``,
-  ``mosaic.crs.strict.datum`` and the five
-  ``mosaic.join.refine.*`` keys;
+  ``mosaic.crs.strict.datum``, the five ``mosaic.join.refine.*``
+  keys and the host planes' ``mosaic.trace.enabled``,
+  ``mosaic.metrics.enabled`` and ``mosaic.obs.dump.cooldown.ms``;
   the raster and ``mosaic.io.on.error`` keys are held in
   tests/test_torch_raster.py) accepts and rejects the same values as the
   JAX package's, with the same defaults and the same error class.  The stated exception: the pins this
@@ -72,6 +73,9 @@ KEY_VALUES = {
     "mosaic.layout.min.res": ["64", "128", "0", "x"],
     "mosaic.layout.max.res": ["16384", "512", "-2", "x"],
     "mosaic.crs.strict.datum": ["true", "false", "1", "maybe"],
+    "mosaic.trace.enabled": ["true", "false", "on", "perhaps"],
+    "mosaic.metrics.enabled": ["true", "false", "0", "x"],
+    "mosaic.obs.dump.cooldown.ms": ["0", "30000", "2.5", "-1", "x"],
 }
 
 #: the config fields those keys set, with the JAX package's defaults
@@ -84,7 +88,8 @@ FIELDS_PORTED = ("planner_enabled", "planner_force", "stream_chunk_rows",
                  "store_dir", "store_grid_res", "store_shard_rows",
                  "store_mmap", "heat_halflife_ms", "heat_prior",
                  "layout_rows_per_cell", "layout_min_res",
-                 "layout_max_res", "crs_strict_datum")
+                 "layout_max_res", "crs_strict_datum", "trace_enabled",
+                 "metrics_enabled", "obs_dump_cooldown_ms")
 
 
 @pytest.fixture(autouse=True)
@@ -151,6 +156,7 @@ def test_force_pins_stack_and_clear_alike():
     ("mosaic.planner.force.fusion", "on"),
     ("mosaic.planner.stats.path", "/tmp/ps.json"),
     ("mosaic.fusion.enabled", "true"),
+    ("mosaic.obs.slow.query.ms", "250"),
 ])
 def test_left_out_pins_and_keys_raise(key, val):
     """The stated divergence: what the JAX package takes for a later
