@@ -322,13 +322,48 @@ Phases (any failure exits non-zero and prints no result):
     the card and on the CPU, bit-equal, and a raster checkpoint riding
     out two write faults; h. the native library built into a fresh
     directory, its first load failing: rebuilt and loaded;
-20. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
-    ``raster``, ``sharded``, ``store``, ``geometry``, ``host_planes`` and
-    ``tess_kernels`` (K7 and K8 by input set) summary lines, the card,
-    the ``kernels`` JSON line (K1-K13 with launches per path, the
-    tessellations of phases 5 and 11, the strategies', the raster, the
-    sharded, the ``store fed``, the ``geometry`` and the ``host planes``
-    paths among them), then the last line
+20. the function surface through ``enable_mosaic("H3")`` on the card, a
+    ``device="cpu"`` context as the plain reference, each path counted
+    under its own ``functions ...`` name: a. the reference Quickstart:
+    the 35 zones of tests/data's EPSG:2263 shapefile through
+    ``mt.io.read_vector`` and ``st_transform`` to 4326 (areas within
+    1e-11 and centroids within 2e-5 of the GeoJSON zones'),
+    ``st_area``/``st_length``/``st_centroid`` (K11) bit-equal to the CPU
+    context's, ``grid_tessellateexplode`` at res 9 (K3's sampling, K7,
+    K8) bit-equal, 2^20 seeded points in the zones' bbox and the trips
+    sample through ``grid_pointascellid`` (K3) equal to
+    ``point_to_cell``, a numpy join on cell id (core pairs accepted,
+    border pairs through ``st_contains``, K12, in calls of at most
+    2,048 rows): every point's zone equal to ``pip_host_truth``; one
+    ``call/st_area`` span from ``ctx.call`` with the tracer on;
+    b. ``st_intersects`` of the zones against a seeded permutation (K13,
+    K12) equal to the CPU context's, ``grid_intersects_sharded`` under
+    ``use_mesh`` over a NCCL world of one (K4) equal to
+    ``overlay_intersects``' diagonal (the CPU context's
+    ``st_intersects`` a row at a time: the zones' blocks hold up to
+    8,192 slots); c. the CAMS GRIB file through
+    ``rst_fromfile`` and ``rst_rastertogridavg`` at res 2, config 5's
+    DEM written as GeoTIFF, NetCDF and chunked, compressed Zarr and read
+    back through ``rst_fromfile``, ``rst_rastertogridavg`` at res 8 (K3)
+    equal across the three and to the CPU context's; ``rst_convolve``
+    3x3 f64 (K9) bit-equal to ``rops.convolve``; ``rst_combineavg`` of
+    four overlapping quarters (K10) bit-equal to the CPU context's;
+    d. the chips through ``write_gpkg``/``read_gpkg`` and
+    ``write_shapefile``/``read_shapefile``, ``st_area`` (K11) of what
+    comes back bit-equal; the zones through ``st_asmvttileagg`` (K8's
+    box clip) byte-equal to the CPU context's and ``decode_mvt``; one
+    fault at each datasource site (``shapefile.read_record``,
+    ``gpkg.read_row``, ``grib.read_message``, ``mvt.decode_feature``
+    under ``skip``; ``shapefile.read``, ``netcdf.read`` surfacing): the
+    rows dropped, the records, ``io/records_dropped`` and what the
+    context makes of the rest equal to the CPU run's;
+21. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+    ``raster``, ``sharded``, ``store``, ``geometry``, ``host_planes``,
+    ``functions`` and ``tess_kernels`` (K7 and K8 by input set) summary
+    lines, the card, the ``kernels`` JSON line (K1-K13 with launches per
+    path, the tessellations of phases 5 and 11, the strategies', the
+    raster, the sharded, the ``store fed``, the ``geometry``, the ``host
+    planes`` and the ``functions`` paths among them), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
@@ -5705,9 +5740,467 @@ def phase_host_planes(idx, grid, polys, batches, dense_zones, over):
     return out
 
 
-def kernel_line(name, source, replaces, launches, k, by_path) -> dict:
+#: phase 20: the function surface through ``enable_mosaic("H3")``: the
+#: reference Quickstart's zones (EPSG:2263 shapefile) and trips, 2^20
+#: seeded points in the zones' bbox, H3 res 9; border pairs through
+#: ``st_contains`` in chunks of FN_CHUNK rows (each an [n, n] K12 launch)
+FN_DATA = Path("tests") / "data"
+FN_RES = 9
+FN_POINTS = 1 << 20
+FN_SEED = 2020
+FN_CHUNK = 2048
+FN_GRIB_RES = 2
+#: a z12 tile over midtown Manhattan for the MVT encode
+FN_TILE = (12, 1206, 1539)
+FN_KERNEL = ((1.0, 2.0, 1.0), (2.0, 4.0, 2.0), (1.0, 2.0, 1.0))
+#: one fault a datasource site (the sites the JAX package's own tests
+#: cover), each read under on_error="skip"
+FN_RECORD_PLAN = "seed=23;site=shapefile.read_record,fails=1,mode=truncate"
+FN_GPKG_PLAN = "seed=43;site=gpkg.read_row,fails=1,error=ValueError"
+FN_GRIB_PLAN = "seed=22;site=grib.read_message,fails=1,error=ValueError"
+FN_MVT_PLAN = "seed=27;site=mvt.decode_feature,rate=0.5,error=ValueError"
+FN_SHP_OPEN_PLAN = "seed=61;site=shapefile.read,fails=1,error=OSError"
+FN_NC_OPEN_PLAN = "seed=62;site=netcdf.read,fails=1,error=OSError"
+
+
+def surface_join(ctx, chips, points, cells, chunk: int):
+    """(zone per point, border pairs, all pairs): points joined to chips
+    on cell id with numpy, core pairs accepted, border pairs through
+    ``ctx.st_contains`` in chunks of ``chunk`` rows; the lowest zone id
+    wins, as ``pip_host_truth`` picks the first."""
+    import numpy as np
+    order = np.argsort(chips.cell_id, kind="stable")
+    sc = chips.cell_id[order]
+    lo = np.searchsorted(sc, cells, "left")
+    n = np.searchsorted(sc, cells, "right") - lo
+    pt = np.repeat(np.arange(len(cells)), n)
+    ch = order[np.repeat(lo, n) + (np.arange(int(n.sum())) -
+                                   np.repeat(np.cumsum(n) - n, n))]
+    ok = chips.is_core[ch].copy()
+    border = np.nonzero(~ok)[0]
+    for s in range(0, len(border), chunk):
+        sel = border[s:s + chunk]
+        ok[sel] = ctx.st_contains(chips.geoms.take(ch[sel]),
+                                  points.take(pt[sel]))
+    none = np.iinfo(np.int64).max
+    zone = np.full(len(cells), none)
+    np.minimum.at(zone, pt[ok], chips.geom_id[ch[ok]])
+    zone[zone == none] = -1
+    return zone, len(border), len(pt)
+
+
+def phase_functions(grid):
+    """The function surface on the card through ``enable_mosaic("H3")``,
+    a ``device="cpu"`` context as the plain reference: the Quickstart on
+    the real zones (K11, K3, K7, K8, K12), the predicates and the sharded
+    overlay (K13, K4), the raster surface (K3, K9, K10) and the
+    datasources (K11, K8) with a fault at each IO site.  Each path's
+    launches are counted under its ``functions ...`` name."""
+    import csv
+    import json as _json
+    import os
+    import tempfile
+    from datetime import timedelta
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.core.raster import rops
+    from mosaic_tpu_torch.core.raster.gtiff import write_gtiff
+    from mosaic_tpu_torch.functions.context import MosaicContext
+    from mosaic_tpu_torch.io.geopackage import read_gpkg, write_gpkg
+    from mosaic_tpu_torch.io.grib import read_grib
+    from mosaic_tpu_torch.io.netcdf import read_netcdf, write_netcdf
+    from mosaic_tpu_torch.io.shapefile import read_shapefile, write_shapefile
+    from mosaic_tpu_torch.io.vectortile import decode_mvt
+    from mosaic_tpu_torch.io.zarr import write_zarr
+    from mosaic_tpu_torch.obs import metrics, tracer
+    from mosaic_tpu_torch.parallel.overlay import overlay_intersects
+    from mosaic_tpu_torch.parallel.pip_join import pip_host_truth
+    from mosaic_tpu_torch.resilience import faults
+    from mosaic_tpu_torch.sql.planner import planner
+
+    t_phase = time.perf_counter()
+    paths, out, secs = {}, {}, {}
+    data = ROOT / FN_DATA
+
+    def counted(path, fn):
+        """Run ``fn`` with the counts at 0, add its launches to ``path``."""
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        paths[path] = {k: paths.get(path, {}).get(k, 0) + v
+                       for k, v in got.items()}
+        return res
+
+    def lap(name, t0):
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return time.perf_counter()
+
+    def same_float(a, b) -> bool:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+    def same_cells(a, b) -> bool:
+        return len(a) == len(b) and all(same_values(x, y)
+                                        for x, y in zip(a, b))
+
+    ctx = mt.enable_mosaic("H3")
+    check(ctx.device.type == "cuda" and MosaicContext.context() is ctx,
+          f"enable_mosaic: context on {ctx.device}")
+    cpu = MosaicContext("H3", device="cpu")
+    planner.reset()
+    t0 = time.perf_counter()
+
+    # ---- 20a. the Quickstart on the real zones
+    zones_2263, cols = mt.io.read_vector(str(data /
+                                             "nyc_taxi_zones_2263.shp"))
+    check(len(zones_2263) == 35 and zones_2263.srid == 2263,
+          f"quickstart: read {len(zones_2263)} zones, srid "
+          f"{zones_2263.srid}")
+    zones = ctx.st_transform(zones_2263, 4326)
+    feats = [_json.loads(line) for line in
+             open(data / "nyc_taxi_zones.geojson") if line.strip()]
+    truth_zones = mt.read_geojson([_json.dumps(f["geometry"])
+                                   for f in feats])
+    area, length, cent = counted("functions quickstart", lambda: (
+        ctx.st_area(zones), ctx.st_length(zones), ctx.st_centroid(zones)))
+    area_true = ctx.st_area(truth_zones)
+    cent_true = ctx.st_centroid(truth_zones)
+    area_gap = float(np.abs(area - area_true).max())
+    cent_gap = float(np.abs(cent.coords[:, :2] -
+                            cent_true.coords[:, :2]).max())
+    check(area_gap < 1e-11 and cent_gap < 2e-5,
+          f"quickstart: the 2263 zones back in 4326 differ from the "
+          f"GeoJSON zones: area {area_gap:.3g}, centroid {cent_gap:.3g}")
+    check(same_float(area, cpu.st_area(zones)) and
+          same_float(length, cpu.st_length(zones)) and
+          same_float(cent.coords, cpu.st_centroid(zones).coords),
+          "quickstart: st_area/st_length/st_centroid differ from the CPU "
+          "context's")
+    t0 = lap("20a measures", t0)
+    chips = counted("functions quickstart",
+                    lambda: ctx.grid_tessellateexplode(zones, FN_RES))
+    cpu_chips = cpu.grid_tessellateexplode(zones, FN_RES)
+    diff = chipset_diff(chips, cpu_chips)
+    check(not diff, f"quickstart: grid_tessellateexplode differs from the "
+          f"CPU context's in {diff}")
+    t0 = lap("20a tessellate", t0)
+    with open(data / "nyc_taxi_trips_sample.csv") as f:
+        trips = np.array([[float(r["pickup_longitude"]),
+                           float(r["pickup_latitude"])]
+                          for r in csv.DictReader(f)])
+    bb = zones.bboxes()
+    rng = np.random.default_rng(FN_SEED)
+    pts = np.concatenate([np.stack([
+        rng.uniform(bb[:, 0].min(), bb[:, 2].max(), FN_POINTS),
+        rng.uniform(bb[:, 1].min(), bb[:, 3].max(), FN_POINTS)], -1),
+        trips])
+    points = mt.GeometryArray.from_points(pts)
+    cells = counted("functions quickstart",
+                    lambda: ctx.grid_pointascellid(points, FN_RES))
+    host_cells = grid.point_to_cell(pts, FN_RES)
+    check(np.array_equal(cells, host_cells), "quickstart: "
+          f"grid_pointascellid differs from point_to_cell on "
+          f"{int((cells != host_cells).sum())} points")
+    t0 = lap("20a cells", t0)
+    zone, n_border, n_pairs = counted(
+        "functions quickstart",
+        lambda: surface_join(ctx, chips, points, cells, FN_CHUNK))
+    t0 = lap("20a join", t0)
+    truth = pip_host_truth(pts, zones)
+    bad = int((zone != truth).sum())
+    check(bad == 0, f"quickstart: {bad} of {len(pts)} points' zones "
+          "differ from pip_host_truth")
+    t0 = lap("20a truth", t0)
+    tracer.reset()
+    tracer.enable()
+    try:
+        counted("functions quickstart", lambda: ctx.call("st_area", zones))
+        spans = tracer.report()["spans"]
+    finally:
+        tracer.disable()
+        tracer.reset()
+    check(spans.get("call/st_area", {}).get("calls") == 1,
+          f"quickstart: ctx.call spans {sorted(spans)}")
+    qs = paths["functions quickstart"]
+    chunks = -(-n_border // FN_CHUNK)
+    check(qs["edge_measures"] == 4 and qs["edge_point_query"] == chunks and
+          qs["h3_latlng_to_cell"] >= 1 and qs["tess_classify"] >= 1 and
+          qs["tess_clip"] >= 1,
+          f"quickstart: launches {qs} (expected K11 4, K12 {chunks})")
+    out["quickstart"] = {
+        "zones": len(zones), "chips": len(chips),
+        "core_chips": int(chips.is_core.sum()), "points": len(pts),
+        "inside": int((zone >= 0).sum()), "pairs": n_pairs,
+        "border_pairs": n_border, "border_share": n_border / n_pairs,
+        "st_contains_calls": chunks, "mismatches": bad,
+        "area_gap_vs_geojson": area_gap,
+        "centroid_gap_vs_geojson": cent_gap}
+    log(f"[functions] quickstart: 35 zones from the 2263 shapefile, "
+        f"{len(chips)} chips bit-equal to the CPU context's, "
+        f"{len(pts)} points' cells equal to point_to_cell; {n_pairs} "
+        f"pairs, {n_border} border ({n_border / n_pairs:.4f}) through "
+        f"st_contains in {chunks} calls; 0 zones differ from "
+        "pip_host_truth")
+
+    # ---- 20b. predicates and the sharded overlay
+    perm = np.random.default_rng(FN_SEED).permutation(len(zones))
+    other = zones.take(perm)
+    hits = counted("functions predicates",
+                   lambda: ctx.st_intersects(zones, other))
+    # the CPU context row by row: the zones' blocks hold up to 8,192
+    # slots, and the plain version of the one [35, 35] call would take
+    # minutes on the host
+    rows = np.array([cpu.st_intersects(zones.take([i]),
+                                       other.take([i]))[0]
+                     for i in range(len(zones))])
+    check(np.array_equal(hits, rows),
+          "predicates: st_intersects differs from the CPU context's")
+    pr = paths["functions predicates"]
+    check(pr["edges_cross"] == 1 and pr["edge_point_query"] == 2,
+          f"predicates: launches {pr}")
+    t0 = lap("20b predicates", t0)
+    direct = np.diagonal(overlay_intersects(zones, other, FN_RES, grid,
+                                            device=DEV)).copy()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=timedelta(seconds=60))
+        try:
+            ctx.use_mesh(dist.group.WORLD)
+            sharded = counted("functions overlay",
+                              lambda: ctx.grid_intersects_sharded(
+                                  zones, other, FN_RES))
+        finally:
+            ctx.use_mesh(None)
+            dist.destroy_process_group()
+    check(np.array_equal(sharded, direct), "overlay: "
+          "grid_intersects_sharded differs from overlay_intersects")
+    check(paths["functions overlay"]["overlay_pairs"] >= 1,
+          f"overlay: launches {paths['functions overlay']}")
+    out["predicates"] = {"intersects": int(hits.sum()),
+                         "overlay_intersects": int(sharded.sum())}
+    t0 = lap("20b overlay", t0)
+    log(f"[functions] predicates: st_intersects of the zones against a "
+        f"permutation ({int(hits.sum())} of 35) equal to the CPU "
+        "context's; grid_intersects_sharded over a NCCL world of one "
+        f"({int(sharded.sum())}) equal to overlay_intersects")
+
+    # ---- 20c. the raster surface
+    gribs = ctx.rst_fromfile([str(data / "cams_sample.grb")])
+    g_cells = counted("functions raster",
+                      lambda: ctx.rst_rastertogridavg(gribs, FN_GRIB_RES))
+    check(same_cells(g_cells, cpu.rst_rastertogridavg(gribs, FN_GRIB_RES))
+          and len(g_cells[0]) > 10,
+          "raster: the GRIB's cells differ from the CPU context's")
+    gtr = mt.GeoTransform(*DEM_GT)
+    yy, xx = np.mgrid[0:DEM_SHAPE[0], 0:DEM_SHAPE[1]]
+    values = np.sin(xx / 60.0) * 50 + yy * 0.1
+    dem = mt.RasterTile(values[None], gtr, srid=4326)
+    xs = DEM_GT[0] + (np.arange(DEM_SHAPE[1]) + 0.5) * DEM_GT[1]
+    ys = DEM_GT[3] + (np.arange(DEM_SHAPE[0]) + 0.5) * DEM_GT[5]
+    with tempfile.TemporaryDirectory() as tmp:
+        tif, nc, zr = (os.path.join(tmp, n) for n in
+                       ("dem.tif", "dem.nc", "dem.zarr"))
+        with open(tif, "wb") as f:
+            f.write(write_gtiff(dem))
+        with open(nc, "wb") as f:
+            f.write(write_netcdf({"dem": values}, xs=xs, ys=ys))
+        write_zarr(zr, {"dem": values}, chunks=(256, 256),
+                   geotransform=DEM_GT, compress=True)
+        tiles = ctx.rst_fromfile([tif, nc, zr])
+    check([t.meta["driver"] for t in tiles] == ["GTiff", "netcdf", "zarr"]
+          and all(np.array_equal(np.asarray(t.data), dem.data)
+                  for t in tiles),
+          "raster: the DEM read back from GeoTIFF, NetCDF and Zarr differs")
+    d_cells = counted("functions raster",
+                      lambda: ctx.rst_rastertogridavg(tiles, R2G_RES))
+    check(all(same_values(d_cells[0], c) for c in d_cells[1:]) and
+          len(d_cells[0]) == R2G_CELLS,
+          f"raster: the three formats give {[len(c) for c in d_cells]} "
+          "cells, or differ")
+    check(same_cells(d_cells, cpu.rst_rastertogridavg(tiles, R2G_RES)),
+          "raster: the DEM's cells differ from the CPU context's")
+    conv = counted("functions raster",
+                   lambda: ctx.rst_convolve([dem], FN_KERNEL)[0])
+    direct = rops.convolve(dem, np.asarray(FN_KERNEL), device=DEV)
+    check(same_float(conv.data, direct.data),
+          "raster: rst_convolve differs from rops.convolve")
+    quads = quarter_tiles(dem)
+    comb = counted("functions raster", lambda: ctx.rst_combineavg(quads))
+    check(np.array_equal(np.asarray(comb.data),
+                         np.asarray(cpu.rst_combineavg(quads).data),
+                         equal_nan=True) and
+          comb.gt.to_tuple() == cpu.rst_combineavg(quads).gt.to_tuple(),
+          "raster: rst_combineavg differs from the CPU context's")
+    ra = paths["functions raster"]
+    check(ra["h3_latlng_to_cell"] == 4 and ra["raster_convolve"] == 1 and
+          ra["raster_combine"] == 1, f"raster: launches {ra}")
+    out["raster"] = {"grib_cells": len(g_cells[0]),
+                     "dem_cells": len(d_cells[0]),
+                     "netcdf_gt": tiles[1].gt.to_tuple(),
+                     "gt_equal": all(t.gt.to_tuple() == DEM_GT
+                                     for t in tiles)}
+    t0 = lap("20c raster", t0)
+    log(f"[functions] raster: the CAMS GRIB to {len(g_cells[0])} res-2 "
+        f"cells; config 5's DEM from GeoTIFF, NetCDF and Zarr to "
+        f"{len(d_cells[0])} equal cells; all equal to the CPU context's; "
+        "rst_convolve bit-equal to rops.convolve, rst_combineavg of 4 "
+        "quarters to the CPU context's")
+
+    # ---- 20d. the datasources on the card's host
+    geom_col = chips.geom_id.tolist()
+    attrs = {"geom_id": geom_col, "cell_id": chips.cell_id.tolist(),
+             "is_core": chips.is_core.astype(int).tolist()}
+    area0 = counted("functions datasources",
+                    lambda: ctx.st_area(chips.geoms))
+    with tempfile.TemporaryDirectory() as tmp:
+        gp, sp = os.path.join(tmp, "chips.gpkg"), os.path.join(tmp,
+                                                               "chips.shp")
+        write_gpkg(gp, chips.geoms, attrs, layer="chips")
+        write_shapefile(sp, chips.geoms, attrs)
+        g_gp, a_gp = read_gpkg(gp)
+        g_sp, a_sp = read_shapefile(sp)
+        check(np.array_equal(g_gp.coords, chips.geoms.coords) and
+              all(a_gp[k] == v for k, v in attrs.items()),
+              "datasources: the GeoPackage round trip changed the chips")
+        check(len(g_sp) == len(chips) and
+              all(a_sp[k] == v for k, v in attrs.items()),
+              "datasources: the shapefile round trip changed the rows")
+        a_gp_card, a_sp_card = counted("functions datasources", lambda: (
+            ctx.st_area(g_gp), ctx.st_area(g_sp)))
+        check(same_float(a_gp_card, area0) and
+              same_float(a_sp_card, cpu.st_area(g_sp)),
+              "datasources: st_area of the read-back chips differs")
+        sp_gap = float(np.abs(a_sp_card - area0).max())
+        check(sp_gap <= 1e-12 * float(np.abs(area0).max()),
+              f"datasources: shapefile areas {sp_gap:.3g} from the chips'")
+        names = cols["zone"]
+        blob = counted("functions datasources", lambda: ctx.st_asmvttileagg(
+            zones, {"zone": names}, *FN_TILE, layer="zones"))
+        check(blob == cpu.st_asmvttileagg(zones, {"zone": names}, *FN_TILE,
+                                          layer="zones"),
+              "datasources: the MVT tile differs from the CPU context's")
+        mvt = decode_mvt(blob)["zones"]
+        check(len(mvt["features"]) > 0, "datasources: an empty MVT tile")
+        ds = paths["functions datasources"]
+        # the tile clips all the zones' rings in one call: K8's lane
+        # instance, and its warp instance for the longest rings
+        check(ds["edge_measures"] == 3 and 1 <= ds["tess_clip"] <= 2,
+              f"datasources: launches {ds}")
+        t0 = lap("20d round trips", t0)
+
+        # one fault a site under skip, on the card and on the CPU alike
+        with open(data / "cams_sample.grb", "rb") as f:
+            grib_blob = f.read()
+        nc_blob = write_netcdf({"dem": values[:64, :64]})
+        metrics.enable()
+
+        def faulted(c):
+            """Each site's plan, its reads under skip and what the context
+            ``c`` makes of what survives: {site: (rows, errors, dropped
+            counter, injected, result)}."""
+            res = {}
+
+            def run(site, plan, read, use):
+                metrics.reset()
+                armed = faults.arm(plan)
+                errs = []
+                try:
+                    got = read(errs)
+                finally:
+                    faults.disarm()
+                res[site] = (len(got), [e.feature for e in errs],
+                             metrics.counter_value("io/records_dropped"),
+                             list(armed.injected), use(got))
+            run("shapefile.read_record", FN_RECORD_PLAN,
+                lambda e: read_shapefile(
+                    str(data / "nyc_taxi_zones_2263.shp"), on_error="skip",
+                    errors=e)[0],
+                lambda g: c.st_area(c.st_transform(g, 4326)).tobytes())
+            run("gpkg.read_row", FN_GPKG_PLAN,
+                lambda e: read_gpkg(gp, on_error="skip", errors=e)[0],
+                lambda g: c.st_area(g).tobytes())
+            run("grib.read_message", FN_GRIB_PLAN,
+                lambda e: read_grib(grib_blob, on_error="skip", errors=e),
+                lambda t: c.rst_rastertogridavg(
+                    [t[sorted(t)[0]]], FN_GRIB_RES))
+            run("mvt.decode_feature", FN_MVT_PLAN,
+                lambda e: decode_mvt(blob, on_error="skip",
+                                     errors=e)["zones"]["features"],
+                lambda fs: [f["id"] for f in fs])
+            for site, plan, read in (
+                    ("shapefile.read", FN_SHP_OPEN_PLAN,
+                     lambda: read_shapefile(
+                         str(data / "nyc_taxi_zones_2263.shp"))),
+                    ("netcdf.read", FN_NC_OPEN_PLAN,
+                     lambda: read_netcdf(nc_blob))):
+                armed = faults.arm(plan)
+                try:
+                    read()
+                    raised = False
+                except OSError:
+                    raised = True
+                finally:
+                    faults.disarm()
+                res[site] = (raised, list(armed.injected))
+            return res
+
+        try:
+            card_f = counted("functions datasources", lambda: faulted(ctx))
+            cpu_f = faulted(cpu)
+        finally:
+            faults.disarm()
+            metrics.disable()
+            metrics.reset()
+    check(card_f == cpu_f, "datasources: the faulted reads differ between "
+          "the card's context and the CPU's")
+    for site in ("shapefile.read_record", "gpkg.read_row",
+                 "grib.read_message", "mvt.decode_feature"):
+        _, errs, dropped, injected, _ = card_f[site]
+        check(len(errs) >= 1 and dropped == len(errs) and
+              len([s for s, _, _ in injected if s == site]) == len(errs),
+              f"datasources: {site} dropped {errs}, counted {dropped}, "
+              f"injected {injected}")
+    check(card_f["shapefile.read"][0] and card_f["netcdf.read"][0],
+          "datasources: an open fault did not surface")
+    out["datasources"] = {
+        "chips": len(chips), "mvt_features": len(mvt["features"]),
+        "mvt_bytes": len(blob), "shapefile_area_gap": sp_gap,
+        "faults": {s: {"rows": v[0], "dropped": v[2]} if len(v) == 5 else
+                   {"raised": v[0]} for s, v in card_f.items()}}
+    t0 = lap("20d faults", t0)
+    log(f"[functions] datasources: {len(chips)} chips through GeoPackage "
+        "(bit-equal areas) and shapefile (areas equal to the CPU "
+        f"context's, {sp_gap:.3g} from the chips'); the MVT tile "
+        f"({len(blob)} bytes, {len(mvt['features'])} features) equal to "
+        "the CPU context's; one fault a site under skip: "
+        + ", ".join(f"{s} {v[2]} dropped" for s, v in card_f.items()
+                    if len(v) == 5) + "; the open faults surfaced; all "
+        "equal to the CPU run's")
+    planner.reset()
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[functions] the phase took {out['phase_s']:.1f} s (host clock): "
+        f"{secs}")
+    launches = {p: {k: c[k] for k in ("h3_latlng_to_cell", "edge_measures",
+                                      "edge_point_query", "edges_cross",
+                                      "tess_classify", "tess_clip",
+                                      "overlay_pairs", "raster_convolve",
+                                      "raster_combine")}
+                for p, c in paths.items()}
+    log(f"[functions] launches by path: {_json.dumps(launches)}")
+    out["counts"] = paths
+    return out
+
+
+def kernel_line(name, source, replaces, k, by_path) -> dict:
+    """One kernel's entry of the ``kernels`` line; ``launches`` is the
+    sum of its launches over the main paths in ``by_path``."""
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "ms_source": k["ms_source"], "host_ms": k["host_ms"],
@@ -5754,6 +6247,7 @@ def main() -> int:
         geom = phase_geometry(polys, grid)
         t_18 = time.perf_counter() - t_start
         hp = phase_host_planes(idx, grid, polys, batches, dense_zones, over)
+        fns = phase_functions(grid)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5766,7 +6260,7 @@ def main() -> int:
              **chip["tess_counts"], **strat["paths"], **raster["paths"],
              **shard["counts"], **{p: c for p, c in store["counts"].items()
                                    if p.startswith("store fed")},
-             **geom["paths"], **hp["counts"]}
+             **geom["paths"], **hp["counts"], **fns["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -5797,9 +6291,11 @@ def main() -> int:
                                               "k13")}}))
     log(json.dumps({"host_planes": {k: v for k, v in hp.items()
                                     if k != "counts"}}, default=str))
+    log(json.dumps({"functions": {k: v for k, v in fns.items()
+                                  if k != "counts"}}, default=str))
     log(f"[chip_smoke] phases 1-18 took {t_18:.1f} s, phase 19 "
-        f"{hp['phase_s']:.1f} s, phases 1-19 "
-        f"{time.perf_counter() - t_start:.1f} s (host clock)")
+        f"{hp['phase_s']:.1f} s, phase 20 {fns['phase_s']:.1f} s, phases "
+        f"1-20 {time.perf_counter() - t_start:.1f} s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
                for label, row in chip[key]["shapes"].items()}
@@ -5809,71 +6305,62 @@ def main() -> int:
         kernel_line("h3_project_lattice",
                     "mosaic_tpu_torch/csrc/h3_projection.cu",
                     "mosaic_tpu/ops/pallas_projection.py:228",
-                    launches["h3_project_lattice"], kern,
+                    kern,
                     by_path("h3_project_lattice")),
         kernel_line("h3_dense_join",
                     "mosaic_tpu_torch/csrc/h3_dense_join.cu",
                     "mosaic_tpu/ops/pallas_projection.py:228 + "
                     "mosaic_tpu/parallel/pip_join.py:1689",
-                    launches["h3_dense_join"], join,
+                    join,
                     by_path("h3_dense_join")),
         kernel_line("h3_latlng_to_cell",
                     "mosaic_tpu_torch/csrc/h3_cell.cu",
                     "mosaic_tpu/core/index/h3/jaxkernel.py:383",
-                    h3s["counts"]["h3_latlng_to_cell"], cell,
+                    cell,
                     by_path("h3_latlng_to_cell")),
         kernel_line("overlay_pairs",
                     "mosaic_tpu_torch/csrc/overlay_pairs.cu",
                     "mosaic_tpu/parallel/overlay.py:182 (under :245 and "
                     ":367)",
-                    over["counts_intersects"]["overlay_pairs"] +
-                    over["counts_area"]["overlay_pairs"], over["kernel"],
+                    over["kernel"],
                     by_path("overlay_pairs")),
         kernel_line("overlay_prep_b",
                     "mosaic_tpu_torch/csrc/overlay_pairs.cu",
                     "mosaic_tpu/parallel/overlay.py:182 (the edge lengths "
                     "of _chip_pair_test)",
-                    over["counts_intersects"]["overlay_prep_b"] +
-                    over["counts_area"]["overlay_prep_b"], over["prep"],
+                    over["prep"],
                     by_path("overlay_prep_b")),
         kernel_line("knn_brute_topk",
                     "mosaic_tpu_torch/csrc/knn_brute_topk.cu",
                     "mosaic_tpu/models/knn.py:485",
-                    knn["paths"]["brute"]["counts"]["knn_brute_topk"],
                     knn["k5"], by_path("knn_brute_topk")),
         kernel_line("knn_ring_step",
                     "mosaic_tpu_torch/csrc/knn_ring_step.cu",
                     "mosaic_tpu/models/knn.py:285",
-                    knn["paths"]["ring"]["counts"]["knn_ring_step"],
                     knn["k6"], by_path("knn_ring_step")),
         kernel_line("tess_classify",
                     "mosaic_tpu_torch/csrc/tess_classify.cu",
                     "mosaic_tpu/core/tessellate.py:330 + :102 (tess/parity "
                     "and tess/pair_check under classify_cells_multi :385)",
-                    chip["counts"]["tess_classify"], chip["k7"],
+                    chip["k7"],
                     by_path("tess_classify")),
         kernel_line("tess_clip", "mosaic_tpu_torch/csrc/tess_clip.cu",
                     "mosaic_tpu/core/tessellate.py:488 (tess/clip)",
-                    chip["counts"]["tess_clip"], chip["k8"],
+                    chip["k8"],
                     by_path("tess_clip")),
         kernel_line("raster_convolve",
                     "mosaic_tpu_torch/csrc/raster_convolve.cu",
                     "mosaic_tpu/core/raster/rops.py:318 (convolve) + "
                     "mosaic_tpu/parallel/raster_halo.py:30 (_convolve_fn)",
-                    sum(raster["paths"][p]["raster_convolve"]
-                        for p in ("raster convolve srtm", "raster halo dem",
-                                  "raster halo srtm")),
                     raster["k9"]["f64 3x3 srtm"], by_path("raster_convolve")),
         kernel_line("raster_combine",
                     "mosaic_tpu_torch/csrc/raster_combine.cu",
                     "mosaic_tpu/core/raster/rops.py:188 (combine)",
-                    raster["paths"]["raster srtm"]["raster_combine"],
                     raster["k10"]["avg"], by_path("raster_combine")),
         kernel_line("edge_measures",
                     "mosaic_tpu_torch/csrc/edge_measures.cu",
                     "mosaic_tpu/core/geometry/measures.py:27 (area), :37 "
                     "(length), :43 (centroid), :64 (bounds)",
-                    sum(c["edge_measures"] for p, c in geom["paths"].items()),
                     geom["k11"], by_path("edge_measures")),
         kernel_line("edge_point_query",
                     "mosaic_tpu_torch/csrc/edge_point_query.cu",
@@ -5881,13 +6368,10 @@ def main() -> int:
                     "(crossing_number), :42 (points_in_polygons) + "
                     "mosaic_tpu/core/geometry/measures.py:94 "
                     "(distance_points_to_geoms)",
-                    sum(c["edge_point_query"]
-                        for p, c in geom["paths"].items()),
                     geom["k12"], by_path("edge_point_query")),
         kernel_line("edges_cross", "mosaic_tpu_torch/csrc/edges_cross.cu",
                     "mosaic_tpu/core/geometry/predicates.py:84 "
                     "(edges_cross_matrix over :63 segments_intersect)",
-                    sum(c["edges_cross"] for p, c in geom["paths"].items()),
                     geom["k13"], by_path("edges_cross"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

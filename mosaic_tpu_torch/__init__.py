@@ -27,7 +27,11 @@ and validity, the boolean engine and dissolve, triangulation, CRS
 transforms, the resolution analyzer (``analyzer.py``), and the
 measures and predicates over padded edge blocks, on three more
 hand-written kernels (``ops/edge_measures.py``, ``ops/edge_point.py``,
-``ops/edges_cross.py``).  The
+``ops/edges_cross.py``); and the datasources (``io/``: shapefile,
+GeoPackage, GeoJSON and WKT dispatch, NetCDF, GRIB, Zarr, Mapbox vector
+tiles, Arrow) and the function surface (``functions/``: ``MosaicContext``
+and its 179 registered ``st_*``/``grid_*``/``rst_*`` names, built by
+``enable_mosaic``).  The
 package imports torch and numpy, never jax and nothing of
 ``mosaic_tpu``; its module layout and names follow ``mosaic_tpu`` so
 each module's counterpart is easy to find.
@@ -37,10 +41,15 @@ Entry points that create device state (``build_pip_index``,
 ``make_store_sharded_pip_join``, ``make_refined_pip_join``,
 ``tessellate``, ``tessellate_subset``, the ``overlay_*`` entry points,
 ``SpatialKNN``, ``raster_to_grid``, the raster operators that compute
-on a device, ``build_edges`` and ``points_block``) run on CUDA unless the caller passes ``device="cpu"``, and
-raise RuntimeError when no CUDA device exists and none was asked for.
+on a device, ``build_edges``, ``points_block`` and ``enable_mosaic``) run
+on CUDA unless the caller passes ``device="cpu"``, and raise
+RuntimeError when no CUDA device exists and none was asked for.
 
     import mosaic_tpu_torch as mt
+    ctx = mt.enable_mosaic("H3")                # device="cpu" off the card
+    zones, cols = mt.io.read_vector("zones.shp")
+    chips = ctx.grid_tessellateexplode(ctx.st_transform(zones, 4326), 9)
+
     polys, grid, res = mt.build_workload(n_side=16, grid_name="H3",
                                          zones="taxi")
     idx = mt.build_pip_index(polys, res, grid)
@@ -78,6 +87,7 @@ from .parallel.pip_join import (DensePIPIndex, PIPIndex,
                                 make_streamed_pip_join, pip_host_truth,
                                 sorted_index_from_arrays, zone_histogram)
 from .types import ChipSet
+from . import io  # noqa: F401  (mt.io.read_vector / read_gpkg / ...)
 
 __all__ = [
     "resolve_device", "build_workload", "nyc_points", "taxi_zones",
@@ -95,5 +105,23 @@ __all__ = [
     "overlay_rows_from_arrays", "pack_chip_rows", "ais_pings_ports",
     "CheckpointManager", "SpatialKNN", "build_knn_indexes", "knn_host_truth",
     "knn_index_from_arrays", "RasterTile", "GeoTransform", "raster_to_grid",
-    "read_gtiff", "write_gtiff",
+    "read_gtiff", "write_gtiff", "enable_mosaic",
 ]
+
+
+def enable_mosaic(index_system=None, geometry_api=None, device=None):
+    """Build the function-surface context and make it the current one
+    (reference: MosaicContext.build, functions/MosaicContext.scala:1110
+    + enable_mosaic, python/mosaic/api/enable.py:15).  Its device bodies
+    run on ``device``: CUDA unless the caller passes ``device="cpu"``.
+    A grid or backend the caller does not name comes from the default
+    config's ``mosaic.index.system`` and ``mosaic.geometry.api`` ("H3"
+    and "JAX" unless set).  ``geometry_api`` keeps the reference's value
+    "JAX" so a conf written for the reference works here; it selects
+    nothing."""
+    from .config import default_config
+    from .functions.context import MosaicContext
+    cfg = default_config()
+    return MosaicContext.build(
+        cfg.index_system if index_system is None else index_system,
+        cfg.geometry_api if geometry_api is None else geometry_api, device)

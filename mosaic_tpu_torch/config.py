@@ -1,13 +1,19 @@
 """Configuration of the port: the conf keys its join strategies and its
 raster layer read.
 
-Port copy of the part of ``mosaic_tpu.config`` that the planner, the
-planned and refined PIP joins, the stream chunk, SpatialKNN's engine
+Port copy of the part of ``mosaic_tpu.config`` that the function
+surface (``functions/context.py``), the planner, the planned and refined
+PIP joins, the stream chunk, SpatialKNN's engine
 choice, the raster checkpoint, the codecs' error policy, the chip store,
 partition heat, the layout advisor and the CRS transforms read.  Keys
 keep the JAX package's names, defaults, validators and error class, so a
 setting carries over 1:1:
 
+* ``mosaic.index.system``, ``mosaic.geometry.api`` — the grid and the
+  geometry backend ``enable_mosaic()`` binds when its caller names
+  none (``geometry_api`` keeps the reference's value "JAX": it names
+  the backend a conf was written for, and the port's geometry runs on
+  torch whatever it says);
 * ``mosaic.planner.enabled`` — the cost planner on or off;
 * ``mosaic.planner.force.<op>`` — pin one operator's strategy (ops and
   strategies from ``sql.planner.FORCE_CHOICES``; "auto" clears the pin);
@@ -48,13 +54,16 @@ A successful ``apply_conf`` records a ``config`` flight-recorder event.
 
 The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
 any other one, and for the pins of ops it does not run (the
-``equi_join`` and ``fusion`` ops).
+``equi_join`` and ``fusion`` ops), and for ``mosaic.device.dtype`` and
+``mosaic.exact.fallback``, which nothing in the port reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+MOSAIC_INDEX_SYSTEM = "mosaic.index.system"
+MOSAIC_GEOMETRY_API = "mosaic.geometry.api"
 MOSAIC_PLANNER_ENABLED = "mosaic.planner.enabled"
 MOSAIC_PLANNER_FORCE_PREFIX = "mosaic.planner.force."
 MOSAIC_STREAM_CHUNK_ROWS = "mosaic.stream.chunk.rows"
@@ -97,6 +106,10 @@ class ConfigError(ValueError):
 class MosaicConfig:
     """Immutable snapshot of the port's settings."""
 
+    # the (index system, geometry backend) pair a MosaicContext binds;
+    # enable_mosaic() reads them when its caller names none
+    index_system: str = "H3"          # "H3" | "BNG" | "CUSTOM(...)"
+    geometry_api: str = "JAX"         # the reference's backend name
     # cost planner (sql/planner.py): pure strategy choice, results are
     # the same either way
     planner_enabled: bool = True
@@ -226,6 +239,8 @@ def _as_knn_strategy(key: str, value) -> str:
 
 #: conf key -> (dataclass field, validating coercer)
 _CONF_FIELDS = {
+    MOSAIC_INDEX_SYSTEM: ("index_system", _as_str),
+    MOSAIC_GEOMETRY_API: ("geometry_api", _as_str),
     MOSAIC_PLANNER_ENABLED: ("planner_enabled", _as_flag),
     MOSAIC_STREAM_CHUNK_ROWS: ("stream_chunk_rows", _as_blocksize),
     MOSAIC_KNN_STRATEGY: ("knn_strategy", _as_knn_strategy),

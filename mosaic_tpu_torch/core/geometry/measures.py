@@ -111,7 +111,8 @@ def haversine(lat1, lng1, lat2, lng2,
     if not all(isinstance(v, torch.Tensor) for v in args):
         dev = resolve_device(device)
         args = [v if isinstance(v, torch.Tensor) else
-                torch.as_tensor(v, dtype=torch.float64, device=dev)
+                torch.as_tensor(np.array(v, np.float64),
+                                device=dev)
                 for v in args]
     lat1, lng1, lat2, lng2 = map(torch.deg2rad, args)
     dlat = lat2 - lat1

@@ -9,8 +9,8 @@ path): the WKB bytes and the GeoJSON texts equal the JAX package's
 exactly, each package reads the other's output into equal buffers, and
 round trips give the input back.  The codecs are exported from the
 port's top level, as ``mosaic_tpu/__init__.py`` exports them.
-(tests/test_codecs.py holds the NetCDF and Zarr codecs, IO that the port
-does not have yet, ROADMAP §A8.)
+(tests/test_codecs.py's NetCDF and Zarr codecs are held in
+tests/test_torch_io.py.)
 """
 
 import struct

@@ -235,6 +235,19 @@ def test_no_file_imports_jax_or_mosaic_tpu():
             "mosaic_tpu_torch/sql/parser.py",
             "mosaic_tpu_torch/sql/layout.py",
             "mosaic_tpu_torch/analyzer.py",
+            "mosaic_tpu_torch/io/__init__.py",
+            "mosaic_tpu_torch/io/arrow.py",
+            "mosaic_tpu_torch/io/zarr.py",
+            "mosaic_tpu_torch/io/shapefile.py",
+            "mosaic_tpu_torch/io/geopackage.py",
+            "mosaic_tpu_torch/io/netcdf.py",
+            "mosaic_tpu_torch/io/grib.py",
+            "mosaic_tpu_torch/io/vectortile.py",
+            "mosaic_tpu_torch/functions/__init__.py",
+            "mosaic_tpu_torch/functions/registry.py",
+            "mosaic_tpu_torch/functions/docstrings.py",
+            "mosaic_tpu_torch/functions/raster.py",
+            "mosaic_tpu_torch/functions/context.py",
             "mosaic_tpu_torch/core/geometry/wkb.py",
             "mosaic_tpu_torch/core/geometry/geojson.py",
             "mosaic_tpu_torch/core/geometry/ops.py",

@@ -45,6 +45,8 @@ FIELDS = ("op", "strategy", "reason", "est_rows", "cost_key", "key_n",
 
 #: each ported key and values it must accept or reject alike
 KEY_VALUES = {
+    "mosaic.index.system": ["H3", "BNG", "CUSTOM(0,16,0,16,2,1,1)", ""],
+    "mosaic.geometry.api": ["JAX", "other"],
     "mosaic.planner.enabled": ["true", "false", "1", "0", "yes", "off",
                                " ON ", "maybe", "", 1, 0],
     "mosaic.stream.chunk.rows": ["65536", "1", " 4096 ", "abc", "0", "-4",
@@ -79,7 +81,8 @@ KEY_VALUES = {
 }
 
 #: the config fields those keys set, with the JAX package's defaults
-FIELDS_PORTED = ("planner_enabled", "planner_force", "stream_chunk_rows",
+FIELDS_PORTED = ("index_system", "geometry_api", "planner_enabled",
+                 "planner_force", "stream_chunk_rows",
                  "knn_strategy", "join_refine_enabled", "join_refine_depth",
                  "join_refine_dup_threshold", "join_refine_max_cells",
                  "join_refine_sample_rows", "raster_checkpoint",
@@ -157,6 +160,8 @@ def test_force_pins_stack_and_clear_alike():
     ("mosaic.planner.stats.path", "/tmp/ps.json"),
     ("mosaic.fusion.enabled", "true"),
     ("mosaic.obs.slow.query.ms", "250"),
+    ("mosaic.device.dtype", "float64"),
+    ("mosaic.exact.fallback", "false"),
 ])
 def test_left_out_pins_and_keys_raise(key, val):
     """The stated divergence: what the JAX package takes for a later

@@ -4,13 +4,14 @@ The same seeded numpy inputs go through ``mosaic_tpu`` (on the CPU, as
 the tier-1 suite runs it) and through ``mosaic_tpu_torch`` on
 ``device="cpu"`` (the kernels' plain versions; ``chip_smoke.py`` holds
 the kernels to them on the card).  Grids come from each package's
-``get_index_system`` (the JAX tests take theirs from ``MosaicContext``,
-which the port has not yet).
+``get_index_system`` (the JAX tests take theirs from ``MosaicContext``;
+the grid is the same).
 
 * The cases of tests/test_raster.py that touch ported modules (the
   geotransform, the codec, the tile, the host and device ops, the
   raster_to_grid pipeline), each also held to the JAX package's output;
-  the ``rst_*`` surface waits for the functions layer (ROADMAP §A7).
+  the ``rst_*`` surface (``TestRstSurface``) is held in
+  tests/test_torch_functions_raster.py.
 * ``write_gtiff`` gives the JAX package's bytes and ``read_gtiff`` its
   tiles, with and without compression; the ``on_error`` raise, skip and
   null modes act alike on truncated and corrupt files.

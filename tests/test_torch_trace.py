@@ -5,7 +5,8 @@
   ``warp``'s ``last_command``), histogram and span percentiles, the
   metrics registry merged into the tracer's report, and the disabled
   tracer and registry.  The ``MosaicContext.call`` and map-algebra cases
-  wait for the function surface (ROADMAP §A7a); the JAX compile listener
+  are held in tests/test_torch_functions.py and
+  test_torch_functions_raster.py; the JAX compile listener
   has no torch counterpart until §A9b; the Chrome-trace export of host
   spans, the collective byte accounting and the ``utils.trace`` shim
   wait for §A9b and §A9c.
