@@ -357,14 +357,36 @@ Phases (any failure exits non-zero and prints no result):
     under ``skip``; ``shapefile.read``, ``netcdf.read`` surfacing): the
     rows dropped, the records, ``io/records_dropped`` and what the
     context makes of the rest equal to the CPU run's;
-21. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+21. the memory and device planes (``obs/``), each path counted under
+    its own ``memory planes ...`` name: a. the 2^20-point dense
+    flagship (K2) in 2^18-row chunks under a ``mosaic.mem.budget.bytes``
+    whose pressure mark sits at 0.9 chunk of staged and fetched bytes:
+    zones bit-equal to the unshrunk run and ``pip_host_truth``, the
+    launched slices, K2 launches and ``mem/chunk_shrink`` equal to the
+    host model ``tools/split_model.py``, one ``mem_chunk_shrink`` event,
+    0 live ledger bytes after; b. the kernel ledger's ``pip/streamed``
+    seconds between the summed K2 CUDA-event times and the pass's wall
+    clock; c. two principals' passes under ``accounted``: meters' H2D
+    and D2H bytes equal to the pipeline's counters, ledger peaks above 0
+    and within the allocator's peak delta, two audit records; d. the
+    sampler ticked by hand: ``mem/peak_bytes/cuda:0`` equal to
+    ``memory_stats``' peak, ``device/util/cuda:0`` in [0, 1], a 1 ms
+    latency objective breaching once and recovering once; e. the leak
+    drill (one release lost): one ``mem_leak`` event, live bytes back to
+    0; f. the sharded join (K2) and overlay (K4) in a NCCL world of one:
+    devicemon's seconds equal to the attributed wall time, the
+    ``collective/*`` counters to ``collectives.COUNTS``; g. the disarmed
+    planes' cost, passes with the ledgers live and stubbed in turns and
+    the per-chunk plane sequence timed alone;
+22. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
     ``raster``, ``sharded``, ``store``, ``geometry``, ``host_planes``,
-    ``functions`` and ``tess_kernels`` (K7 and K8 by input set) summary
-    lines, the card, the ``kernels`` JSON line (K1-K13 with launches per
-    path, the tessellations of phases 5 and 11, the strategies', the
-    raster, the sharded, the ``store fed``, the ``geometry``, the ``host
-    planes`` and the ``functions`` paths among them), then the last line
-    ``{"ok": true, "device": {...}}``.
+    ``functions``, ``memory_planes`` and ``tess_kernels`` (K7 and K8 by
+    input set) summary lines, the card, the ``kernels`` JSON line
+    (K1-K13 with launches per path, the tessellations of phases 5 and
+    11, the strategies', the raster, the sharded, the ``store fed``, the
+    ``geometry``, the ``host planes``, the ``functions`` and the
+    ``memory planes`` paths among them), then the last line ``{"ok":
+    true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -6196,6 +6218,436 @@ def phase_functions(grid):
     return out
 
 
+#: phase 21: the memory and device planes.  The 2^20-point dense
+#: flagship in CHUNK-row chunks under a budget whose pressure mark
+#: (MP_HIGH of it) sits at MP_PRESS chunks of staged and fetched bytes,
+#: so the ledger presses after the first chunk
+MP_N = 1 << 20
+MP_HIGH = 0.75
+MP_PRESS = 0.9
+#: a latency objective every flagship pass breaches (ms), its windows (s)
+MP_SLO_MS = 1.0
+MP_SLO_WINDOWS = (5.0, 10.0)
+MP_LEAK_PLAN = "seed=41;site=memwatch.release,fails=1,error=OSError"
+#: the disarmed planes' A/B: passes of each arm, and the per-chunk plane
+#: sequence timed alone this many times
+MP_TURNS = 6
+MP_PROBE_REPS = 50_000
+
+
+def phase_memory_planes(idx, grid, polys, batches, dense_zones, over):
+    """The memory and device planes on the card (phase 21): the dense
+    flagship (K2) streamed under a memory budget, its halvings against
+    the host model ``tools/split_model.py``; the kernel ledger's seconds
+    against K2's CUDA-event times; two principals metered and audited;
+    the sampler ticked by hand (device memory, utilization, an SLO that
+    breaches and recovers); the leak drill; the sharded join (K2) and
+    the sharded overlay (K4) in a NCCL world of one, their device
+    seconds and ``collective/*`` counters; and what the disarmed planes
+    cost a chunk.  Every zone is held bit-equal to the unshrunk run and
+    to ``pip_host_truth``; each path's launches are counted."""
+    import os
+    import tempfile
+    from datetime import timedelta
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch import config
+    from mosaic_tpu_torch.obs import (Sampler, SLObjective, accounted,
+                                      audit, default_objectives, devicemon,
+                                      ledger, mem_budget, memwatch, meter,
+                                      metrics, monitor, recorder,
+                                      timeseries)
+    from mosaic_tpu_torch.obs.memwatch import tensor_bytes
+    from mosaic_tpu_torch.parallel import collectives as coll
+    from mosaic_tpu_torch.parallel import overlay as ov
+    from mosaic_tpu_torch.parallel import pip_join as pj
+    from mosaic_tpu_torch.resilience import faults
+    sys.path.insert(0, str(ROOT))
+    from tools.split_model import split_model
+
+    t_phase = time.perf_counter()
+    paths, out = {}, {}
+    prev_cfg = config.default_config()
+    dkey = f"{torch.device(DEV).type}:0"     # the ledgers' device key
+
+    def counted(path, fn):
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        paths[path] = launch_counts()
+        return res
+
+    def set_conf(key, val):
+        config.set_default_config(config.apply_conf(
+            config.default_config(), key, val))
+
+    def counter(name):
+        return metrics.counter_value(name)
+
+    pts = batches[0][:MP_N]
+    z_free = dense_zones[0][:MP_N]
+    truth = pj.pip_host_truth(pts, polys)
+    check(np.array_equal(z_free, truth), "memory planes: the unshrunk "
+          "flagship differs from pip_host_truth")
+    run = mt.make_streamed_pip_join(idx, grid, polys, chunk=CHUNK,
+                                    device=DEV)
+    run(pts)
+    # bytes a row: the staged f32 pair and the join's outputs
+    out_bpr = tensor_bytes(pj.make_pip_join_fn(idx, grid)(torch.zeros(
+        (64, 2), dtype=torch.float32, device=DEV))) // 64
+    in_bpr = 8
+    torch.cuda.synchronize()
+    try:
+        metrics.reset()
+        metrics.enable()
+        recorder.reset()
+        recorder.enable()
+        for x in (memwatch, ledger, devicemon, audit, meter):
+            x.reset()
+
+        # ---- 21a/b. the flagship under a budget, K2 timed by events
+        budget = int(MP_PRESS * CHUNK * (in_bpr + out_bpr) / MP_HIGH)
+        slices, shrinks = split_model(MP_N, CHUNK, in_bpr, out_bpr, budget,
+                                      MP_HIGH)
+        seen, k2_events = [], []
+        real_stream, real_k2 = pj.stream, pj.dense_join
+
+        def spy_stream(*a, **kw):
+            a = list(a)
+            c = a[4]
+
+            def consume(i, sl, host):
+                seen.append((sl.start, sl.stop))
+                return c(i, sl, host)
+            a[4] = consume
+            return real_stream(*a, **kw)
+
+        def timed_k2(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = real_k2(*a, **kw)
+            e1.record()
+            k2_events.append((e0, e1))
+            return res
+
+        pj.stream, pj.dense_join = spy_stream, timed_k2
+        try:
+            pressed = mt.make_streamed_pip_join(idx, grid, polys,
+                                                chunk=CHUNK, device=DEV)
+        finally:
+            pj.dense_join = real_k2
+        set_conf("mosaic.mem.budget.bytes", str(budget))
+        set_conf("mosaic.mem.pressure.high", str(MP_HIGH))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z_press, _ = counted("memory planes shrink",
+                                 lambda: pressed(pts))
+            wall = time.perf_counter() - t0
+        finally:
+            pj.stream = real_stream
+            config.set_default_config(prev_cfg)
+        k2_s = sum(e0.elapsed_time(e1) for e0, e1 in k2_events) / 1e3
+        led = [e for e in ledger.report()["kernels"]
+               if e["name"] == "pip/streamed"]
+        led_s = sum(e["seconds"] for e in led)
+        k2 = paths["memory planes shrink"]["h3_dense_join"]
+        snap = memwatch.snapshot()
+        evs = recorder.events("mem_chunk_shrink")
+        check(np.array_equal(z_press, z_free) and
+              np.array_equal(z_press, truth), "memory planes: the pressed "
+              "flagship's zones differ from the unshrunk run or the oracle")
+        check(seen == slices, f"memory planes: launched {len(seen)} "
+              f"slices, the host model {len(slices)}")
+        check(k2 == len(slices) == len(k2_events), f"memory planes: {k2} "
+              f"K2 launches, {len(k2_events)} timed, the host model "
+              f"{len(slices)}")
+        check(counter("mem/chunk_shrink") == shrinks > 0, "memory planes: "
+              f"{counter('mem/chunk_shrink')} halvings, the host model "
+              f"{shrinks}")
+        check(len(evs) == 1 and evs[0]["site"] == "pip_join/streamed" and
+              evs[0]["rows"] == CHUNK, f"memory planes: events {evs}")
+        check(snap["totals"]["live_bytes"] == 0 and
+              snap["totals"]["registered"] == snap["totals"]["released"]
+              and memwatch.leak_count() == 0, "memory planes: the books "
+              f"do not balance: {snap['totals']}")
+        check(sum(e["launches"] for e in led) == len(slices) and
+              sum(e["rows"] for e in led) == MP_N, f"memory planes: the "
+              f"kernel ledger's pip/streamed rows {led}")
+        check(k2_s <= led_s <= wall, f"memory planes: the ledger's "
+              f"{led_s:.6f} s not between K2's {k2_s:.6f} s and the "
+              f"pass's {wall:.6f} s")
+        out["shrink"] = {
+            "budget_bytes": budget, "pressure_high": MP_HIGH,
+            "bytes_per_row": [in_bpr, out_bpr], "launches": k2,
+            "chunk_shrink": shrinks,
+            "rows": [b - a for a, b in seen],
+            "site_peak_bytes": snap["site_peak_bytes"],
+            "ledger_s": led_s, "k2_event_s": k2_s, "pass_s": wall}
+        log(f"[memory planes] flagship under a {budget} B budget (mark "
+            f"{MP_HIGH}): {k2} K2 launches and {shrinks} halvings, as the "
+            f"host model; zones bit-equal to the unshrunk run and the "
+            f"oracle; one mem_chunk_shrink event; 0 live bytes after.  "
+            f"Kernel ledger pip/streamed {led_s:.6f} s between K2's "
+            f"CUDA-event sum {k2_s:.6f} s and the pass's {wall:.6f} s")
+
+        # ---- 21c. two principals metered and audited
+        for x in (memwatch, audit, meter):
+            x.reset()
+        gc_ = __import__("gc")
+        gc_.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        per = {}
+        for p, b in (("tenant-a", batches[1][:MP_N]),
+                     ("tenant-b", batches[2][:MP_N])):
+            h0, d0 = counter("pipeline/h2d_bytes"), \
+                counter("pipeline/d2h_bytes")
+            with accounted(f"flagship {p}", principal=p):
+                z, _ = counted(f"memory planes {p}", lambda: run(b))
+            per[p] = (counter("pipeline/h2d_bytes") - h0,
+                      counter("pipeline/d2h_bytes") - d0)
+            k = {"tenant-a": 1, "tenant-b": 2}[p]
+            check(np.array_equal(z, dense_zones[k][:MP_N]), f"memory "
+                  f"planes: {p}'s zones differ from phase 5's")
+        peak_delta = torch.cuda.max_memory_allocated() - base
+        rep = meter.report()
+        recs = audit.records()
+        for p, (h2d, d2h) in per.items():
+            m = rep[p]
+            check(m["queries"] == 1 and m["h2d_bytes"] == h2d and
+                  m["d2h_bytes"] == d2h, f"memory planes: {p}'s meter "
+                  f"{m} against the pipeline's {h2d} / {d2h} bytes")
+            check(0 < m["mem_peak_bytes"] <= peak_delta, f"memory planes: "
+                  f"{p}'s ledger peak {m['mem_peak_bytes']} B against the "
+                  f"allocator's {peak_delta} B")
+            check(m["device_s"] > 0 and m["compiles"] == 0,
+                  f"memory planes: {p}'s meter {m}")
+        check(len(recs) == 2 and [r["principal"] for r in recs] ==
+              ["tenant-a", "tenant-b"] and
+              all(r["outcome"] == "ok" for r in recs), "memory planes: "
+              f"audit records {recs}")
+        out["accounting"] = {"meters": rep, "pipeline": per,
+                             "allocator_peak_delta_bytes": peak_delta}
+        log(f"[memory planes] two principals: meters' H2D/D2H bytes equal "
+            f"the pipeline's {per}; ledger peaks "
+            f"{[rep[p]['mem_peak_bytes'] for p in per]} B within the "
+            f"allocator's {peak_delta} B; 2 audit records")
+
+        # ---- 21d. the sampler ticked by hand
+        metrics.reset()
+        timeseries.reset()
+        devicemon.reset()
+        obj = SLObjective(name="chip_flagship_latency", kind="latency",
+                          series="chip/flagship_ms",
+                          threshold_ms=MP_SLO_MS, objective=0.99,
+                          windows=MP_SLO_WINDOWS, min_points=1)
+        monitor.reset([obj])
+        recorder.reset()
+        sampler = Sampler(1000.0, timeseries)
+        now0 = time.time()
+        sampler.tick(now=now0)
+        loc = pj.localize(idx, pts)
+        one = pj.make_sharded_pip_join(idx, grid, None, device=DEV)
+        t0 = time.perf_counter()
+        z1, u1 = counted("memory planes sharded one device",
+                         lambda: one(loc))
+        dt = time.perf_counter() - t0
+        timeseries.record("chip/flagship_ms", wall * 1e3, now0 + 0.5)
+        sampler.tick(now=now0 + 1.0)
+        stats = torch.cuda.memory_stats(0)
+        util = metrics.gauge_value(f"device/util/{dkey}")
+        peak_g = metrics.gauge_value(f"mem/peak_bytes/{dkey}")
+        breach = recorder.events("slo_breach")
+        sampler.tick(now=now0 + 1.0 + 3 * MP_SLO_WINDOWS[1])
+        recovered = recorder.events("slo_recovered")
+        check(np.array_equal(run.recheck(pts, z1.cpu().numpy(),
+                                         u1.cpu().numpy()), z_free),
+              "memory planes: the one-device sharded join's zones, "
+              "rechecked, differ from the streamed join's")
+        check(peak_g == stats["allocated_bytes.all.peak"], f"memory "
+              f"planes: mem/peak_bytes/cuda:0 {peak_g} against "
+              f"memory_stats' {stats['allocated_bytes.all.peak']}")
+        check(util is not None and 0.0 <= util <= 1.0, f"memory planes: "
+              f"device/util/cuda:0 {util}")
+        check(len(breach) == 1 and len(recovered) == 1 and
+              breach[0]["objective"] == recovered[0]["objective"] ==
+              obj.name, f"memory planes: slo events {breach} {recovered}")
+        check(sampler.ticks == 3 and not sampler.alive, "memory planes: "
+              "the sampler ran a thread")
+        out["sampler"] = {"peak_bytes": peak_g, "util": util,
+                          "attributed_s": dt,
+                          "series": len(timeseries.names())}
+        log(f"[memory planes] sampler ticked by hand: mem/peak_bytes/"
+            f"{dkey} {peak_g} B = memory_stats' peak; device/util/{dkey} "
+            f"{util}; the {MP_SLO_MS} ms objective breached once and "
+            f"recovered once; {len(timeseries.names())} series")
+        monitor.reset(default_objectives())
+
+        # ---- 21e. the leak drill
+        memwatch.reset()
+        plan = faults.arm(MP_LEAK_PLAN)
+        try:
+            with accounted("leak drill", principal="drill"):
+                zl, _ = counted("memory planes leak drill",
+                                lambda: run(pts))
+        finally:
+            faults.disarm()
+        leaks = recorder.events("mem_leak")
+        check(np.array_equal(zl, z_free), "memory planes: the leak "
+              "drill's zones differ")
+        check(plan.injected == [("memwatch.release", 0, "OSError")] and
+              len(leaks) == 1 and counter("mem/leaks") == 1 and
+              memwatch.total_live() == 0 and
+              metrics.gauge_value(f"mem/live_bytes/{dkey}") == 0.0,
+              f"memory planes: leak drill injected {plan.injected}, "
+              f"events {leaks}, live {memwatch.total_live()}")
+        out["leak"] = {k: leaks[0][k] for k in ("site", "bytes",
+                                                "buffers")}
+        log(f"[memory planes] leak drill: one mem_leak event "
+            f"({leaks[0]['site']}, {leaks[0]['bytes']} B), live bytes back "
+            "to 0")
+
+        # ---- 21f. the sharded join and overlay in a NCCL world of one
+        foot, chips_b = over["shard_inputs"]
+        sub = foot.take(list(range(SHARD_FOOTPRINTS)))
+        chips_a = mt.tessellate(sub, RES, grid, keep_core_geom=True,
+                                device=DEV)
+        attributed = []
+        real_attr = devicemon.attribute
+
+        def spy_attr(op, seconds, *a, **kw):
+            attributed.append((op, seconds))
+            return real_attr(op, seconds, *a, **kw)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1, timeout=timedelta(seconds=60))
+            devicemon.attribute = spy_attr
+            try:
+                G = dist.group.WORLD
+                metrics.reset()
+                devicemon.reset()
+                coll.reset_counts()
+                zs, us = counted("memory planes sharded join", lambda:
+                                 pj.make_sharded_pip_join(
+                                     idx, grid, G, device=DEV)(loc))
+                hits = counted("memory planes sharded overlay", lambda:
+                               ov.overlay_intersects(
+                                   sub, polys, RES, grid, group=G,
+                                   device=DEV, chips_a=chips_a,
+                                   chips_b=chips_b))
+                counts = {k: list(v) for k, v in coll.COUNTS.items()}
+            finally:
+                devicemon.attribute = real_attr
+                dist.destroy_process_group()
+        busy = devicemon.busy_by_device()
+        vals = {**metrics.report()["counters"],
+                **metrics.report()["gauges"]}
+        idx_bytes = pj._index_bytes(idx)
+        check(np.array_equal(run.recheck(pts, zs.cpu().numpy(),
+                                         us.cpu().numpy()), z_free),
+              "memory planes: the sharded join's zones, rechecked, differ "
+              "from the streamed join's")
+        check(hits.shape == (len(sub), len(polys)), "memory planes: "
+              "the sharded overlay's hits")
+        check(sorted(busy) == [dkey] and
+              [op for op, _ in attributed] == ["pip_join", "overlay"] and
+              abs(sum(busy.values()) - sum(s for _, s in attributed))
+              <= 1e-12 * max(1.0, sum(busy.values())),
+              f"memory planes: devicemon {busy} against the attributed "
+              f"{attributed}")
+        check(vals.get("collective/all_to_all_bytes") ==
+              counts["all_to_all"][1] and
+              vals.get("collective/all_to_all_bytes/overlay") ==
+              counts["all_to_all"][1] and
+              vals.get("collective/all_to_all_calls") ==
+              counts["all_to_all"][0] > 0, f"memory planes: all_to_all "
+              f"counters {vals} against COUNTS {counts}")
+        check(vals.get("collective/replicated_index_bytes") == idx_bytes
+              and vals.get("collective/broadcast_bytes") == idx_bytes and
+              vals.get("collective/points_scatter_bytes") == 8 * MP_N,
+              f"memory planes: the join's modelled movements {vals}")
+        out["sharded"] = {
+            "busy_s": busy, "attributed": attributed, "counts": counts,
+            "collective": {k: v for k, v in vals.items()
+                           if k.startswith(("collective/", "shard/"))}}
+        log(f"[memory planes] NCCL world of one: devicemon {busy} s = the "
+            f"attributed wall time; all_to_all counters = COUNTS "
+            f"{counts['all_to_all']}; replicated index {idx_bytes} B")
+
+        # ---- 21g. the disarmed planes' cost
+        metrics.reset()
+        metrics.disable()
+        memwatch.reset()
+        walls = {"live": [], "stubbed": []}
+
+        def planes(live: bool):
+            memwatch._env_off = not live
+            ledger.enabled = live
+
+        try:
+            for turn in range(MP_TURNS):
+                for live in ((True, False) if turn % 2 == 0
+                             else (False, True)):
+                    planes(live)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    z, _ = run(pts)
+                    torch.cuda.synchronize()
+                    walls["live" if live else "stubbed"].append(
+                        time.perf_counter() - t0)
+                    check(np.array_equal(z, z_free), "memory planes: "
+                          "an A/B pass's zones differ")
+            planes(True)
+            keys = [dkey]
+            nb_in, nb_out = in_bpr * CHUNK, out_bpr * CHUNK
+            key = (0, 0, None, None, "auto")
+            t0 = time.perf_counter()
+            for _ in range(MP_PROBE_REPS):
+                t1 = memwatch.register("ab/staged", nb_in, devices=keys)
+                t2 = memwatch.register("ab/out", nb_out, devices=keys)
+                mem_budget.shrink_needed()
+                memwatch.release(t2)
+                memwatch.release(t1)
+                ledger.observe("ab", key, 1e-3, rows=CHUNK)
+            probe_us = (time.perf_counter() - t0) / MP_PROBE_REPS * 1e6
+        finally:
+            planes(True)
+            memwatch.reset()
+            ledger.reset()
+        chunks = -(-MP_N // CHUNK)
+        diffs = [a - b for a, b in zip(walls["live"], walls["stubbed"])]
+        out["ab"] = {"live_s": walls["live"], "stubbed_s": walls["stubbed"],
+                     "live_median_s": float(np.median(walls["live"])),
+                     "stubbed_median_s": float(np.median(walls["stubbed"])),
+                     "paired_diff_median_s": float(np.median(diffs)),
+                     "chunks": chunks, "probe_us_per_chunk": probe_us}
+        log(f"[memory planes] disarmed planes: passes live "
+            f"{out['ab']['live_median_s']:.6f} s, stubbed "
+            f"{out['ab']['stubbed_median_s']:.6f} s (medians of "
+            f"{MP_TURNS}, in turns; paired difference median "
+            f"{out['ab']['paired_diff_median_s'] * 1e6:.1f} us over "
+            f"{chunks} chunks); the per-chunk plane sequence alone "
+            f"{probe_us:.2f} us (host clock)")
+    finally:
+        faults.disarm()
+        metrics.disable()
+        config.set_default_config(prev_cfg)
+        monitor.reset(default_objectives())
+        devicemon.reset()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[memory planes] the phase took {out['phase_s']:.1f} s "
+        "(host clock)")
+    out["counts"] = paths
+    return out
+
+
 def kernel_line(name, source, replaces, k, by_path) -> dict:
     """One kernel's entry of the ``kernels`` line; ``launches`` is the
     sum of its launches over the main paths in ``by_path``."""
@@ -6248,6 +6700,8 @@ def main() -> int:
         t_18 = time.perf_counter() - t_start
         hp = phase_host_planes(idx, grid, polys, batches, dense_zones, over)
         fns = phase_functions(grid)
+        mem = phase_memory_planes(idx, grid, polys, batches, dense_zones,
+                                  over)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -6260,7 +6714,8 @@ def main() -> int:
              **chip["tess_counts"], **strat["paths"], **raster["paths"],
              **shard["counts"], **{p: c for p, c in store["counts"].items()
                                    if p.startswith("store fed")},
-             **geom["paths"], **hp["counts"], **fns["counts"]}
+             **geom["paths"], **hp["counts"], **fns["counts"],
+             **mem["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -6293,9 +6748,12 @@ def main() -> int:
                                     if k != "counts"}}, default=str))
     log(json.dumps({"functions": {k: v for k, v in fns.items()
                                   if k != "counts"}}, default=str))
+    log(json.dumps({"memory_planes": {k: v for k, v in mem.items()
+                                      if k != "counts"}}, default=str))
     log(f"[chip_smoke] phases 1-18 took {t_18:.1f} s, phase 19 "
-        f"{hp['phase_s']:.1f} s, phase 20 {fns['phase_s']:.1f} s, phases "
-        f"1-20 {time.perf_counter() - t_start:.1f} s (host clock)")
+        f"{hp['phase_s']:.1f} s, phase 20 {fns['phase_s']:.1f} s, phase "
+        f"21 {mem['phase_s']:.1f} s, phases 1-21 "
+        f"{time.perf_counter() - t_start:.1f} s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
                for label, row in chip[key]["shapes"].items()}

@@ -48,7 +48,24 @@ setting carries over 1:1:
   tracer (and with it the metrics registry) or the registry alone on
   when the config is set (``obs/``; they never turn an instrument off);
 * ``mosaic.obs.dump.cooldown.ms`` — the spacing of automatic
-  flight-recorder dumps (``obs/recorder.py``).
+  flight-recorder dumps (``obs/recorder.py``);
+* ``mosaic.obs.sample.ms``, ``mosaic.obs.slo.dump`` — the telemetry
+  sampler's cadence (0 = no thread; env ``MOSAIC_TPU_OBS_SAMPLE_MS``
+  pins it) and a dump at each SLO breach (``obs/timeseries.py``,
+  ``obs/slo.py``);
+* ``mosaic.obs.profile.hz``, ``mosaic.obs.profile.trace.ms`` — the
+  sampling host profiler's rate (0 = off; env ``MOSAIC_TPU_PROFILE_HZ``
+  pins it) and the device trace a triggered dump takes
+  (``obs/profiler.py``);
+* ``mosaic.mem.budget.bytes``, ``mosaic.mem.pressure.high``,
+  ``mosaic.obs.mem.enabled`` — the live device-memory budget (0 =
+  unlimited), the pressure past which the streamed executor halves its
+  next chunk, and the memory ledger's switch (``obs/memwatch.py``);
+* ``mosaic.principal``, ``mosaic.query.deadline.ms``,
+  ``mosaic.audit.{path,rotate.bytes,retain}`` — the query accounting
+  plane (``obs/accounting.py``);
+* ``mosaic.obs.fleet.{dir,window.ms,events}`` — the telemetry spool
+  the sampler writes (``obs/spool.py``).
 
 A successful ``apply_conf`` records a ``config`` flight-recorder event.
 
@@ -92,6 +109,21 @@ MOSAIC_LAYOUT_MAX_RES = "mosaic.layout.max.res"
 MOSAIC_TRACE_ENABLED = "mosaic.trace.enabled"
 MOSAIC_METRICS_ENABLED = "mosaic.metrics.enabled"
 MOSAIC_OBS_DUMP_COOLDOWN_MS = "mosaic.obs.dump.cooldown.ms"
+MOSAIC_OBS_SAMPLE_MS = "mosaic.obs.sample.ms"
+MOSAIC_OBS_SLO_DUMP = "mosaic.obs.slo.dump"
+MOSAIC_OBS_PROFILE_HZ = "mosaic.obs.profile.hz"
+MOSAIC_OBS_PROFILE_TRACE_MS = "mosaic.obs.profile.trace.ms"
+MOSAIC_PRINCIPAL = "mosaic.principal"
+MOSAIC_QUERY_DEADLINE_MS = "mosaic.query.deadline.ms"
+MOSAIC_AUDIT_PATH = "mosaic.audit.path"
+MOSAIC_AUDIT_ROTATE_BYTES = "mosaic.audit.rotate.bytes"
+MOSAIC_AUDIT_RETAIN = "mosaic.audit.retain"
+MOSAIC_MEM_BUDGET_BYTES = "mosaic.mem.budget.bytes"
+MOSAIC_MEM_PRESSURE_HIGH = "mosaic.mem.pressure.high"
+MOSAIC_OBS_MEM_ENABLED = "mosaic.obs.mem.enabled"
+MOSAIC_OBS_FLEET_DIR = "mosaic.obs.fleet.dir"
+MOSAIC_OBS_FLEET_WINDOW_MS = "mosaic.obs.fleet.window.ms"
+MOSAIC_OBS_FLEET_EVENTS = "mosaic.obs.fleet.events"
 
 MOSAIC_RASTER_CHECKPOINT_DEFAULT = "/tmp/mosaic_tpu/checkpoint"
 MOSAIC_RASTER_TMP_PREFIX_DEFAULT = "/tmp"
@@ -165,6 +197,33 @@ class MosaicConfig:
     metrics_enabled: bool = False
     # minimum spacing of automatic dump bundles (0 disables the gate)
     obs_dump_cooldown_ms: float = 30_000.0
+    # telemetry sampler cadence (ms; 0 = no sampler thread) and a dump
+    # bundle at every SLO breach transition
+    obs_sample_ms: float = 0.0
+    obs_slo_dump: bool = False
+    # sampling host-profiler rate (Hz; 0 = no profiler thread) and the
+    # device trace (ms of torch.profiler timeline) a triggered dump takes
+    obs_profile_hz: float = 0.0
+    obs_profile_trace_ms: float = 0.0
+    # query accounting: the principal queries are metered as ("" ->
+    # "anonymous"), a cooperative per-query deadline (0 = none), the
+    # JSONL audit spool ("" = in memory only) and its rotation bounds
+    principal: str = ""
+    query_deadline_ms: float = 0.0
+    audit_path: str = ""
+    audit_rotate_bytes: int = 0
+    audit_retain: int = 8
+    # device-memory plane: live-byte budget (0 = unlimited), the
+    # pressure fraction past which the streamed executor halves its next
+    # chunk, and the ledger's switch (env MOSAIC_TPU_MEMWATCH=0 pins off)
+    mem_budget_bytes: int = 0
+    mem_pressure_high: float = 0.85
+    obs_mem_enabled: bool = True
+    # telemetry spool ("" = none), the window of series each spool
+    # carries and how many recorder events ride along
+    obs_fleet_dir: str = ""
+    obs_fleet_window_ms: float = 300_000.0
+    obs_fleet_events: int = 512
 
 
 def _as_flag(key: str, value) -> bool:
@@ -216,6 +275,39 @@ def _as_millis(key: str, value) -> float:
     if ms < 0:
         raise ConfigError(f"{key}={ms} must be >= 0 (0 disables)")
     return ms
+
+
+def _as_hz(key: str, value) -> float:
+    try:
+        hz = float(str(value).strip())
+    except (TypeError, ValueError):
+        raise ConfigError(
+            f"{key}={value!r} is not a rate in Hz") from None
+    if hz < 0:
+        raise ConfigError(f"{key}={hz} must be >= 0 (0 disables)")
+    return hz
+
+
+def _as_bytes(key: str, value) -> int:
+    try:
+        n = int(str(value).strip())
+    except (TypeError, ValueError):
+        raise ConfigError(
+            f"{key}={value!r} is not a byte count") from None
+    if n < 0:
+        raise ConfigError(f"{key}={n} must be >= 0 (0 = unlimited)")
+    return n
+
+
+def _as_fraction(key: str, value) -> float:
+    try:
+        f = float(str(value).strip())
+    except (TypeError, ValueError):
+        raise ConfigError(
+            f"{key}={value!r} is not a fraction") from None
+    if not 0.0 < f <= 1.0:
+        raise ConfigError(f"{key}={f} must be in (0, 1]")
+    return f
 
 
 def _as_str(key: str, value) -> str:
@@ -271,6 +363,21 @@ _CONF_FIELDS = {
     MOSAIC_TRACE_ENABLED: ("trace_enabled", _as_flag),
     MOSAIC_METRICS_ENABLED: ("metrics_enabled", _as_flag),
     MOSAIC_OBS_DUMP_COOLDOWN_MS: ("obs_dump_cooldown_ms", _as_millis),
+    MOSAIC_OBS_SAMPLE_MS: ("obs_sample_ms", _as_millis),
+    MOSAIC_OBS_SLO_DUMP: ("obs_slo_dump", _as_flag),
+    MOSAIC_OBS_PROFILE_HZ: ("obs_profile_hz", _as_hz),
+    MOSAIC_OBS_PROFILE_TRACE_MS: ("obs_profile_trace_ms", _as_millis),
+    MOSAIC_PRINCIPAL: ("principal", _as_str),
+    MOSAIC_QUERY_DEADLINE_MS: ("query_deadline_ms", _as_millis),
+    MOSAIC_AUDIT_PATH: ("audit_path", _as_str),
+    MOSAIC_AUDIT_ROTATE_BYTES: ("audit_rotate_bytes", _as_bytes),
+    MOSAIC_AUDIT_RETAIN: ("audit_retain", _as_count),
+    MOSAIC_MEM_BUDGET_BYTES: ("mem_budget_bytes", _as_bytes),
+    MOSAIC_MEM_PRESSURE_HIGH: ("mem_pressure_high", _as_fraction),
+    MOSAIC_OBS_MEM_ENABLED: ("obs_mem_enabled", _as_flag),
+    MOSAIC_OBS_FLEET_DIR: ("obs_fleet_dir", _as_str),
+    MOSAIC_OBS_FLEET_WINDOW_MS: ("obs_fleet_window_ms", _as_millis),
+    MOSAIC_OBS_FLEET_EVENTS: ("obs_fleet_events", _as_count),
 }
 
 
@@ -332,10 +439,19 @@ def set_default_config(cfg: MosaicConfig) -> None:
     global _default_config
     _default_config = cfg
     # conf-driven observability (one-way: never disables an instrument
-    # the env or an explicit enable() turned on)
-    if cfg.trace_enabled or cfg.metrics_enabled:
+    # the env or an explicit enable() turned on); the sampler cadence
+    # and the profiler rate route through here too (change-detecting,
+    # env-pinned: obs.timeseries.configure_sampler,
+    # obs.profiler.configure_profiler)
+    if cfg.trace_enabled or cfg.metrics_enabled or cfg.obs_sample_ms \
+            or cfg.obs_profile_hz:
         from .obs import configure
         configure(cfg)
+    else:
+        from .obs.timeseries import configure_sampler
+        configure_sampler(0.0)
+        from .obs.profiler import configure_profiler
+        configure_profiler(0.0)
 
 
 def default_config() -> MosaicConfig:

@@ -538,9 +538,11 @@ class SpatialKNN(IterativeTransformer):
             if kc < m:
                 flagged[rows] = d2s[rows, kk - 1] >= c32 - err
 
+        # split=False: centers[i] names the chunk (the JAX package's
+        # chunks are index arrays, which its stream never splits)
         stream(chunks, stage, 2,
                lambda i, x: brute_topk(x, right_dev, centers[i], kc),
-               consume, self.device)
+               consume, self.device, site="knn/brute", split=False)
         sel = np.nonzero(flagged)[0]
         if len(sel):
             ids_h, d2_h = _brute_topk_blocked(

@@ -1,5 +1,5 @@
 """The port's host planes: metrics, tracing, flight recorder, in-flight
-tickets and partition heat.
+tickets, partition heat, and the memory and device planes.
 
 Port of the core of ``mosaic_tpu.obs``:
 
@@ -19,10 +19,21 @@ Port of the core of ``mosaic_tpu.obs``:
   :class:`QueryCancelled` at chunk boundaries.
 * ``obs.heat`` — decayed per-partition access statistics of the chip
   store.
+* ``obs.timeseries`` — bounded per-metric time series and the
+  :class:`Sampler` (``mosaic.obs.sample.ms``) that feeds them, folds
+  devices, evaluates SLOs and writes the spool.
+* ``obs.slo`` — declarative objectives with multi-window burn rates.
+* ``obs.jaxmon`` — device memory watermarks from ``torch.cuda`` (the
+  JAX package's compile listener has no counterpart: no jit, C14).
+* ``obs.memwatch`` — the live device-buffer ledger, the memory budget
+  and the leak sentinel.
+* ``obs.devicemon`` — per-device busy time, rows and memory.
+* ``obs.profiler`` — the sampling host profiler and the kernel ledger.
+* ``obs.accounting`` — per-principal meters and the audit log.
+* ``obs.spool`` — the per-process telemetry spool.
 
-The memory and device planes, the profiler, accounting, time series
-and SLOs are ROADMAP §A9b; the history, exporters, dashboard and fleet
-are §A9c.  The tracer and registry are off by default and cost one
+The history, exporters, dashboard and fleet aggregator are ROADMAP
+§A9c.  The tracer and registry are off by default and cost one
 attribute check per instrumented site until enabled via
 ``MOSAIC_TPU_TRACE=1`` / ``MOSAIC_TPU_METRICS=1``, the
 ``mosaic.trace.enabled`` / ``mosaic.metrics.enabled`` conf keys, or
@@ -31,15 +42,33 @@ attribute check per instrumented site until enabled via
 one-check quiescent cost.
 """
 
+import os as _os
+
+from .accounting import (AuditLog, PrincipalMeter, accounted, audit,
+                         complete, meter)
 from .context import (TraceContext, current_trace, current_trace_id,
                       install_thread_propagation, link_traceparent,
                       make_traceparent, new_trace, parse_traceparent,
                       root_trace, traced)
+from .devicemon import DeviceMonitor, devicemon, mesh_device_keys
 from .heat import HeatTracker, heat
 from .inflight import (InflightRegistry, QueryCancelled, QueryTicket,
                        checkpoint, inflight)
+from .jaxmon import device_capacity, last_watermarks, sample_memory
+from .memwatch import (DeviceMemoryLedger, MemoryBudget, device_keys_of,
+                       mem_budget, memwatch)
 from .metrics import Histogram, MetricsRegistry, metrics
+from .profiler import (HostProfiler, KernelLedger, capture_snapshot,
+                       configure_profiler, ledger, maybe_device_capture,
+                       profiler, start_profiler, stop_profiler)
 from .recorder import FlightRecorder, install_excepthook, recorder
+from .slo import (SLObjective, SLOMonitor, default_objectives, monitor,
+                  principal_objectives)
+from .spool import (SPOOL_VERSION, SpoolError, read_spool,
+                    spool_snapshot, write_spool)
+from .timeseries import (Sampler, TimeSeriesStore, configure_sampler,
+                         sampler, start_sampler, stop_sampler,
+                         timeseries)
 from .tracer import (SpanEvent, Tracer, device_trace, record_command,
                      record_error, tracer)
 
@@ -51,16 +80,58 @@ __all__ = [
     "current_trace_id", "traced", "install_thread_propagation",
     "parse_traceparent", "make_traceparent", "link_traceparent",
     "FlightRecorder", "recorder", "install_excepthook",
+    "sample_memory", "last_watermarks", "device_capacity",
+    "TimeSeriesStore", "timeseries", "Sampler", "start_sampler",
+    "stop_sampler", "sampler", "configure_sampler",
+    "SLObjective", "SLOMonitor", "monitor", "default_objectives",
+    "principal_objectives",
+    "SPOOL_VERSION", "SpoolError", "read_spool", "spool_snapshot",
+    "write_spool",
     "HeatTracker", "heat",
+    "DeviceMonitor", "devicemon", "mesh_device_keys",
+    "HostProfiler", "KernelLedger", "ledger", "profiler",
+    "start_profiler", "stop_profiler", "configure_profiler",
+    "capture_snapshot", "maybe_device_capture",
     "InflightRegistry", "QueryCancelled", "QueryTicket", "inflight",
     "checkpoint",
+    "AuditLog", "PrincipalMeter", "accounted", "audit", "complete",
+    "meter",
+    "DeviceMemoryLedger", "MemoryBudget", "memwatch", "mem_budget",
+    "device_keys_of",
     "configure",
 ]
 
 # Process-wide one-time install: an unhandled crash leaves a flight
-# bundle.  The port starts no thread of its own, so the thread
-# propagation is left to a caller that spawns workers under a trace.
+# bundle.  The port's executor starts no thread of its own, so the
+# thread propagation is left to a caller that spawns workers under a
+# trace.
 install_excepthook()
+
+# Env-pinned telemetry sampler: MOSAIC_TPU_OBS_SAMPLE_MS=<ms> starts
+# the background sampler at import (and pins the cadence against conf
+# changes — see timeseries.configure_sampler).  Implies the registry:
+# a sampler over a disabled registry would record nothing.
+_env_ms = _os.environ.get("MOSAIC_TPU_OBS_SAMPLE_MS", "").strip()
+if _env_ms:
+    try:
+        _ms = float(_env_ms)
+    except ValueError:
+        _ms = 0.0
+    if _ms > 0:
+        metrics.enable()
+        start_sampler(_ms)
+
+# Env-pinned host profiler: MOSAIC_TPU_PROFILE_HZ=<hz> starts the
+# sampling profiler at import (and pins the rate against conf changes
+# — see profiler.configure_profiler).
+_env_hz = _os.environ.get("MOSAIC_TPU_PROFILE_HZ", "").strip()
+if _env_hz:
+    try:
+        _hz = float(_env_hz)
+    except ValueError:
+        _hz = 0.0
+    if _hz > 0:
+        start_profiler(_hz)
 
 
 def configure(config) -> None:
@@ -69,8 +140,19 @@ def configure(config) -> None:
     ``trace_enabled`` turns the tracer (and with it the registry) on;
     ``metrics_enabled`` turns just the registry on.  Neither flag ever
     turns an already-enabled instrument off — env vars and explicit
-    ``enable()`` calls win."""
+    ``enable()`` calls win.  ``obs_sample_ms`` drives the telemetry
+    sampler lifecycle and ``obs_profile_hz`` the host profiler's
+    (change-detecting; the env vars pin them — see
+    ``timeseries.configure_sampler``, ``profiler.configure_profiler``)."""
     if getattr(config, "trace_enabled", False):
         tracer.enable()
     if getattr(config, "metrics_enabled", False):
         metrics.enable()
+    ms = getattr(config, "obs_sample_ms", None)
+    if ms is not None:
+        if ms > 0:        # a sampler over a disabled registry records
+            metrics.enable()   # nothing — the cadence implies metrics
+        configure_sampler(ms)
+    hz = getattr(config, "obs_profile_hz", None)
+    if hz is not None:
+        configure_profiler(hz)

@@ -50,7 +50,8 @@ from typing import Optional, Tuple
 
 __all__ = ["TraceContext", "new_trace", "root_trace", "current_trace",
            "current_trace_id", "next_span_id", "traced",
-           "install_thread_propagation", "parse_traceparent", "make_traceparent", "link_traceparent"]
+           "install_thread_propagation", "thread_trace_map",
+           "parse_traceparent", "make_traceparent", "link_traceparent"]
 
 _trace_ids = itertools.count(1)
 _span_ids = itertools.count(1)
@@ -77,6 +78,21 @@ class TraceContext:
 
 _CTX: "contextvars.ContextVar[Optional[TraceContext]]" = \
     contextvars.ContextVar("mosaic_torch_trace_ctx", default=None)
+
+# Thread-ident -> active trace side table.  A ContextVar is only
+# readable from its own thread; the sampling host profiler
+# (obs.profiler) walks ``sys._current_frames()`` from outside the
+# sampled threads, so its trace attribution needs this cross-thread
+# view.  Kept by ``new_trace`` (enter/exit) and by the thread-
+# propagation wrapper below; plain dict ops are GIL-atomic.
+_THREAD_TRACES: dict = {}
+
+
+def thread_trace_map() -> dict:
+    """Snapshot of thread ident -> :class:`TraceContext` for every
+    thread currently inside a trace (the profiler's attribution key)."""
+    return dict(_THREAD_TRACES)
+
 
 def current_trace() -> Optional[TraceContext]:
     """The active trace context, or None outside any trace."""
@@ -172,6 +188,9 @@ def new_trace(name: str):
         w3c_trace=link[0] if link else None,
         w3c_parent=link[1] if link else None)
     token = _CTX.set(ctx)
+    ident = threading.get_ident()
+    prev = _THREAD_TRACES.get(ident)
+    _THREAD_TRACES[ident] = ctx
     if link:
         _PENDING_LINK.set(None)   # consumed: one link, one trace
         # lazy import: recorder imports this module at top level
@@ -182,6 +201,10 @@ def new_trace(name: str):
         yield ctx
     finally:
         _CTX.reset(token)
+        if prev is not None:
+            _THREAD_TRACES[ident] = prev
+        else:
+            _THREAD_TRACES.pop(ident, None)
 
 
 @contextlib.contextmanager
@@ -237,12 +260,25 @@ def install_thread_propagation() -> bool:
 
         @functools.wraps(orig_start)
         def start(self):
-            if _CTX.get() is not None and \
+            ctx = _CTX.get()
+            if ctx is not None and \
                     getattr(self, "_mosaic_torch_trace_ctx", None) is None:
                 snap = contextvars.copy_context()
                 self._mosaic_torch_trace_ctx = snap
                 orig_run = self.run
-                self.run = lambda: snap.run(orig_run)
+
+                def run():
+                    # the child joins the cross-thread trace table for
+                    # the sampling profiler (the ContextVar itself flows
+                    # in through the snapshot)
+                    ident = threading.get_ident()
+                    _THREAD_TRACES[ident] = ctx
+                    try:
+                        snap.run(orig_run)
+                    finally:
+                        _THREAD_TRACES.pop(ident, None)
+
+                self.run = run
             orig_start(self)
 
         threading.Thread.start = start

@@ -15,12 +15,14 @@ mid-launch: the streamed executor drains its CUDA streams before the
 error propagates, so a cancelled stream stops within one chunk boundary
 and leaves nothing queued on the device.
 
-Attribution rides the trace context: pipeline bytes and the store's
-partition reads observed anywhere under the query charge its ticket.
+Attribution rides the trace context: pipeline bytes, the store's
+partition reads, the kernel ledger's launch seconds (``device_s``,
+``obs.profiler.KernelLedger.observe``) and the memory ledger's live and
+peak bytes (``mem_live_bytes``, ``mem_peak_bytes``, ``obs.memwatch``)
+observed anywhere under the query charge its ticket; the per-principal
+meter and audit log (``obs.accounting``) fold finished tickets.
 Quiescent cost: one empty-dict check per probe when no query is
 registered; env ``MOSAIC_TPU_ACCOUNTING=0`` disables registration.
-The per-principal meter and audit log that fold finished tickets in
-the JAX package (``obs/accounting.py``) are ROADMAP §A9b.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ class QueryTicket:
         self.operator = "-"          # current operator
         self.rows = 0                # rows out of the last stage
         self.rows_in = 0             # rows out of the scan/join stage
+        self.compiles0 = 0.0         # jax/recompiles at registration
         self.h2d_bytes = 0           # pipeline staging charged here
         self.d2h_bytes = 0           # pipeline/fusion fetches charged
         self.device_s = 0.0          # kernel launch seconds charged
@@ -185,6 +188,8 @@ class InflightRegistry:
         t = QueryTicket(f"q{os.getpid()}-{next(_qids)}", principal,
                         sql, trace_id, deadline_ms)
         from .metrics import metrics
+        # the port has no jit, so this stays 0 (ROADMAP C14)
+        t.compiles0 = metrics.counter_value("jax/recompiles")
         with self._lock:
             self._active[t.query_id] = t
             if trace_id is not None:
@@ -308,7 +313,8 @@ def checkpoint(operator: Optional[str] = None) -> None:
 
 
 def charge_device_seconds(seconds: float) -> None:
-    """Charge kernel-launch wall time to the active ticket."""
+    """Charge kernel-launch wall time to the active ticket (called from
+    :meth:`~.profiler.KernelLedger.observe`)."""
     t = _active_ticket()
     if t is not None:
         t.device_s += float(seconds)

@@ -20,12 +20,14 @@ the system tempdir).  Unhandled exceptions dump automatically (a
 chained ``sys.excepthook``, installed at ``mosaic_tpu_torch.obs``
 import).
 
-Two stated divergences from the JAX package: the bundle's ``"jax"``
-entry is a ``"device"`` entry read from ``torch.cuda``, and only when
-CUDA is already initialized (a crash dump must never initialize a
-backend); and the bundle's ``timeseries``, ``memory``,
-``device_memory``, ``profile`` and ``queries`` entries are ``{}``,
-since the modules that fill them are ROADMAP §A9b.
+The bundle also carries the metric time series (``timeseries``), the
+last memory watermarks (``memory``), the device-memory ledger
+(``device_memory``), the profiler snapshot (``profile``) and the query
+console (``queries``: in-flight tickets, recent audit records, the
+per-principal meters), as the JAX package's does.  One stated
+divergence (ROADMAP C13): the bundle's ``"jax"`` entry is a
+``"device"`` entry read from ``torch.cuda``, and only when CUDA is
+already initialized (a crash dump must never initialize a backend).
 
 Env knobs: ``MOSAIC_TPU_RECORDER=0`` disables, ``MOSAIC_TPU_RECORDER_EVENTS``
 sizes the ring (default 4096), ``MOSAIC_TPU_DUMP_DIR`` redirects dumps.
@@ -53,11 +55,10 @@ _DEF_CAPACITY = 4096
 #: The event catalogue: every ``kind`` string a ``record()`` call of the
 #: port may emit (``tests/test_torch_recorder.py`` holds the port's
 #: ``record`` calls to it).  Kinds of modules the port has not got yet
-#: (the SQL engine, fusion, serve, memory and device planes) join it
-#: with them.
+#: (the SQL engine, fusion, serve, the fleet) join it with them.
 EVENTS = frozenset({
     # lifecycle / tracing
-    "span", "config", "trace_link", "device_trace",
+    "span", "config", "trace_link", "device_trace", "audit",
     # cancellation
     "query_cancel_requested",
     # resilience: retries, faults, degrade-not-die ingestion
@@ -71,6 +72,12 @@ EVENTS = frozenset({
     "layout_advice",
     # a store shard held fewer bytes than its manifest promised
     "store_shard_torn",
+    # memory plane
+    "mem_admit_denied", "mem_chunk_shrink", "mem_leak",
+    # SLO + profiler
+    "slo_breach", "slo_recovered", "profiler",
+    # pipeline observer hook failures
+    "pipeline_observe_error",
     # recorder-internal marks
     "dump", "dump_suppressed", "dump_suppressed_flush", "error",
     "unhandled_error",
@@ -195,16 +202,41 @@ class FlightRecorder:
     def bundle(self, reason: str = "manual",
                error: Optional[str] = None) -> Dict[str, Any]:
         """Self-contained post-mortem: events + metrics snapshot +
-        resolved config + the CUDA device.
-
-        ``timeseries``, ``memory``, ``device_memory``, ``profile`` and
-        ``queries`` keep the JAX package's keys and are ``{}``: the
-        time-series store, the memory watermarks and ledger, the
-        profiler and the query audit are ROADMAP §A9b."""
+        metric time-series history + last memory watermarks + the
+        device-memory ledger + the profiler snapshot + the query
+        console + resolved config + the CUDA device."""
         import dataclasses
 
         from .. import config as _config
         from .metrics import metrics
+        try:                    # history survives into the bundle: the
+            from .timeseries import timeseries   # post-mortem shows the
+            ts_snap = timeseries.snapshot()      # minutes before, not
+        except Exception:                        # just the final values
+            ts_snap = {}
+        try:
+            from .jaxmon import last_watermarks
+            mem = last_watermarks()
+        except Exception:
+            mem = {}
+        try:                    # triggered capture: host stacks + the
+            from .profiler import capture_snapshot   # kernel ledger
+            prof = capture_snapshot()                # ride along in
+        except Exception:                            # every bundle
+            prof = {}
+        try:                    # query console state: what was running
+            from .accounting import audit, meter     # at dump time +
+            from .inflight import inflight           # who spent what
+            queries = {"inflight": inflight.list_active(),
+                       "recent": audit.records(limit=50),
+                       "principals": meter.report()}
+        except Exception:
+            queries = {}
+        try:                    # device-memory ledger: who HOLDS live
+            from .memwatch import memwatch           # bytes right now —
+            device_memory = memwatch.snapshot()      # the mem-pressure
+        except Exception:                            # breach post-mortem
+            device_memory = {}
         b: Dict[str, Any] = {
             "reason": reason,
             "ts": time.time(),
@@ -212,11 +244,11 @@ class FlightRecorder:
             "events": self.events(),
             "dropped": self.dropped,
             "metrics": metrics.report(),
-            "timeseries": {},
-            "memory": {},
-            "device_memory": {},
-            "profile": {},
-            "queries": {},
+            "timeseries": ts_snap,
+            "memory": mem,
+            "device_memory": device_memory,
+            "profile": prof,
+            "queries": queries,
             "config": dataclasses.asdict(_config.default_config()),
             "device": _device_info(),
         }
@@ -253,7 +285,9 @@ class FlightRecorder:
         30 s; 0 disables the gate).  A held dump returns None and
         records a ``dump_suppressed`` event carrying how many dumps
         the cooldown has swallowed since the last one that went
-        through; an allowed dump's bundle likewise carries the count."""
+        through; an allowed dump's bundle likewise carries the count.
+        Also fires the optional bounded device-profiler capture
+        (``obs.profiler.maybe_device_capture``) on allowed dumps."""
         from .. import config as _config
         cd_ms = float(_config.default_config().obs_dump_cooldown_ms)
         now = time.time()
@@ -274,6 +308,8 @@ class FlightRecorder:
         if suppressed:
             self.record("dump_suppressed_flush", reason=reason,
                         suppressed=suppressed)
+        from .profiler import maybe_device_capture
+        maybe_device_capture(reason)
         return self.dump(reason=reason, error=error)
 
     @contextlib.contextmanager

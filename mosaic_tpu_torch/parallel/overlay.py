@@ -55,6 +55,7 @@ probe-width cap: a plan that names it injects nothing.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,6 +68,7 @@ from ..core.index.base import IndexSystem
 from ..core.tessellate import _pip, _poly_edges, _seg_cross, tessellate
 from ..obs import metrics
 from ..obs.context import traced
+from ..obs.devicemon import devicemon, mesh_device_keys
 from ..ops.overlay_pairs import ChipRows, overlay_dense, overlay_pairs
 from ..resilience import faults
 from ..types import ChipSet
@@ -222,6 +224,45 @@ def _sharded_rows(rows: tuple, group, dev: torch.device) -> ChipRows:
         [a[r * per:(r + 1) * per] for a in padded], dev)
 
 
+def _account_exchange(site: str, D: int, cells: np.ndarray,
+                      valid: np.ndarray, sent: Tuple[int, int],
+                      keys, keep) -> None:
+    """Collective accounting for one side's run of :func:`_exchange_rows`
+    (the JAX package's ``_account_exchange``): the bytes and calls this
+    rank sent through ``all_to_all`` (``sent``, read off
+    ``collectives.COUNTS``) in ``collective/all_to_all_bytes``, its
+    ``/<site>`` counter and ``collective/all_to_all_calls``; the shard
+    skew of the exact host-side hash destination counts (the whole
+    input's, so equal on every rank) in ``shard/skew/<site>``, its
+    series and ``shard/rows_max/<site>``; and this rank's routed rows in
+    the device monitor.  Summed over the ranks, the bytes are the JAX
+    package's static send-buffer bytes with 8-byte ids where it counts
+    4 (the port's ids travel as int64); the calls are the JAX
+    package's on every rank.  One attribute check when metrics are
+    disabled."""
+    if not metrics.enabled:
+        return
+    nbytes, calls = sent
+    metrics.count("collective/all_to_all_bytes", float(nbytes))
+    metrics.count(f"collective/all_to_all_bytes/{site}", float(nbytes))
+    metrics.count("collective/all_to_all_calls", float(calls))
+    v = np.asarray(valid, bool)
+    if v.any():
+        counts = np.bincount(_hash_dest_np(np.asarray(cells)[v], D),
+                             minlength=D)
+        mean = float(counts.mean())
+        skew = float(counts.max()) / mean if mean else 1.0
+        metrics.gauge(f"shard/skew/{site}", skew)
+        metrics.observe(f"shard/skew_series/{site}", skew)
+        metrics.gauge(f"shard/rows_max/{site}", float(counts.max()))
+        devicemon.observe_rows(site, counts, keys, keep=keep)
+
+
+def _sent(name: str) -> Tuple[int, int]:
+    calls, nbytes = coll.COUNTS[name]
+    return nbytes, calls
+
+
 def _exchanged(a: tuple, b: tuple, group, dev: torch.device,
                join: Callable[[ChipRows, ChipRows], object]):
     """``join`` on the rows this rank receives from both sides' exchange,
@@ -230,8 +271,14 @@ def _exchanged(a: tuple, b: tuple, group, dev: torch.device,
     exchange again on every rank.  The starting capacity is the
     ``overlay.bucket_cap`` degrade site (a chaos plan shrinks it on
     purpose to drive the doubling loop); each exchange run counts one
-    ``overlay/exchange_rounds``."""
-    D = coll.group_size(group)
+    ``overlay/exchange_rounds``.  With the registry on, each side's
+    exchange is accounted (:func:`_account_exchange`) and the call's
+    wall time is charged to the devices by both sides' routed-row
+    counts, this rank its own share (``obs.devicemon``)."""
+    t0 = time.perf_counter()
+    D, r = coll.group_size(group), coll.group_rank(group)
+    keys = mesh_device_keys(group, dev)
+    keep = keys[r] if group is not None else None
     cap = faults.degrade("overlay.bucket_cap",
                          max(_exact_bucket_cap(a[0], a[3], D),
                              _exact_bucket_cap(b[0], b[3], D)))
@@ -239,12 +286,30 @@ def _exchanged(a: tuple, b: tuple, group, dev: torch.device,
     while True:
         if metrics.enabled:
             metrics.count("overlay/exchange_rounds")
+        s0 = _sent("all_to_all")
         xa, ofa = _exchange_rows(ra, cap, group)
+        s1 = _sent("all_to_all")
         xb, ofb = _exchange_rows(rb, cap, group)
+        s2 = _sent("all_to_all")
+        _account_exchange("overlay", D, a[0], a[3],
+                          (s1[0] - s0[0], s1[1] - s0[1]), keys, keep)
+        _account_exchange("overlay", D, b[0], b[3],
+                          (s2[0] - s1[0], s2[1] - s1[1]), keys, keep)
         over = torch.tensor([ofa + ofb], dtype=torch.int64, device=dev)
         if int(coll.all_reduce(over, group, "max")) == 0:
-            return join(xa, xb)
+            out = join(xa, xb)
+            break
         cap *= 2
+    if metrics.enabled:
+        w = np.zeros(D, np.int64)
+        for cc, vv in ((a[0], a[3]), (b[0], b[3])):
+            vv = np.asarray(vv, bool)
+            if vv.any():
+                w += np.bincount(_hash_dest_np(np.asarray(cc)[vv], D),
+                                 minlength=D)
+        devicemon.attribute("overlay", time.perf_counter() - t0, w, keys,
+                            keep=keep)
+    return out
 
 
 # ----------------------------------------------------------- device logic

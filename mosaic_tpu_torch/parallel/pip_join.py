@@ -77,6 +77,9 @@ from ..core.tessellate import (_pip, _poly_edges, tessellate,
                                tessellate_subset)
 from ..obs import metrics, recorder, tracer
 from ..obs.context import root_trace
+from ..obs.devicemon import devicemon, mesh_device_keys
+from ..obs.memwatch import tensor_bytes
+from ..obs.profiler import ledger
 from ..obs.heat import heat
 from ..obs.inflight import (QueryCancelled, checkpoint, note_partition_bytes,
                             note_refine, note_strategies)
@@ -921,7 +924,14 @@ def make_streamed_pip_join(idx, grid=None,
 
     The call is an in-flight checkpoint (``pip_join/streamed``; the
     stream checks again at every chunk boundary) and runs under
-    ``root_trace("pip_join")`` and the ``pip_join/streamed`` span.
+    ``root_trace("pip_join")`` and the ``pip_join/streamed`` span.  The
+    stream's chunks register in the memory ledger as
+    ``pip_join/streamed/staged`` and ``/out``; under memory pressure a
+    chunk is halved (the zones are keyed on the slice, so they do not
+    change).  Each chunk's launch wall time feeds the kernel ledger as
+    ``pip/streamed``, keyed ``(id(idx), id(grid), eps, margin_eps,
+    "auto")`` as the JAX package keys it (the port has no precision
+    switch; its slot holds the JAX default).
 
     Returns ``run(points64_abs) -> (zone [N] int32, rechecked count)``;
     ``run.recheck`` is its :func:`host_recheck_fn`."""
@@ -930,6 +940,7 @@ def make_streamed_pip_join(idx, grid=None,
     fn = make_pip_join_fn(idx, grid, eps, margin_eps)
     recheck = host_recheck_fn(idx, polys)
     origin = np.asarray(idx.origin, np.float64)
+    ledger_key = (id(idx), id(grid), eps, margin_eps, "auto")
 
     def run(points64: np.ndarray):
         checkpoint("pip_join/streamed")   # cancel before the first chunk
@@ -947,9 +958,14 @@ def make_streamed_pip_join(idx, grid=None,
             zone_out[sl] = recheck(points64[sl], z, unc)
             state["rechecked"] += int(unc.sum())
 
+        def observe(i, sl, seconds):
+            ledger.observe("pip/streamed", ledger_key, seconds,
+                           rows=sl.stop - sl.start)
+
         with root_trace("pip_join"), tracer.span("pip_join/streamed"):
             stream(chunk_rows(n, chunk), stage, 2, lambda i, x: fn(x),
-                   consume, dev)
+                   consume, dev, observe=observe,
+                   site="pip_join/streamed")
         if metrics.enabled:
             metrics.count("pip_join/streamed_points", float(n))
             metrics.count("pip_join/streamed_chunks",
@@ -987,10 +1003,29 @@ def make_sharded_pip_join(idx, grid=None, group=None,
     rows (on a dense index one K2 launch; on a sorted H3 index K3 under the
     sorted body) and gets every rank's rows back by one ``all_gather``
     each of ``zone`` and ``uncertain``.  ``group=None`` is the
-    single-device call."""
+    single-device call.
+
+    The host planes are the JAX package's sharded wrap's: each call's
+    wall time feeds the kernel ledger as ``pip/sharded_wrap`` and, with
+    the registry on, the per-device monitor by the per-shard matched
+    counts (read back every ``mosaic.shard.skew.refresh``-th call, with
+    the ``shard/skew/pip_join`` gauge and ``shard/skew_series`` series;
+    uniform until the first readback), beside the
+    ``collective/replicated_index_bytes`` gauge,
+    ``collective/points_scatter_bytes`` and, on the first call,
+    ``collective/broadcast_bytes``.  Each rank counts its own share:
+    its index replica, its block of points, the index bytes it would
+    receive from rank 0 (rank 0 counts them on a group of one), and its
+    own device's seconds; summed over the ranks these are the JAX
+    package's figures over its mesh (ROADMAP C11)."""
     dev = _check_device(idx, device)
     fn = make_pip_join_fn(idx, grid, eps, margin_eps)
     D, r = coll.group_size(group), coll.group_rank(group)
+    idx_bytes = _index_bytes(idx)
+    keys = mesh_device_keys(group, dev)
+    keep = keys[r] if group is not None else None
+    key = (id(idx), id(group), "data", eps, margin_eps)
+    state = {"calls": 0, "weights": None}
 
     def run(points) -> Tuple[torch.Tensor, torch.Tensor]:
         points = torch.as_tensor(points)
@@ -998,18 +1033,56 @@ def make_sharded_pip_join(idx, grid=None, group=None,
         if n % D:
             raise ValueError(f"{n} points do not split evenly over {D} "
                              "ranks")
+        block = coll.row_block(n, D, r)
         with root_trace("pip_join"), tracer.span("pip_join/sharded"):
-            zone, unc = fn(points[coll.row_block(n, D, r)].to(dev))
-            return (coll.all_gather(zone, group),
-                    coll.all_gather(unc, group))
+            t0 = time.perf_counter()
+            zone, unc = fn(points[block].to(dev))
+            out = (coll.all_gather(zone, group),
+                   coll.all_gather(unc, group))
+            dt = time.perf_counter() - t0
+        ledger.observe("pip/sharded_wrap", key, dt, rows=n)
+        if metrics.enabled:
+            metrics.gauge("collective/replicated_index_bytes",
+                          float(idx_bytes))
+            metrics.count("collective/points_scatter_bytes",
+                          float(tensor_bytes(points[block])))
+            metrics.gauge("shard/points_per_shard/pip_join", n / D)
+            k = max(1, default_config().shard_skew_refresh)
+            if state["calls"] % k == 0:
+                if state["calls"] == 0 and (r > 0 or D == 1):
+                    metrics.count("collective/broadcast_bytes",
+                                  float(idx_bytes))
+                state["weights"] = _shard_skew_readback(
+                    out[0].cpu().numpy(), D)
+            # charge the call's wall time to devices by the last
+            # observed per-shard load (uniform until first readback)
+            devicemon.attribute("pip_join", dt, state["weights"], keys,
+                                keep=keep)
+            state["calls"] += 1
+        return out
 
     return run
 
 
+def _index_bytes(idx) -> int:
+    """Logical bytes of an index's device tables (one rank's replica)."""
+    return tensor_bytes([v for v in vars(idx).values()
+                         if isinstance(v, torch.Tensor)])
+
+
 def _shard_skew_readback(zones_padded: np.ndarray, D: int) -> np.ndarray:
     """Per-shard matched-candidate counts from a [D * rows] zone vector
-    (padding rows read zone -1 and drop out)."""
-    return (np.asarray(zones_padded).reshape(D, -1) >= 0).sum(axis=1)
+    (padding rows read zone -1 and drop out).  With the registry on,
+    records the skew gauge, its series and the max-candidates gauge."""
+    c = (np.asarray(zones_padded).reshape(D, -1) >= 0).sum(axis=1)
+    if metrics.enabled:
+        mean = float(c.mean())
+        skew = float(c.max()) / mean if mean else 1.0
+        metrics.gauge("shard/skew/pip_join", skew)
+        # the same quantity as a distribution: how imbalance evolves
+        metrics.observe("shard/skew_series/pip_join", skew)
+        metrics.gauge("shard/candidates_max/pip_join", float(c.max()))
+    return c
 
 
 def make_sharded_streamed_pip_join(idx, grid=None, group=None,
@@ -1040,7 +1113,19 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
     ``polys`` is required for a sorted :class:`PIPIndex`.  Returns
     ``run(points64_abs) -> (zone [N] int32, rechecked)``, ``rechecked``
     summed over the ranks; ``run.rebalancer`` is the placement pass and
-    ``run.shard_counts`` the last chunk's matched rows per shard."""
+    ``run.shard_counts`` the last chunk's matched rows per shard.
+
+    The host planes are the JAX package's: the stream's chunks register
+    in the memory ledger under ``pip_join/sharded``; each chunk's launch
+    wall time feeds the kernel ledger as ``pip/sharded_stream``; with the
+    registry on, each gathered chunk records the ``shard/skew/pip_join``
+    and ``shard/skew_planned/pip_join`` gauges, and the pass's wall time
+    is charged to the devices by the summed per-shard matched counts,
+    beside the ``collective/*`` figures (each rank its own share, as in
+    :func:`make_sharded_pip_join`).  The stream never halves a chunk
+    under memory pressure: every chunk ends in an ``all_gather`` that
+    every rank must reach alike, and a rank's pressure is its own
+    (ROADMAP C11)."""
     dev = _check_device(idx, device)
     chunk = _resolve_chunk(chunk)
     fn = make_pip_join_fn(idx, grid, eps, margin_eps)
@@ -1050,13 +1135,16 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
     if refresh is None:
         refresh = default_config().shard_skew_refresh
     rebalancer = SkewRebalancer(D, refresh=refresh, nbins=nbins)
+    idx_bytes = _index_bytes(idx)
+    keys = mesh_device_keys(group, dev)
+    keep = keys[r] if group is not None else None
 
     def run(points64: np.ndarray):
         checkpoint("pip_join/sharded_streamed")
         points64 = np.asarray(points64, np.float64)[:, :2]
         n = len(points64)
         zone_out = np.empty(n, np.int32)
-        state = {"rechecked": 0, "slots": {}}
+        state = {"rechecked": 0, "slots": {}, "weights": None, "mine": 0}
         # stream() sees rank r's slot block of each chunk: a slice as long
         # as the block, starting where the chunk does
         real = {}
@@ -1076,6 +1164,7 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
             mine = np.nonzero(slots // per == r)[0]
             at = slots[mine] - r * per
             state["slots"][sl.start] = slots, mine, at
+            state["mine"] += len(mine)
             out[...] = _PAD_SENTINEL_DEG
             # f64 origin shift BEFORE the f32 cast (= localize())
             out[at] = pts[mine] - origin[None]
@@ -1092,12 +1181,39 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
             full = coll.all_gather(torch.from_numpy(both).to(dev),
                                    group).cpu().numpy()
             zone_out[sl] = full[slots, 1]
-            run.shard_counts = _shard_skew_readback(full[:, 0], D)
+            run.shard_counts = c = _shard_skew_readback(full[:, 0], D)
+            w = state["weights"]
+            state["weights"] = c if w is None else w + c
             rebalancer.observe(points64[sl], full[slots, 0] >= 0)
+            if metrics.enabled:
+                metrics.gauge("shard/skew_planned/pip_join",
+                              rebalancer.planned_skew())
 
+        def observe(i, blk, seconds):
+            sl = real[blk.start]
+            # the JAX package's key: the padded chunk's rows
+            ledger.observe("pip/sharded_stream",
+                           (id(idx), id(group), "data",
+                            (blk.stop - blk.start) * D, eps, margin_eps),
+                           seconds, rows=sl.stop - sl.start)
+
+        t0 = time.perf_counter()
         with root_trace("pip_join"), \
                 tracer.span("pip_join/sharded_streamed"):
-            stream(blocks, stage, 2, lambda i, x: fn(x), consume, dev)
+            stream(blocks, stage, 2, lambda i, x: fn(x), consume, dev,
+                   observe=observe, site="pip_join/sharded", split=False)
+        if metrics.enabled:
+            # per-device wall-time attribution: the run's matched-row
+            # counts per shard (summed over chunks) are the load share
+            devicemon.attribute("pip_join", time.perf_counter() - t0,
+                                state["weights"], keys, keep=keep)
+            metrics.gauge("collective/replicated_index_bytes",
+                          float(idx_bytes))
+            metrics.gauge("shard/points_per_shard/pip_join", n / D)
+            metrics.count("collective/points_scatter_bytes",
+                          8.0 * state["mine"])
+            metrics.count("pip_join/sharded_points", float(n))
+            metrics.count("pip_join/sharded_chunks", float(len(blocks)))
         total = torch.tensor(state["rechecked"], dtype=torch.int64,
                              device=dev)
         return zone_out, int(coll.all_reduce(total, group))
@@ -1167,7 +1283,16 @@ def make_store_sharded_pip_join(store, idx, grid=None, group=None,
     sorted :class:`PIPIndex`.  Beside the stream's labels (the shard
     reads and chunk assembly run under ``stream/pull``), the host pass
     carries ``torch.profiler`` labels ``store_join/recheck``,
-    ``store_join/gather`` and ``store_join/observe``."""
+    ``store_join/gather`` and ``store_join/observe``.
+
+    The host planes are the sharded streamed join's: the staged blocks
+    register in the memory ledger as ``pip_join/store/staged`` (and the
+    outputs as ``pip_join/store/out``), the launches feed the kernel
+    ledger as ``pip/sharded_stream``, and with the registry on the skew
+    gauges, the devices' seconds and the ``collective/*`` figures are
+    recorded, each rank its own share.  The stream never halves a chunk
+    (the JAX package's store chunks are not row slices, so its stream
+    never splits them either)."""
     dev = _check_device(idx, device)
     chunk = _resolve_chunk(chunk)
     fn = make_pip_join_fn(idx, grid, eps, margin_eps)
@@ -1190,10 +1315,13 @@ def make_store_sharded_pip_join(store, idx, grid=None, group=None,
                 metrics.count("heat/prior_primes")
     # the stream's row bound: the block of a full (pow2-bucketed) chunk
     bound = pow2_bucket(-(-pow2_bucket(chunk, floor=64) // D), floor=64)
+    idx_bytes = _index_bytes(idx)
+    keys = mesh_device_keys(group, dev)
+    keep = keys[r] if group is not None else None
 
     def run(bbox=None):
         checkpoint("pip_join/store")
-        state = {"rechecked": 0}
+        state = {"rechecked": 0, "weights": None, "mine": 0}
         chunks, zones = {}, []
         staged_by_part: dict = {}
 
@@ -1215,6 +1343,8 @@ def make_store_sharded_pip_join(store, idx, grid=None, group=None,
                                  [n for _, n in ck.parts])
             slots, mine, at = _own_block(pref, ck.rows, D, r, per)
             chunks[blk.start] = ck, slots, mine, at
+            state["mine"] += (at.stop - at.start) if isinstance(at, slice) \
+                else len(at)
             # f64 origin shift BEFORE the f32 cast (= localize())
             if isinstance(at, slice):
                 out[at] = ck.points[mine] - origin[None]
@@ -1248,11 +1378,26 @@ def make_store_sharded_pip_join(store, idx, grid=None, group=None,
             with record_function("store_join/observe"):
                 # density feedback stays row-level, on the gathered chunk
                 rebalancer.observe(ck.points, full[slots, 0] >= 0)
+            if metrics.enabled:
+                c = _shard_skew_readback(full[:, 0], D)
+                w = state["weights"]
+                state["weights"] = c if w is None else w + c
+                metrics.gauge("shard/skew_planned/pip_join",
+                              rebalancer.planned_skew())
 
+        def observe(i, blk, seconds):
+            # runs before the chunk's consume, which pops its entry
+            ledger.observe("pip/sharded_stream",
+                           (id(idx), id(group), "data",
+                            (blk.stop - blk.start) * D, eps, margin_eps),
+                           seconds, rows=chunks[blk.start][0].rows)
+
+        t0 = time.perf_counter()
         with root_trace("pip_join"), \
                 tracer.span("pip_join/store_streamed"):
             stream(blocks(), stage, 2, lambda i, x: fn(x), consume, dev,
-                   rows=bound)
+                   rows=bound, observe=observe, site="pip_join/store",
+                   split=False)
         zone_out = np.concatenate(zones) if zones \
             else np.empty(0, np.int32)
         run.staged_bytes_by_partition = staged_by_part
@@ -1260,6 +1405,14 @@ def make_store_sharded_pip_join(store, idx, grid=None, group=None,
             heat.touch(c, nbytes=b, scans=0)
         note_partition_bytes(staged_by_part)
         if metrics.enabled:
+            devicemon.attribute("pip_join", time.perf_counter() - t0,
+                                state["weights"], keys, keep=keep)
+            metrics.gauge("collective/replicated_index_bytes",
+                          float(idx_bytes))
+            metrics.gauge("shard/points_per_shard/pip_join",
+                          len(zone_out) / D)
+            metrics.count("collective/points_scatter_bytes",
+                          8.0 * state["mine"])
             metrics.count("pip_join/store_points", float(len(zone_out)))
             metrics.count("pip_join/store_chunks", float(len(zones)))
         total = torch.tensor(state["rechecked"], dtype=torch.int64,

@@ -30,7 +30,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..core.raster.tile import RasterTile
-from ..obs import tracer
+from ..obs import metrics, tracer
 from ..obs.context import root_trace
 from ..ops.raster_convolve import raster_convolve
 from ..perf.pipeline import stream
@@ -64,12 +64,32 @@ def _convolve_fn(kernel: np.ndarray, group, shape, device: torch.device):
         return (lambda x: raster_convolve(x, w)), slice(0, H)
 
     def fn(slab: torch.Tensor) -> torch.Tensor:
+        sent = coll.COUNTS["p2p"][1]
         above, below = coll.exchange_halo(slab, halo, group)
+        _count_halo_bytes(coll.COUNTS["p2p"][1] - sent)
         out = raster_convolve(torch.cat([above, slab, below], dim=1), w)
         mine = out[:, halo:halo + S].transpose(0, 1).contiguous()
         return coll.all_gather(mine, group).transpose(0, 1)
 
     return fn, slice(r * S, (r + 1) * S)
+
+
+def _count_halo_bytes(nbytes: int) -> None:
+    """The halo exchange's collective accounting under the JAX package's
+    names: ``collective/ppermute_bytes`` and its ``/raster_halo`` counter
+    take the bytes this rank sent (``collectives.COUNTS["p2p"]``), and
+    ``collective/ppermute_calls`` the exchange's two shifts, as the JAX
+    package counts its two ``ppermute`` calls a tile on every rank.
+    Summed over the D ranks the bytes are ``2 (D - 1) bands halo W 4``
+    where the JAX package counts ``2 D bands halo W 4``: its ``ppermute``
+    shifts a zero halo past the first and last slab too, the port sends
+    nothing there (and on a group of one never exchanges).  One attribute
+    check when metrics are disabled."""
+    if metrics.enabled:
+        metrics.count("collective/ppermute_bytes", float(nbytes))
+        metrics.count("collective/ppermute_bytes/raster_halo",
+                      float(nbytes))
+        metrics.count("collective/ppermute_calls", 2.0)
 
 
 def _masked_f32(tile: RasterTile) -> np.ndarray:
@@ -136,5 +156,6 @@ def sharded_convolve_stream(tiles, kernel: np.ndarray, group=None,
 
     with root_trace("raster_halo"), tracer.span("halo/convolve_stream"):
         stream([slice(i, i + 1) for i in range(len(tiles))], stage,
-               int(np.prod(slab)), compute, consume, dev)
+               int(np.prod(slab)), compute, consume, dev,
+               site="raster_halo/stream", split=False)
     return out

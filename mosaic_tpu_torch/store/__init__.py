@@ -21,8 +21,11 @@ here are the substrate for learned layouts (arxiv 2504.01292,
 Port of ``mosaic_tpu.store``: stores are interchangeable between the two
 packages, file for file, with the JAX package's fault sites
 (``store.read``, ``store.write``, ``store.shard``), ``store_shard_torn``
-event and in-flight partition notes.  Its gauges and devicemon
-attribution are ROADMAP §A9b (C11).
+event and in-flight partition notes.  The store-fed join
+(``parallel.pip_join.make_store_sharded_pip_join``) carries the JAX
+package's memory-ledger site (``pip_join/store/staged``), skew gauges,
+``collective/*`` figures and devicemon attribution, each rank its own
+share (ROADMAP C11).
 """
 
 from .manifest import Manifest, Partition, grid_cells, cell_bbox

@@ -649,24 +649,38 @@ def test_fetch_fault_surfaces_and_clean_rerun_is_equal(flagship,
     assert (dense_join.launches, latlng_to_cell_margin.launches) == k2
 
 
-def test_cancel_raises_at_the_next_chunk_boundary(flagship, fault_plan):
-    """A canceller thread polls the ticket's fetched bytes and cancels
-    once the first chunk is fetched; each chunk boundary stalls 30 ms,
-    so the cancel lands before the next boundary but one, and the join
-    fetches at most one chunk more."""
+def test_cancel_raises_at_the_next_chunk_boundary(flagship, fault_plan,
+                                                  monkeypatch):
+    """A canceller thread cancels once the first chunk is fetched, and
+    that fetch returns only after the cancel has, so the join raises at
+    the next chunk boundary and fetches at most one chunk more.  The two
+    threads meet at events the test sets, never at a timed poll: each
+    chunk boundary also stalls 30 ms under the plan, and a scheduler
+    that runs the canceller late cannot let the join run ahead of it."""
+    import mosaic_tpu_torch.perf.pipeline as tpipe
     run, pts, truth = flagship
     per_chunk = 4 * 1000           # 1000-row chunks of int32 zones
     fault_plan("seed=8;site=pipeline.chunk,mode=delay,fails=6,"
                "delay_ms=30")
+    fetched, cancelled = threading.Event(), threading.Event()
+    charge = tpipe.charge_d2h_bytes
+
+    def charge_then_wait(n):
+        charge(n)
+        if not fetched.is_set():
+            fetched.set()
+            assert cancelled.wait(60), "the canceller never cancelled"
+
+    monkeypatch.setattr(tpipe, "charge_d2h_bytes", charge_then_wait)
     seen = {}
     with new_trace("cancel me"):
         t = inflight.register("flagship", principal="chaos")
 
         def canceller():
-            while t.d2h_bytes == 0 and not seen.get("done"):
-                time.sleep(0.001)
-            seen["d2h"] = t.d2h_bytes
-            inflight.cancel(t.query_id)
+            if fetched.wait(60):
+                seen["d2h"] = t.d2h_bytes
+                inflight.cancel(t.query_id)
+            cancelled.set()
 
         th = threading.Thread(target=canceller)
         th.start()
@@ -674,9 +688,10 @@ def test_cancel_raises_at_the_next_chunk_boundary(flagship, fault_plan):
             with pytest.raises(QueryCancelled):
                 run(pts)
         finally:
-            seen["done"] = True
-            th.join()
+            fetched.set()
+            th.join(60)
             inflight.finish(t, "cancelled")
+    assert not th.is_alive()
     assert seen["d2h"] >= per_chunk
     assert t.d2h_bytes - seen["d2h"] <= per_chunk
     assert t.d2h_bytes < len(pts) * 4

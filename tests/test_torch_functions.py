@@ -776,15 +776,20 @@ def test_enable_mosaic_reads_grid_confs(grid):
 
 def test_build_installs_no_listener():
     """C14: the port has no jit, so ``build`` installs no compile
-    listener and imports no module of the device planes (§A9b)."""
+    listener: the port's ``obs.jaxmon`` is the device-memory half alone
+    (no ``install_jax_listeners``, no ``record_cost_analysis``), and
+    building a context records no compile."""
     import mosaic_tpu_torch.obs as tobs
-    before = set(sys.modules)
-    T.enable_mosaic("H3", device=CPU)
-    new = {m for m in set(sys.modules) - before
-           if m.startswith("mosaic_tpu_torch")}
-    assert not any(m.split(".")[-1] in ("jaxmon", "devicemon", "memwatch",
-                                        "profiler", "accounting",
-                                        "timeseries") for m in new)
-    assert not hasattr(tobs, "install_jax_listeners")
-    assert not any("jaxmon" in m for m in sys.modules
-                   if m.startswith("mosaic_tpu_torch"))
+    from mosaic_tpu_torch.obs import jaxmon
+    was = tobs.metrics.enabled
+    tobs.metrics.enable()
+    try:
+        before = tobs.metrics.counter_value("jax/recompiles")
+        T.enable_mosaic("H3", device=CPU)
+        assert tobs.metrics.counter_value("jax/recompiles") == before == 0
+    finally:
+        if not was:
+            tobs.metrics.disable()
+    for name in ("install_jax_listeners", "record_cost_analysis",
+                 "STORM_THRESHOLD"):
+        assert not hasattr(tobs, name) and not hasattr(jaxmon, name)

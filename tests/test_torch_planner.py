@@ -92,7 +92,14 @@ FIELDS_PORTED = ("index_system", "geometry_api", "planner_enabled",
                  "store_mmap", "heat_halflife_ms", "heat_prior",
                  "layout_rows_per_cell", "layout_min_res",
                  "layout_max_res", "crs_strict_datum", "trace_enabled",
-                 "metrics_enabled", "obs_dump_cooldown_ms")
+                 "metrics_enabled", "obs_dump_cooldown_ms",
+                 # the memory and device planes' keys
+                 "obs_sample_ms", "obs_slo_dump", "obs_profile_hz",
+                 "obs_profile_trace_ms", "principal", "query_deadline_ms",
+                 "audit_path", "audit_rotate_bytes", "audit_retain",
+                 "mem_budget_bytes", "mem_pressure_high",
+                 "obs_mem_enabled", "obs_fleet_dir",
+                 "obs_fleet_window_ms", "obs_fleet_events")
 
 
 @pytest.fixture(autouse=True)

@@ -11,7 +11,9 @@ while the ranks work, and reads each rank's ``out<rank>.npz`` after
 :func:`join_world`.
 
 Every rank runs every entry point over the whole world (``G``), so the
-test can hold the four ranks' outputs equal.  Each rank also runs a
+test can hold the four ranks' outputs equal.  An ``inputs.npz`` with a
+``cases`` entry runs only the case functions it names
+(``tests/test_torch_devicemon.py`` runs :func:`planes_cases` alone).  Each rank also runs a
 share of the entry points over a one-rank subgroup of its own and with
 ``group=None``, the single-device path; those keys start with ``solo_``
 and ``none_``.
@@ -78,8 +80,10 @@ def rank_main(rank: int, world: int, path: str) -> None:
         solo = [dist.new_group([i]) for i in range(world)][rank]
         inp = dict(np.load(os.path.join(path, "inputs.npz")))
         out = {}
-        for case in (pip_cases, h3_cases, overlay_cases, knn_cases,
-                     raster_cases, store_cases):
+        cases = [globals()[str(c)] for c in inp["cases"]] \
+            if "cases" in inp else (pip_cases, h3_cases, overlay_cases,
+                                    knn_cases, raster_cases, store_cases)
+        for case in cases:
             out.update(case(G, solo, rank, inp))
         out["foreign_modules"] = np.array(sorted(
             m for m in ("jax", "mosaic_tpu") if m in sys.modules))
@@ -417,4 +421,114 @@ def store_cases(G, solo, rank, inp) -> dict:
                 device="cpu")()
             out[f"{pre}store_zone"], out[f"{pre}store_rechecked"] = z, rc
     metrics.disable()
+    return out
+
+
+# ------------------------------------------- the memory and device planes
+
+def planes_cases(G, solo, rank, inp) -> dict:
+    """Each rank's share of the device monitor and the ``collective/*``
+    counters on the sharded join, the sharded streamed join, the overlay
+    exchange and the raster halo; every ``devicemon.attribute`` call is
+    recorded with its arguments."""
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch.bench.workloads import build_workload, nyc_zones
+    from mosaic_tpu_torch.obs import devicemon, ledger, metrics
+    from mosaic_tpu_torch.parallel import collectives as coll
+    from mosaic_tpu_torch.parallel import overlay as ov
+    from mosaic_tpu_torch.parallel import pip_join as pj
+    from mosaic_tpu_torch.parallel.raster_halo import sharded_convolve
+    calls = []
+    real = devicemon.attribute
+
+    def spy(op, seconds, weights=None, devices=None, keep=None):
+        calls.append((op, np.asarray(weights, np.float64),
+                      list(devices), keep))
+        real(op, seconds, weights, devices, keep=keep)
+
+    devicemon.attribute = spy
+    out = {}
+
+    def fresh():
+        metrics.reset()
+        metrics.enable()
+        devicemon.reset()
+        ledger.reset()
+        coll.reset_counts()
+        calls.clear()
+
+    def keep_calls(tag):
+        out[f"{tag}_ops"] = np.array([c[0] for c in calls])
+        out[f"{tag}_weights"] = np.stack([c[1] for c in calls])
+        out[f"{tag}_devices"] = np.array([c[2] for c in calls])
+        out[f"{tag}_keep"] = np.array([c[3] for c in calls])
+        busy = devicemon.busy_by_device()
+        out[f"{tag}_busy_keys"] = np.array(sorted(busy))
+        out[f"{tag}_busy"] = np.array([busy[k] for k in sorted(busy)])
+
+    def counters(tag, names):
+        rep = metrics.report()
+        vals = {**rep["counters"], **rep["gauges"]}
+        for n in names:
+            out[f"{tag}|{n}"] = np.array(vals.get(n, np.nan))
+
+    polys, grid, res = build_workload(n_side=6, res_cells=64)
+    idx = pj.build_pip_index(polys, res, grid, device="cpu")
+    out["index_bytes"] = np.array(pj._index_bytes(idx))
+    loc = pj.localize(idx, inp["pip_pts"])
+    fresh()
+    pj.make_sharded_pip_join(idx, grid, G, device="cpu")(loc)
+    keep_calls("join")
+    out["join_ledger_s"] = np.array(ledger.seconds("pip/sharded_wrap"))
+    counters("join", ("collective/replicated_index_bytes",
+                      "collective/points_scatter_bytes",
+                      "collective/broadcast_bytes",
+                      "shard/points_per_shard/pip_join",
+                      "shard/skew/pip_join"))
+
+    fresh()
+    pj.make_sharded_streamed_pip_join(idx, grid, G, polys=polys,
+                                      chunk=4096, device="cpu")(
+        inp["stream_pts"])
+    keep_calls("stream")
+    out["stream_launches"] = np.array(sum(
+        e["launches"] for e in ledger.report()["kernels"]
+        if e["name"] == "pip/sharded_stream"))
+    counters("stream", ("collective/replicated_index_bytes",
+                        "collective/points_scatter_bytes",
+                        "shard/points_per_shard/pip_join",
+                        "pip_join/sharded_points"))
+
+    a = overlay_footprints(150, 1)
+    b = nyc_zones(n_side=3, seed=2, bbox=OVERLAY_BBOX)
+    h3 = mt.get_index_system("H3")
+    ca = mt.tessellate(a, 9, h3, keep_core_geom=True, device="cpu")
+    cb = mt.tessellate(b, 9, h3, keep_core_geom=True, device="cpu")
+    fresh()
+    ov.overlay_intersects(a, b, 9, h3, device="cpu", chips_a=ca,
+                          chips_b=cb, group=G)
+    keep_calls("overlay")
+    ra = ov.pack_chip_rows(a, 9, h3, chips=ca, device="cpu")
+    rb = ov.pack_chip_rows(b, 9, h3, chips=cb, origin=ra[4], device="cpu")
+    out["overlay_cap"] = np.array(max(
+        ov._exact_bucket_cap(ra[0], ra[3], G.size()),
+        ov._exact_bucket_cap(rb[0], rb[3], G.size())))
+    out["overlay_cap_e"] = np.array([ra[2].shape[1], rb[2].shape[1]])
+    out["overlay_a2a"] = np.array(coll.COUNTS["all_to_all"])
+    counters("overlay", ["collective/all_to_all_bytes",
+                         "collective/all_to_all_bytes/overlay",
+                         "collective/all_to_all_calls",
+                         "overlay/exchange_rounds", "shard/skew/overlay",
+                         "shard/rows_max/overlay"]
+             + [f"device/rows/cpu:{r}" for r in range(G.size())])
+
+    fresh()
+    sharded_convolve(halo_tile(), np.ones((3, 3)) / 9.0, G, device="cpu")
+    out["halo_p2p"] = np.array(coll.COUNTS["p2p"])
+    counters("halo", ("collective/ppermute_bytes",
+                      "collective/ppermute_bytes/raster_halo",
+                      "collective/ppermute_calls"))
+    devicemon.attribute = real
+    metrics.disable()
+    metrics.reset()
     return out
