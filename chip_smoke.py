@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. device — name and power limit (nvidia-smi); exits if CUDA is absent;
-2. build — compiles the thirteen kernels from ``csrc/`` with ``nvcc``, one
+2. build — compiles the fourteen kernels from ``csrc/`` with ``nvcc``, one
    process per source, and the native host library from
    ``native/geokernels.cpp`` with ``g++``, all started together:
    ``h3_projection`` (K1, the projection alone), ``h3_dense_join`` (K2,
@@ -21,7 +21,9 @@ Phases (any failure exits non-zero and prints no result):
    ``edge_measures`` (K11, area, length, centroid and bounds of edge
    blocks), ``edge_point_query`` (K12, crossing counts and boundary
    distances of points against edge blocks) and ``edges_cross`` (K13, the
-   edge-crossing matrix of two edge blocks), each f32 and f64;
+   edge-crossing matrix of two edge blocks), each f32 and f64, and
+   ``fused_group`` (K14, a fused SQL operator group's typed program
+   interpreted row by row);
 3. K1 vs plain — the projection kernel against its plain PyTorch
    version on the card, 2^22 localized NYC points (seed 100) at res 9
    around the flagship index's origin: all five outputs bit-equal; timed
@@ -378,15 +380,45 @@ Phases (any failure exits non-zero and prints no result):
     ``collective/*`` counters to ``collectives.COUNTS``; g. the disarmed
     planes' cost, passes with the ledgers live and stubbed in turns and
     the per-chunk plane sequence timed alone;
-22. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+22. SQL on the card (``sql/engine.py``, ``perf/fusion.py``), each path
+    counted under its own ``sql ...`` name: a. the reference Quickstart
+    written in SQL through a ``SQLSession`` on phase 20's context:
+    phase 20's 35 zones through ``grid_tessellateexplode`` (K3's
+    sampling, K7, K8; the chips equal to the CPU context's), its points
+    through ``grid_pointascellid`` (K3, equal to ``point_to_cell``), the
+    equi join on ``cell = index_id`` and ``WHERE is_core OR
+    st_contains(wkb, pgeom)`` (K12, blocks of 2,048 rows): every point
+    matched at most once, 0 zones off phase 20a's (``pip_host_truth``),
+    the first 2^14 points' rows equal to a ``device="cpu"`` session's,
+    the equi join's decision printed; b. fusion over phase 5's first
+    batch (2^22 points: x, y f64, zone int64 from the dense join, w
+    f32 seeded): an aggregate group (count, count, sum, avg, min, max,
+    first under a three-term WHERE) and a project group (``x * 2 + 1``,
+    ``w * 0.5`` under ``zone < 140``), each fused (one K14 launch and
+    one fetch), unfused and through ``fused_group_ref`` on the card, the
+    three tables bit-equal and K14's output bytes equal to
+    ``fused_group_ref``'s; EXPLAIN's ``fused`` column; K14 timed (the
+    profiler's time and CUDA events) beside its bound (the bytes of the
+    referenced columns' bucket and its output at HBM3's rate) and
+    ``fused_group_ref``'s time on the card, and the unfused pass's host
+    time; c. phase 17's 2^17-point side store (rebuilt from its seed)
+    through ``register_store``: a bbox WHERE prunes partitions (EXPLAIN's
+    ``partitions``) and the rows equal a numpy filter of the stored
+    points; d. EXPLAIN ANALYZE of the fused aggregate (its rows, the
+    ``fused`` column) and two threads' ``sql:*`` trace trees; the
+    sharded streamed join (K2) in a NCCL world of one under phase 21's
+    budget: its slices and halvings equal to the host model, one
+    ``all_reduce`` a halving decision and none without a budget, zones
+    equal to phase 5's;
+23. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
     ``raster``, ``sharded``, ``store``, ``geometry``, ``host_planes``,
-    ``functions``, ``memory_planes`` and ``tess_kernels`` (K7 and K8 by
-    input set) summary lines, the card, the ``kernels`` JSON line
-    (K1-K13 with launches per path, the tessellations of phases 5 and
-    11, the strategies', the raster, the sharded, the ``store fed``, the
-    ``geometry``, the ``host planes``, the ``functions`` and the
-    ``memory planes`` paths among them), then the last line ``{"ok":
-    true, "device": {...}}``.
+    ``functions``, ``memory_planes``, ``sql`` and ``tess_kernels`` (K7
+    and K8 by input set) summary lines, the card, the ``kernels`` JSON
+    line (K1-K14 with launches per path, the tessellations of phases 5
+    and 11, the strategies', the raster, the sharded, the ``store fed``,
+    the ``geometry``, the ``host planes``, the ``functions``, the
+    ``memory planes`` and the ``sql`` paths among them), then the last
+    line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -439,7 +471,7 @@ STRADDLE_FLOPS = 16
 KERNELS = ("h3_projection", "h3_dense_join", "h3_cell", "overlay_pairs",
            "knn_brute_topk", "knn_ring_step", "tess_classify", "tess_clip",
            "raster_convolve", "raster_combine", "edge_measures",
-           "edge_point_query", "edges_cross")
+           "edge_point_query", "edges_cross", "fused_group")
 #: points of each K3 set held against the f64 host ids (numpy, ~9 s per
 #: 2^20 points on one core)
 HOST_SAMPLE = 1 << 20
@@ -487,9 +519,11 @@ CELL_INT_ONCE = 53
 #: operations a second
 PEAK_INT32_OPS = PEAK_F32_FLOPS / 2
 #: the overlay: bench.py's footprint boxes (seed 41) x the flagship's
-#: taxi zones at H3 res 9; footprints sampled for the f64 oracle and the
-#: exact areas
-OVERLAY_FOOTPRINTS = 1 << 17
+#: taxi zones at H3 res 9 (2^16 of them: its host-side hazard resolution
+#: and pair areas grow with the count, and the script must stay inside
+#: its time limit); footprints sampled for the f64 oracle and the exact
+#: areas
+OVERLAY_FOOTPRINTS = 1 << 16
 OVERLAY_SAMPLE = 4096
 #: K4 on rows re-padded to these edge caps (one staged, one too wide for
 #: shared memory), the first B rows with a range against every A row
@@ -584,7 +618,7 @@ GEOM_POINTS = 1 << 20
 GEOM_POINT_SEED = 100
 GEOM_SAMPLE = 1 << 16
 GEOM_CHUNK = 1 << 14
-GEOM_PRED_FOOTPRINTS = 1 << 14
+GEOM_PRED_FOOTPRINTS = 1 << 13
 GEOM_PLAIN_ROWS = 512
 GEOM_SEED = 18
 #: conus_counties()' side: 56 gives its 3,136 polygons
@@ -1499,6 +1533,7 @@ def launch_counts():
     from mosaic_tpu_torch.ops.edge_measures import edge_measures
     from mosaic_tpu_torch.ops.edge_point import edge_point_query
     from mosaic_tpu_torch.ops.edges_cross import edges_cross
+    from mosaic_tpu_torch.ops.fused_group import fused_group
     from mosaic_tpu_torch.ops.knn_brute import brute_topk
     from mosaic_tpu_torch.ops.knn_ring import ring_step
     from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
@@ -1531,7 +1566,8 @@ def launch_counts():
             "raster_combine": raster_combine.launches,
             "edge_measures": edge_measures.launches,
             "edge_point_query": edge_point_query.launches,
-            "edges_cross": edges_cross.launches}
+            "edges_cross": edges_cross.launches,
+            "fused_group": fused_group.launches}
 
 
 def reset_counts() -> None:
@@ -1541,6 +1577,7 @@ def reset_counts() -> None:
     from mosaic_tpu_torch.ops.edge_measures import edge_measures
     from mosaic_tpu_torch.ops.edge_point import edge_point_query
     from mosaic_tpu_torch.ops.edges_cross import edges_cross
+    from mosaic_tpu_torch.ops.fused_group import fused_group
     from mosaic_tpu_torch.ops.knn_brute import brute_topk
     from mosaic_tpu_torch.ops.knn_ring import ring_step
     from mosaic_tpu_torch.ops.overlay_pairs import (overlay_dense,
@@ -1571,6 +1608,7 @@ def reset_counts() -> None:
     edge_measures.launches = 0
     edge_point_query.launches = 0
     edges_cross.launches = 0
+    fused_group.launches = 0
 
 
 def sorted_join(label: str, polys, grid, res: int, batches, chips=None,
@@ -5935,6 +5973,7 @@ def phase_functions(grid):
     bad = int((zone != truth).sum())
     check(bad == 0, f"quickstart: {bad} of {len(pts)} points' zones "
           "differ from pip_host_truth")
+    SQL_INPUTS["quickstart"] = (zones, pts, zone, cpu_chips)
     t0 = lap("20a truth", t0)
     tracer.reset()
     tracer.enable()
@@ -6648,6 +6687,572 @@ def phase_memory_planes(idx, grid, polys, batches, dense_zones, over):
     return out
 
 
+#: what phase 20 hands phase 22: the Quickstart's zones, points, zones
+#: per point (equal to pip_host_truth) and the CPU context's chips
+SQL_INPUTS = {}
+#: points of phase 20's Quickstart the CPU session runs again
+SQL_SAMPLE = 1 << 14
+#: seed of the flagship table's f32 column w
+SQL_SEED = 2222
+#: the flagship project group's zone bound
+SQL_ZONE_K = 140
+#: K14 launches a timing burst takes
+SQL_REPS = 50
+
+
+def same_table(a, b, values=False) -> bool:
+    """Two result tables with the same columns, dtypes and bits (NaN
+    equal to NaN of the same bits); with ``values``, equal as numbers, as
+    the CPU tests hold them (NaN equal to NaN, -0.0 to 0.0)."""
+    import numpy as np
+    if list(a.columns) != list(b.columns) or len(a) != len(b):
+        return False
+    for c in a.columns:
+        x, y = np.asarray(a.columns[c]), np.asarray(b.columns[c])
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if values:
+            if not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+                return False
+        elif x.tobytes() != y.tobytes():
+            return False
+    return True
+
+
+def k14_columns(prog) -> tuple:
+    """The columns K14's program reads on every live row, and those it
+    reads at one row only: a column counts once for every live row where
+    the WHERE or a projection reads it, or an aggregate that looks at
+    each passing row (count, sum, avg, min, max; first() of a float
+    value too, whose count leaves NaN out, as
+    mosaic_tpu/perf/fusion.py:534-551 does); at one row where only
+    first() of an integer or bool value reads it."""
+    from mosaic_tpu_torch.ops import fused_group as fg
+    instrs = prog.instrs.tolist()
+    unary = {fg.OPS[o] for o in ("cast", "neg", "not", "isnan", "mask")}
+
+    def cols(reg):
+        found, stack, seen = set(), [reg], set()
+        while stack:
+            r = stack.pop()
+            if r < 0 or r in seen:
+                continue
+            seen.add(r)
+            op, _, a, b, _ = instrs[r]
+            if op == fg.OPS["load"]:
+                found.add(a)
+            elif op in unary:
+                stack.append(a)
+            elif op != fg.OPS["const"]:
+                stack += [a, b]
+        return found
+
+    every = cols(prog.mask_reg)
+    for reg, _ in prog.items:
+        every |= cols(reg)
+    once = set()
+    for kind, reg, dt in prog.specs:
+        if kind == fg.AGG_KINDS["countstar"]:
+            continue
+        if kind == fg.AGG_KINDS["first"] and fg.DTYPES[dt].kind != "f":
+            once |= cols(reg)
+        else:
+            every |= cols(reg)
+    return every, once - every
+
+
+def k14_bound(prog, bucket: int, n: int) -> dict:
+    """K14's least time, the longer of two: the bytes it must move
+    (``k14_columns``: n rows of a column read on every live row, one
+    element of one read at a single row; the output once) at HBM3's
+    rate, and the f64 or f32 instructions its program runs on the n live
+    rows (a divide as F64_DIV_OPS)."""
+    from mosaic_tpu_torch.ops import fused_group as fg
+    every, once = k14_columns(prog)
+    size = [fg.DTYPES[dt].itemsize for dt in prog.col_dtypes]
+    nbytes = sum(n * size[c] for c in every) + sum(size[c] for c in once)
+    nbytes += fg.out_layout(prog, bucket)[0]
+    f64 = f32 = 0
+    for op, dt, *_ in prog.instrs.tolist():
+        if fg.DTYPES[dt].kind == "f" and fg.OPS["+"] <= op <= fg.OPS[">="]:
+            k = F64_DIV_OPS if op == fg.OPS["/"] else 1
+            if dt == fg.F64:
+                f64 += k
+            else:
+                f32 += k
+    flops = f64 + f32
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = n * (f64 / PEAK_F64_OPS + f32 / PEAK_F32_OPS) * 1e3
+    return {"bytes": nbytes, "ops": n * flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_sql(idx, grid, polys, batches, dense_zones):
+    """The SQL engine and whole-query fusion on the card (phase 22), each
+    path counted under its ``sql ...`` name: a. the reference Quickstart
+    in SQL over phase 20's zones and points; b. fusion over the
+    flagship's first batch, one aggregate and one project group, each
+    fused (K14), unfused and through ``fused_group_ref`` on the card;
+    c. a chip store registered as a table, its bbox pushed down; d.
+    EXPLAIN ANALYZE, two threads' trace trees, and the sharded streamed
+    join halving under phase 21's budget in a NCCL world of one."""
+    import os
+    import tempfile
+    import threading
+    from datetime import timedelta
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import mosaic_tpu_torch as mt
+    import mosaic_tpu_torch.perf.fusion as fusion
+    from mosaic_tpu_torch import config
+    from mosaic_tpu_torch.functions.context import (ROWWISE_ROWS,
+                                                    MosaicContext)
+    from mosaic_tpu_torch.obs import metrics, tracer
+    from mosaic_tpu_torch.obs.memwatch import tensor_bytes
+    from mosaic_tpu_torch.ops import fused_group as fg
+    from mosaic_tpu_torch.parallel import collectives as coll
+    from mosaic_tpu_torch.parallel import pip_join as pj
+    from mosaic_tpu_torch.sql import SQLSession
+    from mosaic_tpu_torch.sql.planner import planner
+    from mosaic_tpu_torch.store import ChipStore, write_store
+    sys.path.insert(0, str(ROOT))
+    from tools.split_model import split_model
+
+    t_phase = time.perf_counter()
+    paths, out, secs = {}, {}, {}
+    prev_cfg = config.default_config()
+
+    def counted(path, fn):
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        paths[path] = {k: paths.get(path, {}).get(k, 0) + v
+                       for k, v in got.items()}
+        return res
+
+    def lap(name, t0):
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return time.perf_counter()
+
+    def pin(mode):
+        config.set_default_config(config.apply_conf(
+            config.default_config(), "mosaic.planner.force.fusion", mode))
+
+    ctx = MosaicContext.context()
+    check(ctx.device.type == "cuda", f"sql: the context is on {ctx.device}")
+    planner.reset()
+    t0 = time.perf_counter()
+
+    # ---- 22a. the Quickstart in SQL
+    zones, pts, zone20, cpu_chips = SQL_INPUTS["quickstart"]
+    s = SQLSession(ctx)
+    s.create_table("zones", {"geom": zones,
+                             "zid": np.arange(len(zones), dtype=np.int64)})
+    chips = counted("sql quickstart", lambda: s.sql(
+        f"SELECT zid, grid_tessellateexplode(geom, {FN_RES}) FROM zones"))
+    got_chips = mt.ChipSet(geom_id=chips.columns["zid"],
+                           cell_id=chips.columns["index_id"],
+                           is_core=chips.columns["is_core"],
+                           geoms=chips.columns["wkb"])
+    diff = chipset_diff(got_chips, cpu_chips)
+    check(not diff, f"sql quickstart: the generator's chips differ from "
+          f"the CPU context's in {diff}")
+    s.create_table("chips", chips.to_dict())
+    s.create_table("trips", {"pgeom": mt.GeometryArray.from_points(pts),
+                             "pid": np.arange(len(pts), dtype=np.int64)})
+    cells = counted("sql quickstart", lambda: s.sql(
+        f"SELECT pid, pgeom, grid_pointascellid(pgeom, {FN_RES}) AS cell "
+        "FROM trips"))
+    check(np.array_equal(cells.columns["cell"],
+                         grid.point_to_cell(pts, FN_RES)),
+          "sql quickstart: grid_pointascellid differs from point_to_cell")
+    s.create_table("pts", cells.to_dict())
+    t0 = lap("22a generate and cells", t0)
+    q = ("SELECT pid, zid FROM pts JOIN chips ON pts.cell = chips.index_id "
+         "WHERE is_core OR st_contains(wkb, pgeom)")
+    strategy = dict(zip(*[s.sql("EXPLAIN " + q).columns[c]
+                          for c in ("operator", "strategy")]))
+    before = paths.get("sql quickstart", {}).get("edge_point_query", 0)
+    joined = counted("sql quickstart", lambda: s.sql(q))
+    decision = s._active_plan.steps["inner_join"].decision
+    t0 = lap("22a join", t0)
+    pid, zid = joined.columns["pid"], joined.columns["zid"]
+    check(len(np.unique(pid)) == len(pid),
+          "sql quickstart: a point matched more than once")
+    got = np.full(len(pts), -1, np.int64)
+    got[pid] = zid
+    bad = int((got != zone20).sum())
+    check(bad == 0, f"sql quickstart: {bad} points' zones differ from "
+          "phase 20a's (pip_host_truth)")
+    k12 = paths["sql quickstart"]["edge_point_query"] - before
+    qs = paths["sql quickstart"]
+    check(qs["h3_latlng_to_cell"] >= 2 and qs["tess_classify"] >= 1 and
+          qs["tess_clip"] >= 1 and k12 >= 1,
+          f"sql quickstart: launches {qs}")
+    # the first SQL_SAMPLE points through a CPU session: the same rows
+    cpu = MosaicContext("H3", device="cpu")
+    cs = SQLSession(cpu)
+    cs.create_table("chips", chips.to_dict())
+    cs.create_table("trips", {
+        "pgeom": mt.GeometryArray.from_points(pts[:SQL_SAMPLE]),
+        "pid": np.arange(SQL_SAMPLE, dtype=np.int64)})
+    cs.create_table("pts", cs.sql(
+        f"SELECT pid, pgeom, grid_pointascellid(pgeom, {FN_RES}) AS cell "
+        "FROM trips").to_dict())
+    cj = cs.sql(q)
+    keep = pid < SQL_SAMPLE
+    check(np.array_equal(cj.columns["pid"], pid[keep]) and
+          np.array_equal(cj.columns["zid"], zid[keep]),
+          "sql quickstart: the CPU session's sample rows differ")
+    t0 = lap("22a cpu sample", t0)
+    out["quickstart"] = {
+        "points": len(pts), "chips": len(chips), "rows": len(joined),
+        "matched": int((zone20 >= 0).sum()), "mismatches": bad,
+        "join_strategy": decision.strategy,
+        "join_reason": decision.reason,
+        "explain_join_strategy": strategy.get("inner_join"),
+        "st_contains_blocks": k12, "rowwise_rows": ROWWISE_ROWS["cuda"],
+        "cpu_sample_rows": len(cj)}
+    log(f"[sql] quickstart: {len(chips)} chips from the generator equal "
+        f"to the CPU context's, {len(pts)} points, {len(joined)} rows "
+        f"joined ({decision.strategy}: {decision.reason}), 0 zones off "
+        f"pip_host_truth; K3 {qs['h3_latlng_to_cell']}, K7 "
+        f"{qs['tess_classify']}, K8 {qs['tess_clip']}, K12 {k12} "
+        f"launches; the first {SQL_SAMPLE} points' {len(cj)} rows equal "
+        "to a CPU session's")
+
+    # ---- 22b. fusion over the flagship's first batch, phase 20's points
+    # (a bucket above n) and the CPU tests' groups
+    x, y = batches[0][:, 0].copy(), batches[0][:, 1].copy()
+    zone = dense_zones[0].astype(np.int64)
+    w = np.random.default_rng(SQL_SEED).normal(size=len(x)).astype(
+        np.float32)
+    s.create_table("flag", {"x": x, "y": y, "zone": zone, "w": w})
+    a, b = float(np.median(x)), float(np.quantile(y, 0.75))
+    groups = {
+        "aggregate": (f"SELECT count(*) AS n, count(zone) AS nz, "
+                      f"sum(zone) AS sz, avg(zone) AS az, min(x) AS mnx, "
+                      f"max(y) AS mxy, first(w) AS fw FROM flag WHERE "
+                      f"x > {a!r} AND y < {b!r} AND zone >= 0"),
+        "project": (f"SELECT x * 2 + 1 AS u, w * 0.5 AS v FROM flag "
+                    f"WHERE zone < {SQL_ZONE_K}")}
+    qx = pts[:, 0].copy()
+    s.create_table("qs", {"x": qx, "y": pts[:, 1].copy(),
+                          "pid": np.arange(len(pts), dtype=np.int64),
+                          "cell": cells.columns["cell"]})
+    qa = float(np.median(qx))
+    padded_groups = {
+        "aggregate": (f"SELECT count(*) AS n, count(cell) AS nc, sum(pid) "
+                      f"AS sp, avg(pid) AS ap, min(x) AS mnx, max(y) AS "
+                      f"mxy, first(y) AS fy, first(pid) AS fp FROM qs "
+                      f"WHERE x > {qa!r} AND cell > 0"),
+        "project": (f"SELECT x * 2 + 1 AS u, -y AS v, pid * 3 AS p FROM qs "
+                    f"WHERE pid < {len(pts) // 2}")}
+    real_fg = fusion._fg
+    captured = []
+
+    class Proxy:
+        """``ops.fused_group`` as the fusion pass sees it, with its
+        launch wrapped."""
+
+        def __getattr__(self, name):
+            return getattr(real_fg, name)
+
+    proxy = Proxy()
+
+    def capture(prog, buf, n, bucket):
+        kept = buf.clone()
+        res = real_fg.fused_group(prog, buf, n, bucket)
+        captured.append((prog, kept, n, bucket, res))
+        return res
+
+    def through_ref(prog, buf, n, bucket):
+        return real_fg.fused_group_ref(prog, buf, n, bucket)
+
+    def three_ways(sess, path, label, gq, values=False):
+        """``gq`` fused (one K14 launch, one fetch, counted under
+        ``path``), through ``fused_group_ref`` on the card and unfused:
+        the three tables equal (bit for bit, or as numbers with
+        ``values``: numpy's unfused min and max of -0.0 and 0.0 depend on
+        the order), and K14's output bytes equal to ``fused_group_ref``'s
+        on the same packed buffer."""
+        pin("on")
+        proxy.fused_group = capture
+        captured.clear()
+        f0 = metrics.counter_value("fusion/fetches")
+        l0 = paths.get(path, {}).get("fused_group", 0)
+        fused = counted(path, lambda: sess.sql(gq))
+        launched = paths[path]["fused_group"] - l0
+        fetched = metrics.counter_value("fusion/fetches") - f0
+        check(launched == 1 and fetched == 1 and len(captured) == 1,
+              f"{label}: {launched} K14 launches, {fetched} fetches for "
+              "one fused execution")
+        proxy.fused_group = through_ref
+        l0 = fg.fused_group.launches
+        by_ref = sess.sql(gq)
+        pin("off")
+        t_u = time.perf_counter()
+        unfused = sess.sql(gq)
+        unfused_s = time.perf_counter() - t_u
+        check(fg.fused_group.launches == l0,
+              f"{label}: K14 ran off the fused path")
+        check(same_table(fused, unfused, values) and
+              same_table(fused, by_ref, values),
+              f"{label}: fused, unfused and fused_group_ref tables "
+              "differ: " + json.dumps(
+                  {c: [np.asarray(t.columns[c])[:3].tolist()
+                       for t in (fused, unfused, by_ref)]
+                   for c in fused.columns}, default=str))
+        prog, kept, n, bucket, res = captured[0]
+        ref = real_fg.fused_group_ref(prog, kept.clone(), n, bucket)
+        check(torch.equal(res, ref), f"{label}: K14's output bytes differ "
+              "from fused_group_ref's")
+        return prog, kept, n, bucket, res, ref, unfused_s
+
+    was = metrics.enabled
+    metrics.enable()
+    fusion._fg = proxy
+    k14, padded, cases = {}, {}, []
+    try:
+        for name, gq in groups.items():
+            prog, kept, n, bucket, res, ref, unfused_s = three_ways(
+                s, "sql fusion", f"sql fusion {name}", gq)
+            host = real_fg.unpack_outputs(prog, res.cpu().numpy(), bucket)
+            host_ref = real_fg.unpack_outputs(prog, ref.cpu().numpy(), bucket)
+            err = max(float(np.max(np.abs(
+                np.asarray(h, np.float64) - np.asarray(r, np.float64)),
+                initial=0.0)) for h, r in zip(host[1:], host_ref[1:]))
+            # K14 alone: the state words reset before each launch
+            sb = 8 * (real_fg.header_words(prog) + 2 + 3 * len(prog.specs))
+            state0 = kept[:sb].clone()
+            work = kept.clone()
+
+            def k14_call():
+                work[:sb].copy_(state0)
+                return real_fg.fused_group(prog, work, n, bucket)
+
+            def ref_call():
+                return real_fg.fused_group_ref(prog, kept, n, bucket)
+
+            plain_ms, events_ms = in_turns(ref_call, k14_call, 5, SQL_REPS)
+            ms, source = kernel_device_ms(k14_call, SQL_REPS,
+                                          "fused_group_kernel")
+            host_ms = host_ms_per_launch(k14_call, 200)
+            bound = k14_bound(prog, bucket, n)
+            k14[name] = {
+                "max_abs_err": err, "ms": ms, "ms_source": source,
+                "events_ms": events_ms, "host_ms": host_ms,
+                "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"], "bytes": bound["bytes"],
+                "ops": bound["ops"], "library_ms": None,
+                "instructions": len(prog.instrs), "rows": n,
+                "passing": int(host[0]), "unfused_host_s": unfused_s}
+            log(f"[sql] fusion {name}: {n} rows, {int(host[0])} pass; K14 "
+                f"{ms:.4f} ms ({source}; events {events_ms:.4f} ms), bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+                f"{bound['bytes']} B), fused_group_ref on the card "
+                f"{plain_ms:.4f} ms, host enqueue {host_ms:.4f} ms; the "
+                f"unfused pass {unfused_s * 1e3:.1f} ms of host time; "
+                "fused, unfused and fused_group_ref bit-equal")
+        # a bucket above n: the padded rows never count
+        for name, gq in padded_groups.items():
+            prog, _, n, bucket, res, _, _ = three_ways(
+                s, "sql fusion", f"sql fusion padded {name}", gq)
+            check(bucket > n, f"sql fusion padded {name}: n {n} fills its "
+                  f"bucket {bucket}")
+            host = real_fg.unpack_outputs(prog, res.cpu().numpy(), bucket)
+            padded[name] = {"rows": n, "bucket": bucket,
+                            "passing": int(host[0])}
+        # the CPU tests' groups (tests/torch_fusion_cases.py), each held
+        # to fused_group_ref and to the unfused numpy path
+        sys.path.insert(0, str(ROOT / "tests"))
+        import torch_fusion_cases as fc
+        suite = [("fx", fc.fx_table(), q, f"program {i}")
+                 for i, q in enumerate(fc.PROGRAM_CASES)]
+        suite += [("h", fc.hazard_table(), q, f"hazard {k}")
+                  for k, q in fc.HAZARDS.items()]
+        suite += [("h", t, fc.SIGNED_ZERO_QUERY, f"signed zero {i}")
+                  for i, t in enumerate(fc.signed_zero_tables())]
+        suite += [("h", fc.padding_table(r), fc.PADDING_QUERY,
+                   f"padding {r}") for r in fc.PADDING_ROWS]
+        for table, cols, q, label in suite:
+            cs_ = SQLSession(ctx)
+            cs_.create_table(table, cols)
+            three_ways(cs_, "sql fusion cases", f"sql fusion {label}", q,
+                       values=True)
+            cases.append(label)
+    finally:
+        fusion._fg = real_fg
+        config.set_default_config(prev_cfg)
+        if not was:
+            metrics.disable()
+    fz = paths["sql fusion"]["fused_group"]
+    want = len(groups) + len(padded_groups)
+    check(fz == want, f"sql fusion: {fz} K14 launches for {want} fused "
+          "executions")
+    fc_n = paths["sql fusion cases"]["fused_group"]
+    check(fc_n == len(cases), f"sql fusion cases: {fc_n} K14 launches for "
+          f"{len(cases)} fused executions")
+    out["fusion"] = k14
+    out["fusion_padded"] = padded
+    out["fusion_cases"] = cases
+    log(f"[sql] fusion at a bucket above n: {json.dumps(padded)}, "
+        "bit-equal three ways; the CPU tests' groups through K14, byte-"
+        f"equal to fused_group_ref and equal to the unfused path: "
+        f"{len(cases)} ({', '.join(cases)})")
+    t0 = lap("22b fusion", t0)
+
+    # ---- 22c. a chip store as a table
+    with tempfile.TemporaryDirectory() as root:
+        side_pts = mt.nyc_points(STORE_SIDE_ROWS, seed=901)
+        write_store(root, side_pts, grid_res=STORE_SIDE_RES,
+                    shard_rows=STORE_SIDE_SHARD)
+        store = ChipStore(root)
+        xcol, ycol = store.point_cols
+        allc = store.read_columns()
+        sx, sy = allc[xcol], allc[ycol]
+        x0, y0, x1, y1 = sx.min(), sy.min(), sx.max(), sy.max()
+        qx = float(x0 + (x1 - x0) * STORE_SIDE_FRAC)
+        qy = float(y0 + (y1 - y0) * STORE_SIDE_FRAC)
+        s.register_store("side", root)
+        sq = (f"SELECT {xcol}, {ycol} FROM side WHERE {xcol} <= {qx!r} "
+              f"AND {ycol} <= {qy!r}")
+        parts = s.sql("EXPLAIN " + sq).columns["partitions"][0]
+        scanned, total = (int(v) for v in parts.split("/"))
+        rows = counted("sql store", lambda: s.sql(sq))
+        keep = (sx <= qx) & (sy <= qy)
+        check(0 < scanned < total, f"sql store: partitions {parts}")
+        check(np.array_equal(rows.columns[xcol], sx[keep]) and
+              np.array_equal(rows.columns[ycol], sy[keep]),
+              "sql store: the rows differ from a numpy filter of the "
+              "stored points")
+        s.drop_store("side")
+    out["store"] = {"partitions": parts, "rows": len(rows),
+                    "stored": len(sx)}
+    log(f"[sql] store: {len(rows)} of {len(sx)} stored points, partitions "
+        f"scanned {parts}, equal to a numpy filter")
+    t0 = lap("22c store", t0)
+
+    # ---- 22d. EXPLAIN ANALYZE, trace trees, the sharded budget
+    tracer.reset()
+    tracer.enable()
+    try:
+        pin("on")
+        prof = counted("sql explain", lambda: s.sql(
+            "EXPLAIN ANALYZE " + groups["aggregate"]))
+        ops = list(prof.columns["operator"])
+        check(ops == ["scan", "filter", "aggregate"] and
+              list(prof.columns["fused"]) == ["-", "g1", "g1"],
+              f"sql explain: {ops} fused {list(prof.columns['fused'])}")
+        results = {}
+        barrier = threading.Barrier(2, timeout=60)
+
+        def one(tag, query):
+            barrier.wait()
+            results[tag] = s.sql(query)
+
+        ts = [threading.Thread(target=one, args=("agg", groups["aggregate"])),
+              threading.Thread(target=one, args=("proj", groups["project"]))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        traces = {tid: t for tid, t in tracer.report()["traces"].items()
+                  if t["name"].startswith("sql:")}
+        check(len(results) == 2 and len(traces) == 3,
+              f"sql explain: {len(traces)} sql traces")
+        for t in traces.values():
+            by_name = {sp["name"]: sp for sp in t["spans"]}
+            root = by_name.get("sql/query")
+            check(root is not None and root["parent_id"] is None and
+                  all(sp["parent_id"] == root["span_id"]
+                      for n, sp in by_name.items()
+                      if n.startswith("sql/query/")),
+                  f"sql explain: trace tree {sorted(by_name)}")
+        explain_rows = {c: [v if isinstance(v, str) else float(v)
+                            for v in prof.columns[c]]
+                        for c in ("operator", "rows", "est_rows", "time_ms",
+                                  "fused", "peak_bytes", "device_ms")}
+    finally:
+        tracer.disable()
+        tracer.reset()
+        config.set_default_config(prev_cfg)
+    log(f"[sql] EXPLAIN ANALYZE {json.dumps(explain_rows)}")
+    pts21 = batches[0][:MP_N]
+    out_bpr = tensor_bytes(pj.make_pip_join_fn(idx, grid)(torch.zeros(
+        (64, 2), dtype=torch.float32, device=DEV))) // 64
+    budget = int(MP_PRESS * CHUNK * (8 + out_bpr) / MP_HIGH)
+    slices, shrinks = split_model(MP_N, CHUNK, 8, out_bpr, budget, MP_HIGH)
+    seen = []
+    real_stream = pj.stream
+
+    def spy(*args, **kw):
+        args = list(args)
+        c = args[4]
+
+        def consume(i, sl, host):
+            seen.append((sl.start, sl.stop))
+            return c(i, sl, host)
+        args[4] = consume
+        return real_stream(*args, **kw)
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=timedelta(seconds=60))
+        pj.stream = spy
+        try:
+            G = dist.group.WORLD
+            for tag, conf in (("budget", budget), ("free", 0)):
+                config.set_default_config(config.apply_conf(config.apply_conf(
+                    prev_cfg, "mosaic.mem.budget.bytes", str(conf)),
+                    "mosaic.mem.pressure.high", str(MP_HIGH)))
+                metrics.reset()
+                metrics.enable()
+                coll.reset_counts()
+                seen.clear()
+                zs, _ = counted("sql sharded budget", lambda:
+                                pj.make_sharded_streamed_pip_join(
+                                    idx, grid, G, polys=polys, chunk=CHUNK,
+                                    device=DEV)(pts21))
+                runs[tag] = (zs, list(seen),
+                             metrics.counter_value("mem/chunk_shrink"),
+                             coll.COUNTS["all_reduce"][0])
+        finally:
+            pj.stream = real_stream
+            config.set_default_config(prev_cfg)
+            metrics.disable()
+            metrics.reset()
+            dist.destroy_process_group()
+    z_ref = dense_zones[0][:MP_N]
+    zb, sb_, shb, arb = runs["budget"]
+    zf, sf, shf, arf = runs["free"]
+    check(np.array_equal(zb, z_ref) and np.array_equal(zf, z_ref),
+          "sql sharded budget: zones differ from phase 5's")
+    check(sb_ == slices and shb == shrinks and shrinks > 0,
+          f"sql sharded budget: {len(sb_)} slices, {shb} halvings; the "
+          f"host model {len(slices)}, {shrinks}")
+    check(arb > 1 and arf == 1 and sf == [(s0, min(s0 + CHUNK, MP_N))
+                                           for s0 in range(0, MP_N, CHUNK)],
+          f"sql sharded budget: all_reduce {arb} budgeted, {arf} free")
+    out["sharded_budget"] = {"budget_bytes": budget, "slices": len(sb_),
+                             "halvings": int(shb), "all_reduce_budget": arb,
+                             "all_reduce_free": arf}
+    log(f"[sql] sharded streamed join in a NCCL world of one under "
+        f"{budget} B: {len(sb_)} slices, {int(shb)} halvings as the host "
+        f"model, {arb} all_reduce (one a decision, plus the rechecked "
+        f"count), {arf} without a budget; zones equal phase 5's")
+    lap("22d", t0)
+    out["counts"] = paths
+    out["secs"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def kernel_line(name, source, replaces, k, by_path) -> dict:
     """One kernel's entry of the ``kernels`` line; ``launches`` is the
     sum of its launches over the main paths in ``by_path``."""
@@ -6702,6 +7307,7 @@ def main() -> int:
         fns = phase_functions(grid)
         mem = phase_memory_planes(idx, grid, polys, batches, dense_zones,
                                   over)
+        sqlp = phase_sql(idx, grid, polys, batches, dense_zones)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -6715,7 +7321,7 @@ def main() -> int:
              **shard["counts"], **{p: c for p, c in store["counts"].items()
                                    if p.startswith("store fed")},
              **geom["paths"], **hp["counts"], **fns["counts"],
-             **mem["counts"]}
+             **mem["counts"], **sqlp["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -6750,10 +7356,12 @@ def main() -> int:
                                   if k != "counts"}}, default=str))
     log(json.dumps({"memory_planes": {k: v for k, v in mem.items()
                                       if k != "counts"}}, default=str))
+    log(json.dumps({"sql": {k: v for k, v in sqlp.items()
+                            if k != "counts"}}, default=str))
     log(f"[chip_smoke] phases 1-18 took {t_18:.1f} s, phase 19 "
         f"{hp['phase_s']:.1f} s, phase 20 {fns['phase_s']:.1f} s, phase "
-        f"21 {mem['phase_s']:.1f} s, phases 1-21 "
-        f"{time.perf_counter() - t_start:.1f} s (host clock)")
+        f"21 {mem['phase_s']:.1f} s, phase 22 {sqlp['phase_s']:.1f} s, "
+        f"phases 1-22 {time.perf_counter() - t_start:.1f} s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
                for label, row in chip[key]["shapes"].items()}
@@ -6830,7 +7438,11 @@ def main() -> int:
         kernel_line("edges_cross", "mosaic_tpu_torch/csrc/edges_cross.cu",
                     "mosaic_tpu/core/geometry/predicates.py:84 "
                     "(edges_cross_matrix over :63 segments_intersect)",
-                    geom["k13"], by_path("edges_cross"))]}))
+                    geom["k13"], by_path("edges_cross")),
+        kernel_line("fused_group", "mosaic_tpu_torch/csrc/fused_group.cu",
+                    "mosaic_tpu/perf/fusion.py:555 (_build_program, the "
+                    "XLA program of a fused SQL operator group)",
+                    sqlp["fusion"]["aggregate"], by_path("fused_group"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -65,14 +65,25 @@ setting carries over 1:1:
   ``mosaic.audit.{path,rotate.bytes,retain}`` — the query accounting
   plane (``obs/accounting.py``);
 * ``mosaic.obs.fleet.{dir,window.ms,events}`` — the telemetry spool
-  the sampler writes (``obs/spool.py``).
+  the sampler writes (``obs/spool.py``);
+* ``mosaic.planner.stats.path`` — the planner's learned-coefficient
+  file ("" = in process only; env ``MOSAIC_TPU_PLANNER_STATS`` wins),
+  the same JSON as the JAX package's, so either package loads the
+  other's (``sql/planner.py``);
+* ``mosaic.obs.slow.query.ms`` — an SQL query slower than this dumps
+  the flight recorder (0 = never; ``sql/engine.py``);
+* ``mosaic.fusion.{enabled,max.ops}`` — whole-query fusion on or off
+  and its group-size cap (``perf/fusion.py``);
 
 A successful ``apply_conf`` records a ``config`` flight-recorder event.
 
 The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
-any other one, and for the pins of ops it does not run (the
-``equi_join`` and ``fusion`` ops), and for ``mosaic.device.dtype`` and
-``mosaic.exact.fallback``, which nothing in the port reads.
+any other one (the serve and history keys wait for those planes), and
+for ``mosaic.device.dtype``, ``mosaic.exact.fallback`` and
+``mosaic.jit.cache.dir``, which nothing in the port reads (the last
+names XLA's on-disk compilation cache; the port compiles nothing at run
+time, its kernels are built from ``csrc/`` once, keyed by their
+sources' hash).
 """
 
 from __future__ import annotations
@@ -124,6 +135,10 @@ MOSAIC_OBS_MEM_ENABLED = "mosaic.obs.mem.enabled"
 MOSAIC_OBS_FLEET_DIR = "mosaic.obs.fleet.dir"
 MOSAIC_OBS_FLEET_WINDOW_MS = "mosaic.obs.fleet.window.ms"
 MOSAIC_OBS_FLEET_EVENTS = "mosaic.obs.fleet.events"
+MOSAIC_PLANNER_STATS_PATH = "mosaic.planner.stats.path"
+MOSAIC_OBS_SLOW_QUERY_MS = "mosaic.obs.slow.query.ms"
+MOSAIC_FUSION_ENABLED = "mosaic.fusion.enabled"
+MOSAIC_FUSION_MAX_OPS = "mosaic.fusion.max.ops"
 
 MOSAIC_RASTER_CHECKPOINT_DEFAULT = "/tmp/mosaic_tpu/checkpoint"
 MOSAIC_RASTER_TMP_PREFIX_DEFAULT = "/tmp"
@@ -224,6 +239,16 @@ class MosaicConfig:
     obs_fleet_dir: str = ""
     obs_fleet_window_ms: float = 300_000.0
     obs_fleet_events: int = 512
+    # learned planner coefficients persisted here ("" = in process
+    # only; env MOSAIC_TPU_PLANNER_STATS takes precedence)
+    planner_stats_path: str = ""
+    # SQLSession.sql() calls slower than this many ms dump the flight
+    # recorder; 0 disables the trigger
+    obs_slow_query_ms: float = 0.0
+    # whole-query fusion (perf/fusion.py): the master switch and the
+    # member-operator cap of a group
+    fusion_enabled: bool = True
+    fusion_max_ops: int = 8
 
 
 def _as_flag(key: str, value) -> bool:
@@ -378,6 +403,10 @@ _CONF_FIELDS = {
     MOSAIC_OBS_FLEET_DIR: ("obs_fleet_dir", _as_str),
     MOSAIC_OBS_FLEET_WINDOW_MS: ("obs_fleet_window_ms", _as_millis),
     MOSAIC_OBS_FLEET_EVENTS: ("obs_fleet_events", _as_count),
+    MOSAIC_PLANNER_STATS_PATH: ("planner_stats_path", _as_str),
+    MOSAIC_OBS_SLOW_QUERY_MS: ("obs_slow_query_ms", _as_millis),
+    MOSAIC_FUSION_ENABLED: ("fusion_enabled", _as_flag),
+    MOSAIC_FUSION_MAX_OPS: ("fusion_max_ops", _as_blocksize),
 }
 
 
@@ -452,6 +481,9 @@ def set_default_config(cfg: MosaicConfig) -> None:
         configure_sampler(0.0)
         from .obs.profiler import configure_profiler
         configure_profiler(0.0)
+    if cfg.planner_stats_path:
+        from .sql.planner import planner
+        planner.configure_stats(cfg.planner_stats_path)
 
 
 def default_config() -> MosaicConfig:

@@ -22,7 +22,9 @@ body computes on the device runs there, results coming back as numpy:
   polygons — the point-query kernel; ``st_intersects`` and
   ``st_contains`` of polygons — the edge-crossing kernel and the
   point-query kernel.  As in the JAX package these compute the [N, N]
-  matrix and take its diagonal: callers chunk their rows;
+  matrix and take its diagonal, the containment and intersection tests
+  in blocks of ``ROWWISE_ROWS`` rows (2,048 on the card, one launch a
+  block), so a large join's rows cost rows x 2,048 pairs;
 * ``grid_tessellate`` (and its aliases), ``grid_polyfill`` and the
   geometry k-rings — the port's ``tessellate``/``polyfill`` (candidate
   sampling through the cell kernel on H3, the classify and clip
@@ -65,6 +67,14 @@ Geoms = GeometryArray
 
 
 from .raster import RasterFunctions
+
+
+#: rows a row-wise predicate (``st_contains``, ``st_within``,
+#: ``st_intersects``) evaluates per block, by device type: its kernels
+#: compute every (row, row) pair of a block and keep the diagonal, so a
+#: block costs rows^2 pairs (the plain versions on the host take smaller
+#: blocks)
+ROWWISE_ROWS = {"cuda": 2048, "cpu": 256}
 
 
 class MosaicContext(RasterFunctions):
@@ -426,24 +436,45 @@ class MosaicContext(RasterFunctions):
     # ------------------------------------------------------------------
     # predicates
     # ------------------------------------------------------------------
+    def _rowwise(self, fn, a: Geoms, b: Geoms) -> np.ndarray:
+        """``fn(a, b)`` of a row-wise predicate whose kernels compute the
+        block of every (row of a, row of b) pair and keep its diagonal,
+        taken ``ROWWISE_ROWS`` rows at a time (one launch a block), so
+        a call over the rows of a large join (the SQL Quickstart's
+        ``st_contains(wkb, pgeom)``) costs rows x block pairs, not rows
+        squared.  The same answer either way."""
+        n, rows = len(a), ROWWISE_ROWS.get(self.device.type, 2048)
+        if n <= rows:
+            return fn(a, b)
+        out = np.empty(n, bool)
+        for s in range(0, n, rows):
+            idx = np.arange(s, min(s + rows, n))
+            out[idx] = fn(a.take(idx), b.take(idx))
+        return out
+
     def st_contains(self, a: Geoms, b: Geoms) -> np.ndarray:
         """Row-wise a contains b.  Point-in-polygon fast path when b is
         all points (reference: ST_Contains)."""
-        ea = self._edges(a)
-        if np.all(b.types == GeometryType.POINT):
-            inside, _ = _predicates.points_in_polygons(self._points(b), ea)
-            return inside.diagonal().cpu().numpy().copy()
-        eb = self._edges(b)
-        return _predicates.polygon_contains_polygon(
-            ea, eb).diagonal().cpu().numpy().copy()
+        def block(a: Geoms, b: Geoms) -> np.ndarray:
+            ea = self._edges(a)
+            if np.all(b.types == GeometryType.POINT):
+                inside, _ = _predicates.points_in_polygons(self._points(b),
+                                                           ea)
+                return inside.diagonal().cpu().numpy().copy()
+            eb = self._edges(b)
+            return _predicates.polygon_contains_polygon(
+                ea, eb).diagonal().cpu().numpy().copy()
+        return self._rowwise(block, a, b)
 
     def st_within(self, a: Geoms, b: Geoms) -> np.ndarray:
         return self.st_contains(b, a)
 
     def st_intersects(self, a: Geoms, b: Geoms) -> np.ndarray:
-        ea, eb = self._edges(a), self._edges(b)
-        return _predicates.polygons_intersect(
-            ea, eb).diagonal().cpu().numpy().copy()
+        def block(a: Geoms, b: Geoms) -> np.ndarray:
+            ea, eb = self._edges(a), self._edges(b)
+            return _predicates.polygons_intersect(
+                ea, eb).diagonal().cpu().numpy().copy()
+        return self._rowwise(block, a, b)
 
     # ------------------------------------------------------------------
     # affine transforms

@@ -55,17 +55,20 @@ _DEF_CAPACITY = 4096
 #: The event catalogue: every ``kind`` string a ``record()`` call of the
 #: port may emit (``tests/test_torch_recorder.py`` holds the port's
 #: ``record`` calls to it).  Kinds of modules the port has not got yet
-#: (the SQL engine, fusion, serve, the fleet) join it with them.
+#: (serve, the history plane, the fleet) join it with them.
 EVENTS = frozenset({
-    # lifecycle / tracing
-    "span", "config", "trace_link", "device_trace", "audit",
+    # lifecycle / tracing; the SQL engine's query and slow-query marks
+    "span", "sql", "slow_query", "config", "trace_link", "device_trace",
+    "audit",
     # cancellation
     "query_cancel_requested",
     # resilience: retries, faults, degrade-not-die ingestion
     "retry", "retry_recovered", "retry_giveup", "fault_injected",
     "codec_error", "codec_record_dropped",
-    # planner
-    "planner_decision", "planner_mispredict",
+    # planner + fusion
+    "planner_decision", "planner_mispredict", "planner_stats_loaded",
+    "planner_stats_corrupt", "planner_stats_save_failed",
+    "fusion_group", "fusion_bailout", "fusion_plan_error",
     # the refined PIP join re-ran a failed batch on the flat path
     "refine_bailout",
     # the layout advisor's recommendation, with its evidence

@@ -119,9 +119,10 @@ class SLObjective:
 def default_objectives() -> List[SLObjective]:
     """The shipped objectives, the JAX package's — deliberately loose
     enough that a clean run with the sampler on raises zero alerts.  The
-    SQL and compile objectives watch series the port records once it
-    has the SQL engine (ROADMAP §A7b); the port compiles nothing at run
-    time."""
+    SQL objectives read what ``sql.engine.SQLSession.sql`` feeds (the
+    ``sql/query_ms`` series, the ``sql/queries`` and ``sql/errors``
+    counters); the compile objective's series stays empty, since the
+    port compiles nothing at run time."""
     return [
         # per-operator latency: a sql() call taking > 30 s is bad; more
         # than 5% bad in both windows pages

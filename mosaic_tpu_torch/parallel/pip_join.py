@@ -1122,10 +1122,14 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
     and ``shard/skew_planned/pip_join`` gauges, and the pass's wall time
     is charged to the devices by the summed per-shard matched counts,
     beside the ``collective/*`` figures (each rank its own share, as in
-    :func:`make_sharded_pip_join`).  The stream never halves a chunk
-    under memory pressure: every chunk ends in an ``all_gather`` that
-    every rank must reach alike, and a rank's pressure is its own
-    (ROADMAP C11)."""
+    :func:`make_sharded_pip_join`).  Under ``mosaic.mem.budget.bytes``
+    the stream halves a chunk's rows past the pressure mark, as the JAX
+    package's does, on every rank alike: every chunk ends in an
+    ``all_gather`` that every rank must reach, so each halving decision is
+    the group's, one ``all_reduce`` MAX of the ranks' own flags at the
+    chunk boundary (``perf.pipeline.stream``'s ``agree``); without a
+    budget it takes no such collective.  Every rank must share the budget
+    setting."""
     dev = _check_device(idx, device)
     chunk = _resolve_chunk(chunk)
     fn = make_pip_join_fn(idx, grid, eps, margin_eps)
@@ -1145,18 +1149,14 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
         n = len(points64)
         zone_out = np.empty(n, np.int32)
         state = {"rechecked": 0, "slots": {}, "weights": None, "mine": 0}
-        # stream() sees rank r's slot block of each chunk: a slice as long
-        # as the block, starting where the chunk does
-        real = {}
-        blocks = []
-        for sl in chunk_rows(n, chunk):
-            per = pow2_bucket(-(-(sl.stop - sl.start) // D), floor=64)
-            real[sl.start] = sl
-            blocks.append(slice(sl.start, sl.start + per))
+        chunks = chunk_rows(n, chunk)
 
-        def stage(blk, out):
-            sl = real[blk.start]
-            per = blk.stop - blk.start
+        def per_of(sl):
+            # rank r's slot block of a chunk: its rows over D, padded
+            return pow2_bucket(-(-(sl.stop - sl.start) // D), floor=64)
+
+        def stage(sl, out):
+            per = out.shape[0]
             pts = points64[sl]
             slots = placement_slots(rebalancer.preferred(pts), len(pts),
                                     D, per)
@@ -1169,10 +1169,9 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
             # f64 origin shift BEFORE the f32 cast (= localize())
             out[at] = pts[mine] - origin[None]
 
-        def consume(i, blk, host):
+        def consume(i, sl, host):
             z, unc = host
-            sl = real[blk.start]
-            per = blk.stop - blk.start
+            per = per_of(sl)
             slots, mine, at = state["slots"].pop(sl.start)
             both = np.full((per, 2), -1, np.int32)
             both[:, 0] = z
@@ -1189,19 +1188,25 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
                 metrics.gauge("shard/skew_planned/pip_join",
                               rebalancer.planned_skew())
 
-        def observe(i, blk, seconds):
-            sl = real[blk.start]
+        def observe(i, sl, seconds):
             # the JAX package's key: the padded chunk's rows
             ledger.observe("pip/sharded_stream",
                            (id(idx), id(group), "data",
-                            (blk.stop - blk.start) * D, eps, margin_eps),
+                            per_of(sl) * D, eps, margin_eps),
                            seconds, rows=sl.stop - sl.start)
+
+        def agree(flag: bool) -> bool:
+            f = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+            return bool(coll.all_reduce(f, group, op="max").item())
 
         t0 = time.perf_counter()
         with root_trace("pip_join"), \
                 tracer.span("pip_join/sharded_streamed"):
-            stream(blocks, stage, 2, lambda i, x: fn(x), consume, dev,
-                   observe=observe, site="pip_join/sharded", split=False)
+            stream(chunks, stage, 2, lambda i, x: fn(x), consume, dev,
+                   rows=max((per_of(sl) for sl in chunks), default=0),
+                   observe=observe, site="pip_join/sharded",
+                   staged_rows=per_of,
+                   agree=agree if group is not None else None)
         if metrics.enabled:
             # per-device wall-time attribution: the run's matched-row
             # counts per shard (summed over chunks) are the load share
@@ -1213,7 +1218,7 @@ def make_sharded_streamed_pip_join(idx, grid=None, group=None,
             metrics.count("collective/points_scatter_bytes",
                           8.0 * state["mine"])
             metrics.count("pip_join/sharded_points", float(n))
-            metrics.count("pip_join/sharded_chunks", float(len(blocks)))
+            metrics.count("pip_join/sharded_chunks", float(len(chunks)))
         total = torch.tensor(state["rechecked"], dtype=torch.int64,
                              device=dev)
         return zone_out, int(coll.all_reduce(total, group))

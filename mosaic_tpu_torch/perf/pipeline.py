@@ -88,7 +88,9 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
            consume: Callable[[int, slice, Tuple[np.ndarray, ...]], None],
            device: torch.device, rows: Optional[int] = None,
            observe: Optional[Callable[[int, slice, float], None]] = None,
-           site: str = "pipeline.stream", split: bool = True) -> None:
+           site: str = "pipeline.stream", split: bool = True,
+           staged_rows: Optional[Callable[[slice], int]] = None,
+           agree: Optional[Callable[[bool], bool]] = None) -> None:
     """Run the row slices of ``chunks`` through stage -> upload -> compute
     -> download -> consume.
 
@@ -102,7 +104,10 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
     must give it, and a longer slice raises ``ValueError``.
 
     ``stage(sl, out)`` fills ``out`` ([rows, width] f32 numpy, pinned
-    when on CUDA) with the chunk's device input; ``compute(i, x)`` takes
+    when on CUDA) with the chunk's device input, ``staged_rows(sl)`` rows
+    of it (default the slice's own rows: a caller that stages a padded
+    block of its own for each row slice, as the sharded join does, says
+    how long); ``compute(i, x)`` takes
     the launch's index and its [rows, width] f32 device tensor and
     returns a tuple of device tensors, enqueued on the current stream;
     ``consume(i, sl, host)`` receives those outputs as numpy arrays, in
@@ -123,8 +128,16 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
     ``i`` then counts the halves, so a caller that splits keys its
     per-chunk state on the slice, as the streamed join does (the same
     rows arrive, in order, across more launches).  Callers whose chunk
-    index names per-chunk parameters, or whose chunk boundaries are
-    collectives every rank must reach alike, pass ``split=False``.
+    index names per-chunk parameters, or whose chunks are not row slices,
+    pass ``split=False``.
+
+    ``agree(flag) -> bool`` makes a group of ranks halve alike when each
+    chunk boundary is a collective every rank must reach (the sharded
+    streamed join): each halving decision is then the group's, one
+    ``all_reduce`` MAX of every rank's own flag, so every rank cuts the
+    same slice.  It is asked only while a budget is set
+    (``mosaic.mem.budget.bytes`` > 0, which every rank of the group must
+    share); without one the stream never halves and takes no collective.
 
     ``observe(i, sl, seconds)`` receives each chunk's launch wall time:
     compute dispatch to host-fetch completion, clamped to the previous
@@ -140,13 +153,17 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
     fetch starts at the ``pipeline.fetch`` fault site.  An exception
     from any step drains both CUDA streams and releases the ledger
     entries of every chunk in flight, then propagates."""
+    def n_staged(sl: slice) -> int:
+        return staged_rows(sl) if staged_rows is not None \
+            else sl.stop - sl.start
+
     if rows is None:
         if not isinstance(chunks, Sequence):
             raise ValueError("a lazy chunk source needs its row bound: "
                              "pass rows=")
         if not chunks:
             return
-        rows = max(sl.stop - sl.start for sl in chunks)
+        rows = max(n_staged(sl) for sl in chunks)
     rows = int(rows)
     source = iter(chunks)
     # a split pushes its halves back onto the head of this deque, so it
@@ -156,12 +173,19 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
     cuda = device.type == "cuda"
     dev_keys = [device_key(device)]
 
+    def shrink() -> bool:
+        if agree is None:
+            return mem_budget.shrink_needed()
+        # the group's decision: one all_reduce MAX a boundary, and none
+        # at all while no budget is set
+        return mem_budget.budget_bytes() > 0 and \
+            agree(mem_budget.shrink_needed())
+
     def maybe_split() -> None:
         # degrade-not-die: while any device sits past the pressure
         # high-water mark, halve the next slice before staging it
-        while (split and mem_budget.shrink_needed()
-               and (pending_sl[0].stop - pending_sl[0].start)
-               > _MIN_SHRINK_ROWS):
+        while (split and (pending_sl[0].stop - pending_sl[0].start)
+               > _MIN_SHRINK_ROWS and shrink()):
             sl = pending_sl.popleft()
             mid = (sl.start + sl.stop) // 2
             pending_sl.appendleft(slice(mid, sl.stop))
@@ -179,8 +203,8 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
                 sl = next(source, None)
             if sl is None:
                 return None
-            if sl.stop - sl.start > rows:
-                raise ValueError(f"chunk of {sl.stop - sl.start} rows "
+            if n_staged(sl) > rows:
+                raise ValueError(f"chunk of {n_staged(sl)} rows "
                                  f"exceeds the stream's bound of {rows}")
             pending_sl.append(sl)
         maybe_split()
@@ -230,7 +254,7 @@ def stream(chunks: Iterable[slice], stage: Callable[[slice, np.ndarray],
         """Stage slice ``sl`` and put it on the device: (x, ready event
         or None, ledger token)."""
         nonlocal h2d
-        n = sl.stop - sl.start
+        n = n_staged(sl)
         if not cuda:
             buf = np.empty((n, width), np.float32)
             with record_function("stream/stage"):

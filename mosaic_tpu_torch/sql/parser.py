@@ -2,8 +2,9 @@
 
 Port copy of ``mosaic_tpu.sql.parser``: the same grammar and the same
 dataclass tree, so a query parses to equal trees in both packages.  The
-chip store's WHERE pushdown (``store/pushdown.py``) reads it; the engine
-that executes the tree is not ported yet (ROADMAP §A7).
+SQL engine (``sql/engine.py``) executes the tree, and the chip store's
+WHERE pushdown (``store/pushdown.py``) and the fusion pass
+(``perf/fusion.py``) read it.
 
 Reference counterpart: sql/extensions/MosaicSQL.scala:21-47 registers the
 function surface into Spark's SQL parser; here (no Spark) a small

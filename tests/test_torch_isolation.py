@@ -10,13 +10,16 @@ default.
   geometry surface: the WKB and GeoJSON codecs, edge blocks with their
   measures and predicates (containment equal to the oracle), a hull, a
   triangulation, a buffer, a UTM round trip, the analyzer and a warp;
-  and the host planes: a plan from ``MOSAIC_TPU_FAULT_PLAN`` armed at
+  the SQL engine: a fused aggregate (K14's plain version) equal to the
+  unfused answer; and the host planes: a plan from
+  ``MOSAIC_TPU_FAULT_PLAN`` armed at
   import, then the dense join again with a fault plan armed (a
   ``pipeline.chunk`` stall), the tracer on and a flight-recorder dump
   written, equal zones, its span and the dump's events read back;
   importing the port leaves ``threading.Thread.start`` as it was.
-* No file of the port, nor chip_smoke.py, imports ``jax`` or
-  ``mosaic_tpu`` (an ``ast`` scan over every subpackage, ``core/raster``,
+* No file of the port, nor chip_smoke.py and the helpers it imports
+  (``tools/split_model.py``, ``tests/torch_fusion_cases.py``), imports
+  ``jax`` or ``mosaic_tpu`` (an ``ast`` scan over every subpackage, ``core/raster``,
   ``io``, ``obs`` and ``resilience`` among them; the root module name must match
   exactly, so ``mosaic_tpu_torch`` itself does not count).
 * pyproject.toml's package data covers every file under ``csrc/`` and
@@ -175,6 +178,23 @@ with tempfile.TemporaryDirectory() as d:
 kinds = {e["kind"] for e in dumped["events"]}
 assert {"fault_injected", "span", "config"} <= kinds, kinds
 assert dumped["device"] == {"initialized": False}
+from mosaic_tpu_torch import config as tconf
+from mosaic_tpu_torch.functions.context import MosaicContext
+from mosaic_tpu_torch.sql import SQLSession
+sess = SQLSession(MosaicContext("CUSTOM(-180,180,-90,90,2,360,180)",
+                                device="cpu"))
+sess.create_table("t", {"x": np.arange(2000.0),
+                        "k": np.arange(2000, dtype=np.int64) % 7})
+tconf.set_default_config(tconf.apply_conf(
+    tconf.default_config(), "mosaic.planner.force.fusion", "on"))
+q = "SELECT count(*) AS n, sum(k) AS s, max(x) AS m FROM t WHERE k < 3"
+assert list(sess.sql("EXPLAIN " + q).columns["fused"]) == ["-", "g1", "g1"]
+fused = sess.sql(q)
+tconf.set_default_config(tconf.apply_conf(
+    tconf.default_config(), "mosaic.planner.force.fusion", "off"))
+unfused = sess.sql(q)
+assert all(fused.columns[c].tolist() == unfused.columns[c].tolist()
+           for c in ("n", "s", "m")), (fused, unfused)
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("SLICE_OK", int((zone >= 0).sum()), rechecked, len(cells))
 """
@@ -202,7 +222,9 @@ def _imported_roots(path: Path):
 
 def test_no_file_imports_jax_or_mosaic_tpu():
     files = sorted((REPO / "mosaic_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    # chip_smoke.py and the helpers it imports
+    files += [REPO / "chip_smoke.py", REPO / "tools" / "split_model.py",
+              REPO / "tests" / "torch_fusion_cases.py"]
     assert len(files) > 20
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"mosaic_tpu_torch/config.py",
@@ -259,7 +281,13 @@ def test_no_file_imports_jax_or_mosaic_tpu():
             "mosaic_tpu_torch/core/geometry/predicates.py",
             "mosaic_tpu_torch/ops/edge_measures.py",
             "mosaic_tpu_torch/ops/edge_point.py",
-            "mosaic_tpu_torch/ops/edges_cross.py"} <= names
+            "mosaic_tpu_torch/ops/edges_cross.py",
+            "mosaic_tpu_torch/sql/__init__.py",
+            "mosaic_tpu_torch/sql/engine.py",
+            "mosaic_tpu_torch/sql/prettifier.py",
+            "mosaic_tpu_torch/perf/jit_cache.py",
+            "mosaic_tpu_torch/perf/fusion.py",
+            "mosaic_tpu_torch/ops/fused_group.py"} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) &
                                             FORBIDDEN)
            for f in files}

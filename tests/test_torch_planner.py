@@ -7,10 +7,17 @@
   keys and the host planes' ``mosaic.trace.enabled``,
   ``mosaic.metrics.enabled`` and ``mosaic.obs.dump.cooldown.ms``;
   the raster and ``mosaic.io.on.error`` keys are held in
-  tests/test_torch_raster.py) accepts and rejects the same values as the
-  JAX package's, with the same defaults and the same error class.  The stated exception: the pins this
-  port leaves out (the ``equi_join`` and ``fusion`` ops) and the keys of
-  later slices raise ``ConfigError``.
+  tests/test_torch_raster.py), with the SQL engine's
+  ``mosaic.planner.stats.path``, ``mosaic.obs.slow.query.ms``,
+  ``mosaic.fusion.{enabled,max.ops}`` and the ``equi_join`` and
+  ``fusion`` pins, accepts and rejects the same values as the JAX
+  package's, with the same defaults and the same error class.  The
+  stated exception: the keys of later slices (the serve and history
+  planes, ``mosaic.obs.fleet.stale.ms``) and ``mosaic.device.dtype``,
+  ``mosaic.exact.fallback`` and ``mosaic.jit.cache.dir``, which nothing
+  in the port reads (ROADMAP C14), raise ``ConfigError``.
+* A stats file saved by either planner loads in the other: the same
+  coefficients and the same decisions after.
 * Pins give the same Decision fields (strategy, reason, est_rows,
   cost_key, key_n, forced, chunk, depth) in both planners, the PIP join's
   on one device and over four (the ``sharded`` candidate).
@@ -78,6 +85,13 @@ KEY_VALUES = {
     "mosaic.trace.enabled": ["true", "false", "on", "perhaps"],
     "mosaic.metrics.enabled": ["true", "false", "0", "x"],
     "mosaic.obs.dump.cooldown.ms": ["0", "30000", "2.5", "-1", "x"],
+    "mosaic.planner.force.equi_join": ["auto", "loop", "vectorized",
+                                       "LOOP", "hash", ""],
+    "mosaic.planner.force.fusion": ["auto", "on", "off", "ON", "maybe"],
+    "mosaic.planner.stats.path": ["/tmp/ps.json", "", " x "],
+    "mosaic.obs.slow.query.ms": ["0", "250", "0.0001", "-1", "x"],
+    "mosaic.fusion.enabled": ["true", "false", "off", "maybe"],
+    "mosaic.fusion.max.ops": ["8", "1", "0", "-3", "zero"],
 }
 
 #: the config fields those keys set, with the JAX package's defaults
@@ -99,7 +113,10 @@ FIELDS_PORTED = ("index_system", "geometry_api", "planner_enabled",
                  "audit_path", "audit_rotate_bytes", "audit_retain",
                  "mem_budget_bytes", "mem_pressure_high",
                  "obs_mem_enabled", "obs_fleet_dir",
-                 "obs_fleet_window_ms", "obs_fleet_events")
+                 "obs_fleet_window_ms", "obs_fleet_events",
+                 # the SQL engine's and fusion's
+                 "planner_stats_path", "obs_slow_query_ms",
+                 "fusion_enabled", "fusion_max_ops")
 
 
 @pytest.fixture(autouse=True)
@@ -161,18 +178,21 @@ def test_force_pins_stack_and_clear_alike():
 
 
 @pytest.mark.parametrize("key,val", [
-    ("mosaic.jit.cache.dir", "/tmp/jc"),
-    ("mosaic.planner.force.equi_join", "loop"),
-    ("mosaic.planner.force.fusion", "on"),
-    ("mosaic.planner.stats.path", "/tmp/ps.json"),
-    ("mosaic.fusion.enabled", "true"),
-    ("mosaic.obs.slow.query.ms", "250"),
+    ("mosaic.serve.port", "8080"),
+    ("mosaic.serve.batch.max", "64"),
+    ("mosaic.serve.fleet.workers", "2"),
+    ("mosaic.history.dir", "/tmp/hist"),
+    ("mosaic.history.retain", "4"),
+    ("mosaic.obs.fleet.stale.ms", "1000"),
     ("mosaic.device.dtype", "float64"),
     ("mosaic.exact.fallback", "false"),
+    ("mosaic.jit.cache.dir", "/tmp/jc"),
+    ("mosaic.jit.cache.dir", ""),
 ])
 def test_left_out_pins_and_keys_raise(key, val):
     """The stated divergence: what the JAX package takes for a later
-    slice (the SQL ops, other keys), the port refuses."""
+    slice (the serve and history planes) and the keys nothing in the
+    port reads, the port refuses."""
     jconfig.apply_conf(jconfig.MosaicConfig(), key, val)
     with pytest.raises(tconfig.ConfigError):
         tconfig.apply_conf(tconfig.MosaicConfig(), key, val)
@@ -399,3 +419,60 @@ def test_streamed_join_chunk_from_config():
         zone, _ = run(pts)
     assert steps == [3]
     assert np.array_equal(zone, mt.pip_host_truth(pts, polys))
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_stats_file_round_trip(tmp_path, writer):
+    """A stats file either planner saves loads in the other: equal
+    coefficients, equal decisions (the SQL slice's state carried
+    across)."""
+    path = str(tmp_path / "stats.json")
+    src, dst = (JPlanner(), TPlanner()) if writer == "jax" else \
+        (TPlanner(), JPlanner())
+    feed = [("equi_join/loop", 3000, 0.004, 2900),
+            ("equi_join/vectorized", 3000, 0.001, 2900),
+            ("fusion/filter+aggregate", 70_000, 0.002, None),
+            ("filter", 70_000, 0.010, 35_000),
+            ("aggregate", 70_000, 0.020, 1),
+            ("knn/brute", 5000, 0.3, None),
+            ("pip_join/streamed/c19", 1 << 20, 0.8, None)]
+    for op, n, s, rows in feed:
+        src.observe_op(op, n, s, rows_out=rows)
+    assert src.save(path) == path
+    assert dst.load(path) is True
+    for op, n, _, rows in feed:
+        assert dst.ms_per_row(op, n) == src.ms_per_row(op, n)
+        if rows is not None:
+            assert dst.ratio(op, n) == src.ratio(op, n)
+    for pl in (src, dst):
+        pl.decisions = 0
+    for n in (100, 3000, 9000):
+        _same(dst.decide_equi_join(n, n), src.decide_equi_join(n, n))
+    for n in (500, 70_000, 1 << 20):
+        _same(dst.decide_fusion("filter+aggregate", ["filter",
+                                                     "aggregate"], n),
+              src.decide_fusion("filter+aggregate", ["filter",
+                                                     "aggregate"], n))
+    _same(dst.decide_knn(5000, 64, 128), src.decide_knn(5000, 64, 128))
+    # a corrupt or wrong-version file leaves either planner cold
+    with open(path, "w") as f:
+        f.write('{"version": 99}')
+    assert TPlanner().load(path) is False and JPlanner().load(path) is False
+
+
+def test_sql_decisions_equal():
+    """decide_equi_join and decide_fusion, cold, pinned and learned,
+    equal in both planners."""
+    for n in (1, 2000, 2048, 4096, 10**6):
+        _same(tplanner.decide_equi_join(n, n), jplanner.decide_equi_join(n,
+                                                                         n))
+        _same(tplanner.decide_fusion("filter+project", ["filter",
+                                                        "project"], n),
+              jplanner.decide_fusion("filter+project", ["filter",
+                                                        "project"], n))
+    for key, val in (("mosaic.planner.force.equi_join", "vectorized"),
+                     ("mosaic.planner.force.fusion", "off")):
+        _set(key, val)
+    _same(tplanner.decide_equi_join(3, 3), jplanner.decide_equi_join(3, 3))
+    _same(tplanner.decide_fusion("x", ["filter"], 10),
+          jplanner.decide_fusion("x", ["filter"], 10))

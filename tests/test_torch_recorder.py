@@ -8,9 +8,8 @@ against the JAX package's.
   caller installs the propagation, which importing the port does not),
   ``root_trace``, fault and retry events, the bundle's platform entry
   and the dump event.  The SQL cases (the slow-query conf and its dumps,
-  interleaved queries, EXPLAIN ANALYZE) wait for the port's SQL engine
-  (ROADMAP §A7b): until then ``mosaic.obs.slow.query.ms`` raises
-  ``ConfigError``.  The JAX compile listener has no torch counterpart
+  interleaved queries, EXPLAIN ANALYZE) are in
+  tests/test_torch_sql_planes.py.  The JAX compile listener has no torch counterpart
   (no jit, ROADMAP C14); the OpenMetrics cases wait for §A9c.
 * Parity: the same calls in both packages record events equal in kind
   and fields (timestamps, ``seq`` and trace ids aside): the config,
@@ -169,14 +168,24 @@ def test_error_sink_drop_lands_in_recorder(clean_obs):
 
 
 def test_slow_query_conf_waits_for_the_sql_engine(clean_config):
-    """Nothing of the port reads a slow-query threshold before its SQL
-    engine: the key is refused, not accepted and ignored."""
-    jconfig.apply_conf(jconfig.default_config(),
-                       "mosaic.obs.slow.query.ms", "250")
-    for val in ("250", "0", "-5", "soon"):
-        with pytest.raises(_config.ConfigError, match="unknown conf key"):
-            _config.apply_conf(_config.default_config(),
-                               "mosaic.obs.slow.query.ms", val)
+    """The slow-query threshold waited for the port's SQL engine, which
+    reads it now (tests/test_torch_sql_planes.py drives the dump): the
+    key takes and refuses what the JAX package's does, with the same
+    message."""
+    for val in ("250", "0", "0.0001", "-5", "soon"):
+        try:
+            want = jconfig.apply_conf(jconfig.default_config(),
+                                      "mosaic.obs.slow.query.ms",
+                                      val).obs_slow_query_ms
+        except jconfig.ConfigError as e:
+            with pytest.raises(_config.ConfigError) as got:
+                _config.apply_conf(_config.default_config(),
+                                   "mosaic.obs.slow.query.ms", val)
+            assert str(got.value) == str(e)
+            continue
+        assert _config.apply_conf(_config.default_config(),
+                                  "mosaic.obs.slow.query.ms",
+                                  val).obs_slow_query_ms == want
 
 
 def test_config_mutation_is_recorded(clean_obs, clean_config):
@@ -438,9 +447,13 @@ def _recorded_kinds():
     for path in PORT.rglob("*.py"):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
+            # timeseries.record(<series>, value) names a time series,
+            # not a recorder event
             if isinstance(node, ast.Call) and \
                     isinstance(node.func, ast.Attribute) and \
                     node.func.attr == "record" and node.args and \
+                    not (isinstance(node.func.value, ast.Name) and
+                         node.func.value.id == "timeseries") and \
                     isinstance(node.args[0], ast.Constant) and \
                     isinstance(node.args[0].value, str):
                 kinds.setdefault(node.args[0].value, []).append(

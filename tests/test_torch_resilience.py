@@ -6,8 +6,8 @@ against the JAX package's.
   patterns, corruption, degrade, disarmed probes, the retry policy
   (recovery, give-up, allowlist, jitter, hook and counters), the
   ``decode_guard`` / ``ErrorSink`` primitives, the conf keys they read
-  and the fixture's restore.  The SQL ``SET`` case waits for the port's
-  SQL engine (ROADMAP §A7b).
+  and the fixture's restore.  The SQL ``SET`` case is in
+  tests/test_torch_sql_planes.py.
 * Parity: one spec string armed in both packages, each through its own
   ``faults.arm``, injects the same ``(site, call, kind)`` list over a
   seeded probe sequence; ``corrupt`` returns the same bytes, ``degrade``

@@ -532,3 +532,77 @@ def planes_cases(G, solo, rank, inp) -> dict:
     metrics.disable()
     metrics.reset()
     return out
+
+
+def budget_cases(G, solo, rank, inp) -> dict:
+    """The sharded streamed join on the dense flagship shape under one
+    ``mosaic.mem.budget.bytes`` (the chunk boundaries every consume saw,
+    ``mem/chunk_shrink``, the ``mem_chunk_shrink`` events, the zones,
+    the ``all_reduce`` calls), the same join with no budget, and its
+    memory books."""
+    from mosaic_tpu_torch import config
+    from mosaic_tpu_torch.bench.workloads import build_workload
+    from mosaic_tpu_torch.obs import metrics, recorder
+    from mosaic_tpu_torch.obs.memwatch import memwatch
+    from mosaic_tpu_torch.parallel import collectives as coll
+    from mosaic_tpu_torch.parallel import pip_join as pj
+    polys, grid, res = build_workload(n_side=2, grid_name="H3")
+    idx = pj.build_pip_index(polys, res, grid, device="cpu")
+    pts, chunk = inp["budget_pts"], int(inp["budget_chunk"])
+    seen = []
+    real = pj.stream
+
+    def spy(chunks, stage, width, compute, consume, *a, **kw):
+        def spied(i, sl, host):
+            seen.append((sl.start, sl.stop))
+            return consume(i, sl, host)
+        return real(chunks, stage, width, compute, spied, *a, **kw)
+
+    pj.stream = spy
+    out = {}
+    prev = config.default_config()
+
+    def books(tag):
+        t = memwatch.snapshot()["totals"]
+        out[f"{tag}_books"] = np.array(
+            [t["live_bytes"], t["live_buffers"],
+             int(t["registered"] == t["released"]), memwatch.leak_count()])
+
+    try:
+        for tag, budget in (("tight", inp["budget_tight"]), ("free", None)):
+            config.set_default_config(prev)
+            if budget is not None:
+                _set_conf("mosaic.mem.budget.bytes", str(int(budget[0])))
+                _set_conf("mosaic.mem.pressure.high", str(float(budget[1])))
+            metrics.reset()
+            metrics.enable()
+            recorder.reset()
+            memwatch.reset()
+            coll.reset_counts()
+            seen.clear()
+            run = pj.make_sharded_streamed_pip_join(
+                idx, grid, G, polys=polys, chunk=chunk, device="cpu")
+            out[f"{tag}_zone"], out[f"{tag}_rechecked"] = run(pts)
+            out[f"{tag}_slices"] = np.array(seen, np.int64).reshape(-1, 2)
+            out[f"{tag}_shrinks"] = np.array(
+                metrics.counter_value("mem/chunk_shrink"))
+            evs = recorder.events("mem_chunk_shrink")
+            out[f"{tag}_events"] = np.array(
+                [[e["site"], str(e["rows"])] for e in evs]).reshape(-1, 2)
+            out[f"{tag}_all_reduce"] = np.array(
+                coll.COUNTS["all_reduce"][0])
+            out[f"{tag}_all_gather"] = np.array(
+                coll.COUNTS["all_gather"][0])
+            peaks = memwatch.snapshot()["site_peak_bytes"]
+            out[f"{tag}_staged_peak"] = np.array(
+                peaks.get("pip_join/sharded/staged", 0))
+            books(tag)
+    finally:
+        pj.stream = real
+        config.set_default_config(prev)
+        metrics.disable()
+        metrics.reset()
+    if rank == 0:
+        out["single_zone"], _ = pj.make_streamed_pip_join(
+            idx, grid, polys, chunk=chunk, device="cpu")(pts)
+    return out
