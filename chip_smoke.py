@@ -401,8 +401,17 @@ Phases (any failure exits non-zero and prints no result):
     profiler's time and CUDA events) beside its bound (the bytes of the
     referenced columns' bucket and its output at HBM3's rate) and
     ``fused_group_ref``'s time on the card, and the unfused pass's host
-    time; c. phase 17's 2^17-point side store (rebuilt from its seed)
-    through ``register_store``: a bbox WHERE prunes partitions (EXPLAIN's
+    time; execute_group's steps timed one by one (pack_inputs,
+    pin_memory, the H2D copy, K14, the fetch, unpack_outputs); the same
+    three ways over phase 20's points (a bucket above n) and over the CPU
+    tests' groups (``tests/torch_fusion_cases.py``: NaN, -0.0, wrap,
+    float16, padding, and K14's tile edges: n = 1, below a tile, not a
+    multiple of the tile rows, equal to the bucket, ``first()`` in the
+    last tile, narrow columns at an odd n, a 127-instruction WHERE at the
+    smallest tile); K14's ptxas report checked for 0 bytes of stack and
+    spill in the build phase; c. phase 17's 2^17-point side store
+    (rebuilt from its seed) through ``register_store``: a bbox WHERE
+    prunes partitions (EXPLAIN's
     ``partitions``) and the rows equal a numpy filter of the stored
     points; d. EXPLAIN ANALYZE of the fused aggregate (its rows, the
     ``fused`` column) and two threads' ``sql:*`` trace trees; the
@@ -975,6 +984,10 @@ def phase_build():
                     entry = found.group(1)
                 if "registers" in line or "spill" in line:
                     log(f"[build] {name} {entry} ptxas: {line.strip()}")
+                # K14 keeps its registers in shared memory: no stack
+                if name == "fused_group" and "stack frame" in line:
+                    check(line.strip().startswith(K14_PTXAS),
+                          f"K14 ptxas: {line.strip()}")
 
 
 def host_ms_per_launch(fn, reps: int) -> float:
@@ -6698,6 +6711,10 @@ SQL_SEED = 2222
 SQL_ZONE_K = 140
 #: K14 launches a timing burst takes
 SQL_REPS = 50
+#: what ptxas must report for every K14 entry
+K14_PTXAS = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+#: fused executions the step-by-step timing of execute_group takes
+SQL_STEP_REPS = 7
 
 
 def same_table(a, b, values=False) -> bool:
@@ -6786,6 +6803,103 @@ def k14_bound(prog, bucket: int, n: int) -> dict:
     return {"bytes": nbytes, "ops": n * flops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fusion_steps(prog, cols, n: int, bucket: int, reps: int) -> dict:
+    """The steps of perf/fusion.py execute_group, timed one by one over
+    ``reps`` fused executions (the median of each): the same functions in
+    the same order, pack_inputs and pin_memory on the host clock, the H2D
+    copy, K14 and the fetch by CUDA events, unpack_outputs on the host
+    clock, and the wall of all of them."""
+    import statistics
+    import torch
+    from mosaic_tpu_torch.ops import fused_group as fg
+    dev = torch.device(DEV)
+    got = collections.defaultdict(list)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        host_in = torch.from_numpy(fg.pack_inputs(prog, cols, n, bucket))
+        t1 = time.perf_counter()
+        pinned = host_in.pin_memory()
+        t2 = time.perf_counter()
+        ev[0].record()
+        buf = pinned.to(dev, non_blocking=True)
+        ev[1].record()
+        dev_out = fg.fused_group(prog, buf, n, bucket)
+        ev[2].record()
+        out = dev_out.cpu().numpy()
+        ev[3].record()
+        t3 = time.perf_counter()
+        fg.unpack_outputs(prog, out, bucket)
+        t4 = time.perf_counter()
+        ev[3].synchronize()
+        got["pack_inputs"].append((t1 - t0) * 1e3)
+        got["pin_memory"].append((t2 - t1) * 1e3)
+        got["h2d"].append(ev[0].elapsed_time(ev[1]))
+        got["k14"].append(ev[1].elapsed_time(ev[2]))
+        got["fetch"].append(ev[2].elapsed_time(ev[3]))
+        got["h2d to fetched, host"].append((t3 - t2) * 1e3)
+        got["unpack_outputs"].append((t4 - t3) * 1e3)
+        got["wall"].append((t4 - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def fusion_flagship_groups(batch, zone):
+    """Phase 22b's flagship table ``flag`` (the batch's points, their
+    dense zones, a seeded float32 ``w``) and its aggregate and project
+    groups' SQL."""
+    import numpy as np
+    x, y = batch[:, 0].copy(), batch[:, 1].copy()
+    w = np.random.default_rng(SQL_SEED).normal(size=len(x)).astype(
+        np.float32)
+    a, b = float(np.median(x)), float(np.quantile(y, 0.75))
+    groups = {
+        "aggregate": (f"SELECT count(*) AS n, count(zone) AS nz, "
+                      f"sum(zone) AS sz, avg(zone) AS az, min(x) AS mnx, "
+                      f"max(y) AS mxy, first(w) AS fw FROM flag WHERE "
+                      f"x > {a!r} AND y < {b!r} AND zone >= 0"),
+        "project": (f"SELECT x * 2 + 1 AS u, w * 0.5 AS v FROM flag "
+                    f"WHERE zone < {SQL_ZONE_K}")}
+    return {"x": x, "y": y, "zone": zone.astype(np.int64), "w": w}, groups
+
+
+def fusion_padded_groups(pts, cell):
+    """Phase 22b's table ``qs`` over phase 20's points (n below its 2^21
+    bucket) and its aggregate and project groups' SQL."""
+    import numpy as np
+    qx = pts[:, 0].copy()
+    table = {"x": qx, "y": pts[:, 1].copy(),
+             "pid": np.arange(len(pts), dtype=np.int64), "cell": cell}
+    qa = float(np.median(qx))
+    groups = {
+        "aggregate": (f"SELECT count(*) AS n, count(cell) AS nc, sum(pid) "
+                      f"AS sp, avg(pid) AS ap, min(x) AS mnx, max(y) AS "
+                      f"mxy, first(y) AS fy, first(pid) AS fp FROM qs "
+                      f"WHERE x > {qa!r} AND cell > 0"),
+        "project": (f"SELECT x * 2 + 1 AS u, -y AS v, pid * 3 AS p FROM qs "
+                    f"WHERE pid < {len(pts) // 2}")}
+    return table, groups
+
+
+def fusion_case_suite():
+    """The CPU tests' groups (tests/torch_fusion_cases.py) as (table name,
+    columns, SQL, label), each held in phase 22b to fused_group_ref and
+    to the unfused path."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_fusion_cases as fc
+    suite = [("fx", fc.fx_table(), q, f"program {i}")
+             for i, q in enumerate(fc.PROGRAM_CASES)]
+    suite += [("h", fc.hazard_table(), q, f"hazard {k}")
+              for k, q in fc.HAZARDS.items()]
+    suite += [("h", t, fc.SIGNED_ZERO_QUERY, f"signed zero {i}")
+              for i, t in enumerate(fc.signed_zero_tables())]
+    suite += [("h", fc.padding_table(r), fc.PADDING_QUERY,
+               f"padding {r}") for r in fc.PADDING_ROWS]
+    suite += [("e", fc.edge_table(rows), q, f"edge {label}")
+              for label, rows, q in fc.EDGE_CASES]
+    suite.append(("d", fc.deep_table(), fc.deep_query(), "edge deep where"))
+    return suite
 
 
 def phase_sql(idx, grid, polys, batches, dense_zones):
@@ -6926,31 +7040,11 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
 
     # ---- 22b. fusion over the flagship's first batch, phase 20's points
     # (a bucket above n) and the CPU tests' groups
-    x, y = batches[0][:, 0].copy(), batches[0][:, 1].copy()
-    zone = dense_zones[0].astype(np.int64)
-    w = np.random.default_rng(SQL_SEED).normal(size=len(x)).astype(
-        np.float32)
-    s.create_table("flag", {"x": x, "y": y, "zone": zone, "w": w})
-    a, b = float(np.median(x)), float(np.quantile(y, 0.75))
-    groups = {
-        "aggregate": (f"SELECT count(*) AS n, count(zone) AS nz, "
-                      f"sum(zone) AS sz, avg(zone) AS az, min(x) AS mnx, "
-                      f"max(y) AS mxy, first(w) AS fw FROM flag WHERE "
-                      f"x > {a!r} AND y < {b!r} AND zone >= 0"),
-        "project": (f"SELECT x * 2 + 1 AS u, w * 0.5 AS v FROM flag "
-                    f"WHERE zone < {SQL_ZONE_K}")}
-    qx = pts[:, 0].copy()
-    s.create_table("qs", {"x": qx, "y": pts[:, 1].copy(),
-                          "pid": np.arange(len(pts), dtype=np.int64),
-                          "cell": cells.columns["cell"]})
-    qa = float(np.median(qx))
-    padded_groups = {
-        "aggregate": (f"SELECT count(*) AS n, count(cell) AS nc, sum(pid) "
-                      f"AS sp, avg(pid) AS ap, min(x) AS mnx, max(y) AS "
-                      f"mxy, first(y) AS fy, first(pid) AS fp FROM qs "
-                      f"WHERE x > {qa!r} AND cell > 0"),
-        "project": (f"SELECT x * 2 + 1 AS u, -y AS v, pid * 3 AS p FROM qs "
-                    f"WHERE pid < {len(pts) // 2}")}
+    flag, groups = fusion_flagship_groups(batches[0], dense_zones[0])
+    s.create_table("flag", flag)
+    qs_table, padded_groups = fusion_padded_groups(pts,
+                                                   cells.columns["cell"])
+    s.create_table("qs", qs_table)
     real_fg = fusion._fg
     captured = []
 
@@ -6962,6 +7056,13 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
             return getattr(real_fg, name)
 
     proxy = Proxy()
+    packed = []
+
+    def capture_pack(prog, cols, n, bucket):
+        packed.append((prog, cols, n, bucket))
+        return real_fg.pack_inputs(prog, cols, n, bucket)
+
+    proxy.pack_inputs = capture_pack
 
     def capture(prog, buf, n, bucket):
         kept = buf.clone()
@@ -6982,6 +7083,7 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
         pin("on")
         proxy.fused_group = capture
         captured.clear()
+        packed.clear()
         f0 = metrics.counter_value("fusion/fetches")
         l0 = paths.get(path, {}).get("fused_group", 0)
         fused = counted(path, lambda: sess.sql(gq))
@@ -7015,7 +7117,7 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
     was = metrics.enabled
     metrics.enable()
     fusion._fg = proxy
-    k14, padded, cases = {}, {}, []
+    k14, padded, cases, steps = {}, {}, [], {}
     try:
         for name, gq in groups.items():
             prog, kept, n, bucket, res, ref, unfused_s = three_ways(
@@ -7042,6 +7144,7 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
                                           "fused_group_kernel")
             host_ms = host_ms_per_launch(k14_call, 200)
             bound = k14_bound(prog, bucket, n)
+            steps[name] = fusion_steps(*packed[0], SQL_STEP_REPS)
             k14[name] = {
                 "max_abs_err": err, "ms": ms, "ms_source": source,
                 "events_ms": events_ms, "host_ms": host_ms,
@@ -7049,7 +7152,8 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
                 "bound_by": bound["bound_by"], "bytes": bound["bytes"],
                 "ops": bound["ops"], "library_ms": None,
                 "instructions": len(prog.instrs), "rows": n,
-                "passing": int(host[0]), "unfused_host_s": unfused_s}
+                "passing": int(host[0]), "unfused_host_s": unfused_s,
+                "steps_ms": steps[name]}
             log(f"[sql] fusion {name}: {n} rows, {int(host[0])} pass; K14 "
                 f"{ms:.4f} ms ({source}; events {events_ms:.4f} ms), bound "
                 f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
@@ -7057,6 +7161,9 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
                 f"{plain_ms:.4f} ms, host enqueue {host_ms:.4f} ms; the "
                 f"unfused pass {unfused_s * 1e3:.1f} ms of host time; "
                 "fused, unfused and fused_group_ref bit-equal")
+        log(f"[sql] fusion steps of execute_group, median ms of "
+            f"{SQL_STEP_REPS} (host clock; h2d, k14 and fetch by CUDA "
+            f"events): {json.dumps(steps)}")
         # a bucket above n: the padded rows never count
         for name, gq in padded_groups.items():
             prog, _, n, bucket, res, _, _ = three_ways(
@@ -7068,17 +7175,7 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
                             "passing": int(host[0])}
         # the CPU tests' groups (tests/torch_fusion_cases.py), each held
         # to fused_group_ref and to the unfused numpy path
-        sys.path.insert(0, str(ROOT / "tests"))
-        import torch_fusion_cases as fc
-        suite = [("fx", fc.fx_table(), q, f"program {i}")
-                 for i, q in enumerate(fc.PROGRAM_CASES)]
-        suite += [("h", fc.hazard_table(), q, f"hazard {k}")
-                  for k, q in fc.HAZARDS.items()]
-        suite += [("h", t, fc.SIGNED_ZERO_QUERY, f"signed zero {i}")
-                  for i, t in enumerate(fc.signed_zero_tables())]
-        suite += [("h", fc.padding_table(r), fc.PADDING_QUERY,
-                   f"padding {r}") for r in fc.PADDING_ROWS]
-        for table, cols, q, label in suite:
+        for table, cols, q, label in fusion_case_suite():
             cs_ = SQLSession(ctx)
             cs_.create_table(table, cols)
             three_ways(cs_, "sql fusion cases", f"sql fusion {label}", q,

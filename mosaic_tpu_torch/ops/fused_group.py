@@ -9,21 +9,25 @@ to the host.  The port compiles nothing at run time, so a group is a
 :class:`Program`: a typed register program (one instruction per AST node,
 each carrying the dtype the fusion pass's type walk gives its node;
 ``perf/fusion.py`` encodes it) that the fixed kernel
-``csrc/fused_group.cu`` interprets row by row, and that
+``csrc/fused_group.cu`` interprets a tile of rows at a time, and that
 :func:`fused_group_ref` runs over whole columns with torch ops.
 
-:func:`pack_inputs` lays the program, the aggregate state and the
-referenced columns (padded to the bucket) into one byte buffer, copied to
-the device in one piece; :func:`fused_group` runs it into one output
-buffer, fetched in one piece, which :func:`unpack_outputs` reads back in
-the order of the JAX program's outputs.  On a CUDA buffer
-:func:`fused_group` launches K14 (built at first use) or raises; on a CPU
-buffer it runs :func:`fused_group_ref`.  Both give the same bytes:
-``fused_group_ref`` casts every node to its dtype explicitly and never
-lets torch promote (torch takes an int64 tensor and a Python float to
-float32, where numpy and XLA give float64), keeps -0.0 below +0.0 in
-min and max by the same order key, and takes ``first`` at the least
-passing row.
+:func:`plan_program` places the program in the kernel's shared memory:
+each value in one of P slot tiles, a slot free again after its last
+reader (a constant as one word, an int64 or float64 column read in place
+from its staged tile), and the tile rows T and copy stages that fit a
+block.  :func:`pack_inputs` lays the header (with that plan), the
+aggregate state and the referenced columns (padded to the bucket) into
+one byte buffer, copied to the device in one piece; :func:`fused_group`
+runs it into one output buffer, fetched in one piece, which
+:func:`unpack_outputs` reads back in the order of the JAX program's
+outputs.  On a CUDA buffer :func:`fused_group` launches K14 (built at
+first use) or raises; on a CPU buffer it runs :func:`fused_group_ref`.
+Both give the same bytes: ``fused_group_ref`` casts every node to its
+dtype explicitly and never lets torch promote (torch takes an int64
+tensor and a Python float to float32, where numpy and XLA give float64),
+keeps -0.0 below +0.0 in min and max by the same order key, and takes
+``first`` at the least passing row.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import heapq
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -59,13 +64,38 @@ AGG_KINDS = {name: i for i, name in enumerate(
     ("countstar", "count", "sum", "avg", "min", "max", "first"))}
 
 #: header words before the column table (csrc/fused_group.cu Hdr)
-HDR_FIXED = 8
-#: registers and aggregate specs the kernel holds (its kMaxRegs, kMaxSpecs)
+HDR_FIXED = 16
+#: instructions and aggregate specs the kernel holds (its kMaxRegs,
+#: kMaxSpecs)
 MAX_REGS = 128
 MAX_SPECS = 32
-#: threads a block, and blocks per SM the wrapper launches at most
+#: threads a block
 THREADS = 256
-BLOCKS_PER_SM = 8
+#: tile rows: a multiple of TILE_STEP, at most MAX_TILE
+MAX_TILE = 4096
+TILE_STEP = 128
+#: the kernel's dynamic shared memory: the constants' first word (after
+#: the barriers and counters), the bytes of a decoded instruction, a
+#: decoded spec, a warp's partials of a spec and a staged column, what one
+#: block may take (227 KB) and what an SM holds (228 KB, 1 KB of it
+#: reserved a block: :func:`block_budget`)
+SMEM_CONST_WORD = 8
+CODE_BYTES, SPEC_BYTES, PART_BYTES, STAGED_BYTES = 32, 16, 32, 16
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+#: the least tile rows for which two blocks share an SM
+TWO_BLOCKS_MIN_TILE = 1024
+#: the plans tried in turn, (blocks an SM, copy stages, least tile rows):
+#: the first at which the program fits a block's share of the SM
+#: (:func:`block_budget`) is taken
+PLAN_CHOICES = ((2, 2, TWO_BLOCKS_MIN_TILE), (1, 2, TILE_STEP),
+                (1, 1, TILE_STEP))
+#: copy stages the kernel's ring holds at most (csrc/fused_group.cu
+#: kMaxStages)
+MAX_STAGES = 3
+#: plan word flags (csrc/fused_group.cu kLocStage, kLocConst)
+LOC_STAGE = 1 << 30
+LOC_CONST = 1 << 31
 #: first()'s row before any row passed
 NO_ROW = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
@@ -138,12 +168,204 @@ class ProgramBuilder:
 
 
 def _align(n: int) -> int:
-    return (n + 7) // 8 * 8
+    """16-byte alignment: K14's bulk copies and 16-byte stores need it."""
+    return (n + 15) // 16 * 16
 
 
 def header_words(prog: Program) -> int:
-    return (HDR_FIXED + 2 * len(prog.col_dtypes) + 5 * len(prog.instrs)
+    return (HDR_FIXED + 3 * len(prog.col_dtypes) + 6 * len(prog.instrs)
             + 4 * prog.outs)
+
+
+# ------------------------------------------------------ the plan
+
+def operands(op: int, a: int, b: int) -> Tuple[int, ...]:
+    """The registers an instruction reads."""
+    if op in (OPS["load"], OPS["const"]):
+        return ()
+    if op in (OPS["cast"], OPS["neg"], OPS["not"], OPS["isnan"],
+              OPS["mask"]):
+        return (a,)
+    return (a, b)
+
+
+def terminal_regs(prog: Program) -> Tuple[int, ...]:
+    """The registers the terminal reads after the last instruction."""
+    regs = [prog.mask_reg] + [r for r, _ in prog.items] + \
+        [r for _, r, _ in prog.specs]
+    return tuple(r for r in regs if r >= 0)
+
+
+def held(prog: Program) -> Tuple[str, ...]:
+    """Where each instruction's value lives: ``"const"`` (one word),
+    ``"stage"`` (a load of an int64 or float64 column, read in place from
+    its staged tile) or ``"slot"``."""
+    out = []
+    for op, dt, *_ in prog.instrs.tolist():
+        if op == OPS["const"]:
+            out.append("const")
+        elif op == OPS["load"] and DTYPES[dt].itemsize == 8:
+            out.append("stage")
+        else:
+            out.append("slot")
+    return tuple(out)
+
+
+def last_readers(prog: Program) -> List[int]:
+    """Per instruction, the index of its last reader (``len(instrs)``: the
+    terminal), -1 where nothing reads it."""
+    n = len(prog.instrs)
+    last = [-1] * n
+    for j, (op, _, a, b, _) in enumerate(prog.instrs.tolist()):
+        for r in operands(op, a, b):
+            last[r] = j
+    for r in terminal_regs(prog):
+        last[r] = n
+    return last
+
+
+def assign_slots(prog: Program) -> Tuple[Tuple[int, ...], int]:
+    """``(slot of each instruction (-1: not slot-held), P)``: in program
+    order, a value takes the lowest free slot; a slot is free again from
+    its value's last reader on, which may write its own result there (the
+    kernel reads a row's operands before it writes the row).  A value no
+    instruction reads is free again after its own.  Greedy in order of
+    definition is optimal on these intervals: P is the peak live count."""
+    kinds = held(prog)
+    last = last_readers(prog)
+    free: List[int] = []
+    slot = [-1] * len(kinds)
+    dies: dict = {}
+    for v, j in enumerate(last):
+        if kinds[v] == "slot" and j > v:
+            dies.setdefault(j, []).append(v)
+    peak = 0
+    for i, kind in enumerate(kinds):
+        for v in dies.get(i, ()):
+            heapq.heappush(free, slot[v])
+        if kind != "slot":
+            continue
+        slot[i] = heapq.heappop(free) if free else peak
+        peak = max(peak, slot[i] + 1)
+        if last[i] <= i:                        # read by nothing
+            heapq.heappush(free, slot[i])
+    return tuple(slot), peak
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Where K14 keeps a program in a block's shared memory.
+
+    ``tile`` rows T a tile, ``stages`` column copy stages (2: the next
+    tile's columns in flight while this one runs), ``slots`` P,
+    ``blocks_per_sm`` the persistent blocks an SM holds, ``smem`` the
+    dynamic shared memory bytes, ``stage_bytes`` a stage's bytes,
+    ``front`` (:func:`front_layout`) the first bytes of the decoded
+    program, specs, partials and staged columns, and of the slots;
+    ``slot_of`` each instruction's slot (-1: a constant or a column read
+    in place), ``col_stage`` each column's byte offset in stage 0 (-1: no
+    load reads it), ``locs`` each instruction's plan word."""
+
+    tile: int
+    stages: int
+    slots: int
+    blocks_per_sm: int
+    smem: int
+    stage_bytes: int
+    front: Tuple[int, int, int, int, int]
+    slot_of: Tuple[int, ...]
+    col_stage: Tuple[int, ...]
+    locs: Tuple[int, ...]
+
+
+def front_layout(n_instrs: int, n_specs: int, n_staged: int):
+    """The first bytes of the kernel's decoded program, specs, per-warp
+    partials and staged columns in shared memory, and of its slots: after
+    the barriers, counters and a constant word an instruction."""
+    code = _align(8 * (SMEM_CONST_WORD + n_instrs))
+    spec = code + CODE_BYTES * n_instrs
+    part = spec + SPEC_BYTES * n_specs
+    staged = part + PART_BYTES * (THREADS // 32) * n_specs
+    return code, spec, part, staged, _align(staged + STAGED_BYTES * n_staged)
+
+
+def smem_bytes(front: int, slots: int, row_bytes: int, tile: int,
+               stages: int) -> int:
+    """Dynamic shared memory of a plan: the front, P slot tiles of 8-byte
+    words, and ``stages`` copies of the staged columns' tiles
+    (``row_bytes`` a row)."""
+    return front + tile * (8 * slots + stages * row_bytes)
+
+
+def block_budget(blocks: int) -> int:
+    """The shared memory each of ``blocks`` blocks on an SM may take: the
+    SM's SMEM_SM less 1 KB a block, at most SMEM_BLOCK."""
+    return min(SMEM_BLOCK, SMEM_SM // blocks - 1024)
+
+
+def _fit(front: int, slots: int, row_bytes: int, stages: int,
+         budget: int) -> int:
+    per_row = 8 * slots + stages * row_bytes
+    rows = (budget - front) // per_row if per_row else MAX_TILE
+    return min(MAX_TILE, rows // TILE_STEP * TILE_STEP)
+
+
+def plan_program(prog: Program) -> Plan:
+    """K14's plan of ``prog``: the first of PLAN_CHOICES at which the
+    largest T that fits (a multiple of TILE_STEP, at most MAX_TILE) is at
+    least its least rows: two blocks an SM with two stages, else one
+    block with two stages, else with one.  Raises ValueError naming the limit when not even TILE_STEP
+    rows fit."""
+    key = (prog.instrs.tobytes(), prog.col_dtypes, prog.terminal,
+           prog.mask_reg, prog.items, prog.specs)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if len(_PLANS) >= 256:
+            _PLANS.clear()
+        plan = _PLANS[key] = _make_plan(prog)
+    return plan
+
+
+_PLANS: dict = {}
+
+
+def _make_plan(prog: Program) -> Plan:
+    kinds = held(prog)
+    slot_of, slots = assign_slots(prog)
+    loaded = {int(a) for op, _, a, _, _ in prog.instrs.tolist()
+              if op == OPS["load"]}
+    sizes = [DTYPES[dt].itemsize if c in loaded else 0
+             for c, dt in enumerate(prog.col_dtypes)]
+    row_bytes = sum(sizes)
+    n_specs = len(prog.specs) if prog.terminal == "aggregate" else 0
+    layout = front_layout(len(kinds), n_specs, sum(1 for z in sizes if z))
+    front = layout[-1]
+    for blocks, stages, least in PLAN_CHOICES:
+        tile = _fit(front, slots, row_bytes, stages, block_budget(blocks))
+        if tile >= least:
+            break
+    else:
+        need = smem_bytes(front, slots, row_bytes, TILE_STEP, 1)
+        raise ValueError(
+            f"fused_group: {slots} live values and {row_bytes} column "
+            f"bytes a row need {need} B of shared memory at {TILE_STEP} "
+            f"rows; a block holds {SMEM_BLOCK} B")
+    stage0 = front + 8 * slots * tile
+    col_stage, off = [], stage0
+    for size in sizes:
+        col_stage.append(off if size else -1)
+        off += tile * size
+    locs = []
+    for i, (op, _, a, _, _) in enumerate(prog.instrs.tolist()):
+        if kinds[i] == "const":
+            locs.append(LOC_CONST | (SMEM_CONST_WORD + i))
+        elif kinds[i] == "stage":
+            locs.append(LOC_STAGE | (col_stage[a] // 8))
+        else:
+            locs.append(front // 8 + slot_of[i] * tile)
+    return Plan(tile, stages, slots, blocks, smem_bytes(
+        front, slots, row_bytes, tile, stages), tile * row_bytes, layout,
+        slot_of, tuple(col_stage), tuple(locs))
 
 
 def out_layout(prog: Program, bucket: int):
@@ -177,7 +399,7 @@ def _state_init(prog: Program) -> np.ndarray:
 
 def _col_offsets(prog: Program, bucket: int) -> Tuple[List[int], int]:
     """The columns' byte offsets in the input buffer, and its bytes."""
-    off = 8 * (header_words(prog) + 2 + 3 * len(prog.specs))
+    off = _align(8 * (header_words(prog) + 2 + 3 * len(prog.specs)))
     offs = []
     for dt in prog.col_dtypes:
         offs.append(off)
@@ -188,13 +410,16 @@ def _col_offsets(prog: Program, bucket: int) -> Tuple[List[int], int]:
 def pack_inputs(prog: Program, cols: Sequence[np.ndarray], n: int,
                 bucket: int) -> np.ndarray:
     """The one host buffer (uint8) K14 and its plain version read: the
-    header, the aggregate state, then each column padded with zeros to
-    ``bucket`` rows at an 8-byte aligned offset."""
+    header with K14's plan (:func:`plan_program`), the aggregate state,
+    then each column padded with zeros to ``bucket`` rows at a 16-byte
+    aligned offset.  Raises ValueError, before anything reaches the card,
+    for a program K14 cannot hold."""
     if len(prog.instrs) > MAX_REGS or len(prog.specs) > MAX_SPECS:
         raise ValueError(
             f"fused_group: {len(prog.instrs)} instructions and "
             f"{len(prog.specs)} aggregates; K14 holds {MAX_REGS} and "
             f"{MAX_SPECS}")
+    plan = plan_program(prog)
     hw = header_words(prog)
     state = _state_init(prog)
     col_offs, nbytes = _col_offsets(prog, bucket)
@@ -203,11 +428,13 @@ def pack_inputs(prog: Program, cols: Sequence[np.ndarray], n: int,
     _, item_offs, spec_words = out_layout(prog, bucket)
     words[:HDR_FIXED] = (len(prog.instrs), len(prog.col_dtypes),
                          0 if prog.terminal == "project" else 1,
-                         prog.mask_reg, prog.outs, hw, hw, 0)
+                         prog.mask_reg, prog.outs, hw, hw, plan.tile,
+                         plan.stages, plan.slots, plan.smem,
+                         plan.stage_bytes, *plan.front[:4])
     p = HDR_FIXED
-    for o, dt in zip(col_offs, prog.col_dtypes):
-        words[p:p + 2] = (o, dt)
-        p += 2
+    for o, dt, st in zip(col_offs, prog.col_dtypes, plan.col_stage):
+        words[p:p + 3] = (o, dt, st)
+        p += 3
     words[p:p + 5 * len(prog.instrs)] = prog.instrs.reshape(-1)
     p += 5 * len(prog.instrs)
     if prog.terminal == "project":
@@ -218,6 +445,7 @@ def pack_inputs(prog: Program, cols: Sequence[np.ndarray], n: int,
         for (kind, reg, dt), w in zip(prog.specs, spec_words):
             words[p:p + 4] = (kind, reg, dt, w)
             p += 4
+    words[p:p + len(plan.locs)] = plan.locs
     words[hw:] = state
     for c, o, dt in zip(cols, col_offs, prog.col_dtypes):
         if DT_CODE[c.dtype] != dt:
@@ -363,18 +591,33 @@ def load_kernel() -> ctypes.CDLL:
     its limits checked against this module's."""
     lib = _kernels.load("fused_group")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_group_launch.argtypes = [vp, ll, ll, vp, i, i, vp]
+    lib.fused_group_launch.argtypes = [vp, ll, ll, vp, vp, i, i, vp]
     lib.fused_group_launch.restype = i
     lib.fused_group_limits.argtypes = [i]
     lib.fused_group_limits.restype = i
     lib.fused_group_error_string.argtypes = [i]
     lib.fused_group_error_string.restype = ctypes.c_char_p
-    got = tuple(lib.fused_group_limits(k) for k in range(3))
-    if got != (MAX_REGS, MAX_SPECS, THREADS):
+    got = tuple(lib.fused_group_limits(k) for k in range(len(LIMITS)))
+    if got != LIMITS:
         raise _kernels.KernelError(
-            f"csrc/fused_group.cu limits {got} != the wrapper's "
-            f"{(MAX_REGS, MAX_SPECS, THREADS)}")
+            f"csrc/fused_group.cu limits {got} != the wrapper's {LIMITS}")
     return lib
+
+
+#: csrc/fused_group.cu fused_group_limits, in its order
+LIMITS = (MAX_REGS, MAX_SPECS, THREADS, MAX_TILE, TILE_STEP,
+          SMEM_CONST_WORD, SMEM_BLOCK, MAX_STAGES,
+          CODE_BYTES | SPEC_BYTES << 8 | PART_BYTES << 16 |
+          STAGED_BYTES << 24)
+
+
+def launch_blocks(prog: Program, n: int, bucket: int, sms: int) -> int:
+    """Persistent blocks a launch takes: the plan's blocks an SM on every
+    SM, or one a tile where there are fewer tiles (a project group's tiles
+    cover the bucket, an aggregate group's the n live rows)."""
+    plan = plan_program(prog)
+    cover = bucket if prog.terminal == "project" else n
+    return max(1, min(-(-cover // plan.tile), sms * plan.blocks_per_sm))
 
 
 def fused_group(prog: Program, buf: torch.Tensor, n: int,
@@ -384,9 +627,10 @@ def fused_group(prog: Program, buf: torch.Tensor, n: int,
     in a bucket of ``bucket``.
 
     CPU tensors run :func:`fused_group_ref`.  CUDA tensors launch K14 once
-    on the current stream (it writes its aggregate state into ``buf``) and
-    raise on a CUDA error; there is no fallback.  ``fused_group.launches``
-    counts kernel launches."""
+    on the current stream (it writes its aggregate state into ``buf``; an
+    aggregate group with a ``first`` spec keeps a word a spec a block past
+    the returned bytes) and raise on a CUDA error; there is no fallback.
+    ``fused_group.launches`` counts kernel launches."""
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise ValueError("fused_group: buf must be a flat uint8 tensor")
     if not 0 < n <= bucket:
@@ -396,19 +640,22 @@ def fused_group(prog: Program, buf: torch.Tensor, n: int,
         return fused_group_ref(prog, buf, n, bucket)
     if dev.type != "cuda":
         raise ValueError(f"fused_group: unsupported device {dev}")
+    plan = plan_program(prog)
     nbytes, _, _ = out_layout(prog, bucket)
-    out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    lib = load_kernel()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-bucket // THREADS), sms * BLOCKS_PER_SM))
+    blocks = launch_blocks(prog, n, bucket, sms)
+    first = any(k == AGG_KINDS["first"] for k, _, _ in prog.specs)
+    scratch = 8 * blocks * len(prog.specs) if first else 0
+    out = torch.empty(nbytes + scratch, dtype=torch.uint8, device=dev)
+    lib = load_kernel()
     with torch.cuda.device(dev):
         rc = lib.fused_group_launch(
-            buf.data_ptr(), int(n), int(bucket), out.data_ptr(), blocks,
-            8 * header_words(prog),
-            torch.cuda.current_stream(dev).cuda_stream)
+            buf.data_ptr(), int(n), int(bucket), out.data_ptr(),
+            out.data_ptr() + nbytes if scratch else None, blocks,
+            plan.smem, torch.cuda.current_stream(dev).cuda_stream)
     check_rc(lib, "fused_group", rc, "launch")
     fused_group.launches += 1
-    return out
+    return out[:nbytes] if scratch else out
 
 
 fused_group.launches = 0

@@ -26,6 +26,16 @@
   column; -0.0 beside 0.0 in min and max (XLA's order: -0.0 below +0.0;
   numpy's unfused min is order-dependent, and the two compare equal);
   ``n`` below the bucket, whose padded rows never count.
+* The tile edges of K14 (``tests/torch_fusion_cases.py`` EDGE_CASES and
+  the deep WHERE): n = 1, n below a tile, n not a multiple of the tile
+  rows, n equal to the bucket, first() in the last tile, bool, int8 and
+  float16 columns at an odd n, and 127 instructions that force the
+  smallest tile, each against ``_build_program``.
+* K14's plan (``plan_program``): no slot is overwritten while an
+  instruction that reads it has still to run, over every group here and
+  over random programs of up to 128 instructions; P is the peak live
+  count; the largest admitted programs fit a block; one that cannot fit
+  raises in ``pack_inputs`` with the limit named.
 
 The port's session runs on the CPU (``device="cpu"``), where
 ``fused_group`` runs ``fused_group_ref``.  The tables and queries live
@@ -60,10 +70,13 @@ from mosaic_tpu_torch.perf.bucketing import pow2_bucket
 from mosaic_tpu_torch.perf.jit_cache import kernel_cache
 from mosaic_tpu_torch.sql import SQLSession, parse
 from mosaic_tpu_torch.sql.planner import planner as tplanner
-from torch_fusion_cases import (HAZARDS, PADDING_QUERY, PADDING_ROWS,
-                                PROGRAM_CASES, SIGNED_ZERO_QUERY,
-                                XLA_REWRITES, hazard_table, padding_table,
-                                signed_zero_tables)
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from torch_fusion_cases import (EDGE_CASES, HAZARDS, PADDING_QUERY,
+                                PADDING_ROWS, PROGRAM_CASES,
+                                SIGNED_ZERO_QUERY, XLA_REWRITES, deep_query,
+                                deep_table, edge_table, hazard_table,
+                                padding_table, signed_zero_tables)
 from torch_fusion_cases import fx_table as _fx
 
 GRID = "CUSTOM(-180,180,-90,90,2,360,180)"
@@ -536,3 +549,232 @@ def test_fused_group_raises_off_cpu_and_cuda():
         fg.fused_group(prog, buf, 0, 4)
     with pytest.raises(ValueError):
         fg.fused_group(prog, buf.to("meta"), 4, 4)
+
+
+# ------------------------------------------------------ K14's tile edges
+
+def _port_program(tables, q):
+    """The port's encoded program of ``q``'s fused group (CPU session)."""
+    s = SQLSession(TContext.build(GRID, device="cpu"))
+    for name, cols in tables.items():
+        s.create_table(name, {k: v.copy() for k, v in cols.items()})
+    pin("on")
+    plan = tplanner.plan_query(parse(q), s)
+    assert plan.fusion is not None
+    (group,) = plan.fusion.groups
+    return tfusion.encode_group(group)
+
+
+@pytest.mark.parametrize("label,rows,q", EDGE_CASES,
+                         ids=[c[0] for c in EDGE_CASES])
+def test_tile_edge(mcs, label, rows, q):
+    ss = program_vs_jax(mcs, {"e": edge_table(rows)}, q)
+    _ab_both(ss, q)
+
+
+def test_tile_edges_reach_the_edges():
+    """Each edge group sits where its label says against its own plan."""
+    got = {}
+    for label, rows, q in EDGE_CASES:
+        t = edge_table(rows)
+        prog = _port_program({"e": t}, q)
+        plan = fg.plan_program(prog)
+        got[label] = (rows, plan.tile, pow2_bucket(rows), prog, t)
+    for label, (n, T, bucket, prog, t) in got.items():
+        if label.startswith("one row"):
+            assert n == 1
+        if label.startswith("below a tile"):
+            assert 1 < n < T
+        if label.startswith("ragged"):
+            assert n > T and n % T != 0
+        if label.startswith("full bucket"):
+            assert n == bucket and n >= T
+        if label.startswith("narrow"):
+            assert n % 2 == 1
+            dts = {fg.DTYPES[d] for d in prog.col_dtypes}
+            assert {np.dtype(bool), np.dtype(np.int8),
+                    np.dtype(np.float16)} <= dts
+        if label == "first in the last tile":
+            passing = np.flatnonzero(t["r"] >= n - 3)
+            assert passing.min() >= (n - 1) // T * T and n > T
+
+
+def test_deep_where_takes_the_smallest_tile(mcs):
+    q = deep_query()
+    prog = _port_program({"d": deep_table()}, q)
+    assert len(prog.instrs) >= fg.MAX_REGS - 1
+    assert fg.plan_program(prog).tile == fg.TILE_STEP
+    ss = program_vs_jax(mcs, {"d": deep_table()}, q)
+    _ab_both(ss, q)
+
+
+# ------------------------------------------------------ K14's plan
+
+def _check_plan(prog):
+    """Walk the program as K14 runs it: each slot-held operand still in
+    its slot when read (by an instruction or the terminal), each location
+    inside its region of the block's shared memory."""
+    plan = fg.plan_program(prog)
+    kinds = fg.held(prog)
+    holder = {}
+    for i, (op, _, a, b, _) in enumerate(prog.instrs.tolist()):
+        for r in fg.operands(op, a, b):
+            if kinds[r] == "slot":
+                assert holder.get(plan.slot_of[r]) == r, (i, r)
+        if kinds[i] == "slot":
+            holder[plan.slot_of[i]] = i
+    for r in fg.terminal_regs(prog):
+        if kinds[r] == "slot":
+            assert holder[plan.slot_of[r]] == r, r
+    T = plan.tile
+    assert T % fg.TILE_STEP == 0 and fg.TILE_STEP <= T <= fg.MAX_TILE
+    assert plan.smem <= fg.block_budget(plan.blocks_per_sm) <= 232_448
+    code, spec, part, staged, front = plan.front
+    assert 8 * (fg.SMEM_CONST_WORD + len(kinds)) <= code <= spec <= part \
+        <= staged <= front and front % 16 == 0 and code % 16 == 0
+    stage0 = front + 8 * plan.slots * T
+    for i, (loc, kind) in enumerate(zip(plan.locs, kinds)):
+        if kind == "const":
+            assert loc == fg.LOC_CONST | (fg.SMEM_CONST_WORD + i)
+        elif kind == "stage":
+            col = int(prog.instrs[i, 2])
+            assert loc == fg.LOC_STAGE | (plan.col_stage[col] // 8)
+        else:
+            assert 0 <= plan.slot_of[i] < plan.slots
+            assert loc == front // 8 + plan.slot_of[i] * T
+    for c, off in enumerate(plan.col_stage):
+        if off >= 0:
+            size = fg.DTYPES[prog.col_dtypes[c]].itemsize
+            assert off % 16 == 0 and stage0 <= off
+            assert off + T * size <= stage0 + plan.stage_bytes
+    assert stage0 + plan.stages * plan.stage_bytes == plan.smem
+    return plan
+
+
+def _peak_live(prog):
+    """The most slot-held values alive at once: defined before
+    instruction i and read after it, or i's own."""
+    kinds = fg.held(prog)
+    last = fg.last_readers(prog)
+    peak = 0
+    for i in range(len(kinds)):
+        live = sum(1 for v in range(i) if kinds[v] == "slot" and
+                   last[v] > i) + (kinds[i] == "slot")
+        peak = max(peak, live)
+    return peak
+
+
+def _case_programs():
+    yield {"fx": _fx()}, PROGRAM_CASES
+    yield {"h": hazard_table()}, list(HAZARDS.values())
+    yield {"h": signed_zero_tables()[0]}, [SIGNED_ZERO_QUERY]
+    yield {"h": padding_table(100)}, [PADDING_QUERY]
+    for _, rows, q in EDGE_CASES:
+        yield {"e": edge_table(rows)}, [q]
+    yield {"d": deep_table()}, [deep_query()]
+
+
+def test_plan_of_every_case_program():
+    n = 0
+    for tables, queries in _case_programs():
+        for q in queries:
+            prog = _port_program(tables, q)
+            plan = _check_plan(prog)
+            assert plan.slots == _peak_live(prog), q
+            n += 1
+    assert n == len(PROGRAM_CASES) + len(HAZARDS) + 2 + len(EDGE_CASES) + 1
+
+
+_BINARY = ("+", "-", "*", "/", "=", "!=", "<", "<=", ">", ">=", "and", "or")
+_UNARY = ("cast", "neg", "not", "isnan", "mask")
+
+
+@st.composite
+def programs(draw):
+    """A random well-formed program of up to MAX_REGS instructions: loads
+    of columns of any dtype, constants, unary and binary nodes on earlier
+    registers, a project or aggregate terminal."""
+    ncols = draw(st.integers(1, 12))
+    col_dts = [draw(st.integers(0, 7)) for _ in range(ncols)]
+    size = draw(st.integers(1, fg.MAX_REGS))
+    rows = []
+    for i in range(size):
+        kind = draw(st.sampled_from(("load", "const", "unary", "binary")
+                                    if i else ("load", "const")))
+        if kind == "load":
+            c = draw(st.integers(0, ncols - 1))
+            rows.append((fg.OPS["load"], col_dts[c], c, -1, 0))
+        elif kind == "const":
+            rows.append((fg.OPS["const"], draw(st.integers(0, 7)), -1, -1,
+                         draw(st.integers(-5, 5))))
+        else:
+            op = draw(st.sampled_from(_UNARY if kind == "unary"
+                                      else _BINARY))
+            a = draw(st.integers(0, i - 1))
+            b = draw(st.integers(0, i - 1)) if kind == "binary" else -1
+            rows.append((fg.OPS[op], draw(st.integers(0, 7)), a, b, 0))
+    regs = st.integers(0, size - 1)
+    mask = draw(st.one_of(st.just(-1), regs))
+    instrs = np.asarray(rows, np.int64)
+    if draw(st.booleans()):
+        items = draw(st.lists(st.tuples(regs, st.integers(0, 7)),
+                              min_size=1, max_size=8))
+        return fg.Program(instrs, tuple(col_dts), "project", mask,
+                          items=tuple(items))
+    specs = draw(st.lists(st.tuples(st.integers(1, 6), regs,
+                                    st.integers(0, 7)),
+                          min_size=1, max_size=fg.MAX_SPECS))
+    return fg.Program(instrs, tuple(col_dts), "aggregate", mask,
+                      specs=tuple(specs))
+
+
+@settings(max_examples=300, deadline=None)
+@given(programs())
+def test_plan_of_random_programs(prog):
+    plan = _check_plan(prog)
+    assert plan.slots == _peak_live(prog)
+
+
+@pytest.mark.parametrize("dt", range(len(fg.DTYPES)))
+@pytest.mark.parametrize("terminal", ["project", "aggregate"])
+def test_largest_programs_fit(dt, terminal):
+    """MAX_REGS loads of distinct columns of one dtype, every one read by
+    the terminal (all live at the end: P at its most, or every column
+    staged), fit one block at TILE_STEP rows or more."""
+    n = fg.MAX_REGS
+    instrs = np.asarray([(fg.OPS["load"], dt, c, -1, 0) for c in range(n)],
+                        np.int64)
+    if terminal == "project":
+        prog = fg.Program(instrs, (dt,) * n, "project", -1,
+                          items=tuple((r, dt) for r in range(n)))
+    else:
+        specs = [(fg.AGG_KINDS["min"], r, dt) for r in range(fg.MAX_SPECS)]
+        instrs[fg.MAX_SPECS:, 0] = fg.OPS["neg"]    # the rest live too
+        instrs[fg.MAX_SPECS:, 2] = np.arange(fg.MAX_SPECS, n) - fg.MAX_SPECS
+        prog = fg.Program(instrs, (dt,) * n, "aggregate", n - 1,
+                          specs=tuple(specs))
+    plan = _check_plan(prog)
+    assert plan.smem <= fg.SMEM_BLOCK == 232_448
+    assert plan.tile >= fg.TILE_STEP
+    cols = [np.zeros(3, fg.DTYPES[dt]) for _ in range(n)]
+    buf = fg.pack_inputs(prog, cols, 3, 4)
+    words = buf[:8 * fg.HDR_FIXED].view(np.int64)
+    assert (words[7], words[8], words[9], words[10]) == \
+        (plan.tile, plan.stages, plan.slots, plan.smem)
+
+
+def test_program_that_cannot_fit_raises_in_pack_inputs(monkeypatch):
+    b = fg.ProgramBuilder([np.float64])
+    x = b.load(0)
+    for _ in range(fg.MAX_REGS):
+        x = b.emit("+", fg.F64, x, x)
+    big = b.finish("aggregate", -1, specs=[(fg.AGG_KINDS["min"], x, fg.F64)])
+    with pytest.raises(ValueError, match=str(fg.MAX_REGS)):
+        fg.pack_inputs(big, [np.zeros(4)], 4, 4)
+    b = fg.ProgramBuilder([np.float32] * 4)
+    regs = [b.load(c) for c in range(4)]
+    prog = b.finish("project", -1, items=[(r, 6) for r in regs])
+    monkeypatch.setattr(fg, "_PLANS", {})
+    monkeypatch.setattr(fg, "SMEM_BLOCK", 6_000)
+    with pytest.raises(ValueError, match="6000 B"):
+        fg.pack_inputs(prog, [np.zeros(4, np.float32)] * 4, 4, 4)

@@ -118,3 +118,74 @@ def padding_table(n):
     rng = np.random.default_rng(n)
     return {"k": rng.integers(0, 9, size=n),
             "x": rng.uniform(1.0, 2.0, size=n)}
+
+
+def edge_table(n, seed=7):
+    """The columns of the tile-edge groups: float64 with NaN, int64, float32,
+    and the narrow bool, int8 and float16; ``r`` the row number.  Row 0
+    passes the edge groups' WHERE."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n)
+    x[5::29] = np.nan
+    k = rng.integers(-1000, 1000, size=n)
+    b = rng.integers(0, 2, size=n).astype(bool)
+    k[0], b[0] = 0, True
+    h16 = (rng.normal(size=n) * 100).astype(np.float16)
+    h16[3::31] = np.nan
+    return {"x": x, "k": k, "w": rng.normal(size=n).astype(np.float32),
+            "b": b, "a8": rng.integers(-128, 128, size=n).astype(np.int8),
+            "h16": h16, "r": np.arange(n, dtype=np.int64)}
+
+
+EDGE_AGGREGATE = (
+    "SELECT count(*) AS n, count(x) AS cx, sum(k) AS sk, avg(k) AS ak, "
+    "min(x) AS mnx, max(w) AS mxw, first(x) AS fx, first(k) AS fk, "
+    "min(h16) AS mh, max(a8) AS ma FROM e WHERE k > -500 AND (b OR x < 0.5)")
+EDGE_PROJECT = (
+    "SELECT x * 2 + 1 AS u, w * 0.5 AS v, k * 3 AS t, b AS f, a8 + 1 AS g, "
+    "h16 * 2.0 AS h FROM e WHERE k > -500")
+#: first() whose least passing row lies in the last tile (of any T)
+EDGE_FIRST_ROWS = 9000
+EDGE_FIRST_LAST = (
+    "SELECT count(*) AS n, first(x) AS fx, first(k) AS fk, first(w) AS fw, "
+    f"first(h16) AS fh FROM e WHERE r >= {EDGE_FIRST_ROWS - 3}")
+#: bool, int8 and float16 columns read and written at an odd n
+EDGE_NARROW = ("SELECT b AS f, a8 AS g, h16 AS h, -a8 AS na FROM e "
+               "WHERE h16 < 50.0 OR a8 > 0 OR b")
+
+#: (label, rows, query) over ``edge_table(rows)``, table ``e``: n = 1, n
+#: below one tile, n not a multiple of the tile rows, n equal to its pow2
+#: bucket, first() in the last tile, narrow columns at an odd n
+EDGE_CASES = [
+    ("one row aggregate", 1, EDGE_AGGREGATE),
+    ("one row project", 1, EDGE_PROJECT),
+    ("below a tile aggregate", 77, EDGE_AGGREGATE),
+    ("below a tile project", 77, EDGE_PROJECT),
+    ("ragged last tile aggregate", 5003, EDGE_AGGREGATE),
+    ("ragged last tile project", 5003, EDGE_PROJECT),
+    ("full bucket aggregate", 4096, EDGE_AGGREGATE),
+    ("full bucket project", 4096, EDGE_PROJECT),
+    ("first in the last tile", EDGE_FIRST_ROWS, EDGE_FIRST_LAST),
+    ("narrow columns at odd n", 1001, EDGE_NARROW),
+]
+
+#: the deep WHERE: a balanced sum of DEEP_COLS float64 columns, 127
+#: instructions with the load of each column, the sums and the comparison;
+#: its staged columns force K14's smallest tile
+DEEP_COLS = 63
+DEEP_ROWS = 3000
+
+
+def deep_table(n=DEEP_ROWS, seed=63):
+    rng = np.random.default_rng(seed)
+    return {f"c{i}": rng.normal(size=n) for i in range(DEEP_COLS)}
+
+
+def deep_query():
+    def tree(lo, hi):
+        if hi - lo == 1:
+            return f"c{lo}"
+        mid = (lo + hi) // 2
+        return f"({tree(lo, mid)} + {tree(mid, hi)})"
+    return (f"SELECT count(*) AS n, min(c0) AS m, max(c{DEEP_COLS - 1}) AS "
+            f"mx FROM d WHERE {tree(0, DEEP_COLS)} > 0.0")
