@@ -419,15 +419,51 @@ Phases (any failure exits non-zero and prints no result):
     budget: its slices and halvings equal to the host model, one
     ``all_reduce`` a halving decision and none without a budget, zones
     equal to phase 5's;
-23. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+23. the exporters, workload history and fleet aggregator (``obs/``),
+    each path counted under its own name: a. ``mosaic.history.dir`` on a
+    temp dir with 2 KiB segments and 100 ms windows, then accounted
+    queries on the card: phase 5's first 2^20 points (K2, ``history
+    flagship``), phase 5's first batch cancelled once its first chunk is
+    fetched (``history cancel``), the 2^20 points under a
+    ``pipeline.fetch`` fault (``history fault``), phase 22b's fused
+    aggregate through phase 22's session (one K14 launch, ``history
+    fused``), and phase 17's side store (rebuilt from its seed) scanned
+    through ``register_store`` (``history store scan``; its EXPLAIN a
+    query too): exactly one record per query with its outcome (ok,
+    cancelled, error), the fused query's ``fusion_groups`` and the
+    scan's ``partitions`` (EXPLAIN's count) filled, ``compiles`` 0, the
+    open segment rotated; ``compact`` then ``report``: totals equal to
+    the records' fold; ``tools/mosaicstat_torch.py report`` (equal to
+    ``report``) and ``diff`` as child processes, exit 0; b. two child
+    processes (``chip_smoke.py --fleet-child``) and this process each
+    run 8 K3 lookups (``point_to_cell_device``, 2^16 global points, cells
+    equal to the host's) under one W3C ``traceparent`` with metrics, the
+    tracer and the spool on: the aggregator's merged ``fleet/k3_lookup_ms``
+    histogram bucket for bucket, and its p50/p95/p99, equal to one
+    registry fed every sample, ``stitched_traces`` joining the three pids'
+    24 spans, ``tools/fleetctl_torch.py list``, ``metrics`` and
+    ``bundle`` exit 0; c. ``serve_dashboard(port=0)`` while phase 5's
+    batches stream under ``accounted`` (``dashboard flagship``): every
+    route answers 200 (JSON with ``Cache-Control: no-store``), the query
+    is in flight, ``/api/devices`` names ``cuda:0``, the kernel ledger
+    holds ``pip/streamed`` rows, ``/metrics`` the ``history/*`` and
+    ``mem/*`` series; a POST cancel stops the stream
+    (``QueryCancelled``, a GET of it 405) and device memory comes back
+    to the byte; d. ``export_chrome_trace`` of the traced 2^20 points
+    (``chrome trace flagship``): JSON, every ``pip_join/*`` span in its
+    trace's lane; e. what the history call costs a completed query with
+    the plane off and on, and ``HistoryStore.append``'s records a second
+    (host clock);
+24. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
     ``raster``, ``sharded``, ``store``, ``geometry``, ``host_planes``,
-    ``functions``, ``memory_planes``, ``sql`` and ``tess_kernels`` (K7
-    and K8 by input set) summary lines, the card, the ``kernels`` JSON
-    line (K1-K14 with launches per path, the tessellations of phases 5
-    and 11, the strategies', the raster, the sharded, the ``store fed``,
-    the ``geometry``, the ``host planes``, the ``functions``, the
-    ``memory planes`` and the ``sql`` paths among them), then the last
-    line ``{"ok": true, "device": {...}}``.
+    ``functions``, ``memory_planes``, ``sql``, ``exporters`` and
+    ``tess_kernels`` (K7 and K8 by input set) summary lines, the card,
+    the ``kernels`` JSON line (K1-K14 with launches per path, the
+    tessellations of phases 5 and 11, the strategies', the raster, the
+    sharded, the ``store fed``, the ``geometry``, the ``host planes``,
+    the ``functions``, the ``memory planes``, the ``sql``, the
+    ``history``, ``fleet``, ``dashboard`` and ``chrome trace`` paths
+    among them), then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -7201,6 +7237,7 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
         f"equal to fused_group_ref and equal to the unfused path: "
         f"{len(cases)} ({', '.join(cases)})")
     t0 = lap("22b fusion", t0)
+    SQL_INPUTS["session"] = (s, groups)     # phase 23a's K14 query
 
     # ---- 22c. a chip store as a table
     with tempfile.TemporaryDirectory() as root:
@@ -7350,6 +7387,584 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
     return out
 
 
+#: phase 23: the flagship points each history query streams, the open
+#: segment's bound (a few records each, so it rotates), the history
+#: window (small, so the queries span at least two), the fleet's child
+#: processes, their K3 lookups and points, the dashboard stream's passes
+#: over phase 5's batches, the cost loops' repetitions, and the tools'
+#: time limit
+HIST_N = 1 << 20
+HIST_SEGMENT_BYTES = 2048
+HIST_WINDOW_MS = 100.0
+HIST_FAULT_PLAN = "seed=5;site=pipeline.fetch,fails=1"
+FLEET_CHILDREN = 2
+FLEET_LOOKUPS = 8
+FLEET_POINTS = 1 << 16
+FLEET_SEED = 2323
+FLEET_HIST = "fleet/k3_lookup_ms"
+DASH_PASSES = 32
+DASH_POLL_S = 1e-3
+COST_OFF_REPS = 100_000
+COST_ON_REPS = 2_000
+COST_APPEND_REPS = 20_000
+TOOL_TIMEOUT_S = 300
+
+
+def fleet_lookups(grid, seed: int, header: str):
+    """FLEET_LOOKUPS K3 lookups (``point_to_cell_device``) of
+    FLEET_POINTS global points on the card, each a ``fleet/k3_lookup``
+    span under a trace linked to the W3C ``header``, each one's wall ms
+    observed into FLEET_HIST; returns the samples and the cells' mismatch
+    count against the f64 host on the points."""
+    import torch
+    from mosaic_tpu_torch.obs import (link_traceparent, metrics, new_trace,
+                                      tracer)
+    pts = global_points(FLEET_POINTS, seed)
+    samples = []
+    with link_traceparent(header):
+        with new_trace("fleet lookups"):
+            for _ in range(FLEET_LOOKUPS):
+                t0 = time.perf_counter()
+                with tracer.span("fleet/k3_lookup"):
+                    cells, _ = grid.point_to_cell_device(pts, RES, DEV)
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                metrics.observe(FLEET_HIST, ms, scale=1e-3)
+                samples.append(ms)
+    bad = int((cells != grid.point_to_cell(pts, RES)).sum())
+    return samples, bad
+
+
+def fleet_child(directory: str, header: str, seed: int) -> int:
+    """``chip_smoke.py --fleet-child DIR TRACEPARENT SEED``, started by
+    phase 23b: the K3 lookups of :func:`fleet_lookups` with the metrics,
+    tracer and recorder on, then this process's spool written to DIR.
+    The samples, the K3 launches and the mismatches go to the last line
+    of stdout."""
+    sys.path.insert(0, str(ROOT))
+    from mosaic_tpu_torch.core.index.factory import get_index_system
+    from mosaic_tpu_torch.obs import metrics, recorder, tracer, write_spool
+    import os
+    metrics.reset()
+    metrics.enable()
+    recorder.enable()
+    tracer.enable()
+    reset_counts()
+    samples, bad = fleet_lookups(get_index_system("H3"), seed, header)
+    counts = launch_counts()
+    path = write_spool(directory)
+    print(json.dumps({"pid": os.getpid(), "samples": samples,
+                      "k3": counts["h3_latlng_to_cell"], "mismatches": bad,
+                      "spool": path}))
+    return 0
+
+
+def phase_exporters(idx, grid, polys, batches, dense_zones):
+    """The exporters, the workload history and the fleet aggregator on
+    the card (phase 23), each path counted under its own name: a. the
+    history plane over accounted queries (K2, K14, a store scan, a
+    cancel, a fault), compaction and ``mosaicstat_torch``; b. two child
+    processes' and this process's K3 lookups merged by the fleet
+    aggregator, their traces stitched, and ``fleetctl_torch``; c. the
+    dashboard's routes while a flagship stream runs, and a POST cancel
+    of it; d. the Chrome trace of a traced flagship batch; e. what the
+    history plane costs a completed query."""
+    import collections
+    import gc
+    import importlib
+    import os
+    import secrets
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    import torch
+    import mosaic_tpu_torch as mt
+    from mosaic_tpu_torch import config
+    from mosaic_tpu_torch.obs import (FleetAggregator, MetricsRegistry,
+                                      QueryCancelled, accounted,
+                                      export_chrome_trace, inflight,
+                                      metrics, new_trace, recorder,
+                                      serve_dashboard, tracer, write_spool)
+    from mosaic_tpu_torch.resilience import faults
+    from mosaic_tpu_torch.resilience.faults import InjectedFault
+    from mosaic_tpu_torch.store import write_store
+    hmod = importlib.import_module("mosaic_tpu_torch.obs.history")
+    history = hmod.history
+
+    t_phase = time.perf_counter()
+    paths, out, secs = {}, {}, {}
+    prev_cfg = config.default_config()
+    was_metrics = metrics.enabled
+    run = mt.make_streamed_pip_join(idx, grid, polys, chunk=CHUNK,
+                                    device=DEV)
+    pts = batches[0][:HIST_N]
+    s, groups = SQL_INPUTS["session"]
+    prev_principal = s.principal
+
+    def counted(path, fn):
+        reset_counts()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            got = launch_counts()
+            paths[path] = {k: paths.get(path, {}).get(k, 0) + v
+                           for k, v in got.items()}
+
+    def set_conf(**kv):
+        cfg = config.default_config()
+        for k, v in kv.items():
+            cfg = config.apply_conf(cfg, k, v)
+        config.set_default_config(cfg)
+
+    def lap(name, t0):
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return time.perf_counter()
+
+    def tool(*argv):
+        """A tool of ``tools/`` as a child process (started, not waited
+        for)."""
+        return subprocess.Popen([sys.executable, str(ROOT / "tools" /
+                                                     argv[0]), *argv[1:]],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def stream_cancelled(label, ticket_box):
+        """Phase 5's first batch under ``accounted``, cancelled from
+        another thread once its first chunk is fetched; returns the
+        outcome the stream raised."""
+        seen = {}
+
+        def canceller():
+            while not seen.get("done"):
+                t = ticket_box.get("t")
+                if t is not None and t.d2h_bytes > 0:
+                    inflight.cancel(t.query_id)
+                    return
+                time.sleep(HP_CANCEL_POLL_S)
+
+        th = threading.Thread(target=canceller, daemon=True)
+        th.start()
+        try:
+            with accounted(label, principal="chip_smoke") as t:
+                ticket_box["t"] = t
+                run(batches[0])
+        except QueryCancelled as e:
+            return e.outcome
+        finally:
+            seen["done"] = True
+            th.join(30)
+        return "ok"
+
+    tmp = tempfile.TemporaryDirectory()
+    procs = []
+    started = []                  # every child process, stopped at the end
+    try:
+        metrics.reset()
+        metrics.enable()
+        recorder.enable()
+        history.reset()
+        t0 = time.perf_counter()
+
+        # ---- 23a. the workload history over accounted queries
+        hdir = os.path.join(tmp.name, "history")
+        set_conf(**{"mosaic.history.dir": hdir,
+                    "mosaic.history.segment.bytes": str(HIST_SEGMENT_BYTES),
+                    "mosaic.history.window.ms": str(HIST_WINDOW_MS)})
+        queries = []                          # (name, expected outcome)
+        with accounted("history flagship", principal="chip_smoke"):
+            z = counted("history flagship", lambda: run(pts))[0]
+        queries.append(("history flagship", "ok"))
+        check(np.array_equal(z, dense_zones[0][:HIST_N]),
+              "history: the flagship's zones differ from phase 5's")
+        box = {}
+        outcome = counted("history cancel",
+                          lambda: stream_cancelled("history cancel", box))
+        check(outcome == "cancelled", f"history: the cancel gave {outcome}")
+        queries.append(("history cancel", "cancelled"))
+        faults.arm(HIST_FAULT_PLAN)
+        raised = None
+        try:
+            with accounted("history fault", principal="chip_smoke"):
+                counted("history fault", lambda: run(pts))
+        except InjectedFault as e:
+            raised = e
+        finally:
+            faults.disarm()
+        check(raised is not None, "history: the fetch fault never rose")
+        queries.append(("history fault", "error"))
+        # the SQL queries complete at least one window later
+        time.sleep(HIST_WINDOW_MS / 1e3)
+        config.set_default_config(config.apply_conf(
+            config.default_config(), "mosaic.planner.force.fusion", "on"))
+        s.principal = "chip_smoke"
+        fused = counted("history fused", lambda: s.sql(groups["aggregate"]))
+        queries.append((" ".join(groups["aggregate"].split())[:60], "ok"))
+        check(paths["history fused"]["fused_group"] == 1 and len(fused) == 1,
+              f"history: {paths['history fused']['fused_group']} K14 "
+              "launches for the fused aggregate")
+        side = os.path.join(tmp.name, "side")
+        side_pts = mt.nyc_points(STORE_SIDE_ROWS, seed=901)
+        write_store(side, side_pts, grid_res=STORE_SIDE_RES,
+                    shard_rows=STORE_SIDE_SHARD)
+        s.register_store("hside", side)
+        qx = float(np.quantile(side_pts[:, 0], STORE_SIDE_FRAC))
+        qy = float(np.quantile(side_pts[:, 1], STORE_SIDE_FRAC))
+        sq = f"SELECT x, y FROM hside WHERE x <= {qx!r} AND y <= {qy!r}"
+        scanned = s.sql("EXPLAIN " + sq).columns["partitions"][0]
+        queries.append((" ".join(("EXPLAIN " + sq).split())[:60], "ok"))
+        rows = counted("history store scan", lambda: s.sql(sq))
+        queries.append((" ".join(sq.split())[:60], "ok"))
+        s.drop_store("hside")
+        keep = (side_pts[:, 0] <= qx) & (side_pts[:, 1] <= qy)
+        check(len(rows) == int(keep.sum()), f"history: the store scan gave "
+              f"{len(rows)} rows, a numpy filter {int(keep.sum())}")
+        config.set_default_config(config.apply_conf(
+            config.default_config(), "mosaic.planner.force.fusion", "auto"))
+        store = history.store()
+        records = hmod.load_records(hdir)
+        closed_before = len(hmod.segment_paths(hdir)[0])
+        check([(r["sql"], r["outcome"]) for r in records] == queries,
+              "history: the records "
+              f"{[(r['sql'], r['outcome']) for r in records]} are not one "
+              f"a query {queries}")
+        for r in records:
+            check({"mispredicts", "fusion_groups", "partitions"} <= set(r)
+                  and r["cost"]["compiles"] == 0,
+                  f"history: record {r['sql']!r} lacks a column")
+        by = {r["sql"]: r for r in records}
+        fgroups = by[queries[3][0]]["fusion_groups"]
+        parts = by[queries[5][0]]["partitions"]
+        check(len(fgroups) == 1, f"history: the fused query's groups "
+              f"{fgroups}")
+        n_scanned = int(scanned.split("/")[0])
+        check(len(parts) == n_scanned and
+              sum(v["rows"] for v in parts.values()) >= len(rows),
+              f"history: the scan's record names {len(parts)} partitions, "
+              f"EXPLAIN {scanned}")
+        check(closed_before >= 2, f"history: {closed_before} closed "
+              "segments, the open segment never rotated")
+        # the report's totals merge the windows' summaries in window
+        # order: so does the oracle, float sums added in the same order
+        oracle = hmod.new_summary(None, HIST_WINDOW_MS)
+        windows = hmod.summarize_records(records, HIST_WINDOW_MS)
+        for wid in sorted(windows):
+            hmod.merge_summary(oracle, windows[wid])
+        store.rotate()
+        compaction = store.compact()
+        rep = hmod.report(hdir)
+        check(compaction["records"] == len(records) and
+              not hmod.segment_paths(hdir)[0] and
+              rep["totals"] == hmod.summary_payload(oracle),
+              f"history: compaction {compaction}; the report's totals "
+              "differ from the records' fold")
+        check(len(rep["windows"]) >= 2, f"history: {len(rep['windows'])} "
+              "windows")
+        wms = str(HIST_WINDOW_MS)
+        procs.append(("mosaicstat report", tool(
+            "mosaicstat_torch.py", "--dir", hdir, "--window-ms", wms,
+            "report")))
+        procs.append(("mosaicstat diff", tool(
+            "mosaicstat_torch.py", "--dir", hdir, "--window-ms", wms,
+            "diff", "--json")))
+        out["history"] = {
+            "records": len(records),
+            "outcomes": dict(collections.Counter(
+                r["outcome"] for r in records)),
+            "closed_segments": closed_before, "compaction": compaction,
+            "windows": len(rep["windows"]), "fusion_groups": fgroups,
+            "partitions": len(parts), "scan_partitions": scanned,
+            "write_errors": history.write_errors()}
+        log(f"[exporters] history: {len(records)} records for "
+            f"{len(queries)} queries ({out['history']['outcomes']}), "
+            f"{closed_before} closed segments of {HIST_SEGMENT_BYTES} B, "
+            f"compacted into {compaction['summaries']} summaries "
+            f"({compaction['bytes_before']} -> {compaction['bytes_after']} "
+            f"B); the report's totals equal the records' fold; the fused "
+            f"query's groups {fgroups}, the scan's {len(parts)} partitions "
+            f"(EXPLAIN {scanned})")
+        t0 = lap("23a history", t0)
+
+        # ---- 23b. the fleet: two children and this process
+        fdir = os.path.join(tmp.name, "fleet")
+        header = f"00-{secrets.token_hex(16)}-{secrets.token_hex(8)}-01"
+        w3c = header.split("-")[1]
+        children = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-child",
+             fdir, header, str(FLEET_SEED + 1 + i)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(FLEET_CHILDREN)]
+        started.extend(children)
+        tracer.enable()
+        try:
+            mine, bad = counted("fleet lookups", lambda: fleet_lookups(
+                grid, FLEET_SEED, header))
+        finally:
+            tracer.disable()
+        write_spool(fdir)
+        got = []
+        for ch in children:
+            o, e = ch.communicate(timeout=TOOL_TIMEOUT_S)
+            check(ch.returncode == 0, f"fleet: a child exited "
+                  f"{ch.returncode}: {e[-2000:]}")
+            got.append(json.loads(o.strip().splitlines()[-1]))
+        check(bad == 0 and all(g["mismatches"] == 0 for g in got),
+              f"fleet: K3 cells off the host's: {bad} here, "
+              f"{[g['mismatches'] for g in got]} in the children")
+        check(paths["fleet lookups"]["h3_latlng_to_cell"] == FLEET_LOOKUPS
+              and all(g["k3"] == FLEET_LOOKUPS for g in got),
+              f"fleet: K3 launches {paths['fleet lookups']} here, "
+              f"{[g['k3'] for g in got]} in the children")
+        agg = FleetAggregator(fdir, stale_ms=600_000.0)
+        view = agg.scan()
+        oracle_reg = MetricsRegistry()
+        oracle_reg.enable()
+        for v in mine + [v for g in got for v in g["samples"]]:
+            oracle_reg.observe(FLEET_HIST, v, scale=1e-3)
+        want = oracle_reg.histogram(FLEET_HIST)
+        merged = view.histograms.get(FLEET_HIST)
+        pids = {os.getpid()} | {g["pid"] for g in got}
+        check({w.pid for w in view.workers} == pids and
+              view.merge_errors == 0 and merged is not None,
+              f"fleet: workers {[w.summary() for w in view.workers]}")
+        ws, ms_ = want.snapshot(), merged.snapshot()
+        check(merged.counts == want.counts and
+              all(ms_[q] == ws[q] for q in ("count", "min", "max", "p50",
+                                            "p95", "p99")),
+              f"fleet: merged {ms_} != one registry's {ws}")
+        traces = agg.stitched_traces(view)
+        check(w3c in traces and set(traces[w3c]["workers"]) == pids and
+              len([sp for sp in traces[w3c]["spans"]
+                   if sp["name"] == "fleet/k3_lookup"])
+              == FLEET_LOOKUPS * len(pids),
+              f"fleet: stitched traces {sorted(traces)} workers "
+              f"{traces.get(w3c, {}).get('workers')}")
+        procs.append(("fleetctl list", tool(
+            "fleetctl_torch.py", "--dir", fdir, "list")))
+        procs.append(("fleetctl metrics", tool(
+            "fleetctl_torch.py", "--dir", fdir, "metrics")))
+        procs.append(("fleetctl bundle", tool(
+            "fleetctl_torch.py", "--dir", fdir, "bundle", "--out",
+            os.path.join(tmp.name, "bundle.json"))))
+        out["fleet"] = {
+            "workers": len(view.workers), "samples": ws["count"],
+            "p50_ms": ms_["p50"], "p95_ms": ms_["p95"],
+            "p99_ms": ms_["p99"], "child_k3": [g["k3"] for g in got],
+            "stitched_spans": len(traces[w3c]["spans"])}
+        log(f"[exporters] fleet: {len(view.workers)} spools (2 children "
+            f"and this process, {FLEET_LOOKUPS} K3 lookups of "
+            f"{FLEET_POINTS} points each), merged {FLEET_HIST} p50/p95/p99 "
+            f"{ms_['p50']}/{ms_['p95']}/{ms_['p99']} ms, bucket for bucket "
+            f"one registry's; {len(traces[w3c]['spans'])} spans of "
+            f"{len(pids)} pids stitched under {w3c}")
+        t0 = lap("23b fleet", t0)
+
+        # ---- 23c. the dashboard while a flagship stream runs
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        box, res = {}, {}
+
+        def stream():
+            try:
+                with accounted("dashboard flagship",
+                               principal="chip_smoke") as t:
+                    box["t"] = t
+                    for _ in range(DASH_PASSES):
+                        for b in batches:
+                            run(b)
+            except QueryCancelled as e:
+                res["outcome"] = e.outcome
+            except Exception as e:           # surfaced by the check below
+                res["error"] = f"{type(e).__name__}: {e}"
+
+        routes = ["/", "/metrics", "/memory", "/profile", "/api/summary",
+                  "/api/series", "/api/timeseries?name=sql/query_ms",
+                  "/api/alerts", "/api/traces", "/api/planner",
+                  "/api/devices", "/api/memory", "/api/profile",
+                  "/api/queries", "/api/principals", "/api/server",
+                  "/api/fleet?dir=" + fdir, "/api/history"]
+        answers = {}
+        handle = serve_dashboard(port=0)
+        base = f"http://127.0.0.1:{handle.port}"
+        reset_counts()
+        th = threading.Thread(target=stream, daemon=True)
+        try:
+            th.start()
+            while (box.get("t") is None or box["t"].d2h_bytes == 0) and \
+                    th.is_alive():
+                time.sleep(DASH_POLL_S)
+            for r in routes:
+                with urllib.request.urlopen(base + r, timeout=30) as resp:
+                    body = resp.read()
+                    answers[r] = (resp.status, body,
+                                  resp.headers.get("Cache-Control"))
+            qid = box["t"].query_id
+            req = urllib.request.Request(
+                f"{base}/api/queries/{qid}/cancel", data=b"",
+                method="POST")
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                cancel = json.loads(resp.read())
+            try:
+                urllib.request.urlopen(f"{base}/api/queries/{qid}/cancel",
+                                       timeout=30)
+                get_cancel = 200
+            except urllib.error.HTTPError as e:
+                get_cancel = e.code
+        finally:
+            th.join(120)
+            handle.close()
+        torch.cuda.synchronize()
+        paths["dashboard flagship"] = launch_counts()
+        check(all(a[0] == 200 for a in answers.values()) and
+              all(a[2] == "no-store" for r, a in answers.items()
+                  if r.startswith("/api/")),
+              f"dashboard: {[(r, a[0], a[2]) for r, a in answers.items()]}")
+        api = {r: json.loads(a[1]) for r, a in answers.items()
+               if r.startswith("/api/")}
+        inflight_q = [q for q in api["/api/queries"]["inflight"]
+                      if q["query_id"] == qid]
+        devices = api["/api/devices"]["devices"]
+        k2_rows = [k for k in api["/api/profile"]["ledger"]["kernels"]
+                   if k["name"] == "pip/streamed"]
+        text = answers["/metrics"][1].decode()
+        check(inflight_q and f"{torch.device(DEV).type}:0" in devices and
+              k2_rows and k2_rows[0]["launches"] > 0,
+              f"dashboard: in flight {inflight_q}, devices {list(devices)},"
+              f" ledger {k2_rows}")
+        check("mosaic_history_records_written_total" in text and
+              "mosaic_mem_live_bytes" in text and
+              api["/api/server"] == {"running": False} and
+              api["/api/history"]["enabled"] is True and
+              api["/api/fleet?dir=" + fdir]["enabled"] is True,
+              "dashboard: /metrics lacks the history or memory ledger "
+              "series, or a panel is off")
+        check(cancel == {"query_id": qid, "cancelled": True} and
+              get_cancel == 405 and res.get("outcome") == "cancelled" and
+              not th.is_alive(), f"dashboard: cancel {cancel}, GET "
+              f"{get_cancel}, the stream {res}")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check(mem1 == mem0, f"dashboard: {mem1} bytes allocated after the "
+              f"cancel, {mem0} before")
+        k2_dash = paths["dashboard flagship"]["h3_dense_join"]
+        check(0 < k2_dash < DASH_PASSES * len(batches) * (BATCH // CHUNK),
+              f"dashboard: {k2_dash} K2 launches")
+        out["dashboard"] = {"routes": len(answers), "k2_launches": k2_dash,
+                            "mem_before": mem0, "mem_after": mem1,
+                            "devices": sorted(devices),
+                            "ledger_k2_launches": k2_rows[0]["launches"]}
+        log(f"[exporters] dashboard: {len(answers)} routes answered while "
+            f"the flagship streamed ({', '.join(sorted(devices))}; the "
+            f"kernel ledger's pip/streamed {k2_rows[0]['launches']} "
+            f"launches); the POST cancel stopped it after {k2_dash} K2 "
+            f"launches, device memory {mem0} -> {mem1} bytes")
+        t0 = lap("23c dashboard", t0)
+
+        # ---- 23d. the Chrome trace of a traced flagship batch
+        tracer.reset()
+        tracer.enable()
+        try:
+            with new_trace("chrome trace flagship") as ctx:
+                zt = counted("chrome trace flagship", lambda: run(pts))[0]
+        finally:
+            tracer.disable()
+        path = export_chrome_trace(os.path.join(tmp.name, "trace.json"))
+        with open(path) as f:
+            doc = json.load(f)
+        evs = doc["traceEvents"]
+        lanes = {e["tid"]: e["args"]["name"] for e in evs
+                 if e["name"] == "thread_name"}
+        pip = [e for e in evs if e["ph"] == "X" and
+               e["name"].startswith("pip_join/")]
+        check(np.array_equal(zt, dense_zones[0][:HIST_N]) and pip and
+              all(e["tid"] in lanes and
+                  lanes[e["tid"]].startswith(ctx.trace_id) for e in pip),
+              f"chrome trace: {len(pip)} pip_join spans, lanes {lanes}")
+        tracer.reset()
+        out["chrome_trace"] = {"events": len(evs), "pip_spans": len(pip),
+                               "lanes": len(lanes)}
+        log(f"[exporters] Chrome trace: {len(evs)} events, {len(pip)} "
+            f"pip_join spans, each in its trace's lane ({len(lanes)} "
+            "lanes); zones equal phase 5's")
+        t0 = lap("23d chrome trace", t0)
+
+        # ---- 23e. what history costs a completed query
+        rec = dict(records[0])
+        t = box["t"]
+        set_conf(**{"mosaic.history.dir": ""})
+        history.reset()
+        t1 = time.perf_counter()
+        for _ in range(COST_OFF_REPS):
+            history.record_completion(rec, t)
+        off_us = (time.perf_counter() - t1) / COST_OFF_REPS * 1e6
+        cdir = os.path.join(tmp.name, "cost")
+        set_conf(**{"mosaic.history.dir": cdir,
+                    "mosaic.history.segment.bytes": "1048576"})
+        t1 = time.perf_counter()
+        for _ in range(COST_ON_REPS):
+            history.record_completion(rec, t)
+        on_us = (time.perf_counter() - t1) / COST_ON_REPS * 1e6
+        history.reset()
+        app = hmod.HistoryStore(os.path.join(tmp.name, "append"))
+        hrec = hmod.history_record(rec, t)
+        t1 = time.perf_counter()
+        for _ in range(COST_APPEND_REPS):
+            app.append(hrec)
+        per_s = COST_APPEND_REPS / (time.perf_counter() - t1)
+        app.close()
+        out["cost"] = {"off_us": off_us, "on_us": on_us,
+                       "append_records_per_s": per_s,
+                       "record_bytes": len(json.dumps(hrec, default=str,
+                                                      sort_keys=True)) + 1}
+        log(f"[exporters] cost: a completed query's history call "
+            f"{off_us:.3f} us with the plane off, {on_us:.3f} us on (one "
+            f"{out['cost']['record_bytes']} B record appended and flushed); "
+            f"HistoryStore.append {per_s:.0f} records/s (host clock)")
+        t0 = lap("23e cost", t0)
+
+        # the tools started above
+        tools = {}
+        for label, p in procs:
+            o, e = p.communicate(timeout=TOOL_TIMEOUT_S)
+            tools[label] = p.returncode
+            check(p.returncode == 0, f"{label}: exit {p.returncode}: "
+                  f"{e[-2000:]}")
+            if label == "mosaicstat report":
+                check(json.loads(o) == rep, "mosaicstat report: its JSON "
+                      "differs from report()")
+            if label == "mosaicstat diff":
+                out["history"]["diff_flagged"] = json.loads(o)["flagged"]
+        with open(os.path.join(tmp.name, "bundle.json")) as f:
+            bundle = json.load(f)
+        check(w3c in bundle["traces"], "fleetctl bundle: the stitched "
+              "trace is missing")
+        out["tools"] = tools
+        log(f"[exporters] tools: {json.dumps(tools)} (child processes)")
+        lap("23 tools", t0)
+    finally:
+        for p in started + [p for _, p in procs]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        faults.disarm()
+        tracer.disable()
+        config.set_default_config(prev_cfg)
+        history.reset()
+        s.principal = prev_principal
+        metrics.reset()
+        if not was_metrics:
+            metrics.disable()
+        tmp.cleanup()
+    out["counts"] = paths
+    out["secs"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def kernel_line(name, source, replaces, k, by_path) -> dict:
     """One kernel's entry of the ``kernels`` line; ``launches`` is the
     sum of its launches over the main paths in ``by_path``."""
@@ -7405,6 +8020,7 @@ def main() -> int:
         mem = phase_memory_planes(idx, grid, polys, batches, dense_zones,
                                   over)
         sqlp = phase_sql(idx, grid, polys, batches, dense_zones)
+        exp = phase_exporters(idx, grid, polys, batches, dense_zones)
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -7418,7 +8034,7 @@ def main() -> int:
              **shard["counts"], **{p: c for p, c in store["counts"].items()
                                    if p.startswith("store fed")},
              **geom["paths"], **hp["counts"], **fns["counts"],
-             **mem["counts"], **sqlp["counts"]}
+             **mem["counts"], **sqlp["counts"], **exp["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -7455,10 +8071,13 @@ def main() -> int:
                                       if k != "counts"}}, default=str))
     log(json.dumps({"sql": {k: v for k, v in sqlp.items()
                             if k != "counts"}}, default=str))
+    log(json.dumps({"exporters": {k: v for k, v in exp.items()
+                                  if k != "counts"}}, default=str))
     log(f"[chip_smoke] phases 1-18 took {t_18:.1f} s, phase 19 "
         f"{hp['phase_s']:.1f} s, phase 20 {fns['phase_s']:.1f} s, phase "
         f"21 {mem['phase_s']:.1f} s, phase 22 {sqlp['phase_s']:.1f} s, "
-        f"phases 1-22 {time.perf_counter() - t_start:.1f} s (host clock)")
+        f"phase 23 {exp['phase_s']:.1f} s, "
+        f"phases 1-23 {time.perf_counter() - t_start:.1f} s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
                for label, row in chip[key]["shapes"].items()}
@@ -7549,4 +8168,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--trace-child"]:
         sys.exit(trace_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--fleet-child"]:
+        sys.exit(fleet_child(sys.argv[2], sys.argv[3], int(sys.argv[4])))
     sys.exit(main())

@@ -65,7 +65,13 @@ setting carries over 1:1:
   ``mosaic.audit.{path,rotate.bytes,retain}`` — the query accounting
   plane (``obs/accounting.py``);
 * ``mosaic.obs.fleet.{dir,window.ms,events}`` — the telemetry spool
-  the sampler writes (``obs/spool.py``);
+  the sampler writes (``obs/spool.py``); ``mosaic.obs.fleet.stale.ms``
+  — the spool age past which the aggregator flags a worker stale
+  (``obs/fleet.py``);
+* ``mosaic.history.{dir,segment.bytes,segment.age.ms,retain,window.ms}``
+  — the workload history store (``obs/history.py``): its directory (""
+  = off), the open segment's size and age bounds, the closed segments
+  kept and the compaction window;
 * ``mosaic.planner.stats.path`` — the planner's learned-coefficient
   file ("" = in process only; env ``MOSAIC_TPU_PLANNER_STATS`` wins),
   the same JSON as the JAX package's, so either package loads the
@@ -78,7 +84,7 @@ setting carries over 1:1:
 A successful ``apply_conf`` records a ``config`` flight-recorder event.
 
 The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
-any other one (the serve and history keys wait for those planes), and
+any other one (the serve keys wait for that plane, ROADMAP §A9d), and
 for ``mosaic.device.dtype``, ``mosaic.exact.fallback`` and
 ``mosaic.jit.cache.dir``, which nothing in the port reads (the last
 names XLA's on-disk compilation cache; the port compiles nothing at run
@@ -133,12 +139,18 @@ MOSAIC_MEM_BUDGET_BYTES = "mosaic.mem.budget.bytes"
 MOSAIC_MEM_PRESSURE_HIGH = "mosaic.mem.pressure.high"
 MOSAIC_OBS_MEM_ENABLED = "mosaic.obs.mem.enabled"
 MOSAIC_OBS_FLEET_DIR = "mosaic.obs.fleet.dir"
+MOSAIC_OBS_FLEET_STALE_MS = "mosaic.obs.fleet.stale.ms"
 MOSAIC_OBS_FLEET_WINDOW_MS = "mosaic.obs.fleet.window.ms"
 MOSAIC_OBS_FLEET_EVENTS = "mosaic.obs.fleet.events"
 MOSAIC_PLANNER_STATS_PATH = "mosaic.planner.stats.path"
 MOSAIC_OBS_SLOW_QUERY_MS = "mosaic.obs.slow.query.ms"
 MOSAIC_FUSION_ENABLED = "mosaic.fusion.enabled"
 MOSAIC_FUSION_MAX_OPS = "mosaic.fusion.max.ops"
+MOSAIC_HISTORY_DIR = "mosaic.history.dir"
+MOSAIC_HISTORY_SEGMENT_BYTES = "mosaic.history.segment.bytes"
+MOSAIC_HISTORY_SEGMENT_AGE_MS = "mosaic.history.segment.age.ms"
+MOSAIC_HISTORY_RETAIN = "mosaic.history.retain"
+MOSAIC_HISTORY_WINDOW_MS = "mosaic.history.window.ms"
 
 MOSAIC_RASTER_CHECKPOINT_DEFAULT = "/tmp/mosaic_tpu/checkpoint"
 MOSAIC_RASTER_TMP_PREFIX_DEFAULT = "/tmp"
@@ -234,9 +246,11 @@ class MosaicConfig:
     mem_budget_bytes: int = 0
     mem_pressure_high: float = 0.85
     obs_mem_enabled: bool = True
-    # telemetry spool ("" = none), the window of series each spool
+    # telemetry spool ("" = none), the spool age past which the
+    # aggregator flags a worker stale, the window of series each spool
     # carries and how many recorder events ride along
     obs_fleet_dir: str = ""
+    obs_fleet_stale_ms: float = 5_000.0
     obs_fleet_window_ms: float = 300_000.0
     obs_fleet_events: int = 512
     # learned planner coefficients persisted here ("" = in process
@@ -249,6 +263,14 @@ class MosaicConfig:
     # member-operator cap of a group
     fusion_enabled: bool = True
     fusion_max_ops: int = 8
+    # workload history (obs/history.py): directory ("" = off), open
+    # segment bounds (bytes; age in ms, 0 = none), closed segments kept,
+    # compaction window width in ms
+    history_dir: str = ""
+    history_segment_bytes: int = 1_048_576
+    history_segment_age_ms: float = 0.0
+    history_retain: int = 64
+    history_window_ms: float = 3_600_000.0
 
 
 def _as_flag(key: str, value) -> bool:
@@ -401,12 +423,18 @@ _CONF_FIELDS = {
     MOSAIC_MEM_PRESSURE_HIGH: ("mem_pressure_high", _as_fraction),
     MOSAIC_OBS_MEM_ENABLED: ("obs_mem_enabled", _as_flag),
     MOSAIC_OBS_FLEET_DIR: ("obs_fleet_dir", _as_str),
+    MOSAIC_OBS_FLEET_STALE_MS: ("obs_fleet_stale_ms", _as_millis),
     MOSAIC_OBS_FLEET_WINDOW_MS: ("obs_fleet_window_ms", _as_millis),
     MOSAIC_OBS_FLEET_EVENTS: ("obs_fleet_events", _as_count),
     MOSAIC_PLANNER_STATS_PATH: ("planner_stats_path", _as_str),
     MOSAIC_OBS_SLOW_QUERY_MS: ("obs_slow_query_ms", _as_millis),
     MOSAIC_FUSION_ENABLED: ("fusion_enabled", _as_flag),
     MOSAIC_FUSION_MAX_OPS: ("fusion_max_ops", _as_blocksize),
+    MOSAIC_HISTORY_DIR: ("history_dir", _as_str),
+    MOSAIC_HISTORY_SEGMENT_BYTES: ("history_segment_bytes", _as_blocksize),
+    MOSAIC_HISTORY_SEGMENT_AGE_MS: ("history_segment_age_ms", _as_millis),
+    MOSAIC_HISTORY_RETAIN: ("history_retain", _as_count),
+    MOSAIC_HISTORY_WINDOW_MS: ("history_window_ms", _as_millis),
 }
 
 

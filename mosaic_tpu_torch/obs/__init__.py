@@ -30,10 +30,20 @@ Port of the core of ``mosaic_tpu.obs``:
 * ``obs.devicemon`` — per-device busy time, rows and memory.
 * ``obs.profiler`` — the sampling host profiler and the kernel ledger.
 * ``obs.accounting`` — per-principal meters and the audit log.
-* ``obs.spool`` — the per-process telemetry spool.
+* ``obs.spool`` / ``obs.fleet`` — the per-process telemetry spool and
+  the aggregator that merges N spools into one exact fleet view
+  (counter sums, fresh-worker gauge max, bucket-wise histograms), with
+  stale-worker degrade, fleet SLO evaluation and cross-process trace
+  stitching.
+* ``obs.history`` — the durable workload history: one record per
+  completed query in rotating on-disk segments under
+  ``mosaic.history.dir``, compacted into exact per-window summaries.
+* ``obs.chrometrace`` — Perfetto-loadable JSON of the host spans.
+* ``obs.openmetrics`` / ``obs.dashboard`` — the Prometheus text
+  exposition, its ``serve_metrics(port)`` scrape endpoint, and the ops
+  dashboard (``serve_dashboard(port)``).
 
-The history, exporters, dashboard and fleet aggregator are ROADMAP
-§A9c.  The tracer and registry are off by default and cost one
+The tracer and registry are off by default and cost one
 attribute check per instrumented site until enabled via
 ``MOSAIC_TPU_TRACE=1`` / ``MOSAIC_TPU_METRICS=1``, the
 ``mosaic.trace.enabled`` / ``mosaic.metrics.enabled`` conf keys, or
@@ -46,24 +56,33 @@ import os as _os
 
 from .accounting import (AuditLog, PrincipalMeter, accounted, audit,
                          complete, meter)
+from .chrometrace import chrome_trace_events, export_chrome_trace
 from .context import (TraceContext, current_trace, current_trace_id,
                       install_thread_propagation, link_traceparent,
                       make_traceparent, new_trace, parse_traceparent,
                       root_trace, traced)
+from .dashboard import serve_dashboard
 from .devicemon import DeviceMonitor, devicemon, mesh_device_keys
+from .fleet import (FleetAggregator, FleetStore, WorkerState,
+                    aggregator_for, merge_history)
 from .heat import HeatTracker, heat
+from .history import (HISTORY_VERSION, HistoryStore, history,
+                      window_diff)
+from .history import report as history_report
 from .inflight import (InflightRegistry, QueryCancelled, QueryTicket,
                        checkpoint, inflight)
 from .jaxmon import device_capacity, last_watermarks, sample_memory
 from .memwatch import (DeviceMemoryLedger, MemoryBudget, device_keys_of,
                        mem_budget, memwatch)
 from .metrics import Histogram, MetricsRegistry, metrics
+from .openmetrics import (ServerHandle, fleet_to_openmetrics,
+                          serve_metrics, to_openmetrics)
 from .profiler import (HostProfiler, KernelLedger, capture_snapshot,
                        configure_profiler, ledger, maybe_device_capture,
                        profiler, start_profiler, stop_profiler)
 from .recorder import FlightRecorder, install_excepthook, recorder
-from .slo import (SLObjective, SLOMonitor, default_objectives, monitor,
-                  principal_objectives)
+from .slo import (SLObjective, SLOMonitor, default_objectives,
+                  evaluate_fleet, monitor, principal_objectives)
 from .spool import (SPOOL_VERSION, SpoolError, read_spool,
                     spool_snapshot, write_spool)
 from .timeseries import (Sampler, TimeSeriesStore, configure_sampler,
@@ -81,12 +100,19 @@ __all__ = [
     "parse_traceparent", "make_traceparent", "link_traceparent",
     "FlightRecorder", "recorder", "install_excepthook",
     "sample_memory", "last_watermarks", "device_capacity",
+    "chrome_trace_events", "export_chrome_trace",
+    "to_openmetrics", "serve_metrics", "ServerHandle",
     "TimeSeriesStore", "timeseries", "Sampler", "start_sampler",
     "stop_sampler", "sampler", "configure_sampler",
     "SLObjective", "SLOMonitor", "monitor", "default_objectives",
-    "principal_objectives",
+    "principal_objectives", "evaluate_fleet",
     "SPOOL_VERSION", "SpoolError", "read_spool", "spool_snapshot",
     "write_spool",
+    "FleetAggregator", "FleetStore", "WorkerState", "aggregator_for",
+    "fleet_to_openmetrics", "merge_history",
+    "HISTORY_VERSION", "HistoryStore", "history", "history_report",
+    "window_diff",
+    "serve_dashboard",
     "HeatTracker", "heat",
     "DeviceMonitor", "devicemon", "mesh_device_keys",
     "HostProfiler", "KernelLedger", "ledger", "profiler",

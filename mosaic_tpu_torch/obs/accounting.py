@@ -23,12 +23,10 @@ pieces, all fed by :mod:`~.inflight` tickets at completion:
 :func:`accounted` opens a trace + ticket around arbitrary work (a
 streamed join, say) and completes it with the right outcome.
 
-The JAX package's :func:`complete` also hands each record to the
-durable workload history (``obs/history.py``,
-``history.record_completion``).  History is ROADMAP §A9c and
-``mosaic.history.dir`` is a key the port does not know, so history is
-always off here — where the JAX package's call is then a no-op — and
-:func:`complete` makes no such call.
+:func:`complete` also hands each record to the durable workload history
+(``obs/history.py``, ``history.record_completion``): one record per
+completed query, whatever its outcome, when ``mosaic.history.dir`` is
+set.
 """
 
 from __future__ import annotations
@@ -300,6 +298,13 @@ def complete(ticket: Optional[QueryTicket], outcome: str = "ok",
         record["error"] = f"{type(error).__name__}: {error}"
     inflight.finish(ticket, status=outcome)
     audit.append(record)
+    # the durable workload history (obs/history.py): exactly one record
+    # per completed query — every outcome, partial costs included —
+    # widened with the ticket's mispredict, fusion and partition
+    # columns.  Lazy import: history's fault probe pulls
+    # resilience.faults, which imports obs back.
+    from .history import history as _history
+    _history.record_completion(record, ticket)
     meter.charge(ticket.principal,
                  {"wall_ms": cost["wall_ms"],
                   "device_s": cost["device_s"],

@@ -186,11 +186,10 @@ class MetricsRegistry:
 
     # -- export
     def to_openmetrics(self) -> str:
-        """Prometheus/OpenMetrics text exposition of the registry: the
-        exporter (``obs/openmetrics.py``) is not ported yet."""
-        raise NotImplementedError(
-            "to_openmetrics needs obs/openmetrics.py, which the port has "
-            "not got yet (ROADMAP §A9)")
+        """Prometheus/OpenMetrics text exposition of the registry
+        (see ``obs.openmetrics``)."""
+        from .openmetrics import to_openmetrics
+        return to_openmetrics(self)
 
     # -- reporting
     def report(self) -> Dict[str, object]:

@@ -55,7 +55,7 @@ _DEF_CAPACITY = 4096
 #: The event catalogue: every ``kind`` string a ``record()`` call of the
 #: port may emit (``tests/test_torch_recorder.py`` holds the port's
 #: ``record`` calls to it).  Kinds of modules the port has not got yet
-#: (serve, the history plane, the fleet) join it with them.
+#: (serve, ROADMAP §A9d) join it with them.
 EVENTS = frozenset({
     # lifecycle / tracing; the SQL engine's query and slow-query marks
     "span", "sql", "slow_query", "config", "trace_link", "device_trace",
@@ -75,6 +75,10 @@ EVENTS = frozenset({
     "layout_advice",
     # a store shard held fewer bytes than its manifest promised
     "store_shard_torn",
+    # workload history: a torn or alien segment or summary
+    "history_segment_torn",
+    # fleet aggregator degrade paths
+    "fleet_merge_error", "fleet_worker_stale",
     # memory plane
     "mem_admit_denied", "mem_chunk_shrink", "mem_leak",
     # SLO + profiler

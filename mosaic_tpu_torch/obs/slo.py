@@ -31,9 +31,9 @@ Objective kinds:
 * ``gauge_max`` — windowed max of ``series`` vs. ``ceiling`` (the
   shard-skew ceiling, the device-memory pressure).
 
-The JAX package's ``fleet_objectives`` and ``evaluate_fleet`` read the
-fleet aggregator's merged store and its supervisor's series; they come
-with ``obs/fleet.py`` and ``serve/`` (ROADMAP §A9c).
+:func:`evaluate_fleet` runs objectives over the fleet aggregator's
+merged store (``obs/fleet.py``); :func:`fleet_objectives` is the
+serving supervisor's objective (``serve/``, ROADMAP §A9d).
 """
 
 from __future__ import annotations
@@ -49,7 +49,8 @@ from .timeseries import TimeSeriesStore, timeseries
 
 __all__ = ["SLObjective", "SLOMonitor", "monitor",
            "default_objectives", "principal_objectives",
-           "serve_objectives", "KINDS"]
+           "serve_objectives", "fleet_objectives", "evaluate_fleet",
+           "KINDS"]
 
 KINDS = ("latency", "error_rate", "counter_rate", "gauge_max")
 
@@ -199,6 +200,19 @@ def serve_objectives(queue_depth: int,
     ]
 
 
+def fleet_objectives() -> List[SLObjective]:
+    """The objective a serving supervisor registers in its process: any
+    worker slot parked by the crash-loop circuit breaker (the
+    ``fleet/degraded_workers`` series its health tick records) is a
+    breach.  Ceiling 0.5, so the first degraded slot (gauge 1.0)
+    crosses; a clean respawn never records a nonzero point."""
+    return [
+        SLObjective(name="fleet_degraded", kind="gauge_max",
+                    series="fleet/degraded_workers", ceiling=0.5,
+                    windows=(30.0, 60.0)),
+    ]
+
+
 class SLOMonitor:
     """Evaluates objectives against the store; owns breach-episode
     state so each breach alerts exactly once."""
@@ -315,6 +329,28 @@ class SLOMonitor:
                 "active": [dict(v) for v in self._breached.values()],
                 "breaches": self._breach_count,
             }
+
+
+
+def evaluate_fleet(store, objectives: Optional[List[SLObjective]] = None,
+                   now: Optional[float] = None) -> List[Dict[str, object]]:
+    """Fleet-level burn-rate evaluation: every objective against a
+    merged store (anything with the TimeSeriesStore windowed-read API —
+    :class:`~.fleet.FleetStore` in practice).  Stateless: breach
+    episodes stay with each worker's own :class:`SLOMonitor`; the fleet
+    answer is recomputed per call.  One result dict per objective; an
+    objective that fails to evaluate is skipped, as the monitor skips
+    it."""
+    now = time.time() if now is None else now
+    objs = list(objectives) if objectives is not None \
+        else default_objectives()
+    out: List[Dict[str, object]] = []
+    for obj in objs:
+        try:
+            out.append(obj.evaluate(store, now))
+        except Exception:
+            continue              # same contract as SLOMonitor.evaluate
+    return out
 
 
 #: the process-global monitor the sampler drives

@@ -6,7 +6,7 @@ package's.  A spool is one atomic, versioned JSON file per process —
 ``worker-<pid>.json`` under ``mosaic.obs.fleet.dir`` — rewritten in place
 on every sampler tick (``timeseries.Sampler.tick``), so the file's mtime
 doubles as the process's heartbeat.  The aggregator that merges the
-spools (``obs/fleet.py``) is ROADMAP §A9c.
+spools is ``obs/fleet.py``.
 
 Contents:
 

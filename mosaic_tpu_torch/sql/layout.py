@@ -5,8 +5,9 @@ chip store landed — SOLAR (arxiv 2504.01292) argues the system's own
 run statistics should pick it instead, and this repo already persists
 exactly the statistics that need: the partition-heat plane
 (``obs/heat.py``, decayed rows/scans per store cell plus the hot/cold
-skew ratio) and the store manifest itself (rows, partitions, current
-resolution).
+skew ratio), the workload-history windows (``obs/history.py``,
+partition columns per completed query), and the store manifest itself
+(rows, partitions, current resolution).
 
 :func:`advise_layout` folds that evidence into one recommendation:
 
@@ -25,15 +26,14 @@ resolution).
 
 Consumers: ``StoreWriter(grid_res="auto")`` resolves through here at
 construction time (workload evidence only — the writer hasn't seen
-its data yet), and :func:`rewrite_store` re-buckets an existing store
+its data yet), ``mosaicstat layout`` prints the recommendation from
+the outside, and :func:`rewrite_store` re-buckets an existing store
 onto the advised grid and PROVES read-back bit-parity (byte-exact
 row-multiset comparison over every column) before reporting success.
 
 Port copy of ``mosaic_tpu.sql.layout``: the same advice from the same
-heat, manifest and conf, and every recommendation a ``layout_advice``
-flight-recorder event with its evidence.  The workload-history evidence
-(``obs/history.py``) waits for ROADMAP §A9c: a ``history_dir`` raises
-``NotImplementedError``.
+heat, history, manifest and conf, and every recommendation a
+``layout_advice`` flight-recorder event with its evidence.
 """
 
 from __future__ import annotations
@@ -79,10 +79,12 @@ def advise_layout(store_root: Optional[str] = None, *,
     neither, the heat plane's decayed row totals stand in (the
     ``grid_res="auto"`` writer path — the data hasn't been seen yet,
     so the workload that WILL read it is the only evidence there is).
-    The heat skew always shapes the occupancy exponent.  A history
-    directory raises ``NotImplementedError``: the history plane is not
-    ported (ROADMAP §A9c).  With ``record`` the recommendation lands in
-    the flight recorder as a ``layout_advice`` event.
+    The heat skew always shapes the occupancy exponent; a history
+    directory (argument, else the configured ``mosaic.history.dir``)
+    contributes its touched-partition count as corroborating evidence,
+    and a failed read of it is ignored.  With ``record`` the
+    recommendation lands in the flight recorder as a ``layout_advice``
+    event.
 
     With no evidence at all the configured ``mosaic.store.grid.res``
     comes back unchanged, reason ``"no evidence"`` — auto mode never
@@ -91,10 +93,6 @@ def advise_layout(store_root: Optional[str] = None, *,
     from ..obs.heat import heat
     from ..perf.bucketing import pow2_bucket
 
-    if history_dir:
-        raise NotImplementedError(
-            "advise_layout(history_dir=...) needs obs/history.py, which "
-            "the port has not got yet (ROADMAP §A9)")
     cfg = _config.default_config()
     target = max(1, int(cfg.layout_rows_per_cell))
     lo = max(1, int(cfg.layout_min_res))
@@ -122,6 +120,19 @@ def advise_layout(store_root: Optional[str] = None, *,
                         "skew": skew}
     if total_rows is None and rep.get("tracked"):
         total_rows = int(rep["total_rows"])
+
+    hist_dir = history_dir or cfg.history_dir
+    if hist_dir:
+        try:
+            from ..obs.history import report as _hreport
+            totals = _hreport(hist_dir, None)["totals"]
+            hist_parts = len(totals.get("partitions", {}))
+            evidence["history"] = {"queries": int(totals["queries"]),
+                                   "partitions": hist_parts}
+            if partitions is None and hist_parts:
+                partitions = hist_parts
+        except Exception:
+            pass                    # corroboration only, never a gate
 
     chunk = pow2_bucket(int(cfg.stream_chunk_rows), floor=64)
     shard_cap = pow2_bucket(int(cfg.store_shard_rows), floor=chunk)

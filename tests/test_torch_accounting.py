@@ -14,8 +14,9 @@ package's.
   nothing counts ``jax/recompiles`` (ROADMAP C14).
 * The JSONL spool rotates and retains as the JAX package's does
   (``mosaic.audit.path``, ``.rotate.bytes``, ``.retain``).
-* ``complete`` hands no record to a workload history: history is
-  ROADMAP §A9c, and the port does not know ``mosaic.history.dir``.
+* ``complete`` hands each record to the workload history when
+  ``mosaic.history.dir`` is set: the same widened records as the JAX
+  package's, one per ticket and outcome, ``compiles`` 0.
 * The flight bundle's ``queries`` entry carries the in-flight tickets,
   the recent records and the meters.
 """
@@ -44,7 +45,7 @@ from mosaic_tpu.obs.slo import monitor as jmonitor
 from mosaic_tpu.parallel import pip_join as jpj
 import mosaic_tpu_torch as mt
 from mosaic_tpu_torch import config as tconfig
-from mosaic_tpu_torch.obs import accounting, metrics, new_trace, recorder
+from mosaic_tpu_torch.obs import metrics, new_trace, recorder
 from mosaic_tpu_torch.obs.accounting import (accounted, audit, complete,
                                              meter)
 from mosaic_tpu_torch.obs.inflight import (QueryCancelled, inflight,
@@ -172,11 +173,41 @@ def test_compiles_stay_zero_without_jit(books):
     assert meter.report()["alice"]["compiles"] == 0
 
 
-def test_complete_keeps_no_history():
-    assert not hasattr(accounting, "history")
-    with pytest.raises(tconfig.ConfigError):
-        tconfig.apply_conf(tconfig.MosaicConfig(), "mosaic.history.dir",
-                           "/x")
+def test_complete_writes_one_history_record_as_jax(books, tmp_path,
+                                                   monkeypatch):
+    """The same ticket sequence through both packages' ``complete`` with
+    a history directory each: one record per ticket, equal to the JAX
+    package's but for ids, times and ``compiles`` (0 in the port)."""
+    import importlib
+    monkeypatch.delenv("MOSAIC_TPU_HISTORY_DIR", raising=False)
+    got = {}
+    for name, P in (("port", T), ("jax", J)):
+        h = importlib.import_module(
+            f"{P['config'].__name__.rsplit('.', 1)[0]}.obs.history")
+        h.history.reset()
+        cfg = P["config"].apply_conf(P["config"].default_config(),
+                                     "mosaic.history.dir",
+                                     str(tmp_path / name))
+        P["config"].set_default_config(cfg)
+        try:
+            recs = _run_tickets(P)
+        finally:
+            P["config"].set_default_config(P["config"].apply_conf(
+                cfg, "mosaic.history.dir", ""))
+            h.history.reset()
+        assert h.history.directory() == ""
+        stored = h.load_records(str(tmp_path / name))
+        assert [r["query_id"] for r in stored] == \
+            [r["query_id"] for r in recs]
+        got[name] = stored
+    assert [r["outcome"] for r in got["port"]] == [t[1] for t in TICKETS]
+    assert all(r["cost"]["compiles"] == 0 for r in got["port"])
+
+    def cols(r):
+        r = _strip(r)
+        r["cost"] = {k: v for k, v in r["cost"].items() if k != "compiles"}
+        return r
+    assert [cols(r) for r in got["port"]] == [cols(r) for r in got["jax"]]
 
 
 @pytest.fixture(scope="module")

@@ -17,8 +17,13 @@ default.
   ``pipeline.chunk`` stall), the tracer on and a flight-recorder dump
   written, equal zones, its span and the dump's events read back;
   importing the port leaves ``threading.Thread.start`` as it was.
-* No file of the port, nor chip_smoke.py and the helpers it imports
-  (``tools/split_model.py``, ``tests/torch_fusion_cases.py``), imports
+* The exporters, history, fleet and viz modules import, and
+  ``tools/fleetctl_torch.py`` and ``tools/mosaicstat_torch.py`` answer
+  ``--help``, in a process where ``jax`` and ``mosaic_tpu`` cannot be
+  imported.
+* No file of the port, nor chip_smoke.py, the helpers it imports
+  (``tools/split_model.py``, ``tests/torch_fusion_cases.py``) and the
+  tools it runs (``tools/*_torch.py``), imports
   ``jax`` or ``mosaic_tpu`` (an ``ast`` scan over every subpackage, ``core/raster``,
   ``io``, ``obs`` and ``resilience`` among them; the root module name must match
   exactly, so ``mosaic_tpu_torch`` itself does not count).
@@ -209,6 +214,37 @@ def test_slice_runs_without_jax_or_mosaic_tpu():
     assert "SLICE_OK" in out.stdout
 
 
+TOOLS_AND_PLANES = """
+import importlib, runpy, sys
+sys.modules["jax"] = None
+sys.modules["mosaic_tpu"] = None
+for m in ("obs.history", "obs.openmetrics", "obs.chrometrace",
+          "obs.dashboard", "obs.fleet", "utils", "utils.trace",
+          "utils.viz"):
+    importlib.import_module("mosaic_tpu_torch." + m)
+for tool in ("fleetctl_torch", "mosaicstat_torch"):
+    sys.argv = [tool + ".py", "--help"]
+    try:
+        runpy.run_path("tools/" + tool + ".py", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (tool, e.code)
+print("PLANES_OK")
+"""
+
+
+def test_exporter_planes_and_tools_import_without_jax():
+    """The exporters, history, fleet and viz modules import, and both
+    tools answer ``--help``, in a process where ``jax`` and
+    ``mosaic_tpu`` cannot be imported."""
+    out = subprocess.run([sys.executable, "-c", TOOLS_AND_PLANES],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "PLANES_OK" in out.stdout
+    assert "usage: fleetctl" in out.stdout
+    assert "usage: mosaicstat" in out.stdout
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -222,9 +258,11 @@ def _imported_roots(path: Path):
 
 def test_no_file_imports_jax_or_mosaic_tpu():
     files = sorted((REPO / "mosaic_tpu_torch").rglob("*.py"))
-    # chip_smoke.py and the helpers it imports
+    # chip_smoke.py, the helpers it imports and the tools it runs
     files += [REPO / "chip_smoke.py", REPO / "tools" / "split_model.py",
-              REPO / "tests" / "torch_fusion_cases.py"]
+              REPO / "tests" / "torch_fusion_cases.py",
+              REPO / "tools" / "fleetctl_torch.py",
+              REPO / "tools" / "mosaicstat_torch.py"]
     assert len(files) > 20
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"mosaic_tpu_torch/config.py",
@@ -287,7 +325,17 @@ def test_no_file_imports_jax_or_mosaic_tpu():
             "mosaic_tpu_torch/sql/prettifier.py",
             "mosaic_tpu_torch/perf/jit_cache.py",
             "mosaic_tpu_torch/perf/fusion.py",
-            "mosaic_tpu_torch/ops/fused_group.py"} <= names
+            "mosaic_tpu_torch/ops/fused_group.py",
+            "mosaic_tpu_torch/obs/history.py",
+            "mosaic_tpu_torch/obs/openmetrics.py",
+            "mosaic_tpu_torch/obs/chrometrace.py",
+            "mosaic_tpu_torch/obs/dashboard.py",
+            "mosaic_tpu_torch/obs/fleet.py",
+            "mosaic_tpu_torch/utils/__init__.py",
+            "mosaic_tpu_torch/utils/trace.py",
+            "mosaic_tpu_torch/utils/viz.py",
+            "tools/fleetctl_torch.py",
+            "tools/mosaicstat_torch.py"} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) &
                                             FORBIDDEN)
            for f in files}

@@ -9,8 +9,10 @@ on the CPU, at tests/test_layout.py's sizes.
 * ``rewrite_store`` re-buckets with its read-back multiset proof,
   NaN payloads and -0.0 included, into files byte-equal to JAX's
   ``rewrite_store`` of the same source.
-* ``history_dir`` raises ``NotImplementedError`` (the history plane waits
-  for ROADMAP §A9); the new conf keys are registered and validated.
+* A workload-history directory (``history_dir``, else
+  ``mosaic.history.dir``) adds the same evidence as in the JAX package,
+  and an unreadable one is ignored alike; the new conf keys are
+  registered and validated.
 """
 
 import filecmp
@@ -112,9 +114,28 @@ def test_advice_from_a_store_manifest(tmp_path):
     _same(store_root=str(tmp_path), current_res=32)
 
 
-def test_history_dir_waits_for_the_history_plane(tmp_path):
-    with pytest.raises(NotImplementedError, match="§A9"):
-        advise_layout(history_dir=str(tmp_path))
+def test_history_dir_evidence_equals_jax(tmp_path):
+    """The history half of the advice: the touched-partition count of a
+    history directory (written by the JAX package's store and read by
+    the port's) stands in for the partition count, as in the JAX
+    package; a missing directory adds nothing."""
+    import importlib
+    jh = importlib.import_module("mosaic_tpu.obs.history")
+    st = jh.HistoryStore(str(tmp_path / "hist"), window_ms=1_000.0)
+    for i in range(12):
+        st.append({"query_id": f"q{i}", "principal": "alice",
+                   "outcome": "ok", "end_ts": 100.0 + i % 2,
+                   "operator": "scan", "cost": {"wall_ms": 1.0},
+                   "partitions": {str(c): {"rows": 100 * c, "bytes": 8 * c}
+                                  for c in range(i % 5 + 1)}})
+    st.close()
+    adv = _same(history_dir=str(tmp_path / "hist"), total_rows=1 << 24)
+    assert adv.evidence["history"] == {"queries": 12, "partitions": 5}
+    _same(history_dir=str(tmp_path / "hist"), total_rows=1 << 24,
+          partitions=64)
+    _same(history_dir=str(tmp_path / "missing"), total_rows=1 << 24)
+    _set("mosaic.history.dir", str(tmp_path / "hist"))
+    assert _same(total_rows=1 << 24).evidence["history"]["queries"] == 12
 
 
 def test_writer_auto_resolves_through_the_advisor(tmp_path):

@@ -10,10 +10,11 @@
   tests/test_torch_raster.py), with the SQL engine's
   ``mosaic.planner.stats.path``, ``mosaic.obs.slow.query.ms``,
   ``mosaic.fusion.{enabled,max.ops}`` and the ``equi_join`` and
-  ``fusion`` pins, accepts and rejects the same values as the JAX
-  package's, with the same defaults and the same error class.  The
-  stated exception: the keys of later slices (the serve and history
-  planes, ``mosaic.obs.fleet.stale.ms``) and ``mosaic.device.dtype``,
+  ``fusion`` pins, and the five ``mosaic.history.*`` keys and
+  ``mosaic.obs.fleet.stale.ms``, accepts and rejects the same values as
+  the JAX package's, with the same defaults and the same error class.
+  The stated exception: the keys of a later slice (the serve plane) and
+  ``mosaic.device.dtype``,
   ``mosaic.exact.fallback`` and ``mosaic.jit.cache.dir``, which nothing
   in the port reads (ROADMAP C14), raise ``ConfigError``.
 * A stats file saved by either planner loads in the other: the same
@@ -92,6 +93,12 @@ KEY_VALUES = {
     "mosaic.obs.slow.query.ms": ["0", "250", "0.0001", "-1", "x"],
     "mosaic.fusion.enabled": ["true", "false", "off", "maybe"],
     "mosaic.fusion.max.ops": ["8", "1", "0", "-3", "zero"],
+    "mosaic.history.dir": ["/tmp/hist", "", " x "],
+    "mosaic.history.segment.bytes": ["1048576", "1", "0", "-4", "x"],
+    "mosaic.history.segment.age.ms": ["0", "60000", "2.5", "-1", "x"],
+    "mosaic.history.retain": ["64", "0", "-1", "many"],
+    "mosaic.history.window.ms": ["3600000", "0", "-1", "x"],
+    "mosaic.obs.fleet.stale.ms": ["5000", "0", "-1", "x"],
 }
 
 #: the config fields those keys set, with the JAX package's defaults
@@ -116,7 +123,11 @@ FIELDS_PORTED = ("index_system", "geometry_api", "planner_enabled",
                  "obs_fleet_window_ms", "obs_fleet_events",
                  # the SQL engine's and fusion's
                  "planner_stats_path", "obs_slow_query_ms",
-                 "fusion_enabled", "fusion_max_ops")
+                 "fusion_enabled", "fusion_max_ops",
+                 # the history plane's and the fleet aggregator's
+                 "history_dir", "history_segment_bytes",
+                 "history_segment_age_ms", "history_retain",
+                 "history_window_ms", "obs_fleet_stale_ms")
 
 
 @pytest.fixture(autouse=True)
@@ -181,9 +192,6 @@ def test_force_pins_stack_and_clear_alike():
     ("mosaic.serve.port", "8080"),
     ("mosaic.serve.batch.max", "64"),
     ("mosaic.serve.fleet.workers", "2"),
-    ("mosaic.history.dir", "/tmp/hist"),
-    ("mosaic.history.retain", "4"),
-    ("mosaic.obs.fleet.stale.ms", "1000"),
     ("mosaic.device.dtype", "float64"),
     ("mosaic.exact.fallback", "false"),
     ("mosaic.jit.cache.dir", "/tmp/jc"),
@@ -191,11 +199,27 @@ def test_force_pins_stack_and_clear_alike():
 ])
 def test_left_out_pins_and_keys_raise(key, val):
     """The stated divergence: what the JAX package takes for a later
-    slice (the serve and history planes) and the keys nothing in the
-    port reads, the port refuses."""
+    slice (the serve plane) and the keys nothing in the port reads, the
+    port refuses."""
     jconfig.apply_conf(jconfig.MosaicConfig(), key, val)
     with pytest.raises(tconfig.ConfigError):
         tconfig.apply_conf(tconfig.MosaicConfig(), key, val)
+
+
+@pytest.mark.parametrize("key,val", [
+    ("mosaic.history.dir", "/tmp/hist"),
+    ("mosaic.history.retain", "4"),
+    ("mosaic.obs.fleet.stale.ms", "1000"),
+])
+def test_history_and_fleet_keys_set_as_jax(key, val):
+    """The history and fleet keys the port took with ``obs/history.py``
+    and ``obs/fleet.py``: the same field, set to the same value."""
+    j = jconfig.apply_conf(jconfig.MosaicConfig(), key, val)
+    t = tconfig.apply_conf(tconfig.MosaicConfig(), key, val)
+    changed = [f for f in vars(t)
+               if getattr(t, f) != getattr(tconfig.MosaicConfig(), f)]
+    assert len(changed) == 1
+    assert getattr(t, changed[0]) == getattr(j, changed[0])
 
 
 def _same(t, j):

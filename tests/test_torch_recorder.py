@@ -10,7 +10,8 @@ against the JAX package's.
   and the dump event.  The SQL cases (the slow-query conf and its dumps,
   interleaved queries, EXPLAIN ANALYZE) are in
   tests/test_torch_sql_planes.py.  The JAX compile listener has no torch counterpart
-  (no jit, ROADMAP C14); the OpenMetrics cases wait for §A9c.
+  (no jit, ROADMAP C14); the OpenMetrics cases are in
+  tests/test_torch_exporters.py.
 * Parity: the same calls in both packages record events equal in kind
   and fields (timestamps, ``seq`` and trace ids aside): the config,
   fault, ingest and retry primitives, and the planner's

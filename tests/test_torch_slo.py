@@ -11,8 +11,9 @@
   gauges and counters.
 * The shipped objective sets are the JAX package's
   (``default_objectives``, ``principal_objectives``,
-  ``serve_objectives``).  ``fleet_objectives`` and ``evaluate_fleet``
-  wait for the fleet aggregator (ROADMAP §A9c).
+  ``serve_objectives``, ``fleet_objectives``), and ``evaluate_fleet``
+  over a store gives the JAX package's rows, skipping a failing
+  objective alike.
 * ``mosaic.obs.slo.dump`` writes one throttled bundle at a breach.
 """
 
@@ -170,9 +171,26 @@ def test_unknown_kind_raises_in_both():
             cls(name="x", kind="vibes")
 
 
-def test_fleet_evaluation_waits_for_the_aggregator():
-    assert not hasattr(slo, "fleet_objectives")
-    assert not hasattr(slo, "evaluate_fleet")
+def test_fleet_objectives_and_evaluation_equal_jax():
+    from mosaic_tpu.obs.slo import evaluate_fleet as jevaluate_fleet
+    from mosaic_tpu.obs.slo import fleet_objectives as jfleet
+    assert [dataclasses.asdict(o) for o in slo.fleet_objectives()] == \
+        [dataclasses.asdict(o) for o in jfleet()]
+    ts, js = TimeSeriesStore(), JStore()
+    for kind in sorted(OBJECTIVES):
+        _feed(ts, kind, 3)
+        _feed(js, kind, 3)
+    objs = [SLObjective(**OBJECTIVES[k]) for k in sorted(OBJECTIVES)]
+    jobjs = [JObjective(**OBJECTIVES[k]) for k in sorted(OBJECTIVES)]
+    for now in (50.0, 100.0, 160.0):
+        rows = slo.evaluate_fleet(ts, objectives=objs, now=now)
+        assert rows == jevaluate_fleet(js, objectives=jobjs, now=now)
+        assert len(rows) == len(objs)
+    assert slo.evaluate_fleet(ts, now=100.0) == \
+        jevaluate_fleet(js, now=100.0)
+    # an objective whose series read fails is skipped, not raised
+    assert slo.evaluate_fleet(object(), objectives=objs, now=1.0) == [] \
+        == jevaluate_fleet(object(), objectives=jobjs, now=1.0)
 
 
 def test_slo_dump_conf_writes_one_bundle_at_a_breach(planes, tmp_path,

@@ -10,7 +10,8 @@
   ``mosaic.obs.fleet.events`` the events, as in the JAX package.
 * Torn JSON, a wrong version, a non-object and a missing metrics section
   raise ``SpoolError`` in both packages.
-* The aggregator that merges spools (``obs/fleet.py``) is ROADMAP §A9c.
+* The aggregator that merges spools (``obs/fleet.py``) is held in
+  tests/test_torch_fleet.py.
 """
 
 import json

@@ -5,8 +5,7 @@ through both packages and held equal.
 * tests/test_recorder.py's SQL cases: the slow-query dump
   (``mosaic.obs.slow.query.ms``) and no dump without the threshold, two
   interleaved queries' distinct trace trees, EXPLAIN ANALYZE rows as
-  trace spans (the port has no Chrome-trace exporter yet, ROADMAP §A9c,
-  so the trees are read from ``tracer.report()``);
+  trace spans (the trees read from ``tracer.report()``);
 * tests/test_refine.py::test_explain_analyze_refine_column;
 * tests/test_chaos.py's ``planner.stats.load`` cold start and the
   ``fusion.group`` stall, each package armed through its own

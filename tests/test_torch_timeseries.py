@@ -259,10 +259,10 @@ def test_conf_keys_validate_as_jax(key, value):
 
 @pytest.mark.parametrize("key", ["mosaic.obs.fleet.stale.ms",
                                  "mosaic.history.dir"])
-def test_fleet_and_history_keys_wait_for_their_planes(key):
-    """``mosaic.obs.fleet.stale.ms`` and the history keys are read by the
-    fleet aggregator and the history plane (ROADMAP §A9c): unknown to
-    the port until then."""
-    with pytest.raises(tconfig.ConfigError, match="unknown conf key"):
-        tconfig.apply_conf(tconfig.MosaicConfig(), key, "1")
-    jconfig.apply_conf(jconfig.MosaicConfig(), key, "1")
+def test_fleet_and_history_keys_validate_as_jax(key):
+    """``mosaic.obs.fleet.stale.ms`` and the history keys, read by the
+    fleet aggregator and the history plane, accept and reject what the
+    JAX package's do."""
+    for value in ("1", "0", "-5", "x", ""):
+        assert _apply(tconfig, key, value) == _apply(jconfig, key, value)
+    assert _apply(tconfig, key, "1")[0] == "ok"

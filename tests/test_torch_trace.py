@@ -7,9 +7,9 @@
   tracer and registry.  The ``MosaicContext.call`` and map-algebra cases
   are held in tests/test_torch_functions.py and
   test_torch_functions_raster.py; the JAX compile listener
-  has no torch counterpart until §A9b; the Chrome-trace export of host
-  spans, the collective byte accounting and the ``utils.trace`` shim
-  wait for §A9b and §A9c.
+  has no torch counterpart until §A9b; the collective byte accounting
+  waits for §A9b; the Chrome-trace export of host spans and the
+  ``utils.trace`` shim are held in tests/test_torch_exporters.py.
 * Parity: the tracer's span names and call counts are equal in both
   packages over the overlay (its three entry points), the raster halo
   (both forms, a world of one) and the streamed join.
