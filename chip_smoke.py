@@ -454,16 +454,49 @@ Phases (any failure exits non-zero and prints no result):
     trace's lane; e. what the history call costs a completed query with
     the plane off and on, and ``HistoryStore.append``'s records a second
     (host clock);
-24. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+24. the query server and the serving fleet (``serve/``), each path
+    counted under its own name: a. 32 tables of 2^14 rows cut from
+    phase 5's first 2^20 points (seed 100), with ids, added to phase
+    22's session (H3 on the card); 32 clients, each its own principal,
+    POST ``SELECT id, grid_longlatascellid(lon, lat, 9) AS cell FROM
+    t<i>`` at once to a ``QueryServer`` of 2 workers, ``batch.max`` 32,
+    ``batch.window.ms`` 20 (``serve batched``): ``serve/batched_queries``
+    32, fewer ``serve/point_lookup`` ledger launches than queries and as
+    many K3 launches, every client's cells equal to the host
+    ``point_to_cell`` and to ``session.sql``'s (``serve session sql``);
+    then ``batch.max`` 1 (``serve serial``): a launch a query; queries/s
+    and client p50/p99 of both arms; K3 timed at the batched arm's rows
+    a launch against its bound; b. phase 22's Quickstart join through
+    the server (``serve quickstart``), equal to phase 22's rows, and
+    phase 22b's fused aggregate (``serve fused``): one K14 launch, equal
+    to ``fused_group_ref``'s; c. a client that hangs up inside the
+    Quickstart join's operators cancels it (``serve cancel``): booked
+    cancelled (499), nothing in flight, ``torch.cuda.memory_allocated()``
+    back to the byte, no leak; a 50 ms deadline answers 504 (``serve
+    deadline``); ``initiate_drain`` answers 503 and ``await_drained``
+    returns; ``quota.qps`` 1 answers 429 ``rate_quota`` with
+    Retry-After; a full queue (depth 2, one worker held by a
+    ``sql.query`` stall) sheds the newest priority -1 query for a
+    priority 5 one; d. a ``ServeFleet`` of 2 port workers on the card
+    (K3 built by this process first), 16 tables of 2^12 of phase 5's
+    first 2^16 points passed by npz; ``tools/loadtest_torch.py``
+    ``run_loadtest`` sends the point lookups from 8 clients for 3 s with
+    failover (``serve fleet``) while one worker is SIGKILLed after 1 s:
+    the slot respawns through the backoff, ``lost`` 0, every 200
+    answer's cells equal to the host's, ``_build/`` unchanged (no
+    ``nvcc`` in a worker); SIGTERM drains the fleet, ``serve/drain_forced``
+    0;
+25. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
     ``raster``, ``sharded``, ``store``, ``geometry``, ``host_planes``,
-    ``functions``, ``memory_planes``, ``sql``, ``exporters`` and
-    ``tess_kernels`` (K7 and K8 by input set) summary lines, the card,
-    the ``kernels`` JSON line (K1-K14 with launches per path, the
+    ``functions``, ``memory_planes``, ``sql``, ``exporters``, ``serving``
+    and ``tess_kernels`` (K7 and K8 by input set) summary lines, the
+    card, the ``kernels`` JSON line (K1-K14 with launches per path, the
     tessellations of phases 5 and 11, the strategies', the raster, the
     sharded, the ``store fed``, the ``geometry``, the ``host planes``,
     the ``functions``, the ``memory planes``, the ``sql``, the
-    ``history``, ``fleet``, ``dashboard`` and ``chrome trace`` paths
-    among them), then the last line ``{"ok": true, "device": {...}}``.
+    ``history``, ``fleet``, ``dashboard``, ``chrome trace`` and
+    ``serve`` paths among them), then the last line ``{"ok": true,
+    "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
 """
@@ -7037,6 +7070,7 @@ def phase_sql(idx, grid, polys, batches, dense_zones):
     bad = int((got != zone20).sum())
     check(bad == 0, f"sql quickstart: {bad} points' zones differ from "
           "phase 20a's (pip_host_truth)")
+    SQL_INPUTS["quickstart_join"] = (q, pid, zid)   # phase 24b's answer
     k12 = paths["sql quickstart"]["edge_point_query"] - before
     qs = paths["sql quickstart"]
     check(qs["h3_latlng_to_cell"] >= 2 and qs["tess_classify"] >= 1 and
@@ -7965,6 +7999,640 @@ def phase_exporters(idx, grid, polys, batches, dense_zones):
     return out
 
 
+
+#: phase 24: the micro-batching drill's tables (cut from phase 5's first
+#: 2^20 flagship points), its clients' workers, batch window and cap;
+#: the fleet's points (as tables of the default batchable size), its
+#: load-test clients and seconds, and when the kill lands; the fault plan
+#: that holds the one worker of the shed drill; the deadline that must
+#: answer 504
+SERVE_TABLES = 32
+SERVE_ROWS = 1 << 14
+SERVE_WORKERS = 2
+SERVE_WINDOW_MS = 20
+SERVE_BATCH_MAX = 32
+SERVE_FLEET_POINTS = 1 << 16
+SERVE_FLEET_ROWS = 1 << 12
+SERVE_FLEET_CLIENTS = 8
+SERVE_FLEET_S = 3.0
+SERVE_KILL_AFTER_S = 1.0
+SERVE_HOLD_PLAN = "seed=24;site=sql.query,mode=delay,fails=1,delay_ms=1500"
+SERVE_DEADLINE_MS = 50
+
+
+def serve_post(port: int, sql: str, principal: str, priority=None,
+               deadline_ms=None, timeout: float = 300.0):
+    """One POST /query: (status, headers, body, wall ms)."""
+    import http.client
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        headers = {"X-Mosaic-Principal": principal}
+        if priority is not None:
+            headers["X-Mosaic-Priority"] = str(priority)
+        if deadline_ms is not None:
+            headers["X-Mosaic-Deadline-Ms"] = str(deadline_ms)
+        conn.request("POST", "/query", body=sql.encode(), headers=headers)
+        r = conn.getresponse()
+        out = r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+    return out + ((time.perf_counter() - t0) * 1e3,)
+
+
+def serve_rows(body: bytes):
+    """(columns, rows) of a 200 JSON-lines answer."""
+    lines = body.decode().splitlines()
+    head = json.loads(lines[0])
+    rows = [r for ln in lines[1:] for r in json.loads(ln)]
+    check(len(rows) == head["rows"], f"serve: {len(rows)} rows, the head "
+          f"says {head['rows']}")
+    return head["columns"], rows
+
+
+def serve_burst(port: int, sqls, principals):
+    """The POSTs of ``sqls`` at once, one thread each, released by one
+    barrier: ([(status, headers, body, ms)], wall s of the burst)."""
+    import threading
+    out = [None] * len(sqls)
+    barrier = threading.Barrier(len(sqls) + 1)
+
+    def client(i):
+        barrier.wait(60)
+        out[i] = serve_post(port, sqls[i], principals[i])
+
+    ts = [threading.Thread(target=client, args=(i,), daemon=True)
+          for i in range(len(sqls))]
+    for t in ts:
+        t.start()
+    barrier.wait(60)
+    t0 = time.perf_counter()
+    for t in ts:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    check(all(o is not None for o in out), "serve: a client never answered")
+    return out, wall
+
+
+def fleet_stats(port: int, tries: int) -> dict:
+    """``/stats`` of the fleet's workers by pid, from ``tries`` GETs on
+    fresh connections (``SO_REUSEPORT`` picks the worker)."""
+    import http.client
+    seen = {}
+    for _ in range(tries):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        try:
+            conn.request("GET", "/stats")
+            st = json.loads(conn.getresponse().read())
+            seen[st["pid"]] = st
+        except OSError:
+            pass
+        finally:
+            conn.close()
+    return seen
+
+
+def warm_fleet(fleet, sql: str, timeout_s: float = 120.0) -> float:
+    """Point lookups at the fleet until every worker has answered one
+    (its K3 library loaded, its H3 tables on the card), as its
+    ``/stats`` counters show; returns the seconds it took."""
+    t0 = time.perf_counter()
+    warm = set()
+    while time.perf_counter() - t0 < timeout_s:
+        serve_burst(fleet.port, [sql] * 8, [f"warm{i}" for i in range(8)])
+        for pid, st in fleet_stats(fleet.port, 16).items():
+            if st["counters"].get("batched_queries", 0) > 0:
+                warm.add(pid)
+        if warm >= set(fleet.worker_pids()):
+            return time.perf_counter() - t0
+    check(False, f"serve fleet: workers {sorted(warm)} of "
+          f"{fleet.worker_pids()} answered within {timeout_s:.0f} s")
+
+
+def phase_serving(grid, batches, ops_pt):
+    """The query server and the serving fleet on the card (phase 24),
+    each path counted under its ``serve ...`` name: a. 32 clients' point
+    lookups over phase 5's points micro-batched into fewer K3 launches
+    than queries, then the serial arm (``batch.max`` 1), each client's
+    cells equal to the host's and to ``session.sql``'s; b. phase 22's
+    Quickstart join and fused aggregate (one K14 launch, equal to
+    ``fused_group_ref``) through the server; c. a disconnect that
+    cancels a running query, a deadline, a quota denial, a shed and an
+    in-process drain; d. a fleet of two port workers on the card under
+    ``tools/loadtest_torch.py``, one SIGKILLed and respawned, none
+    running ``nvcc``, drained by SIGTERM."""
+    import gc
+    import http.client
+    import os
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    import mosaic_tpu_torch.perf.fusion as fusion
+    from mosaic_tpu_torch import _kernels, config
+    from mosaic_tpu_torch.obs import inflight, metrics, recorder, tracer
+    from mosaic_tpu_torch.obs.accounting import audit
+    from mosaic_tpu_torch.obs.memwatch import memwatch
+    from mosaic_tpu_torch.obs.profiler import ledger
+    from mosaic_tpu_torch.ops import fused_group as fg
+    from mosaic_tpu_torch.ops.cell import (latlng_to_cell_margin,
+                                           latlng_to_cell_margin_ref)
+    from mosaic_tpu_torch.resilience import faults
+    from mosaic_tpu_torch.serve import KERNEL_NAME, QueryServer, ServeFleet
+    sys.path.insert(0, str(ROOT / "tools"))
+    import loadtest_torch
+
+    t_phase = time.perf_counter()
+    paths, out, secs = {}, {}, {}
+    prev_cfg = config.default_config()
+    was_metrics = metrics.enabled
+    metrics.enable()
+    recorder.enable()
+    s, groups = SQL_INPUTS["session"]
+    q_qs, pid22, zid22 = SQL_INPUTS["quickstart_join"]
+    ctx = s.mc
+    check(ctx.device.type == "cuda" and ctx.index_system.name == "H3",
+          f"serve: the session's context is {ctx.index_system.name} on "
+          f"{ctx.device}")
+
+    def counted(path, fn):
+        reset_counts()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            got = launch_counts()
+            paths[path] = {k: paths.get(path, {}).get(k, 0) + v
+                           for k, v in got.items()}
+
+    def set_conf(**kv):
+        cfg = prev_cfg
+        for k, v in kv.items():
+            cfg = config.apply_conf(cfg, "mosaic.serve." + k, str(v))
+        config.set_default_config(cfg)
+
+    def lap(name, t0):
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return time.perf_counter()
+
+    def counter(name):
+        return int(metrics.counter_value(name))
+
+    def k3(path):
+        return paths.get(path, {}).get("h3_latlng_to_cell", 0)
+
+    try:
+        t0 = time.perf_counter()
+        # ---- 24a. micro-batched point lookups against the serial arm
+        pts = batches[0][:SERVE_TABLES * SERVE_ROWS]
+        for i in range(SERVE_TABLES):
+            lo = i * SERVE_ROWS
+            s.create_table(f"t{i}", {
+                "lon": pts[lo:lo + SERVE_ROWS, 0].copy(),
+                "lat": pts[lo:lo + SERVE_ROWS, 1].copy(),
+                "id": np.arange(lo, lo + SERVE_ROWS, dtype=np.int64)})
+        host = grid.point_to_cell(pts, RES)
+        sqls = [f"SELECT id, grid_longlatascellid(lon, lat, {RES}) AS cell "
+                f"FROM t{i}" for i in range(SERVE_TABLES)]
+        principals = [f"client{i}" for i in range(SERVE_TABLES)]
+        serial = counted("serve session sql", lambda: [
+            np.asarray(s.sql(q).columns["cell"]) for q in sqls])
+        check(all(np.array_equal(c, host[i * SERVE_ROWS:(i + 1) * SERVE_ROWS])
+                  for i, c in enumerate(serial)),
+              "serve: session.sql's cells differ from the host's")
+        t0 = lap("24a tables, host cells and session.sql", t0)
+        arms = {}
+        for arm, bmax in (("batched", SERVE_BATCH_MAX), ("serial", 1)):
+            set_conf(workers=SERVE_WORKERS, **{
+                "batch.max": bmax, "batch.window.ms": SERVE_WINDOW_MS,
+                "batch.rows.max": SERVE_ROWS})
+            ledger.reset()
+            b0, q0 = counter("serve/batches"), \
+                counter("serve/batched_queries")
+            with QueryServer(s) as srv:
+                answers, wall = counted(f"serve {arm}", lambda: serve_burst(
+                    srv.port, sqls, principals))
+            entries = [e for e in ledger.report()["kernels"]
+                       if e["name"] == KERNEL_NAME]
+            launches = sum(e["launches"] for e in entries)
+            rows = sum(e["rows"] for e in entries)
+            seconds = sum(e["seconds"] for e in entries)
+            bad = 0
+            for i, (status, _, body, _) in enumerate(answers):
+                check(status == 200, f"serve {arm}: client {i} answered "
+                      f"{status}: {body[:200]!r}")
+                cols, got = serve_rows(body)
+                got = np.asarray(got, np.int64)
+                check(cols == ["id", "cell"] and np.array_equal(
+                    got[:, 0], np.arange(i * SERVE_ROWS,
+                                         (i + 1) * SERVE_ROWS)),
+                      f"serve {arm}: client {i}'s ids or columns differ")
+                bad += int((got[:, 1] != serial[i]).sum())
+            check(bad == 0, f"serve {arm}: {bad} cells differ from the "
+                  "host's and session.sql's")
+            queries = counter("serve/batched_queries") - q0
+            check(queries == SERVE_TABLES, f"serve {arm}: "
+                  f"serve/batched_queries {queries}, not {SERVE_TABLES}")
+            check(rows == SERVE_TABLES * SERVE_ROWS,
+                  f"serve {arm}: the ledger's rows {rows}")
+            check(k3(f"serve {arm}") == launches, f"serve {arm}: "
+                  f"{k3(f'serve {arm}')} K3 launches, the ledger's "
+                  f"{KERNEL_NAME} {launches}")
+            if bmax > 1:
+                check(0 < launches < SERVE_TABLES, f"serve batched: "
+                      f"{launches} launches for {SERVE_TABLES} queries")
+            else:
+                check(launches == SERVE_TABLES, f"serve serial: "
+                      f"{launches} launches for {SERVE_TABLES} queries")
+            check(memwatch.leak_count() == 0 and memwatch.total_live() == 0,
+                  f"serve {arm}: the memory ledger holds "
+                  f"{memwatch.total_live()} B, {memwatch.leak_count()} leaks")
+            ms = np.asarray([a[3] for a in answers])
+            arms[arm] = {
+                "queries": SERVE_TABLES, "launches": launches,
+                "batches": counter("serve/batches") - b0,
+                "rows_per_launch": rows / launches,
+                "call_ms": seconds / launches * 1e3,
+                "qps": SERVE_TABLES / wall, "wall_s": wall,
+                "p50_ms": float(np.percentile(ms, 50)),
+                "p99_ms": float(np.percentile(ms, 99))}
+            log(f"[serve] 24a {arm}: {SERVE_TABLES} queries of "
+                f"{SERVE_ROWS} rows, {launches} {KERNEL_NAME} launches (K3 "
+                f"{k3(f'serve {arm}')}), {rows / launches:.0f} rows a launch, "
+                f"the call {seconds / launches * 1e3:.2f} ms a launch; "
+                f"{SERVE_TABLES / wall:.1f} queries/s, client p50 "
+                f"{arms[arm]['p50_ms']:.1f} ms, p99 "
+                f"{arms[arm]['p99_ms']:.1f} ms; cells equal to the host's "
+                "and session.sql's")
+            t0 = lap(f"24a {arm}", t0)
+        out["microbatch"] = arms
+        # K3 alone at the batched arm's rows a launch, against its bound
+        n_b = int(round(arms["batched"]["rows_per_launch"]))
+        xb = torch.from_numpy(pts[:n_b].astype(np.float32)).to(DEV)
+        ms, source, events_ms, host_ms, plain_ms = timed_kernel(
+            f"serve K3 {n_b} rows", lambda: latlng_to_cell_margin(xb, RES),
+            lambda: latlng_to_cell_margin_ref(xb, RES), "cell_kernel", 5)
+        f32_pt, int_pt = ops_pt
+        ops_ms = max(f32_pt * n_b / PEAK_F32_FLOPS,
+                     int_pt * n_b / PEAK_INT32_OPS) * 1e3
+        bytes_ms = CELL_BYTES * n_b / PEAK_BYTES * 1e3
+        out["k3_batch"] = {
+            "rows": n_b, "ms": ms, "ms_source": source,
+            "events_ms": events_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "call_ms": arms["batched"]["call_ms"]}
+        log(f"[serve] K3 at {n_b} rows: {ms:.4f} ms ({source}), bound "
+            f"{max(ops_ms, bytes_ms):.4f} ms, plain {plain_ms:.3f} ms; the "
+            f"whole point_to_cell_device call {arms['batched']['call_ms']:.2f}"
+            " ms")
+        del xb
+        t0 = lap("24a K3 at the batch's rows", t0)
+
+        # ---- 24b. queries that cannot be batched, through the server
+        set_conf(workers=SERVE_WORKERS)
+        real_fg = fusion._fg
+
+        class Proxy:
+            """``ops.fused_group`` as the fusion pass sees it, its launch
+            replaced by ``fused_group_ref`` on the same packed buffer."""
+
+            def __getattr__(self, name):
+                return getattr(real_fg, name)
+
+            def fused_group(self, prog, buf, n, bucket):
+                return real_fg.fused_group_ref(prog, buf, n, bucket)
+
+        with QueryServer(s) as srv:
+            status, _, body, qs_ms = counted("serve quickstart", lambda:
+                                             serve_post(srv.port, q_qs,
+                                                        "quickstart"))
+            check(status == 200, f"serve quickstart: {status} "
+                  f"{body[:200]!r}")
+            cols, rows = serve_rows(body)
+            got = np.asarray(rows, np.int64).reshape(-1, 2)
+            want = np.stack([pid22, zid22], -1)
+            got = got[np.lexsort((got[:, 1], got[:, 0]))]
+            want = want[np.lexsort((want[:, 1], want[:, 0]))]
+            check(cols == ["pid", "zid"] and np.array_equal(got, want),
+                  "serve quickstart: the answer differs from phase 22's")
+            t0 = lap("24b quickstart", t0)
+            config.set_default_config(config.apply_conf(
+                config.default_config(), "mosaic.planner.force.fusion", "on"))
+            status, _, body, _ = counted("serve fused", lambda: serve_post(
+                srv.port, groups["aggregate"], "fused"))
+            check(status == 200, f"serve fused: {status} {body[:200]!r}")
+            fcols, frows = serve_rows(body)
+            fusion._fg = Proxy()
+            try:
+                l0 = fg.fused_group.launches
+                ref = s.sql(groups["aggregate"])
+                check(fg.fused_group.launches == l0,
+                      "serve fused: K14 ran under fused_group_ref")
+            finally:
+                fusion._fg = real_fg
+            k14 = paths["serve fused"]["fused_group"]
+            check(k14 == 1, f"serve fused: {k14} K14 launches")
+            same = fcols == list(ref.columns) and len(frows) == 1 and all(
+                float(v) == float(np.asarray(ref.columns[c])[0])
+                for c, v in zip(fcols, frows[0]))
+            check(same, f"serve fused: {frows} differs from fused_group_ref's "
+                  f"{[np.asarray(ref.columns[c]).tolist() for c in ref.columns]}")
+        out["quickstart"] = {"rows": len(got), "ms": qs_ms}
+        out["fused"] = dict(zip(fcols, frows[0]))
+        log(f"[serve] 24b: the Quickstart join through the server, "
+            f"{len(got)} rows in {qs_ms:.0f} ms, equal to phase 22's; the "
+            f"fused aggregate, 1 K14 launch, equal to fused_group_ref's "
+            f"({json.dumps(out['fused'])})")
+        config.set_default_config(prev_cfg)
+        t0 = lap("24b fused", t0)
+
+        # ---- 24c. cancel on disconnect, deadline, quota, shed, drain
+        set_conf(workers=SERVE_WORKERS)
+        with QueryServer(s) as srv:
+            gc.collect()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            d0, c0 = counter("serve/disconnects"), \
+                counter("serve/outcome_cancelled")
+            audit.reset()
+
+            def dropped():
+                sock = socket.create_connection(("127.0.0.1", srv.port),
+                                                timeout=60)
+                body = q_qs.encode()
+                sock.sendall(b"POST /query HTTP/1.1\r\nHost: x\r\n"
+                             b"X-Mosaic-Principal: dropper\r\n"
+                             b"Content-Length: %d\r\n\r\n%s"
+                             % (len(body), body))
+                deadline = time.perf_counter() + 60
+                op = None
+                while time.perf_counter() < deadline and op is None:
+                    for a in inflight.list_active():
+                        if a["principal"] == "dropper" and \
+                                a["operator"] not in ("-", "sql"):
+                            op = a["operator"]
+                    time.sleep(0.001)
+                sock.close()
+                t_close = time.perf_counter()
+                rec = None
+                while time.perf_counter() < deadline and rec is None:
+                    recs = audit.records(principal="dropper")
+                    rec = recs[-1] if recs else None
+                    time.sleep(0.002)
+                return op, rec, (time.perf_counter() - t_close) * 1e3
+
+            op, rec, cancel_ms = counted("serve cancel", dropped)
+            check(op is not None and rec is not None,
+                  f"serve cancel: operator {op}, audit record {rec}")
+            check(rec["outcome"] == "cancelled", f"serve cancel: the query "
+                  f"completed as {rec['outcome']}, not cancelled")
+            deadline = time.perf_counter() + 10
+            while time.perf_counter() < deadline and (
+                    counter("serve/outcome_cancelled") == c0 or len(inflight)):
+                time.sleep(0.01)
+            gc.collect()
+            torch.cuda.synchronize()
+            mem1 = torch.cuda.memory_allocated()
+            asked = [e for e in recorder.events("query_cancel_requested")
+                     if e.get("reason") == "disconnect"]
+            check(counter("serve/disconnects") == d0 + 1 and
+                  counter("serve/outcome_cancelled") == c0 + 1 and asked,
+                  "serve cancel: the disconnect was not booked as a 499 "
+                  "cancel")
+            check(len(inflight) == 0, f"serve cancel: {len(inflight)} "
+                  "tickets in flight")
+            check(mem1 == mem0, f"serve cancel: device memory {mem1} B "
+                  f"after, {mem0} B before")
+            check(memwatch.leak_count() == 0, "serve cancel: "
+                  f"{memwatch.leak_count()} leaks")
+            status, _, body, dl_ms = counted("serve deadline", lambda:
+                                             serve_post(
+                                                 srv.port, q_qs, "sla",
+                                                 deadline_ms=SERVE_DEADLINE_MS))
+            check(status == 504 and json.loads(body)["error"] == "deadline",
+                  f"serve deadline: {status} {body[:200]!r}")
+            # drain in process: new queries 503, then idle
+            srv.initiate_drain()
+            status, _, body, _ = serve_post(srv.port, sqls[0], "late")
+            check(status == 503 and json.loads(body)["reason"] == "draining",
+                  f"serve drain: {status} {body[:200]!r}")
+            drained = srv.await_drained(5.0)
+            check(drained and recorder.events("serve_drain"),
+                  "serve drain: the server did not drain")
+        out["cancel"] = {"operator": op, "cancel_ms": cancel_ms,
+                         "wall_ms": rec["cost"]["wall_ms"],
+                         "memory_allocated": mem1,
+                         "deadline_ms": dl_ms}
+        log(f"[serve] 24c: a disconnect inside the {op} operator cancelled "
+            f"the Quickstart join {cancel_ms:.0f} ms after the hang-up "
+            f"(booked cancelled, 499), in flight 0, device memory "
+            f"{mem1} B as before, leaks 0; a {SERVE_DEADLINE_MS} ms deadline "
+            f"answered 504 after {dl_ms:.0f} ms; drain answered 503 and "
+            "went idle")
+        t0 = lap("24c cancel, deadline, drain", t0)
+        set_conf(workers=1, **{"quota.qps": 1})
+        with QueryServer(s) as srv:
+            got = [serve_post(srv.port, "SELECT id FROM t0 LIMIT 1", "rate")
+                   for _ in range(3)]
+        check(got[0][0] == 200 and all(
+            g[0] == 429 and "Retry-After" in g[1] and
+            json.loads(g[2])["reason"] == "rate_quota" for g in got[1:]),
+              f"serve quota: {[(g[0], g[2][:80]) for g in got]}")
+        set_conf(workers=1, **{"queue.depth": 2})
+        shed0 = len(recorder.events("serve_shed"))
+        with QueryServer(s) as srv:
+            faults.arm(SERVE_HOLD_PLAN)
+            res = {}
+
+            def post(key, principal, priority):
+                res[key] = serve_post(srv.port, "SELECT id FROM t0 LIMIT 1",
+                                      principal, priority=priority)
+
+            def start(key, principal, priority, cond):
+                t = threading.Thread(target=post, daemon=True,
+                                     args=(key, principal, priority))
+                t.start()
+                deadline = time.perf_counter() + 30
+                while not cond() and time.perf_counter() < deadline:
+                    time.sleep(0.002)
+                return t
+
+            try:
+                ts = [start("hold", "holder", 0,
+                            lambda: srv.queue.running_count() == 1),
+                      start("low1", "bulk", -1,
+                            lambda: srv.queue.queued_count() == 1),
+                      start("low2", "bulk", -1,
+                            lambda: srv.queue.queued_count() == 2),
+                      start("high", "interactive", 5,
+                            lambda: "low2" in res)]
+                for t in ts:
+                    t.join(60)
+            finally:
+                faults.disarm()
+        sheds = recorder.events("serve_shed")[shed0:]
+        check(res["low2"][0] == 429 and
+              json.loads(res["low2"][2])["reason"] == "shed" and
+              all(res[k][0] == 200 for k in ("hold", "low1", "high")) and
+              [e["principal"] for e in sheds] == ["bulk"],
+              f"serve shed: {[(k, v[0]) for k, v in sorted(res.items())]}, "
+              f"shed events {sheds}")
+        log("[serve] 24c: quota.qps 1 answered 200 then 429 rate_quota with "
+            "Retry-After; a full queue (depth 2) shed the newest priority -1 "
+            "query for the priority 5 one, the rest 200")
+        config.set_default_config(prev_cfg)
+        t0 = lap("24c quota and shed", t0)
+
+        # ---- 24d. a fleet of two port workers on the card
+        built0 = sorted(os.listdir(_kernels.BUILD_DIR))
+        check(_kernels.lib_path("h3_cell").exists(),
+              "serve fleet: K3 was not built before the fleet")
+        fpts = batches[0][:SERVE_FLEET_POINTS]
+        n_ft = SERVE_FLEET_POINTS // SERVE_FLEET_ROWS
+        tables = {f"f{i}": {
+            "lon": fpts[i * SERVE_FLEET_ROWS:(i + 1) * SERVE_FLEET_ROWS, 0],
+            "lat": fpts[i * SERVE_FLEET_ROWS:(i + 1) * SERVE_FLEET_ROWS, 1],
+            "id": np.arange(i * SERVE_FLEET_ROWS, (i + 1) * SERVE_FLEET_ROWS,
+                            dtype=np.int64)} for i in range(n_ft)}
+        fhost = grid.point_to_cell(fpts, RES)
+        mix = [(f"SELECT id, grid_longlatascellid(lon, lat, {RES}) AS cell "
+                f"FROM f{i}", 1.0) for i in range(n_ft)]
+        tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-")
+        fleet = ServeFleet(workers=2, port=0, fleet_dir=tmp.name,
+                           tables=tables, grid="H3")
+        orig_read = http.client.HTTPResponse.read
+        answers = []
+        killed = {}
+        try:
+            t_f = time.perf_counter()
+            fleet.start(ready_timeout_s=180)
+            start_s = time.perf_counter() - t_f
+            check(fleet.status()["live"] == 2, f"serve fleet: "
+                  f"{fleet.status()['live']} workers live")
+            warm_s = warm_fleet(fleet, mix[0][0])
+            sp0, cr0 = counter("serve/worker_respawns"), \
+                counter("serve/worker_crashes")
+
+            def read(self, amt=None):
+                data = orig_read(self, amt)
+                if amt is None and self.status == 200:
+                    answers.append(data)
+                return data
+
+            def kill():
+                """SIGKILL a worker, then watch its slot respawn: the
+                seconds until both slots are live and ready again."""
+                time.sleep(SERVE_KILL_AFTER_S)
+                victim = fleet.worker_pids()[0]
+                killed["pid"] = victim
+                t_kill = time.perf_counter()
+                os.kill(victim, signal.SIGKILL)
+                deadline = t_kill + 120
+                while time.perf_counter() < deadline:
+                    st = fleet.status()
+                    if st["live"] == 2 and victim not in \
+                            fleet.worker_pids() and \
+                            all(w["ready"] for w in st["workers"]):
+                        killed["ready_s"] = time.perf_counter() - t_kill
+                        return
+                    time.sleep(0.02)
+
+            http.client.HTTPResponse.read = read
+            killer = threading.Thread(target=kill, daemon=True)
+            try:
+                killer.start()
+                rep = counted("serve fleet", lambda: loadtest_torch.run_loadtest(
+                    "127.0.0.1", fleet.port, mix,
+                    clients=SERVE_FLEET_CLIENTS, duration_s=SERVE_FLEET_S,
+                    principals=[f"lt{i}" for i in range(SERVE_FLEET_CLIENTS)],
+                    failover=True))
+            finally:
+                http.client.HTTPResponse.read = orig_read
+            killer.join(130)
+            respawn_s = killed.get("ready_s")
+            st = fleet.status()
+            check(respawn_s is not None and
+                  counter("serve/worker_respawns") == sp0 + 1 and
+                  counter("serve/worker_crashes") == cr0 + 1,
+                  f"serve fleet: no respawn after the kill: {st['workers']}")
+            after = serve_post(fleet.port, mix[0][0], "after")
+            check(after[0] == 200, f"serve fleet: {after[0]} after respawn")
+            # the live workers' own books (the killed one's went with it)
+            live = fleet_stats(fleet.port, 16)
+            batches_live = {pid: st["counters"].get("batches", 0)
+                            for pid, st in live.items()}
+            # a 200 cut short by the kill ends in a clean EOF: the tool
+            # counts it torn and fails over; the rest hold every row
+            bad = torn = 0
+            for body in answers:
+                lines = body.split(b"\n")
+                head = json.loads(lines[0])
+                try:
+                    rows = [r for ln in lines[1:] if ln
+                            for r in json.loads(ln)]
+                except ValueError:
+                    rows = None
+                if rows is None or len(rows) != head["rows"]:
+                    torn += 1
+                    continue
+                got = np.asarray(rows, np.int64)
+                bad += int((got[:, 1] != fhost[got[:, 0]]).sum())
+            check(rep["lost"] == 0 and rep["outcomes"].get("ok", 0) > 0 and
+                  len(answers) - torn == rep["outcomes"].get("ok", 0) and
+                  torn <= rep["failovers"],
+                  f"serve fleet: {torn} torn answers, {json.dumps(rep)}")
+            check(bad == 0, f"serve fleet: {bad} cells of the 200 answers "
+                  "differ from the host's")
+        finally:
+            http.client.HTTPResponse.read = orig_read
+            forced0 = counter("serve/drain_forced")
+            fleet.stop(drain=True)
+            forced = counter("serve/drain_forced") - forced0
+            tmp.cleanup()
+        built1 = sorted(os.listdir(_kernels.BUILD_DIR))
+        check(built1 == built0, f"serve fleet: _build/ changed: "
+              f"{sorted(set(built1) ^ set(built0))}")
+        check(forced == 0, f"serve fleet: {forced} workers forced at drain")
+        out["fleet"] = {
+            "start_s": start_s, "warm_s": warm_s, "respawn_s": respawn_s,
+            "live_worker_batches": batches_live, "torn_answers": torn,
+            "requests": rep["requests"], "ok": rep["outcomes"].get("ok", 0),
+            "outcomes": rep["outcomes"], "qps": rep["qps"],
+            "failovers": rep["failovers"],
+            "connect_retries": rep["connect_retries"], "lost": rep["lost"],
+            "latency_ms": rep["latency_ms"], "drain_forced": forced,
+            "built_files": len(built1)}
+        log(f"[serve] 24d: 2 workers on the card up in {start_s:.1f} s, "
+            f"each answered a lookup {warm_s:.1f} s later; "
+            f"{SERVE_FLEET_CLIENTS} clients for {SERVE_FLEET_S:.0f} s: "
+            f"{rep['requests']} requests, outcomes {rep['outcomes']}, "
+            f"failovers {rep['failovers']} ({torn} of them 200 answers cut "
+            f"short by the kill), connect retries "
+            f"{rep['connect_retries']}, lost {rep['lost']}; a worker "
+            f"SIGKILLed at {SERVE_KILL_AFTER_S:.0f} s respawned and ready "
+            f"{respawn_s:.1f} s after; every 200 answer equal to the host's "
+            f"cells; _build/ unchanged ({len(built1)} files: no nvcc in a "
+            f"worker); SIGTERM drained with {forced} forced; latency "
+            f"{json.dumps(rep['latency_ms'])}; batches in the live workers' "
+            f"/stats {batches_live}")
+        t0 = lap("24d fleet", t0)
+    finally:
+        faults.disarm()
+        tracer.disable()
+        config.set_default_config(prev_cfg)
+        if not was_metrics:
+            metrics.disable()
+        for i in range(SERVE_TABLES):
+            s.drop_table(f"t{i}")
+    out["counts"] = paths
+    out["secs"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def kernel_line(name, source, replaces, k, by_path) -> dict:
     """One kernel's entry of the ``kernels`` line; ``launches`` is the
     sum of its launches over the main paths in ``by_path``."""
@@ -8021,6 +8689,7 @@ def main() -> int:
                                   over)
         sqlp = phase_sql(idx, grid, polys, batches, dense_zones)
         exp = phase_exporters(idx, grid, polys, batches, dense_zones)
+        serve = phase_serving(grid, batches, cell_ops_per_point(RES))
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -8034,7 +8703,8 @@ def main() -> int:
              **shard["counts"], **{p: c for p, c in store["counts"].items()
                                    if p.startswith("store fed")},
              **geom["paths"], **hp["counts"], **fns["counts"],
-             **mem["counts"], **sqlp["counts"], **exp["counts"]}
+             **mem["counts"], **sqlp["counts"], **exp["counts"],
+             **serve["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -8073,11 +8743,14 @@ def main() -> int:
                             if k != "counts"}}, default=str))
     log(json.dumps({"exporters": {k: v for k, v in exp.items()
                                   if k != "counts"}}, default=str))
+    log(json.dumps({"serving": {k: v for k, v in serve.items()
+                                if k != "counts"}}, default=str))
     log(f"[chip_smoke] phases 1-18 took {t_18:.1f} s, phase 19 "
         f"{hp['phase_s']:.1f} s, phase 20 {fns['phase_s']:.1f} s, phase "
         f"21 {mem['phase_s']:.1f} s, phase 22 {sqlp['phase_s']:.1f} s, "
-        f"phase 23 {exp['phase_s']:.1f} s, "
-        f"phases 1-23 {time.perf_counter() - t_start:.1f} s (host clock)")
+        f"phase 23 {exp['phase_s']:.1f} s, phase 24 "
+        f"{serve['phase_s']:.1f} s, "
+        f"phases 1-24 {time.perf_counter() - t_start:.1f} s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
                for label, row in chip[key]["shapes"].items()}

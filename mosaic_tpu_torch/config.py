@@ -80,12 +80,26 @@ setting carries over 1:1:
   the flight recorder (0 = never; ``sql/engine.py``);
 * ``mosaic.fusion.{enabled,max.ops}`` — whole-query fusion on or off
   and its group-size cap (``perf/fusion.py``);
+* ``mosaic.serve.{port,workers,queue.depth,quota.concurrency,quota.qps,
+  deadline.ms,drain.ms}`` — the query server's listen port (0 =
+  ephemeral), worker threads, admission-queue depth, per-principal
+  quotas (0 disables either), default request deadline (0 = none) and
+  drain grace (``serve/server.py``, ``serve/admission.py``);
+* ``mosaic.serve.batch.{window.ms,max,rows.max}`` — the micro-batcher's
+  wait for more compatible point lookups, the most queries one batch
+  coalesces (0 = no batching) and the largest table still batchable
+  (``serve/batching.py``, ``sql/engine.classify_batchable``);
+* ``mosaic.serve.fleet.{workers,dir,restart.max,restart.window.ms,
+  health.ms,reap.ms}``, ``mosaic.serve.scoreboard.slots`` — the serving
+  fleet's worker processes, its runtime directory ("" = a fresh temp
+  dir), the crash-loop breaker, the health tick (0 = no thread), the
+  dead-claim reap interval and the shared scoreboard's slot count
+  (``serve/supervisor.py``, ``serve/scoreboard.py``);
 
 A successful ``apply_conf`` records a ``config`` flight-recorder event.
 
 The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
-any other one (the serve keys wait for that plane, ROADMAP §A9d), and
-for ``mosaic.device.dtype``, ``mosaic.exact.fallback`` and
+any other one, and for ``mosaic.device.dtype``, ``mosaic.exact.fallback`` and
 ``mosaic.jit.cache.dir``, which nothing in the port reads (the last
 names XLA's on-disk compilation cache; the port compiles nothing at run
 time, its kernels are built from ``csrc/`` once, keyed by their
@@ -151,6 +165,24 @@ MOSAIC_HISTORY_SEGMENT_BYTES = "mosaic.history.segment.bytes"
 MOSAIC_HISTORY_SEGMENT_AGE_MS = "mosaic.history.segment.age.ms"
 MOSAIC_HISTORY_RETAIN = "mosaic.history.retain"
 MOSAIC_HISTORY_WINDOW_MS = "mosaic.history.window.ms"
+MOSAIC_SERVE_PORT = "mosaic.serve.port"
+MOSAIC_SERVE_WORKERS = "mosaic.serve.workers"
+MOSAIC_SERVE_QUEUE_DEPTH = "mosaic.serve.queue.depth"
+MOSAIC_SERVE_QUOTA_CONCURRENCY = "mosaic.serve.quota.concurrency"
+MOSAIC_SERVE_QUOTA_QPS = "mosaic.serve.quota.qps"
+MOSAIC_SERVE_DEADLINE_MS = "mosaic.serve.deadline.ms"
+MOSAIC_SERVE_DRAIN_MS = "mosaic.serve.drain.ms"
+MOSAIC_SERVE_BATCH_WINDOW_MS = "mosaic.serve.batch.window.ms"
+MOSAIC_SERVE_BATCH_MAX = "mosaic.serve.batch.max"
+MOSAIC_SERVE_BATCH_ROWS_MAX = "mosaic.serve.batch.rows.max"
+MOSAIC_SERVE_FLEET_WORKERS = "mosaic.serve.fleet.workers"
+MOSAIC_SERVE_FLEET_DIR = "mosaic.serve.fleet.dir"
+MOSAIC_SERVE_FLEET_RESTART_MAX = "mosaic.serve.fleet.restart.max"
+MOSAIC_SERVE_FLEET_RESTART_WINDOW_MS = \
+    "mosaic.serve.fleet.restart.window.ms"
+MOSAIC_SERVE_FLEET_HEALTH_MS = "mosaic.serve.fleet.health.ms"
+MOSAIC_SERVE_FLEET_REAP_MS = "mosaic.serve.fleet.reap.ms"
+MOSAIC_SERVE_SCOREBOARD_SLOTS = "mosaic.serve.scoreboard.slots"
 
 MOSAIC_RASTER_CHECKPOINT_DEFAULT = "/tmp/mosaic_tpu/checkpoint"
 MOSAIC_RASTER_TMP_PREFIX_DEFAULT = "/tmp"
@@ -271,6 +303,30 @@ class MosaicConfig:
     history_segment_age_ms: float = 0.0
     history_retain: int = 64
     history_window_ms: float = 3_600_000.0
+    # query server (serve/): listen port, worker threads, queue depth,
+    # per-principal quotas (0 disables), default deadline and drain
+    # grace; the micro-batcher's window, batch size cap (0 = off) and
+    # batchable table-size cap
+    serve_port: int = 0
+    serve_workers: int = 4
+    serve_queue_depth: int = 64
+    serve_quota_concurrency: int = 8
+    serve_quota_qps: float = 0.0
+    serve_deadline_ms: float = 0.0
+    serve_drain_ms: float = 5_000.0
+    serve_batch_window_ms: float = 2.0
+    serve_batch_max: int = 32
+    serve_batch_rows_max: int = 4_096
+    # serving fleet (serve/supervisor.py, serve/scoreboard.py): worker
+    # processes, runtime dir ("" = temp), crash-loop breaker, health
+    # tick (0 = no thread), dead-claim reap interval, scoreboard slots
+    serve_fleet_workers: int = 2
+    serve_fleet_dir: str = ""
+    serve_fleet_restart_max: int = 5
+    serve_fleet_restart_window_ms: float = 30_000.0
+    serve_fleet_health_ms: float = 250.0
+    serve_fleet_reap_ms: float = 1_000.0
+    serve_scoreboard_slots: int = 512
 
 
 def _as_flag(key: str, value) -> bool:
@@ -361,6 +417,18 @@ def _as_str(key: str, value) -> str:
     return str(value)
 
 
+def _as_port(key: str, value) -> int:
+    try:
+        n = int(str(value).strip())
+    except (TypeError, ValueError):
+        raise ConfigError(
+            f"{key}={value!r} is not a port number") from None
+    if not 0 <= n <= 65535:
+        raise ConfigError(f"{key}={n} must be in [0, 65535] "
+                          "(0 = ephemeral)")
+    return n
+
+
 def _as_knn_strategy(key: str, value) -> str:
     s = str(value).strip().lower()
     if s in ("auto", "brute", "ring"):
@@ -435,6 +503,29 @@ _CONF_FIELDS = {
     MOSAIC_HISTORY_SEGMENT_AGE_MS: ("history_segment_age_ms", _as_millis),
     MOSAIC_HISTORY_RETAIN: ("history_retain", _as_count),
     MOSAIC_HISTORY_WINDOW_MS: ("history_window_ms", _as_millis),
+    MOSAIC_SERVE_PORT: ("serve_port", _as_port),
+    MOSAIC_SERVE_WORKERS: ("serve_workers", _as_blocksize),
+    MOSAIC_SERVE_QUEUE_DEPTH: ("serve_queue_depth", _as_blocksize),
+    MOSAIC_SERVE_QUOTA_CONCURRENCY: ("serve_quota_concurrency",
+                                     _as_count),
+    MOSAIC_SERVE_QUOTA_QPS: ("serve_quota_qps", _as_hz),
+    MOSAIC_SERVE_DEADLINE_MS: ("serve_deadline_ms", _as_millis),
+    MOSAIC_SERVE_DRAIN_MS: ("serve_drain_ms", _as_millis),
+    MOSAIC_SERVE_BATCH_WINDOW_MS: ("serve_batch_window_ms", _as_millis),
+    MOSAIC_SERVE_BATCH_MAX: ("serve_batch_max", _as_count),
+    MOSAIC_SERVE_BATCH_ROWS_MAX: ("serve_batch_rows_max",
+                                  _as_blocksize),
+    MOSAIC_SERVE_FLEET_WORKERS: ("serve_fleet_workers", _as_blocksize),
+    MOSAIC_SERVE_FLEET_DIR: ("serve_fleet_dir", _as_str),
+    MOSAIC_SERVE_FLEET_RESTART_MAX: ("serve_fleet_restart_max",
+                                     _as_blocksize),
+    MOSAIC_SERVE_FLEET_RESTART_WINDOW_MS:
+        ("serve_fleet_restart_window_ms", _as_millis),
+    MOSAIC_SERVE_FLEET_HEALTH_MS: ("serve_fleet_health_ms",
+                                   _as_millis),
+    MOSAIC_SERVE_FLEET_REAP_MS: ("serve_fleet_reap_ms", _as_millis),
+    MOSAIC_SERVE_SCOREBOARD_SLOTS: ("serve_scoreboard_slots",
+                                    _as_blocksize),
 }
 
 

@@ -28,8 +28,8 @@ Routes:
 * ``/api/queries``      — live query console: in-flight tickets
   (``obs.inflight``) + recent audit completions (``?limit=``)
 * ``/api/principals``   — per-principal meter totals (``obs.accounting``)
-* ``/api/server``       — the query server's state; the port has no
-  server yet (ROADMAP §A9d), so it answers ``{"running": False}``
+* ``/api/server``       — the live query server's ``stats()``
+  (``serve/server.py``), ``{"running": False}`` when none is up
 * ``/api/fleet``        — the merged fleet view over the spool dir
   (``obs.fleet``; ``?dir=``, ``?bundle=1``); ``{"enabled": False}``
   when no spool dir is configured
@@ -190,10 +190,21 @@ def _principals_payload() -> Dict[str, object]:
 
 
 def _server_payload() -> Dict[str, object]:
-    """The query-server panel.  The port has no query server until
-    ``serve/`` is ported (ROADMAP §A9d), so no server is ever up in
-    this process and the panel answers the stand-alone contract."""
-    return {"running": False}
+    """The query-server panel: the live :class:`~..serve.server.
+    QueryServer`'s stats, or ``{"running": False}`` when no server is
+    up in this process (the dashboard works stand-alone)."""
+    try:
+        from ..serve.server import current_server
+    except Exception:
+        return {"running": False}
+    srv = current_server()
+    if srv is None:
+        return {"running": False}
+    try:
+        return srv.stats()
+    except Exception as exc:
+        return {"running": True,
+                "error": f"{type(exc).__name__}: {exc}"}
 
 
 def _fleet_payload(qs: Dict[str, list]) -> Dict[str, object]:

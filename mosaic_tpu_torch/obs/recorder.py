@@ -54,8 +54,7 @@ _DEF_CAPACITY = 4096
 
 #: The event catalogue: every ``kind`` string a ``record()`` call of the
 #: port may emit (``tests/test_torch_recorder.py`` holds the port's
-#: ``record`` calls to it).  Kinds of modules the port has not got yet
-#: (serve, ROADMAP §A9d) join it with them.
+#: ``record`` calls to it).
 EVENTS = frozenset({
     # lifecycle / tracing; the SQL engine's query and slow-query marks
     "span", "sql", "slow_query", "config", "trace_link", "device_trace",
@@ -81,6 +80,11 @@ EVENTS = frozenset({
     "fleet_merge_error", "fleet_worker_stale",
     # memory plane
     "mem_admit_denied", "mem_chunk_shrink", "mem_leak",
+    # query server (serve/): overload shedding + drain lifecycle
+    "serve_shed", "serve_drain",
+    # serving fleet supervisor (serve/supervisor.py): worker process
+    # lifecycle + the crash-loop circuit breaker
+    "fleet_worker_spawn", "fleet_worker_exit", "fleet_degraded",
     # SLO + profiler
     "slo_breach", "slo_recovered", "profiler",
     # pipeline observer hook failures

@@ -33,7 +33,8 @@ Objective kinds:
 
 :func:`evaluate_fleet` runs objectives over the fleet aggregator's
 merged store (``obs/fleet.py``); :func:`fleet_objectives` is the
-serving supervisor's objective (``serve/``, ROADMAP §A9d).
+serving supervisor's objective (``serve/supervisor.py``), and
+:func:`serve_objectives` the query server's (``serve/server.py``).
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ same seed), an exception allowlist, and per-attempt obs counters
 ``retry/giveups/<name>``).  Each attempt also lands a ``retry`` /
 ``retry_recovered`` / ``retry_giveup`` event in the flight recorder.
 Apply with ``policy.call(fn, ...)`` or the ``retrying(policy)``
-decorator.  The policies of modules the port has not got yet (the bench
-probe, the serve fleet, the load test) come with them.
+decorator.  The bench probe's policy is left out: the port has no
+bench probe.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ from . import faults
 
 __all__ = ["RetryPolicy", "retrying", "ProbeFailure",
            "CHECKPOINT_RETRY", "NATIVE_COMPILE_RETRY",
-           "NATIVE_LOAD_RETRY"]
+           "NATIVE_LOAD_RETRY", "SERVE_SPAWN_RETRY",
+           "FLEET_RESPAWN_BACKOFF", "LOADTEST_CONNECT_RETRY"]
 
 
 class ProbeFailure(RuntimeError):
@@ -132,3 +133,26 @@ NATIVE_COMPILE_RETRY = RetryPolicy(
 NATIVE_LOAD_RETRY = RetryPolicy(name="native.load", max_attempts=2,
                                 base_delay_s=0.0, jitter=0.0,
                                 retry_on=(OSError,))
+
+#: fleet worker exec (serve/supervisor.py): transient fork/exec
+#: failures (the ``serve.spawn`` fault site among them) retry fast; a
+#: missing interpreter fails fast three times and the health loop's
+#: breaker takes over
+SERVE_SPAWN_RETRY = RetryPolicy(
+    name="serve.spawn", max_attempts=3, base_delay_s=0.05,
+    max_delay_s=0.5, retry_on=(OSError,
+                               _subprocess.SubprocessError))
+
+#: crash-respawn schedule (not a call-retry: the supervisor only uses
+#: ``delay(k)`` for the k-th respawn inside the breaker window, so a
+#: crash-looping worker backs off exponentially instead of spinning)
+FLEET_RESPAWN_BACKOFF = RetryPolicy(
+    name="fleet.respawn", max_attempts=1_000_000,
+    base_delay_s=0.1, max_delay_s=2.0, multiplier=2.0)
+
+#: load-test client connects (tools/loadtest_torch.py): jittered
+#: backoff over refused/reset connects, so a kill drill's clients ride
+#: through a worker SIGKILL window instead of booking instant errors
+LOADTEST_CONNECT_RETRY = RetryPolicy(
+    name="loadtest.connect", max_attempts=4, base_delay_s=0.05,
+    max_delay_s=0.5, retry_on=(ConnectionError, OSError))

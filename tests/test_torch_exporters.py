@@ -15,9 +15,10 @@ package's.
   tests/test_accounting.py and tests/test_memwatch.py answers on the
   port's ``sql.SQLSession`` and planes (``Cache-Control: no-store`` on
   JSON, a JSON 404 for an unknown ``/api/*`` path, a 405 for a GET
-  cancel); a POST cancel stops a live query; the server panel answers
-  ``{"running": False}`` (no server until ROADMAP §A9d); a leak shows in
-  the exposition and on the memory route as in the JAX package.
+  cancel); a POST cancel stops a live query; the server panel equals
+  the JAX package's with no server up and with a server of each package
+  up; a leak shows in the exposition and on the memory route as in the
+  JAX package.
 """
 
 import json
@@ -44,6 +45,7 @@ from mosaic_tpu.obs.openmetrics import to_openmetrics as j_to_openmetrics
 from mosaic_tpu.obs.recorder import recorder as jrec
 from mosaic_tpu.parallel import pip_join as jpj
 from mosaic_tpu.resilience import faults as jfaults
+from mosaic_tpu.serve import QueryServer as JQueryServer
 from mosaic_tpu.sql.planner import Decision as JDecision
 from mosaic_tpu.sql.planner import planner as jplanner
 import mosaic_tpu_torch as mt
@@ -58,6 +60,7 @@ from mosaic_tpu_torch.obs import (accounted, audit, chrome_trace_events,
 from mosaic_tpu_torch.obs.inflight import QueryCancelled
 from mosaic_tpu_torch.parallel import pip_join as tpj
 from mosaic_tpu_torch.resilience import faults
+from mosaic_tpu_torch.serve import QueryServer
 from mosaic_tpu_torch.sql import SQLSession
 from mosaic_tpu_torch.sql.planner import Decision, planner
 
@@ -110,6 +113,22 @@ def session(ctx, planes):
     s.create_table("pts", {"x": np.arange(100.0),
                            "y": np.arange(100.0) / 10.0})
     return s
+
+
+def _jax_session():
+    from mosaic_tpu.functions.context import MosaicContext as JContext
+    from mosaic_tpu.sql import SQLSession as JSession
+    s = JSession(JContext("H3"))
+    s.create_table("pts", {"x": np.arange(100.0),
+                           "y": np.arange(100.0) / 10.0})
+    return s
+
+
+def _shape(payload):
+    """The nested key structure of a JSON payload."""
+    if isinstance(payload, dict):
+        return {k: _shape(v) for k, v in payload.items()}
+    return type(payload).__name__
 
 
 def _get(url):
@@ -333,7 +352,25 @@ def test_dashboard_endpoints(session):
                       "/api/devices", "/api/memory", "/metrics",
                       "/memory", "/api/fleet", "/api/history"):
             assert _get(base + route)
-        assert json.loads(_get(base + "/api/server")) == {"running": False}
+        # the server panel equals the JAX package's: with no server up,
+        # then with a server of each package up (their live values —
+        # pid, port, uptime, queue counts — aside)
+        from mosaic_tpu.obs.dashboard import \
+            _server_payload as j_server_payload
+        assert json.loads(_get(base + "/api/server")) == \
+            j_server_payload() == {"running": False}
+        with QueryServer(session, workers=1) as srv, \
+                JQueryServer(_jax_session(), workers=1) as jsrv:
+            panel, jpanel = json.loads(_get(base + "/api/server")), \
+                j_server_payload()
+            assert panel["addr"].endswith(f":{srv.port}")
+            assert jpanel["addr"].endswith(f":{jsrv.port}")
+            assert _shape(panel) == _shape(jpanel)
+            for k in ("running", "draining", "workers", "quotas",
+                      "batching", "jit"):
+                assert panel[k] == jpanel[k], k
+        assert json.loads(_get(base + "/api/server")) == \
+            j_server_payload() == {"running": False}
         assert json.loads(_get(base + "/api/fleet")) == {"enabled": False}
         assert json.loads(_get(base + "/api/history"))["enabled"] is False
         assert "sql_queries_total" in _get(base + "/metrics")

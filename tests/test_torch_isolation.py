@@ -17,10 +17,13 @@ default.
   ``pipeline.chunk`` stall), the tracer on and a flight-recorder dump
   written, equal zones, its span and the dump's events read back;
   importing the port leaves ``threading.Thread.start`` as it was.
-* The exporters, history, fleet and viz modules import, and
-  ``tools/fleetctl_torch.py`` and ``tools/mosaicstat_torch.py`` answer
-  ``--help``, in a process where ``jax`` and ``mosaic_tpu`` cannot be
-  imported.
+* The exporters, history, fleet, viz and serve modules import, and
+  ``tools/fleetctl_torch.py``, ``tools/mosaicstat_torch.py`` and
+  ``tools/loadtest_torch.py`` answer ``--help``, in a process where
+  ``jax`` and ``mosaic_tpu`` cannot be imported.
+* A serving fleet's worker process, spawned by ``ServeFleet`` on the
+  CPU in such a process, answers a point lookup and exits with neither
+  ``jax`` nor any ``mosaic_tpu`` module in its ``sys.modules``.
 * No file of the port, nor chip_smoke.py, the helpers it imports
   (``tools/split_model.py``, ``tests/torch_fusion_cases.py``) and the
   tools it runs (``tools/*_torch.py``), imports
@@ -220,9 +223,11 @@ sys.modules["jax"] = None
 sys.modules["mosaic_tpu"] = None
 for m in ("obs.history", "obs.openmetrics", "obs.chrometrace",
           "obs.dashboard", "obs.fleet", "utils", "utils.trace",
-          "utils.viz"):
+          "utils.viz", "serve", "serve.admission", "serve.scoreboard",
+          "serve.batching", "serve.workers", "serve.server",
+          "serve.supervisor"):
     importlib.import_module("mosaic_tpu_torch." + m)
-for tool in ("fleetctl_torch", "mosaicstat_torch"):
+for tool in ("fleetctl_torch", "mosaicstat_torch", "loadtest_torch"):
     sys.argv = [tool + ".py", "--help"]
     try:
         runpy.run_path("tools/" + tool + ".py", run_name="__main__")
@@ -233,8 +238,8 @@ print("PLANES_OK")
 
 
 def test_exporter_planes_and_tools_import_without_jax():
-    """The exporters, history, fleet and viz modules import, and both
-    tools answer ``--help``, in a process where ``jax`` and
+    """The exporters, history, fleet, viz and serve modules import, and
+    the three tools answer ``--help``, in a process where ``jax`` and
     ``mosaic_tpu`` cannot be imported."""
     out = subprocess.run([sys.executable, "-c", TOOLS_AND_PLANES],
                          cwd=REPO, capture_output=True, text=True,
@@ -243,6 +248,68 @@ def test_exporter_planes_and_tools_import_without_jax():
     assert "PLANES_OK" in out.stdout
     assert "usage: fleetctl" in out.stdout
     assert "usage: mosaicstat" in out.stdout
+    assert "usage: loadtest_torch" in out.stdout
+
+
+#: the worker command of the fleet below: jax and mosaic_tpu cannot be
+#: imported, and at exit the worker writes which modules of theirs (and
+#: how many of the port's serve package) it held
+WORKER = r"""
+import atexit, json, os, sys
+sys.modules["jax"] = None
+sys.modules["mosaic_tpu"] = None
+
+def _report():
+    held = sorted(k for k, v in sys.modules.items() if v is not None and
+                  k.split(".")[0] in ("jax", "jaxlib", "mosaic_tpu"))
+    serve = sorted(k for k in sys.modules
+                   if k.startswith("mosaic_tpu_torch.serve"))
+    path = os.path.join(os.environ["MOSAIC_FLEET_DIR"],
+                        "modules-%d.json" % os.getpid())
+    with open(path, "w") as f:
+        json.dump({"held": held, "serve": serve}, f)
+
+atexit.register(_report)
+from mosaic_tpu_torch.serve.supervisor import main
+sys.exit(main(["--worker", "--device", "cpu"]))
+"""
+
+
+def test_spawned_worker_imports_no_jax(tmp_path):
+    """A ``ServeFleet`` worker on the CPU, in a process where ``jax``
+    and ``mosaic_tpu`` cannot be imported, answers a point lookup equal
+    to the host; at its exit its ``sys.modules`` holds neither."""
+    import http.client
+    import json
+    from mosaic_tpu_torch.serve.supervisor import ServeFleet
+    grid = mt.get_index_system("CUSTOM(-180,180,-90,90,2,360,180)")
+    rng = np.random.default_rng(3)
+    xy = np.stack([rng.uniform(-170, 170, 300),
+                   rng.uniform(-80, 80, 300)], -1)
+    d = tmp_path / "fleet"
+    fleet = ServeFleet(workers=1, port=0, fleet_dir=str(d),
+                       tables={"p": {"lon": xy[:, 0], "lat": xy[:, 1]}},
+                       worker_cmd=[sys.executable, "-c", WORKER],
+                       conf={"mosaic.serve.fleet.health.ms": "0"})
+    with fleet:
+        pid = fleet.worker_pids()[0]
+        conn = http.client.HTTPConnection("127.0.0.1", fleet.port,
+                                          timeout=30)
+        try:
+            conn.request("POST", "/query", body=(
+                b"SELECT grid_longlatascellid(lon, lat, 4) AS c FROM p"))
+            r = conn.getresponse()
+            status, body = r.status, r.read()
+        finally:
+            conn.close()
+    assert status == 200, body[:300]
+    rows = [c for ln in body.decode().splitlines()[1:]
+            for c in json.loads(ln)]
+    assert np.array_equal(np.asarray(rows, np.int64)[:, 0],
+                          grid.point_to_cell(xy, 4))
+    report = json.loads((d / f"modules-{pid}.json").read_text())
+    assert report["held"] == []
+    assert "mosaic_tpu_torch.serve.server" in report["serve"]
 
 
 def _imported_roots(path: Path):
@@ -262,7 +329,8 @@ def test_no_file_imports_jax_or_mosaic_tpu():
     files += [REPO / "chip_smoke.py", REPO / "tools" / "split_model.py",
               REPO / "tests" / "torch_fusion_cases.py",
               REPO / "tools" / "fleetctl_torch.py",
-              REPO / "tools" / "mosaicstat_torch.py"]
+              REPO / "tools" / "mosaicstat_torch.py",
+              REPO / "tools" / "loadtest_torch.py"]
     assert len(files) > 20
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"mosaic_tpu_torch/config.py",
@@ -334,8 +402,16 @@ def test_no_file_imports_jax_or_mosaic_tpu():
             "mosaic_tpu_torch/utils/__init__.py",
             "mosaic_tpu_torch/utils/trace.py",
             "mosaic_tpu_torch/utils/viz.py",
+            "mosaic_tpu_torch/serve/__init__.py",
+            "mosaic_tpu_torch/serve/admission.py",
+            "mosaic_tpu_torch/serve/scoreboard.py",
+            "mosaic_tpu_torch/serve/batching.py",
+            "mosaic_tpu_torch/serve/workers.py",
+            "mosaic_tpu_torch/serve/server.py",
+            "mosaic_tpu_torch/serve/supervisor.py",
             "tools/fleetctl_torch.py",
-            "tools/mosaicstat_torch.py"} <= names
+            "tools/mosaicstat_torch.py",
+            "tools/loadtest_torch.py"} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) &
                                             FORBIDDEN)
            for f in files}

@@ -99,6 +99,24 @@ KEY_VALUES = {
     "mosaic.history.retain": ["64", "0", "-1", "many"],
     "mosaic.history.window.ms": ["3600000", "0", "-1", "x"],
     "mosaic.obs.fleet.stale.ms": ["5000", "0", "-1", "x"],
+    # the query server's and the serving fleet's
+    "mosaic.serve.port": ["0", "8817", "65535", "65536", "-1", "x"],
+    "mosaic.serve.workers": ["4", "1", "0", "x"],
+    "mosaic.serve.queue.depth": ["64", "0", "-2"],
+    "mosaic.serve.quota.concurrency": ["8", "0", "-1", "x"],
+    "mosaic.serve.quota.qps": ["0", "2.5", "-1", "x"],
+    "mosaic.serve.deadline.ms": ["0", "250", "-1"],
+    "mosaic.serve.drain.ms": ["5000", "0", "x"],
+    "mosaic.serve.batch.window.ms": ["2", "0", "-1"],
+    "mosaic.serve.batch.max": ["32", "0", "-1", "x"],
+    "mosaic.serve.batch.rows.max": ["4096", "16384", "0"],
+    "mosaic.serve.fleet.workers": ["2", "0", "x"],
+    "mosaic.serve.fleet.dir": ["", "/tmp/fleet"],
+    "mosaic.serve.fleet.restart.max": ["5", "0", "x"],
+    "mosaic.serve.fleet.restart.window.ms": ["30000", "0", "-1"],
+    "mosaic.serve.fleet.health.ms": ["250", "0", "-1"],
+    "mosaic.serve.fleet.reap.ms": ["1000", "0", "x"],
+    "mosaic.serve.scoreboard.slots": ["512", "1", "0", "x"],
 }
 
 #: the config fields those keys set, with the JAX package's defaults
@@ -127,7 +145,16 @@ FIELDS_PORTED = ("index_system", "geometry_api", "planner_enabled",
                  # the history plane's and the fleet aggregator's
                  "history_dir", "history_segment_bytes",
                  "history_segment_age_ms", "history_retain",
-                 "history_window_ms", "obs_fleet_stale_ms")
+                 "history_window_ms", "obs_fleet_stale_ms",
+                 # the query server's and the serving fleet's
+                 "serve_port", "serve_workers", "serve_queue_depth",
+                 "serve_quota_concurrency", "serve_quota_qps",
+                 "serve_deadline_ms", "serve_drain_ms",
+                 "serve_batch_window_ms", "serve_batch_max",
+                 "serve_batch_rows_max", "serve_fleet_workers",
+                 "serve_fleet_dir", "serve_fleet_restart_max",
+                 "serve_fleet_restart_window_ms", "serve_fleet_health_ms",
+                 "serve_fleet_reap_ms", "serve_scoreboard_slots")
 
 
 @pytest.fixture(autouse=True)
@@ -189,18 +216,14 @@ def test_force_pins_stack_and_clear_alike():
 
 
 @pytest.mark.parametrize("key,val", [
-    ("mosaic.serve.port", "8080"),
-    ("mosaic.serve.batch.max", "64"),
-    ("mosaic.serve.fleet.workers", "2"),
     ("mosaic.device.dtype", "float64"),
     ("mosaic.exact.fallback", "false"),
     ("mosaic.jit.cache.dir", "/tmp/jc"),
     ("mosaic.jit.cache.dir", ""),
 ])
 def test_left_out_pins_and_keys_raise(key, val):
-    """The stated divergence: what the JAX package takes for a later
-    slice (the serve plane) and the keys nothing in the port reads, the
-    port refuses."""
+    """The stated divergence: the keys nothing in the port reads, the
+    JAX package takes and the port refuses."""
     jconfig.apply_conf(jconfig.MosaicConfig(), key, val)
     with pytest.raises(tconfig.ConfigError):
         tconfig.apply_conf(tconfig.MosaicConfig(), key, val)
@@ -220,6 +243,54 @@ def test_history_and_fleet_keys_set_as_jax(key, val):
                if getattr(t, f) != getattr(tconfig.MosaicConfig(), f)]
     assert len(changed) == 1
     assert getattr(t, changed[0]) == getattr(j, changed[0])
+
+
+@pytest.mark.parametrize("key,val", [
+    ("mosaic.serve.port", "8080"),
+    ("mosaic.serve.batch.max", "64"),
+    ("mosaic.serve.fleet.workers", "3"),
+    ("mosaic.serve.workers", "2"),
+    ("mosaic.serve.queue.depth", "16"),
+    ("mosaic.serve.quota.concurrency", "0"),
+    ("mosaic.serve.quota.qps", "2.5"),
+    ("mosaic.serve.deadline.ms", "250"),
+    ("mosaic.serve.drain.ms", "100"),
+    ("mosaic.serve.batch.window.ms", "20"),
+    ("mosaic.serve.batch.rows.max", "16384"),
+    ("mosaic.serve.fleet.dir", "/tmp/fleet"),
+    ("mosaic.serve.fleet.restart.max", "1"),
+    ("mosaic.serve.fleet.restart.window.ms", "600000"),
+    ("mosaic.serve.fleet.health.ms", "0"),
+    ("mosaic.serve.fleet.reap.ms", "0"),
+    ("mosaic.serve.scoreboard.slots", "64"),
+])
+def test_serve_keys_set_as_jax(key, val):
+    """The 17 ``mosaic.serve.*`` keys the port took with ``serve/``: the
+    same field, the same default, set to the same value."""
+    j = jconfig.apply_conf(jconfig.MosaicConfig(), key, val)
+    t = tconfig.apply_conf(tconfig.MosaicConfig(), key, val)
+    changed = [f for f in vars(t)
+               if getattr(t, f) != getattr(tconfig.MosaicConfig(), f)]
+    assert len(changed) == 1 and changed[0].startswith("serve_")
+    assert getattr(t, changed[0]) == getattr(j, changed[0])
+    assert getattr(tconfig.MosaicConfig(), changed[0]) == \
+        getattr(jconfig.MosaicConfig(), changed[0])
+
+
+@pytest.mark.parametrize("key,val", [
+    ("mosaic.serve.port", "70000"), ("mosaic.serve.port", "x"),
+    ("mosaic.serve.batch.max", "-1"), ("mosaic.serve.workers", "0"),
+    ("mosaic.serve.quota.qps", "-1"), ("mosaic.serve.drain.ms", "-5"),
+    ("mosaic.serve.scoreboard.slots", "0"),
+])
+def test_serve_keys_refuse_as_jax(key, val):
+    """A value the JAX package refuses for a ``mosaic.serve.*`` key, the
+    port refuses with the same message."""
+    with pytest.raises(jconfig.ConfigError) as je:
+        jconfig.apply_conf(jconfig.MosaicConfig(), key, val)
+    with pytest.raises(tconfig.ConfigError) as te:
+        tconfig.apply_conf(tconfig.MosaicConfig(), key, val)
+    assert str(te.value) == str(je.value)
 
 
 def _same(t, j):

@@ -212,15 +212,23 @@ def test_corrupt_bytes_equal_byte_for_byte(mode):
 
 @pytest.mark.parametrize("policy,seed", [
     ("checkpoint", 0), ("checkpoint", 31), ("native.compile", 7),
-    ("native.load", 7)])
+    ("native.load", 7), ("serve.spawn", 5), ("fleet.respawn", 0),
+    ("loadtest.connect", 3)])
 def test_retry_delays_equal_for_a_seed(policy, seed):
     from mosaic_tpu.resilience import retry as jretry
+    from mosaic_tpu_torch.resilience import retry as tretry
     mine = {"checkpoint": CHECKPOINT_RETRY,
             "native.compile": NATIVE_COMPILE_RETRY,
-            "native.load": NATIVE_LOAD_RETRY}[policy]
+            "native.load": NATIVE_LOAD_RETRY,
+            "serve.spawn": tretry.SERVE_SPAWN_RETRY,
+            "fleet.respawn": tretry.FLEET_RESPAWN_BACKOFF,
+            "loadtest.connect": tretry.LOADTEST_CONNECT_RETRY}[policy]
     theirs = {"checkpoint": jretry.CHECKPOINT_RETRY,
               "native.compile": jretry.NATIVE_COMPILE_RETRY,
-              "native.load": jretry.NATIVE_LOAD_RETRY}[policy]
+              "native.load": jretry.NATIVE_LOAD_RETRY,
+              "serve.spawn": jretry.SERVE_SPAWN_RETRY,
+              "fleet.respawn": jretry.FLEET_RESPAWN_BACKOFF,
+              "loadtest.connect": jretry.LOADTEST_CONNECT_RETRY}[policy]
     assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
     for a in range(6):
         assert mine.delay(a, seed=seed) == theirs.delay(a, seed=seed)
