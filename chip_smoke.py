@@ -486,16 +486,30 @@ Phases (any failure exits non-zero and prints no result):
     answer's cells equal to the host's, ``_build/`` unchanged (no
     ``nvcc`` in a worker); SIGTERM drains the fleet, ``serve/drain_forced``
     0;
-25. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
+25. the port's lint and its persistent kernel cache: a.
+    ``tools/graftlint_torch.py --check --json`` as a child process on
+    this checkout (``python -X importtime``): exit 0, no new finding or
+    stale baseline entry, and neither torch nor jax among the child's
+    imports; b. ``mosaic.jit.cache.dir`` at a fresh temporary directory
+    and two child processes in turn (``chip_smoke.py --cache-child``),
+    each ``point_to_cell_device`` on H3 res 9 over 2^18 seeded points
+    (``lint/cache 1`` and ``lint/cache 2``, one K3 launch each): the
+    first builds K3 into the directory (persistent hits 0, misses 1, its
+    ``nvcc`` seconds), the second loads it with no build (hits 1, misses
+    0, the library's mtime unchanged); both children's cells equal to
+    K3's plain version and to each other, the server's ``stats()["jit"]``
+    equal to the counters, ``_build/`` unchanged (listing and mtimes);
+26. the ``sorted``, ``overlay``, ``knn``, ``chips``, ``strategies``,
     ``raster``, ``sharded``, ``store``, ``geometry``, ``host_planes``,
-    ``functions``, ``memory_planes``, ``sql``, ``exporters``, ``serving``
-    and ``tess_kernels`` (K7 and K8 by input set) summary lines, the
+    ``functions``, ``memory_planes``, ``sql``, ``exporters``, ``serving``,
+    ``lint_cache`` and ``tess_kernels`` (K7 and K8 by input set) summary
+    lines, the
     card, the ``kernels`` JSON line (K1-K14 with launches per path, the
     tessellations of phases 5 and 11, the strategies', the raster, the
     sharded, the ``store fed``, the ``geometry``, the ``host planes``,
     the ``functions``, the ``memory planes``, the ``sql``, the
-    ``history``, ``fleet``, ``dashboard``, ``chrome trace`` and
-    ``serve`` paths among them), then the last line ``{"ok": true,
+    ``history``, ``fleet``, ``dashboard``, ``chrome trace``, ``serve``
+    and ``lint/cache`` paths among them), then the last line ``{"ok": true,
     "device": {...}}``.
 
 Imports nothing of JAX or of ``mosaic_tpu``.
@@ -6731,7 +6745,11 @@ def phase_memory_planes(idx, grid, polys, batches, dense_zones, over):
             key = (0, 0, None, None, "auto")
             t0 = time.perf_counter()
             for _ in range(MP_PROBE_REPS):
+                # the probe's own cost, so no try/finally of its own: the
+                # finally below resets the ledger on any unwind
+                # graftlint: ignore[resource-release-path] — memwatch.reset() in the enclosing finally drops the token on any unwind
                 t1 = memwatch.register("ab/staged", nb_in, devices=keys)
+                # graftlint: ignore[resource-release-path] — memwatch.reset() in the enclosing finally drops the token on any unwind
                 t2 = memwatch.register("ab/out", nb_out, devices=keys)
                 mem_budget.shrink_needed()
                 memwatch.release(t2)
@@ -8633,6 +8651,180 @@ def phase_serving(grid, batches, ops_pt):
     return out
 
 
+#: phase 25: the cache children's points and seed, and the lint's and a
+#: child's time limit
+CACHE_POINTS = 1 << 18
+CACHE_SEED = 2525
+CACHE_TIMEOUT_S = 300
+LINT_TIMEOUT_S = 300
+#: modules a child's ``-X importtime`` report must not name
+LINT_FORBIDDEN = ("torch", "jax", "jaxlib", "mosaic_tpu", "mosaic_tpu_torch")
+
+
+def cache_child(directory: str) -> int:
+    """``chip_smoke.py --cache-child DIR``, started twice by phase 25b:
+    ``mosaic.jit.cache.dir`` set to DIR through the config, then
+    ``point_to_cell_device`` on H3 res 9 over CACHE_POINTS seeded points
+    with the counts at 0 (one K3 launch), its cells against K3's plain
+    version on the same f32 points (the same host pass below the margin
+    band).  The launch counts, the persistent-cache counters, the server's
+    ``stats()["jit"]``, the ``nvcc`` seconds, the library's path and mtime
+    and a digest of the cells go to the last line of stdout; a K3 that
+    does not build or load raises (no fallback)."""
+    sys.path.insert(0, str(ROOT))
+    import hashlib
+    import numpy as np
+    import torch
+    from mosaic_tpu_torch import _kernels, config
+    from mosaic_tpu_torch.core.index.base import DEVICE_MARGIN_BAND
+    from mosaic_tpu_torch.core.index.factory import get_index_system
+    from mosaic_tpu_torch.functions.context import MosaicContext
+    from mosaic_tpu_torch.ops.cell import latlng_to_cell_margin_ref
+    from mosaic_tpu_torch.serve import QueryServer
+    from mosaic_tpu_torch.sql import SQLSession
+    config.set_default_config(config.apply_conf(
+        config.default_config(), "mosaic.jit.cache.dir", directory))
+    check(_kernels.build_dir() == Path(directory),
+          f"cache child: the kernel cache is {_kernels.build_dir()}, not "
+          f"{directory}")
+    grid = get_index_system("H3")
+    pts = global_points(CACHE_POINTS, CACHE_SEED)
+    reset_counts()
+    t0 = time.perf_counter()
+    cells, host = grid.point_to_cell_device(pts, RES, DEV)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    x = torch.from_numpy(np.ascontiguousarray(pts, grid.route_dtype)).to(DEV)
+    cr, mr = latlng_to_cell_margin_ref(x, RES)
+    plain = cr.cpu().numpy()
+    low = np.nonzero(mr.cpu().numpy() < DEVICE_MARGIN_BAND)[0]
+    if len(low):
+        plain[low] = grid.point_to_cell(pts[low], RES)
+    lib = _kernels.lib_path("h3_cell")
+    server = QueryServer(SQLSession(MosaicContext("H3", device=DEV)),
+                         workers=1)
+    print(json.dumps({
+        "counts": counts, "stats": _kernels.cache_stats(),
+        "server_jit": server.stats()["jit"],
+        "nvcc_s": _kernels.build_seconds.get("h3_cell"),
+        "lib": str(lib), "lib_mtime_ns": lib.stat().st_mtime_ns,
+        "mismatches": int((cells != plain).sum()), "host": int(host),
+        "digest": hashlib.sha256(cells.tobytes()).hexdigest(),
+        "wall_s": wall_s}))
+    return 0
+
+
+def phase_lint_and_cache():
+    """The port's lint and its persistent kernel cache on the card's
+    machine (phase 25): a. the lint as a child process on this checkout;
+    b. two cache children over one fresh ``mosaic.jit.cache.dir``, the
+    first building K3 there and the second loading it."""
+    import os
+    import tempfile
+    from mosaic_tpu_torch import _kernels
+    t_phase = time.perf_counter()
+    out = {}
+
+    # ---- 25a. the lint, a child that must import neither torch nor jax
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-X", "importtime",
+         str(ROOT / "tools" / "graftlint_torch.py"), "--check", "--json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=LINT_TIMEOUT_S)
+    lint_s = time.perf_counter() - t0
+    imported = {ln.split("|")[-1].strip()
+                for ln in r.stderr.splitlines()
+                if ln.startswith("import time:") and "|" in ln}
+    forbidden = sorted(m for m in imported
+                       if m.split(".")[0] in LINT_FORBIDDEN)
+    check(r.returncode == 0, f"lint: tools/graftlint_torch.py --check "
+          f"exited {r.returncode}: {r.stdout[-2000:]}")
+    rep = json.loads(r.stdout)
+    check(rep["counts"]["new"] == 0 and rep["counts"]["stale_baseline"] == 0,
+          f"lint: {rep['counts']}")
+    check(not forbidden, f"lint: the child imported {forbidden}")
+    out["lint"] = {"rc": r.returncode, "counts": rep["counts"],
+                   "seconds": lint_s, "modules_imported": len(imported),
+                   "forbidden_imported": forbidden}
+    log(f"[lint] 25a: tools/graftlint_torch.py --check --json exit "
+        f"{r.returncode} in {lint_s:.2f} s (host clock): {rep['counts']['new']} "
+        f"new, {rep['counts']['baselined']} baselined, "
+        f"{rep['counts']['stale_baseline']} stale; {len(imported)} modules "
+        f"imported, none of {', '.join(LINT_FORBIDDEN)}")
+
+    # ---- 25b. the persistent kernel cache over two child processes
+    build_dir = _kernels.BUILD_DIR
+
+    def listing():
+        return {f: os.stat(build_dir / f).st_mtime_ns
+                for f in sorted(os.listdir(build_dir))}
+
+    built0 = listing()
+    children = []
+    with tempfile.TemporaryDirectory(prefix="kernel_cache") as cache_dir:
+        for i in range(2):
+            t0 = time.perf_counter()
+            ch = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--cache-child", cache_dir],
+                capture_output=True, text=True, timeout=CACHE_TIMEOUT_S)
+            check(ch.returncode == 0, f"cache child {i + 1} exited "
+                  f"{ch.returncode}: {ch.stderr[-3000:]}")
+            got = json.loads(ch.stdout.strip().splitlines()[-1])
+            got["process_s"] = time.perf_counter() - t0
+            children.append(got)
+            if i == 0:
+                mtime = os.stat(got["lib"]).st_mtime_ns
+        first, second = children
+        lib_mtime = os.stat(second["lib"]).st_mtime_ns
+        in_dir = sorted(os.listdir(cache_dir))
+    built1 = listing()
+    for i, got in enumerate(children):
+        check(got["counts"]["h3_latlng_to_cell"] == 1, f"cache child "
+              f"{i + 1}: K3 launched {got['counts']['h3_latlng_to_cell']} "
+              "times, not once")
+        check(got["mismatches"] == 0, f"cache child {i + 1}: "
+              f"{got['mismatches']} cells differ from K3's plain version")
+        check(got["server_jit"] == got["stats"], f"cache child {i + 1}: "
+              f"stats()['jit'] {got['server_jit']} != {got['stats']}")
+        check(Path(got["lib"]).parent == Path(cache_dir),
+              f"cache child {i + 1}: K3's library at {got['lib']}, not in "
+              f"{cache_dir}")
+    check(first["stats"] == {"persistent_hits": 0, "persistent_misses": 1}
+          and first["nvcc_s"], f"cache child 1: {first['stats']}, nvcc "
+          f"{first['nvcc_s']} s: K3 was not built into the directory")
+    check(second["stats"] == {"persistent_hits": 1, "persistent_misses": 0}
+          and second["nvcc_s"] is None, f"cache child 2: "
+          f"{second['stats']}, nvcc {second['nvcc_s']} s: not a pure load")
+    check(lib_mtime == mtime == first["lib_mtime_ns"] ==
+          second["lib_mtime_ns"], "cache child 2 rewrote K3's library")
+    check(first["digest"] == second["digest"],
+          "the two cache children's cells differ")
+    check(built1 == built0, f"_build/ changed under the cache children: "
+          f"{sorted(set(built1.items()) ^ set(built0.items()))}")
+    out["cache"] = {
+        "children": [{k: v for k, v in c.items() if k != "counts"}
+                     for c in children],
+        "files_in_cache_dir": in_dir, "build_dir_files": len(built1)}
+    log(f"[cache] 25b: mosaic.jit.cache.dir at a fresh directory; child 1 "
+        f"built K3 there (nvcc {first['nvcc_s']:.2f} s; persistent hits "
+        f"{first['stats']['persistent_hits']}, misses "
+        f"{first['stats']['persistent_misses']}; process "
+        f"{first['process_s']:.1f} s), child 2 loaded it (hits "
+        f"{second['stats']['persistent_hits']}, misses "
+        f"{second['stats']['persistent_misses']}, no nvcc, library mtime "
+        f"unchanged; process {second['process_s']:.1f} s); each launched K3 "
+        f"once on {CACHE_POINTS} points, cells equal to K3's plain version "
+        f"and to each other ({first['host']} points below the band on the "
+        f"host); stats()['jit'] equal to the counters; _build/ unchanged "
+        f"({len(built1)} files)")
+    out["counts"] = {"lint/cache 1": first["counts"],
+                     "lint/cache 2": second["counts"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def kernel_line(name, source, replaces, k, by_path) -> dict:
     """One kernel's entry of the ``kernels`` line; ``launches`` is the
     sum of its launches over the main paths in ``by_path``."""
@@ -8690,6 +8882,7 @@ def main() -> int:
         sqlp = phase_sql(idx, grid, polys, batches, dense_zones)
         exp = phase_exporters(idx, grid, polys, batches, dense_zones)
         serve = phase_serving(grid, batches, cell_ops_per_point(RES))
+        cache = phase_lint_and_cache()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -8704,7 +8897,7 @@ def main() -> int:
                                    if p.startswith("store fed")},
              **geom["paths"], **hp["counts"], **fns["counts"],
              **mem["counts"], **sqlp["counts"], **exp["counts"],
-             **serve["counts"]}
+             **serve["counts"], **cache["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}
@@ -8745,12 +8938,14 @@ def main() -> int:
                                   if k != "counts"}}, default=str))
     log(json.dumps({"serving": {k: v for k, v in serve.items()
                                 if k != "counts"}}, default=str))
+    log(json.dumps({"lint_cache": {k: v for k, v in cache.items()
+                                   if k != "counts"}}, default=str))
     log(f"[chip_smoke] phases 1-18 took {t_18:.1f} s, phase 19 "
         f"{hp['phase_s']:.1f} s, phase 20 {fns['phase_s']:.1f} s, phase "
         f"21 {mem['phase_s']:.1f} s, phase 22 {sqlp['phase_s']:.1f} s, "
         f"phase 23 {exp['phase_s']:.1f} s, phase 24 "
-        f"{serve['phase_s']:.1f} s, "
-        f"phases 1-24 {time.perf_counter() - t_start:.1f} s (host clock)")
+        f"{serve['phase_s']:.1f} s, phase 25 {cache['phase_s']:.1f} s, "
+        f"phases 1-25 {time.perf_counter() - t_start:.1f} s (host clock)")
     log(json.dumps({"tess_kernels": {
         name: {label: {k: v for k, v in row.items() if k != "work"}
                for label, row in chip[key]["shapes"].items()}
@@ -8843,4 +9038,6 @@ if __name__ == "__main__":
         sys.exit(trace_child(sys.argv[2]))
     if sys.argv[1:2] == ["--fleet-child"]:
         sys.exit(fleet_child(sys.argv[2], sys.argv[3], int(sys.argv[4])))
+    if sys.argv[1:2] == ["--cache-child"]:
+        sys.exit(cache_child(sys.argv[2]))
     sys.exit(main())

@@ -96,14 +96,18 @@ setting carries over 1:1:
   dead-claim reap interval and the shared scoreboard's slot count
   (``serve/supervisor.py``, ``serve/scoreboard.py``);
 
-A successful ``apply_conf`` records a ``config`` flight-recorder event.
+* ``mosaic.device.dtype``, ``mosaic.exact.fallback`` — the precision
+  policy's fields ("float32" or "float64"; a flag), accepted and
+  validated as the JAX package does, and read by nothing in either
+  package;
+* ``mosaic.jit.cache.dir`` — the persistent kernel cache: the directory
+  the hand kernels are built into and loaded from ("" = the package's
+  ``_build/``; env ``MOSAIC_TPU_JIT_CACHE_DIR`` wins), wired by
+  ``set_default_config`` through ``perf.jit_cache.configure_persistent_cache``.
 
-The port knows no other key: ``apply_conf`` raises ``ConfigError`` for
-any other one, and for ``mosaic.device.dtype``, ``mosaic.exact.fallback`` and
-``mosaic.jit.cache.dir``, which nothing in the port reads (the last
-names XLA's on-disk compilation cache; the port compiles nothing at run
-time, its kernels are built from ``csrc/`` once, keyed by their
-sources' hash).
+A successful ``apply_conf`` records a ``config`` flight-recorder event.
+``apply_conf`` raises ``ConfigError`` for any key the port does not know;
+``MosaicConfig.from_confs`` takes Spark's open namespace and skips them.
 """
 
 from __future__ import annotations
@@ -127,6 +131,9 @@ MOSAIC_RASTER_TMP_PREFIX = "mosaic.raster.tmp.prefix"
 MOSAIC_RASTER_BLOCKSIZE = "mosaic.raster.blocksize"
 MOSAIC_IO_ON_ERROR = "mosaic.io.on.error"
 MOSAIC_CRS_STRICT_DATUM = "mosaic.crs.strict.datum"
+MOSAIC_DEVICE_DTYPE = "mosaic.device.dtype"
+MOSAIC_EXACT_FALLBACK = "mosaic.exact.fallback"
+MOSAIC_JIT_CACHE_DIR = "mosaic.jit.cache.dir"
 MOSAIC_SHARD_SKEW_REFRESH = "mosaic.shard.skew.refresh"
 MOSAIC_STORE_DIR = "mosaic.store.dir"
 MOSAIC_STORE_GRID_RES = "mosaic.store.grid.res"
@@ -231,6 +238,14 @@ class MosaicConfig:
     # identity datum shift: the EPSG registry has no Helmert parameters
     # for the code (core/geometry/crs.py)
     crs_strict_datum: bool = False
+    # precision policy (the JAX package's f32 cell assignment with an f64
+    # recheck band): validated, read by nothing in either package
+    device_dtype: str = "float32"
+    exact_fallback: bool = True
+    # persistent kernel cache: the directory the hand kernels are built
+    # into and loaded from ("" = _build/; env MOSAIC_TPU_JIT_CACHE_DIR
+    # takes precedence), wired by set_default_config
+    jit_cache_dir: str = ""
     # every K-th chunk of the sharded streamed join re-packs the
     # skew-aware placement (parallel/placement.py)
     shard_skew_refresh: int = 16
@@ -328,6 +343,20 @@ class MosaicConfig:
     serve_fleet_reap_ms: float = 1_000.0
     serve_scoreboard_slots: int = 512
 
+    @staticmethod
+    def from_confs(confs: dict) -> "MosaicConfig":
+        """Build from a reference-style string conf map.
+
+        Every known key is validated — a bad value raises
+        :class:`ConfigError` naming the key; unknown keys are ignored
+        (reference behaviour: Spark confs are an open namespace)."""
+        cfg = MosaicConfig()
+        for key in confs:
+            if key in _CONF_FIELDS or \
+                    key.startswith(MOSAIC_PLANNER_FORCE_PREFIX):
+                cfg = apply_conf(cfg, key, confs[key])
+        return cfg
+
 
 def _as_flag(key: str, value) -> bool:
     s = str(value).strip().lower()
@@ -359,6 +388,14 @@ def _as_count(key: str, value) -> int:
     if n < 0:
         raise ConfigError(f"{key}={n} must be >= 0 (0 disables)")
     return n
+
+
+def _as_device_dtype(key: str, value) -> str:
+    s = str(value).strip().lower()
+    if s not in ("float32", "float64"):
+        raise ConfigError(f"{key}={value!r} unsupported "
+                          "(float32 or float64)")
+    return s
 
 
 def _as_on_error(key: str, value) -> str:
@@ -465,6 +502,9 @@ _CONF_FIELDS = {
     MOSAIC_RASTER_BLOCKSIZE: ("raster_blocksize", _as_blocksize),
     MOSAIC_IO_ON_ERROR: ("io_on_error", _as_on_error),
     MOSAIC_CRS_STRICT_DATUM: ("crs_strict_datum", _as_flag),
+    MOSAIC_DEVICE_DTYPE: ("device_dtype", _as_device_dtype),
+    MOSAIC_EXACT_FALLBACK: ("exact_fallback", _as_flag),
+    MOSAIC_JIT_CACHE_DIR: ("jit_cache_dir", _as_str),
     MOSAIC_SHARD_SKEW_REFRESH: ("shard_skew_refresh", _as_blocksize),
     MOSAIC_STORE_DIR: ("store_dir", _as_str),
     MOSAIC_STORE_GRID_RES: ("store_grid_res", _as_blocksize),
@@ -600,6 +640,9 @@ def set_default_config(cfg: MosaicConfig) -> None:
         configure_sampler(0.0)
         from .obs.profiler import configure_profiler
         configure_profiler(0.0)
+    if cfg.jit_cache_dir:
+        from .perf.jit_cache import configure_persistent_cache
+        configure_persistent_cache(cfg.jit_cache_dir)
     if cfg.planner_stats_path:
         from .sql.planner import planner
         planner.configure_stats(cfg.planner_stats_path)

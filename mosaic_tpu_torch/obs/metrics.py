@@ -113,9 +113,11 @@ class MetricsRegistry:
 
     # -- switches
     def enable(self) -> None:
+        # graftlint: ignore[lock-unguarded-attr] — GIL-atomic bool store; probes read it unlocked by design
         self._enabled = True
 
     def disable(self) -> None:
+        # graftlint: ignore[lock-unguarded-attr] — GIL-atomic bool store; probes read it unlocked by design
         self._enabled = False
 
     @property

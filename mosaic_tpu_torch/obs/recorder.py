@@ -140,11 +140,11 @@ class FlightRecorder:
 
     # -- switches
     def enable(self) -> None:
-        # a GIL-atomic bool store; record() reads it unlocked by design
+        # graftlint: ignore[lock-unguarded-attr] — GIL-atomic bool store; record() reads it unlocked by design
         self._enabled = True
 
     def disable(self) -> None:
-        # a GIL-atomic bool store; record() reads it unlocked by design
+        # graftlint: ignore[lock-unguarded-attr] — GIL-atomic bool store; record() reads it unlocked by design
         self._enabled = False
 
     @property

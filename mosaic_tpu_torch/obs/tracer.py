@@ -96,12 +96,12 @@ class Tracer:
 
     # -- switches
     def enable(self) -> None:
-        # a GIL-atomic bool store; probes read it unlocked by design
+        # graftlint: ignore[lock-unguarded-attr] — GIL-atomic bool store; probes read it unlocked by design
         self._enabled = True
         metrics.enable()
 
     def disable(self) -> None:
-        # a GIL-atomic bool store; probes read it unlocked by design
+        # graftlint: ignore[lock-unguarded-attr] — GIL-atomic bool store; probes read it unlocked by design
         self._enabled = False
         if not os.environ.get("MOSAIC_TPU_METRICS"):
             metrics.disable()

@@ -1331,7 +1331,10 @@ def make_store_sharded_pip_join(store, idx, grid=None, group=None,
         staged_by_part: dict = {}
 
         def blocks():
-            # rank r's block of each chunk, keyed by the chunk's offset
+            # rank r's block of each chunk, keyed by the chunk's offset;
+            # stream() pulls one block per chunk and polls the in-flight
+            # checkpoint at each chunk's boundary, before its compute
+            # graftlint: ignore[cancel-checkpoint] — a generator stream() pulls; stream's boundary() runs checkpoint("pipeline.stream") once per block
             for ck in store.iter_chunks(bbox=bbox, chunk_rows=chunk):
                 per = pow2_bucket(-(-ck.rows // D), floor=64)
                 chunks[ck.offset] = ck

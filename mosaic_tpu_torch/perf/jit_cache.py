@@ -19,20 +19,30 @@ package's wrapper that notes a jitted entry's output bytes with the
 memory ledger has no counterpart: the fusion pass registers its group's
 output itself (``fusion/<name>``).
 
-Left out: ``configure_persistent_cache`` and ``persistent_cache_dir``,
-which wire XLA's on-disk compilation cache, and with them the conf key
-``mosaic.jit.cache.dir`` (``config.py`` refuses it).
+:func:`configure_persistent_cache` is the port of the JAX package's,
+which wires XLA's on-disk compilation cache to ``mosaic.jit.cache.dir``.
+What the port caches on disk is its hand kernels' libraries, so the
+directory it wires is the kernel build directory (``_kernels``): a
+process pointed at a directory another one built into loads the
+libraries without running ``nvcc``, and ``_kernels.cache_stats()`` counts
+the persistent hits and misses (the server's ``stats()["jit"]``).  The
+JAX package's compile-threshold settings have no counterpart.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from ..obs.metrics import metrics
 
-__all__ = ["JitCache", "kernel_cache"]
+__all__ = ["JitCache", "kernel_cache", "configure_persistent_cache",
+           "persistent_cache_dir"]
+
+#: env var mirroring the ``mosaic.jit.cache.dir`` conf key
+JIT_CACHE_DIR_ENV = "MOSAIC_TPU_JIT_CACHE_DIR"
 
 
 class JitCache:
@@ -101,3 +111,45 @@ class JitCache:
 
 #: the process-global cache the fusion pass's programs go through
 kernel_cache = JitCache()
+
+
+_persist_lock = threading.Lock()
+_persist_dir: Optional[str] = None
+
+
+def persistent_cache_dir() -> Optional[str]:
+    """The directory the persistent kernel cache was wired to in this
+    process (None = not configured: ``_build/``)."""
+    return _persist_dir
+
+
+def configure_persistent_cache(path: Optional[str] = None
+                               ) -> Optional[str]:
+    """Point the persistent kernel cache at ``path``.
+
+    Resolution order: explicit argument > ``MOSAIC_TPU_JIT_CACHE_DIR``
+    env > the active config's ``mosaic.jit.cache.dir``.  Returns the
+    resolved directory, or None when nothing is configured (a no-op: the
+    kernels stay in ``_build/``).  Idempotent; re-pointing at a different
+    directory is honored (last call wins) and recorded as a ``config``
+    flight-recorder event.  Libraries already loaded in this process stay
+    loaded; the next kernel's first load looks in the new directory."""
+    global _persist_dir
+    if path is None:
+        path = os.environ.get(JIT_CACHE_DIR_ENV)
+    if path is None:
+        from ..config import default_config
+        path = getattr(default_config(), "jit_cache_dir", "") or None
+    if not path:
+        return _persist_dir
+    path = str(path)
+    with _persist_lock:
+        if _persist_dir == path:
+            return _persist_dir
+        os.makedirs(path, exist_ok=True)
+        from .. import _kernels
+        _kernels.set_build_dir(path)
+        _persist_dir = path
+    from ..obs.recorder import recorder
+    recorder.record("config", key="mosaic.jit.cache.dir", value=path)
+    return _persist_dir

@@ -41,7 +41,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from .. import config as _config
+from .. import _kernels, config as _config
 from ..obs import metrics
 from ..obs.recorder import recorder
 from ..obs.timeseries import timeseries
@@ -625,11 +625,10 @@ class QueryServer:
                        else "process"},
             "batching": {"max": self.pool.batch_max,
                          "window_ms": self.pool.batch_window_ms},
-            # the JAX package's warm-fleet proof (a persistent XLA cache
-            # with no misses); the port compiles nothing at run time —
-            # its kernels are built from csrc/ once, keyed by their
-            # sources' hash (ROADMAP C14) — so both read 0
-            "jit": {"persistent_hits": 0, "persistent_misses": 0},
+            # warm-fleet proof: a respawned worker over a shared
+            # persistent kernel cache (mosaic.jit.cache.dir) must show
+            # persistent_misses == 0 — it loads, never runs nvcc
+            "jit": _kernels.cache_stats(),
             "counters": counters,
         }
         if self.scoreboard is not None:

@@ -117,6 +117,11 @@ KEY_VALUES = {
     "mosaic.serve.fleet.health.ms": ["250", "0", "-1"],
     "mosaic.serve.fleet.reap.ms": ["1000", "0", "x"],
     "mosaic.serve.scoreboard.slots": ["512", "1", "0", "x"],
+    # the precision policy's and the persistent kernel cache's
+    "mosaic.device.dtype": ["float32", "float64", " Float64 ", "float16",
+                            ""],
+    "mosaic.exact.fallback": ["true", "false", "off", "maybe"],
+    "mosaic.jit.cache.dir": ["/tmp/jc", "", " x "],
 }
 
 #: the config fields those keys set, with the JAX package's defaults
@@ -154,7 +159,8 @@ FIELDS_PORTED = ("index_system", "geometry_api", "planner_enabled",
                  "serve_batch_rows_max", "serve_fleet_workers",
                  "serve_fleet_dir", "serve_fleet_restart_max",
                  "serve_fleet_restart_window_ms", "serve_fleet_health_ms",
-                 "serve_fleet_reap_ms", "serve_scoreboard_slots")
+                 "serve_fleet_reap_ms", "serve_scoreboard_slots",
+                 "device_dtype", "exact_fallback", "jit_cache_dir")
 
 
 @pytest.fixture(autouse=True)
@@ -222,11 +228,56 @@ def test_force_pins_stack_and_clear_alike():
     ("mosaic.jit.cache.dir", ""),
 ])
 def test_left_out_pins_and_keys_raise(key, val):
-    """The stated divergence: the keys nothing in the port reads, the
-    JAX package takes and the port refuses."""
-    jconfig.apply_conf(jconfig.MosaicConfig(), key, val)
-    with pytest.raises(tconfig.ConfigError):
-        tconfig.apply_conf(tconfig.MosaicConfig(), key, val)
+    """The precision-policy keys and the persistent kernel cache's key,
+    once refused by the port: now each sets the JAX package's field to
+    its value, and the same bad ``mosaic.device.dtype`` raises in both."""
+    j = jconfig.apply_conf(jconfig.MosaicConfig(), key, val)
+    t = tconfig.apply_conf(tconfig.MosaicConfig(), key, val)
+    field = tconfig._CONF_FIELDS[key][0]
+    assert field == jconfig._CONF_FIELDS[key][0]
+    assert getattr(t, field) == getattr(j, field)
+    assert getattr(tconfig.MosaicConfig(), field) == \
+        getattr(jconfig.MosaicConfig(), field)
+    for bad in ("float16", "f32"):
+        with pytest.raises(jconfig.ConfigError) as je:
+            jconfig.apply_conf(jconfig.MosaicConfig(),
+                               "mosaic.device.dtype", bad)
+        with pytest.raises(tconfig.ConfigError) as te:
+            tconfig.apply_conf(tconfig.MosaicConfig(),
+                               "mosaic.device.dtype", bad)
+        assert str(te.value) == str(je.value)
+
+
+def test_device_dtype_and_exact_fallback_confs():
+    """The counterpart of the JAX package's test of the same name
+    (``tests/test_resilience.py``), through both packages."""
+    confs = {"mosaic.device.dtype": "float64",
+             "mosaic.exact.fallback": "false"}
+    for cfgmod in (jconfig, tconfig):
+        cfg = cfgmod.MosaicConfig.from_confs(confs)
+        assert cfg.device_dtype == "float64"
+        assert cfg.exact_fallback is False
+        with pytest.raises(cfgmod.ConfigError, match="mosaic.device.dtype"):
+            cfgmod.MosaicConfig.from_confs({"mosaic.device.dtype": "float16"})
+
+
+def test_from_confs_open_namespace_alike():
+    """``from_confs`` takes Spark's open namespace in both packages:
+    unknown keys pass (and ``apply_conf`` still refuses them), known keys
+    and force pins land as in the JAX package."""
+    confs = {"spark.executor.cores": "4", "mosaic.raster.blocksize": "256",
+             "mosaic.planner.force.knn": "brute",
+             "mosaic.jit.cache.dir": "/tmp/jc"}
+    j = jconfig.MosaicConfig.from_confs(confs)
+    t = tconfig.MosaicConfig.from_confs(confs)
+    assert tconfig.MosaicConfig.from_confs({"spark.executor.cores": "4"}) \
+        == tconfig.MosaicConfig()
+    for field in ("raster_blocksize", "planner_force", "jit_cache_dir"):
+        assert getattr(t, field) == getattr(j, field)
+    with pytest.raises(tconfig.ConfigError, match="unknown conf key"):
+        tconfig.apply_conf(t, "mosaic.raster.blocksized", "128")
+    with pytest.raises(tconfig.ConfigError, match="mosaic.raster.blocksize"):
+        tconfig.MosaicConfig.from_confs({"mosaic.raster.blocksize": "-4"})
 
 
 @pytest.mark.parametrize("key,val", [

@@ -295,15 +295,19 @@ def test_traceparent_stitches_cross_process_trace(session, serve_env,
 
 
 def test_stats_and_dashboard_payload(session, serve_env):
+    from mosaic_tpu_torch import _kernels
     from mosaic_tpu_torch.obs.dashboard import _server_payload
     assert _server_payload() == {"running": False}
+    _kernels.reset_cache_stats()
     with QueryServer(session, workers=1) as srv:
         _post(srv.port, "SELECT id FROM small LIMIT 1", principal="a")
         st = srv.stats()
         assert st["running"] and st["workers"]["total"] == 1
         assert st["queue"]["principals"]["a"]["admitted"] == 1
-        assert st["jit"] == {"persistent_hits": 0,
-                             "persistent_misses": 0}
+        # the persistent kernel cache's counters: no kernel loads on
+        # the CPU, so both stay 0
+        assert st["jit"] == _kernels.cache_stats() == {
+            "persistent_hits": 0, "persistent_misses": 0}
         assert _server_payload()["addr"].endswith(str(srv.port))
     assert _server_payload() == {"running": False}
 
