@@ -45,15 +45,18 @@ Phases (any failure exits non-zero and prints no result):
    card, zone and uncertain bit-equal, on a flagship batch of 2^22
    points, on points placed on chip and hex edges and a hair beside
    them, and on the flagship index with its zone slots spread past 32
-   (``widen_zone_slots``); the edge points' final zones after the f64
-   recheck (``host_recheck_fn``, its full-polygon fallback counted)
-   against ``pip_host_truth``: 0 mismatches among the flagged points and
-   beyond the 1e-6 degree band, and 0 points the device join left
-   unflagged and wrong (ROADMAP C6: the port also flags points within
+   (``widen_zone_slots``) and with its pool edges widened past 32 (each
+   real edge three times a group, ``widen_pool_edges``), both widened
+   answers equal to the flagship index's; the edge points' final zones
+   after the f64 recheck (``host_recheck_fn``, its full-polygon fallback
+   counted) against ``pip_host_truth``: 0 mismatches among the flagged
+   points and beyond the 1e-6 degree band, and 0 points the device join
+   left unflagged and wrong (ROADMAP C6: the port also flags points within
    1e-6 degrees of a straddling edge's line, which the JAX body misses
    beside nearly horizontal edges); timed in turns against the plain
    version and against the torch-ops join it replaced (K1 then torch
-   ops), with its bound from this run's data;
+   ops), with its bound from this run's data and its issue floor (the
+   projection's f32 instructions at one a lane a clock);
 7. K3 vs plain — the cell kernel against ``latlng_to_cell_margin_ref``
    on 2^22 uniform global points and the 2^22 flagship points at res 9,
    and 2^16 global points at each res 0..15: ids and margins bit-equal
@@ -1281,13 +1284,13 @@ def index_tables(idx) -> dict:
 
 
 def join_work(x, tables, consts, flops_pt: int):
-    """(flops, bytes, border points) the join needs on the points ``x``,
-    from this data: the projection of every point within the window's
-    extent, EDGE_FLOPS per edge of a border point's group (pads excluded)
-    and STRADDLE_FLOPS more per edge that straddles its latitude; 8 bytes
-    in and 5 out per point, and each entry cell and group (its edges, zone
-    slots, edge count, gzones row and gwide flag) that the points reach,
-    read once."""
+    """(flops, bytes, border points, points within the window's extent)
+    the join needs on the points ``x``, from this data: the projection of
+    every point within the window's extent, EDGE_FLOPS per edge of a
+    border point's group (pads excluded) and STRADDLE_FLOPS more per edge
+    that straddles its latitude; 8 bytes in and 5 out per point, and each
+    entry cell and group (its edges, zone slots, edge count, gzones row
+    and gwide flag) that the points reach, read once."""
     import torch
     from mosaic_tpu_torch.ops.dense_join import CORE_FLAG
     from mosaic_tpu_torch.ops.projection import project_lattice
@@ -1306,25 +1309,44 @@ def join_work(x, tables, consts, flops_pt: int):
     straddles = int(((rec[..., 1] <= py) != (rec[..., 3] <= py)).sum())
     Z = int(tables.gzones.shape[1])
     rows = torch.unique(g)
-    flops = (flops_pt * int(near.sum())
+    n_near = int(near.sum())
+    flops = (flops_pt * n_near
              + EDGE_FLOPS * int(tables.ecount[g].sum())
              + STRADDLE_FLOPS * straddles)
     nbytes = (13 * int(x.shape[0]) + 4 * int(torch.unique(cell).numel())
               + 20 * int(tables.ecount[rows].sum())
               + int(rows.numel()) * (Z * 4 + 1 + 4))
-    return flops, nbytes, int(g.numel())
+    return flops, nbytes, int(g.numel()), n_near
+
+
+def k2_bound(x, tables, consts, flops_pt: int, issued_pt: int) -> dict:
+    """K2's bound on the points ``x`` (the larger of :func:`join_work`'s
+    flops at PEAK_F32_FLOPS and its bytes at PEAK_BYTES), and beside it
+    the issue floor: the projection's ``issued_pt`` f32 instructions a
+    point within the extent at one a lane a clock (PEAK_F32_FLOPS / 2,
+    an FMA being one instruction and two flops), which no design of the
+    kernel under -fmad=false goes below."""
+    flops, nbytes, n_border, n_near = join_work(x, tables, consts, flops_pt)
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "flops_ms": ops_ms, "bytes": nbytes,
+            "bytes_ms": bytes_ms, "border_points": n_border,
+            "issue_ms": issued_pt * n_near / (PEAK_F32_FLOPS / 2) * 1e3}
 
 
 def phase_join_kernel(idx, grid, polys, batches, rechecked: int,
-                      flops_pt: int):
+                      flops_pt: int, issued_pt: int):
     """K2 against dense_join_ref on the card, bit for bit, and its times
-    against the plain version and the torch-ops join it replaced; the
-    adversarial set's final zones, after the f64 recheck, against the
-    oracle."""
+    against the plain version and the torch-ops join it replaced, beside
+    its bound and issue floor; the adversarial set's final zones, after
+    the f64 recheck, against the oracle."""
     import numpy as np
     import torch
     import mosaic_tpu_torch as mt
     from mosaic_tpu_torch.bench.workloads import (adversarial_points,
+                                                  widen_pool_edges,
                                                   widen_zone_slots)
     from mosaic_tpu_torch.ops.dense_join import (dense_join, dense_join_ref,
                                                  join_body)
@@ -1336,8 +1358,9 @@ def phase_join_kernel(idx, grid, polys, batches, rechecked: int,
         zk, uk = dense_join(x, tables, consts)
         zr, ur = dense_join_ref(x, tables, consts)
         dz, du = int((zk != zr).sum()), int((uk != ur).sum())
-        log(f"[join] {label}: {x.shape[0]} points, Z={tables.gzones.shape[1]}"
-            f"; zone differs from plain at {dz}, uncertain at {du}; "
+        log(f"[join] {label}: {x.shape[0]} points, E="
+            f"{tables.pool.shape[1]}, Z={tables.gzones.shape[1]}; zone "
+            f"differs from plain at {dz}, uncertain at {du}; "
             f"{int((zk >= 0).sum())} matched, {int(uk.sum())} uncertain")
         check(dz == 0 and du == 0, f"K2 differs from dense_join_ref on "
               f"{label}: zone at {dz}, uncertain at {du} points")
@@ -1393,6 +1416,15 @@ def phase_join_kernel(idx, grid, polys, batches, rechecked: int,
     z0, u0 = fn(xw)
     check(torch.equal(zw, z0) and torch.equal(uw, u0),
           "widening the zone slots changed the join's answer")
+    # each real edge three times a group: 96 edges, a group's row past
+    # one 32-edge step of the walk
+    deep = mt.dense_index_from_arrays(widen_pool_edges(index_tables(idx)),
+                                      device=DEV)
+    ze, ue = compare("index with pool edges widened past 32", xw,
+                     mt.make_pip_join_fn(deep, grid))
+    check(torch.equal(ze, z0) and torch.equal(ue, u0),
+          "widening the pool edges changed the join's answer")
+    del wide, wfn, deep
 
     def timed(rows: int):
         xs = x[:rows]
@@ -1405,21 +1437,22 @@ def phase_join_kernel(idx, grid, polys, batches, rechecked: int,
             lambda: join_body(xs, project_lattice(xs, consts.res,
                                                   consts.origin),
                               tables, consts), kernel, 10, 50)
-        flops, nbytes, n_border = join_work(xs, tables, consts, flops_pt)
-        ops_bound = flops / PEAK_F32_FLOPS * 1e3
-        bytes_bound = nbytes / PEAK_BYTES * 1e3
-        bound = max(ops_bound, bytes_bound)
-        log(f"[join] {rows} rows: {n_border} border points; bound "
-            f"{bound:.4f} ms (flops {ops_bound:.4f}: {flops}; bytes "
-            f"{bytes_bound:.4f}: {nbytes}), roofline share "
-            f"{bound / ms:.4f}; the torch-ops join it replaced (K1, then "
-            f"torch ops) {ops_ms:.4f} ms against K2 {k_ms:.4f} ms, in turns "
-            "(CUDA events)")
+        b = k2_bound(xs, tables, consts, flops_pt, issued_pt)
+        bound = b["bound_ms"]
+        log(f"[join] {rows} rows: {b['border_points']} border points; "
+            f"bound {bound:.4f} ms (flops {b['flops_ms']:.4f}: "
+            f"{b['flops']}; bytes {b['bytes_ms']:.4f}: {b['bytes']}), "
+            f"roofline share {bound / ms:.4f}; issue floor "
+            f"{b['issue_ms']:.4f} ms ({issued_pt} f32 instructions a point "
+            f"at one a lane a clock), K2 at {b['issue_ms'] / ms:.4f} of it; "
+            f"the torch-ops join it replaced (K1, then torch ops) "
+            f"{ops_ms:.4f} ms against K2 {k_ms:.4f} ms, in turns (CUDA "
+            "events)")
         return {"plain_ms": plain_ms, "ms": ms, "ms_source": source,
                 "events_ms": events_ms, "host_ms": host_ms,
                 "torch_ops_join_ms": ops_ms, "bound_ms": bound,
-                "bound_by": "operations" if ops_bound >= bytes_bound
-                else "bytes", "max_abs_err": 0.0}
+                "bound_by": b["bound_by"], "issue_floor_ms": b["issue_ms"],
+                "max_abs_err": 0.0}
 
     timed(BATCH)
     return timed(CHUNK)
@@ -8859,7 +8892,7 @@ def main() -> int:
         launches, idx, grid, batches, rechecked, dense_zones, polys, chips = \
             phase_flagship()
         join = phase_join_kernel(idx, grid, polys, batches, rechecked,
-                                 flops_pt)
+                                 flops_pt, issued_pt)
         cell = phase_cell_kernel(cell_ops_per_point(RES))
         custom = phase_sorted_custom()
         h3s = phase_sorted_h3(polys, grid, chips, batches[0],

@@ -420,6 +420,37 @@ def widen_zone_slots(tables: dict, step: int = 15) -> dict:
     return out
 
 
+def widen_pool_edges(tables: dict, copies: int = 2) -> dict:
+    """A dense index (the dict ``dense_index_from_arrays`` takes) whose
+    pool rows are ``1 + copies`` times as wide: each group's real edges
+    (pads dropped), then ``copies`` more copies of them, each with its
+    zone slot, then pads.  An edge that crosses a point's latitude left
+    of it then crosses ``1 + copies`` times, so with ``copies`` even
+    every slot's parity, every flag and the join's answer stay as they
+    were.  With E=32 and the default the rows are 96 edges wide, past
+    one warp's lanes in the join kernel.  The recheck tables (``aux``)
+    are left out."""
+    if copies < 0 or copies % 2:
+        raise ValueError(f"widen_pool_edges: copies must be even and >= 0 "
+                         f"(a crossing edge must keep its parity), got "
+                         f"{copies}")
+    from ..ops.dense_join import PAD_MIN_DEG
+    pool = np.asarray(tables["pool"], np.float32)
+    G, E, _ = pool.shape
+    ay, by = pool[..., 1], pool[..., 3]
+    real = ~((ay == by) & (np.abs(ay) >= PAD_MIN_DEG))
+    count = real.sum(axis=1)
+    rank = np.cumsum(real, axis=1) - 1
+    out_pool = np.full((G, E * (1 + copies), 5), 1e9, np.float32)
+    out_pool[..., 4] = -1.0
+    g, j = np.nonzero(real)
+    for c in range(1 + copies):
+        out_pool[g, c * count[g] + rank[g, j]] = pool[g, j]
+    out = {k: v for k, v in tables.items() if k != "aux"}
+    out.update(pool=out_pool)
+    return out
+
+
 #: a res-5 H3 pentagon's centre (lon, lat), and a CONUS point
 PENTAGON_RES5 = (58.1577, 10.4473)
 CONUS_POINT = (-98.0, 39.0)

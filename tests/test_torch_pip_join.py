@@ -21,8 +21,9 @@
   (ROADMAP C6); the port flags them and ends equal to the oracle.
 * ``dense_join_ref`` (the plain version of the fused CUDA join kernel)
   gives the join body it was moved from bit for bit, also on an index
-  with more than 32 zone slots; ``dense_join`` rejects what the kernel
-  does not take and counts no launch on the CPU.
+  with more than 32 zone slots and on one with more than 32 pool edges a
+  group; ``dense_join`` rejects what the kernel does not take and counts
+  no launch on the CPU.
 """
 
 import jax
@@ -40,7 +41,8 @@ from mosaic_tpu.core.index.factory import get_index_system as \
 from mosaic_tpu.parallel import pip_join as jpj
 from mosaic_tpu_torch.bench.workloads import HAIRS_DEG, adversarial_points
 from mosaic_tpu_torch.bench.workloads import build_workload as tbuild
-from mosaic_tpu_torch.bench.workloads import nyc_points, widen_zone_slots
+from mosaic_tpu_torch.bench.workloads import (nyc_points, widen_pool_edges,
+                                              widen_zone_slots)
 from mosaic_tpu_torch.core.geometry.wkt import read_wkt
 from mosaic_tpu_torch.core.index.factory import get_index_system
 from mosaic_tpu_torch.ops import dense_join as dj
@@ -365,13 +367,16 @@ def _pre_move_body(idx, points, eps=tpj.EPS_EDGE_DEG):
     return zone, uncertain
 
 
-@pytest.mark.parametrize("slots", ["flagship", "over_32"])
+@pytest.mark.parametrize("slots", ["flagship", "over_32", "edges_over_32"])
 def test_dense_join_ref_equals_pre_move_body(flagship, slots):
     tidx = flagship["tidx"]
     tables = tables_of(tidx)
     if slots == "over_32":
         tables = widen_zone_slots(tables)
         assert tables["gzones"].shape[1] > 32
+    if slots == "edges_over_32":
+        tables = widen_pool_edges(tables)
+        assert tables["pool"].shape[1] == 3 * tidx.pool.shape[1] > 32
     idx = tpj.dense_index_from_arrays(tables, device="cpu")
     pts64 = np.concatenate([
         nyc_points(20_000, seed=13),
@@ -382,8 +387,9 @@ def test_dense_join_ref_equals_pre_move_body(flagship, slots):
     want_zone, want_unc = _pre_move_body(idx, x)
     assert zone.dtype == torch.int32 and unc.dtype == torch.bool
     assert torch.equal(zone, want_zone) and torch.equal(unc, want_unc)
-    if slots == "over_32":
-        # the widened slots name the same zones: the answer is unchanged
+    if slots != "flagship":
+        # the widened slots name the same zones, and each copied edge
+        # crosses an even number of times more: the answer is unchanged
         z0, u0 = tpj.make_pip_join_fn(tidx)(x)
         assert torch.equal(zone, z0) and torch.equal(unc, u0)
         assert bool((zone >= 0).any())
@@ -417,7 +423,7 @@ def test_dense_join_rejects_and_counts_no_cpu_launch(flagship):
         fn(x.to("meta"))
 
 
-@pytest.mark.parametrize("slots", ["flagship", "over_32"])
+@pytest.mark.parametrize("slots", ["flagship", "over_32", "edges_over_32"])
 def test_kernel_pool_layout_unpacks_to_pool(flagship, slots):
     """The fused kernel reads its own copy of the pool: edges as float4,
     zone slots apart, and per group the edges before its trailing pads.
@@ -426,6 +432,8 @@ def test_kernel_pool_layout_unpacks_to_pool(flagship, slots):
     tables = tables_of(flagship["tidx"])
     if slots == "over_32":
         tables = widen_zone_slots(tables)
+    if slots == "edges_over_32":
+        tables = widen_pool_edges(tables)
     idx = tpj.dense_index_from_arrays(tables, device="cpu")
     t = dj.join_tables(idx.entry, idx.pool, idx.gzones, idx.gwide)
     assert t.edges.is_contiguous() and t.eslot.is_contiguous()
@@ -443,3 +451,8 @@ def test_kernel_pool_layout_unpacks_to_pool(flagship, slots):
     # the last edge walked is a real one
     last = idx.pool[torch.arange(len(t.ecount)), t.ecount.long() - 1]
     assert bool((last[:, 4] >= 0).all())
+    if slots == "edges_over_32":
+        # each group walks its real edges three times over
+        src = flagship["tidx"]
+        t0 = dj.join_tables(src.entry, src.pool, src.gzones, src.gwide)
+        assert torch.equal(t.ecount, 3 * t0.ecount)
